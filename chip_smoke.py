@@ -6,10 +6,16 @@
 Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernel (csrc/spmv_mont.cu) from the checkout with nvcc;
+     print ptxas's registers and spills per template (fatal if W32 = 8
+     spills) and the SASS instruction count of the W32 = 8 k loop per wide
+     product (cuobjdump);
   3. hold the kernel against its plain PyTorch version (apply_mat_plain), bit
      for bit, on every level of the 2^23 ft255 Brakedown encoding at r = 36
-     (the commit's row count), on every level at r = 2 (verify's), and on an
-     edge case (every value p-1, K = 96, zero pad slots); time both;
+     (the commit's row count), on every level at r = 2 (verify's), and on
+     ragged edge levels (an empty row, a row of K = 96 all p-1 over inputs
+     all p-1, mixed lengths) in each of the four fields (every W32
+     template) at every lane split; time both against the bound of each
+     level's nonzeros;
   4. drive the main path at 2^23 ft255 CODE3 BLAKE3 through the public entry
      points: commit -> prove -> verify once cold (kernel launches counted)
      and 3 times warm (median ms); check the evaluation against the host
@@ -18,8 +24,10 @@ Phases, each fatal on failure:
      GPU;
   6. print the kernel table line, then the result line.
 
-Imports nothing of JAX or of the JAX package.  Exits non-zero, without the
-result line, when no CUDA device is present or the package is missing.
+Imports nothing of JAX or of the JAX package; the measurement helpers
+(card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
+Exits non-zero, without the result line, when no CUDA device is present or
+the package is missing.
 """
 
 from __future__ import annotations
@@ -28,7 +36,6 @@ import hashlib
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 import traceback
@@ -49,19 +56,13 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def level_cost(spec, k, n_in, n_out, r):
-    """(bytes, wide products) the level must move / do: each input read
-    once, the output written once; K*(W/2)^2 products per output."""
-    w = spec.w16
-    nbytes = 4 * (n_in * w * r + k * n_out + k * w * n_out + n_out * w * r)
-    products = k * n_out * r * (w // 2) ** 2
+def level_cost(spec, nnz, n_in, n_out, r):
+    """(bytes, wide products) the level must move / do: each ragged packed
+    operand read once (x, row_ptr, cols, vals), the output written once;
+    (W/2)^2 32x32 -> 64 products per nonzero and r."""
+    w32 = spec.w16 // 2
+    nbytes = 4 * (n_in * r * w32 + (n_out + 1) + nnz + nnz * w32 + n_out * r * w32)
+    products = nnz * r * w32 ** 2
     return nbytes, products
 
 
@@ -69,27 +70,6 @@ def bound_ms(nbytes, products):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = products / WIDE_PRODUCTS_PER_S * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
-
-
-def random_mont(torch, spec, shape, gen, device):
-    """Random field elements (< p) as int32 limbs of `shape` (W at dim 1)."""
-    x = torch.randint(0, 1 << 16, shape, generator=gen, device=device,
-                      dtype=torch.int32)
-    top = (spec.p >> (16 * (spec.w16 - 1)))
-    x[:, -1] = torch.randint(0, top, (shape[0], *shape[2:]), generator=gen,
-                             device=device, dtype=torch.int32)
-    return x
-
-
-def time_kernel(torch, fn, reps=5):
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def time_host(torch, fn):
@@ -100,32 +80,79 @@ def time_host(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def compare_levels(torch, spmv, spec, levels, r, gen, tag, rows):
+def compare_levels(torch, kb, spmv, spec, levels, r, gen, tag, rows):
     """Kernel vs plain on each (name, dm) level at row count r."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "t_bytes": 0.0,
            "t_ops": 0.0, "err": 0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, dm in levels:
-        x = random_mont(torch, spec, (dm.n_in, spec.w16, r), gen, "cuda")
-        y = spmv.spmv_mont(spec, x, dm.cols, dm.vals)
-        y_plain, plain_ms = time_host(
-            torch, lambda: spmv.apply_mat_plain(spec, x, dm.cols, dm.vals))
-        err = int((y.long() - y_plain.long()).abs().max().item()) if y.numel() else 0
+        x = kb.random_packed(spmv, spec, dm.n_in, r, gen)
+        y = spmv.spmv_mont(spec, x, dm)
+        y_plain, plain_ms = time_host(torch, lambda: spmv.apply_mat_plain(spec, x, dm))
+        err = int((spmv.unpack_words(y, 2) - spmv.unpack_words(y_plain, 2)).abs().max()
+                  .item()) if y.numel() else 0
         if err:
             raise AssertionError(f"{tag} {name}: kernel != plain (max err {err})")
-        ms = time_kernel(torch, lambda: spmv.spmv_mont(spec, x, dm.cols, dm.vals))
-        nbytes, products = level_cost(spec, dm.kmax, dm.n_in, dm.n_out, r)
+        ms = kb.time_kernel(lambda: spmv.spmv_mont(spec, x, dm))
+        nbytes, products = level_cost(spec, dm.nnz, dm.n_in, dm.n_out, r)
         b, tb, to = bound_ms(nbytes, products)
+        gather_ms = dm.nnz * r * spec.w16 * 2 / HBM_BYTES_PER_S * 1e3
+        lanes = spmv.split_lanes(dm.n_out, r, dm.nnz, n_sm)
+        by = "bytes" if tb >= to else "operations"
         rows.append({"phase": tag, "level": name, "n_in": dm.n_in, "n_out": dm.n_out,
-                     "K": dm.kmax, "r": r, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b, "bytes": nbytes, "products": products})
-        log(f"  {tag} {name:>6} n_in={dm.n_in:>7} n_out={dm.n_out:>6} K={dm.kmax:>3} "
-            f"r={r:>2}: equal, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {b:.4f} ms ({'bytes' if tb >= to else 'operations'})")
+                     "nnz": dm.nnz, "kmax": dm.kmax, "r": r, "lanes": lanes, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "bytes": nbytes, "products": products,
+                     "gather_no_l2_ms": gather_ms})
+        log(f"  {tag} {name:>6} n_in={dm.n_in:>7} n_out={dm.n_out:>6} nnz={dm.nnz:>8} "
+            f"kmax={dm.kmax:>3} r={r:>2} S={lanes:>2}: equal, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}; bytes {tb:.4f}, "
+            f"products {to:.4f}), gathers if L2 served none {gather_ms:.4f} ms")
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b),
                        ("t_bytes", tb), ("t_ops", to)):
             tot[key] += v
         tot["err"] = max(tot["err"], err)
+    tot["bound_by"] = "bytes" if tot["t_bytes"] >= tot["t_ops"] else "operations"
+    log(f"  {tag} total: kernel {tot['ms']:.4f} ms, plain {tot['plain_ms']:.1f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms ({tot['bound_by']})")
     return tot
+
+
+def edge_levels(torch, kb, spmv, spec, gen):
+    """Ragged edge levels against the plain version at both row counts and
+    every lane split: an empty row, rows of K = 96 all p-1 over inputs all
+    p-1, and mixed lengths 0..96 with random values."""
+    from lcpc_tpu_torch.ops.limbs import get_ops
+
+    ops = get_ops(spec)
+    n_in, n_out, k = 1000, 4096, 96
+    lens = torch.randint(0, k + 1, (n_out,), generator=gen, device="cuda")
+    lens[0], lens[1], lens[2] = 0, k, k
+    row_ptr = torch.zeros(n_out + 1, dtype=torch.int64, device="cuda")
+    row_ptr[1:] = torch.cumsum(lens, 0)
+    nnz = int(row_ptr[-1])
+    cols = torch.randint(0, n_in, (nnz,), generator=gen, device="cuda", dtype=torch.int32)
+    cols[:k] = torch.arange(k, device="cuda")  # row 1: inputs 0..95
+    pm1 = torch.from_numpy(ops.encode_host([spec.p - 1]).astype("int32")).cuda()[:, 0]
+    pm1_w = spmv.pack_words(pm1, 0)                   # (W32,)
+    vals = kb.random_packed(spmv, spec, nnz, 1, gen)[:, 0].contiguous()
+    vals[: 2 * k] = pm1_w                             # rows 1 and 2: all p-1
+    mat = spmv.RaggedCsr(n_in, row_ptr.to(torch.int32), cols, vals)
+    if mat.kmax != k:
+        raise AssertionError(f"edge: kmax {mat.kmax} != {k}")
+    for r in (36, 2):
+        x = kb.random_packed(spmv, spec, n_in, r, gen)
+        x[: n_in // 2] = pm1_w                        # inputs 0..499: all p-1
+        want = spmv.apply_mat_plain(spec, x, mat)
+        if want[0].any():
+            raise AssertionError("edge: the empty row's plain result is not 0")
+        for lanes in (1, 2, 4, 8, 16, 32):
+            y = spmv.spmv_mont(spec, x, mat, _lanes=lanes)
+            if not torch.equal(y, want):
+                raise AssertionError(f"edge level r={r} S={lanes}: kernel != plain")
+    log(f"  edge {spec.name} (W32={spec.w16 // 2}): {n_out} rows of 0..96 nonzeros "
+        f"({nnz} in all; row 0 empty, rows 1-2 K=96 all p-1, inputs 0..499 all p-1), "
+        f"r=36 and r=2, S=1..32: equal")
 
 
 def main() -> int:
@@ -134,7 +161,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [root, os.path.join(root, "scripts")]
+    import kernel_bench as kb
     import lcpc_tpu_torch as P
     from lcpc_tpu_torch.ops import spmv
     from lcpc_tpu_torch.ops.limbs import get_ops
@@ -145,7 +174,7 @@ def main() -> int:
         raise RuntimeError("the port pulled in JAX or the JAX package")
 
     # 1. the card
-    card = card_line()
+    card = kb.card_line()
     kind = torch.cuda.get_device_name(0)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
@@ -153,9 +182,18 @@ def main() -> int:
     # 2. build
     build_s = spmv.build(force=True)
     log(f"build: spmv_mont.cu with nvcc {' '.join(spmv.NVCC_FLAGS)} in {build_s:.2f} s")
-    for line in spmv.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.split(' : ')[-1].strip()}")
+    ptxas = kb.ptxas_report(spmv.build_log)
+    for w32, (regs, st, ld) in sorted(ptxas.items()):
+        log(f"  ptxas W32={w32}: {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    if ptxas.get(8, (None, 1, 1))[1:] != (0, 0):
+        raise AssertionError(f"W32=8 kernel spills or was not reported: {ptxas.get(8)}")
+    loop = kb.sass_loop(spmv.SO_PATH)
+    if loop is None:
+        log("  SASS: cuobjdump not found, k-loop count not measured")
+    else:
+        log(f"  SASS W32=8 k loop (64 wide products a nonzero): {loop[0]} "
+            f"instructions, {loop[2]:.3f} per wide product; opcodes {loop[1]}")
     if native.get_lib() is None:
         raise RuntimeError("native C library did not build (needed for matgen)")
 
@@ -177,23 +215,10 @@ def main() -> int:
               + [(f"post{i}", dm) for i, dm in enumerate(post)])
     log("kernel vs plain: tolerance 0 — exact field arithmetic, every limb equal")
     rows = []
-    commit_tot = compare_levels(torch, spmv, spec, levels, R_COMMIT, gen, "r=36", rows)
-    verify_tot = compare_levels(torch, spmv, spec, levels, 2, gen, "r=2", rows)
-    # edge case: every value p-1, K = 96 (above the largest 2^23 kmax, 94),
-    # two zero pad slots per output reading input 0
-    k, n_in, n_out = 96, 1000, 4096
-    pm1 = torch.from_numpy(ops.encode_host([spec.p - 1]).astype("int32")).cuda()[:, 0]
-    vals = pm1[None, :, None].expand(k, spec.w16, n_out).contiguous()
-    vals[-2:] = 0
-    cols = torch.randint(0, n_in, (k, n_out), generator=gen, device="cuda",
-                         dtype=torch.int32)
-    cols[-2:] = 0
-    x = pm1[None, :, None].expand(n_in, spec.w16, R_COMMIT).contiguous()
-    y = spmv.spmv_mont(spec, x, cols, vals)
-    y_plain = spmv.apply_mat_plain(spec, x, cols, vals)
-    if not torch.equal(y, y_plain):
-        raise AssertionError("edge case (all p-1, K=96): kernel != plain")
-    log("  edge: all values p-1, K=96, zero pad slots, r=36: equal")
+    commit_tot = compare_levels(torch, kb, spmv, spec, levels, R_COMMIT, gen, "r=36", rows)
+    verify_tot = compare_levels(torch, kb, spmv, spec, levels, 2, gen, "r=2", rows)
+    for field in P.ALL_FIELDS:  # every template of the kernel, W32 = 2, 4, 6, 8
+        edge_levels(torch, kb, spmv, field, gen)
 
     # 4. main path at 2^23
     n_rows = -(-N_COEFFS // enc.n_per_row)
@@ -296,18 +321,23 @@ def main() -> int:
         "ms": commit_tot["ms"],
         "plain_ms": commit_tot["plain_ms"],
         "bound_ms": commit_tot["bound_ms"],
-        "bound_by": "bytes" if commit_tot["t_bytes"] >= commit_tot["t_ops"] else "operations",
+        "bound_by": commit_tot["bound_by"],
         "library_ms": None,
         "equal_to_plain": True,
         "tolerance": 0,
         "shape": f"one {size} ft255 commit encode: {n_levels} launches at r={R_COMMIT}",
         "verify_encode_ms": verify_tot["ms"],
         "verify_encode_plain_ms": verify_tot["plain_ms"],
+        "verify_encode_bound_ms": verify_tot["bound_ms"],
+        "verify_encode_bound_by": verify_tot["bound_by"],
+        "ptxas_w32_8": {"registers": ptxas[8][0], "spill_bytes": ptxas[8][1] + ptxas[8][2]},
+        "sass_per_wide_product": None if loop is None else loop[2],
     }]
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
-        json.dump({"card": card, "levels": rows, "main_path_ms": {
+        json.dump({"card": card, "levels": rows, "sass_k_loop": loop and loop[:3],
+                   "main_path_ms": {
             "cold": cold, "warm": warm, "median": med}}, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

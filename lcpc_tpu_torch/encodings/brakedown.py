@@ -13,10 +13,11 @@ Reimplements lcpc-brakedown-pc, as lcpc_tpu/encodings/brakedown.py does:
 
 The host side (code dims, matrix generation, host twin) is a copy of the
 reference's, float operation order included.  Device side: every commit row
-is encoded at once in the column-major codeword layout (n_cols, W, R), and
-each level — the Reed-Solomon base case included, as a dense matrix with
-cols[k, c] = k — is one call of ops/spmv.spmv_mont, which launches the CUDA
-kernel on the GPU for every row count R (commit and verify alike).
+is encoded at once in the packed codeword layout (n_cols, R, W32), and each
+level — a ragged CSR, the Reed-Solomon base case included as a full level
+with cols k = 0..n_in-1 in every row — is one call of ops/spmv.spmv_mont,
+which launches the CUDA kernel on the GPU for every row count R (commit and
+verify alike).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from ..fields.spec import FieldSpec
 from ..fs.chacha import ChaCha20Rng
 from ..fs.sampling import UniformUsize, field_random_nonzero_raw
 from ..ops.limbs import get_ops
-from ..ops.spmv import spmv_mont
+from ..ops.spmv import RaggedCsr, pack_words, spmv_mont, unpack_words
 from ..utils.device import resolve_device
 
 LAMBDA = 128
@@ -363,68 +364,50 @@ def encode_host(spec: FieldSpec, xi: list[int], precodes, postcodes) -> list[int
 # ---------------------------------------------------------------------------
 
 
-def _csr_pad(mat: SparseMat) -> tuple[np.ndarray, np.ndarray]:
-    """CSC -> padded CSR (vectorized): per output row, up to kmax slots.
+def _csr_ragged(mat: SparseMat) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """CSC -> ragged CSR sorted by output row, each row exactly its nonzeros:
+    the kernel's form of lcpc_tpu's padded CSR (_csr_pad,
+    lcpc_tpu/encodings/brakedown.py:367).
 
-    Returns (cols (n_out, kmax) int32 input indices, vals_u16 (n_out, kmax, W)
-    uint32 16-bit Montgomery limbs); pad slots read input 0 with value 0.
+    Returns (row_ptr (n_out+1,) int32, cols (nnz,) int32 input indices,
+    vals (nnz, W32) uint32 packed Montgomery words, low word first).
     """
     nnz = mat.row_idx.shape[0]
-    # generated entries come in uniform stride-d CSC order: entry t belongs
-    # to input (CSC column) t // d
-    d = nnz // mat.n_in if mat.n_in else 1
+    d = nnz // mat.n_in if mat.n_in else 1  # uniform stride-d CSC order
     assert mat.n_in * d == nnz
-    in_idx = np.arange(nnz, dtype=np.int64) // d
     order = np.argsort(mat.row_idx, kind="stable")
-    sorted_rows = mat.row_idx[order]
-    counts = np.bincount(mat.row_idx, minlength=mat.n_out)
-    kmax = max(1, int(counts.max(initial=0)))
-    starts = np.zeros(mat.n_out + 1, dtype=np.int64)
-    np.cumsum(counts, out=starts[1:])
-    slot = np.arange(nnz, dtype=np.int64) - starts[sorted_rows]
-
-    cols = np.zeros((mat.n_out, kmax), dtype=np.int32)
-    cols[sorted_rows, slot] = in_idx[order].astype(np.int32)
-
-    w = mat.spec.w16
-    vals_u16 = np.ascontiguousarray(mat.vals_mont).view("<u2").astype(
-        np.uint32
-    ).reshape(nnz, w)  # 16-bit Montgomery limbs per nonzero
-    vals = np.zeros((mat.n_out, kmax, w), dtype=np.uint32)
-    vals[sorted_rows, slot] = vals_u16[order]
-    return cols, vals
+    row_ptr = np.zeros(mat.n_out + 1, dtype=np.int32)
+    np.cumsum(np.bincount(mat.row_idx, minlength=mat.n_out), out=row_ptr[1:])
+    cols = (order // d).astype(np.int32)
+    words = np.ascontiguousarray(mat.vals_mont).view("<u4").reshape(nnz, -1)
+    return row_ptr, cols, words[order]
 
 
-class _DeviceMat:
-    """Padded-CSR device form of one level: cols (K, n_out) int32 input
-    indices and vals (K, W, n_out) int32 Montgomery limbs."""
+def _as_i32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 
-    def __init__(self, n_in: int, n_out: int, cols: np.ndarray,
-                 vals: np.ndarray, device):
-        self.n_in = n_in
-        self.n_out = n_out
-        self.kmax = cols.shape[0]
-        self.cols = torch.from_numpy(np.ascontiguousarray(cols, dtype=np.int32)).to(device)
-        self.vals = torch.from_numpy(
-            np.ascontiguousarray(vals).astype(np.int32)).to(device)
+
+class _DeviceMat(RaggedCsr):
+    """A level of the code as the kernel's checked ragged CSR on a device."""
 
     @classmethod
     def from_sparse(cls, mat: SparseMat, device) -> "_DeviceMat":
-        cols, vals = _csr_pad(mat)  # (n_out, kmax), (n_out, kmax, W)
-        return cls(mat.n_in, mat.n_out, cols.T, np.transpose(vals, (1, 2, 0)),
-                   device)
+        row_ptr, cols, vals = _csr_ragged(mat)
+        return cls(mat.n_in, _as_i32(row_ptr), _as_i32(cols), _as_i32(vals), device)
 
     @classmethod
     def vandermonde(cls, spec: FieldSpec, n_in: int, n_out: int,
                     device) -> "_DeviceMat":
-        """RS base case as a dense level: out[c] = sum_k x[k] * (c+1)^k
-        (encode.rs:97-110), i.e. cols[k, c] = k with Montgomery powers."""
-        ops = get_ops(spec)
-        vm = np.empty((n_in, spec.w16, n_out), dtype=np.uint32)
-        for j in range(n_in):
-            vm[j] = ops.encode_host([pow(x, j, spec.p) for x in range(1, n_out + 1)])
-        cols = np.repeat(np.arange(n_in, dtype=np.int32)[:, None], n_out, axis=1)
-        return cls(n_in, n_out, cols, vm, device)
+        """RS base case as a full ragged level: out[c] = sum_k x[k] * (c+1)^k
+        (encode.rs:97-110), i.e. row c holds cols k = 0..n_in-1 with the
+        Montgomery powers (c+1)^k."""
+        nbytes = 2 * spec.w16
+        raw = b"".join(spec.to_mont(pow(c, k, spec.p)).to_bytes(nbytes, "little")
+                       for c in range(1, n_out + 1) for k in range(n_in))
+        vals = np.frombuffer(raw, dtype="<u4").reshape(n_out * n_in, spec.w16 // 2).copy()
+        row_ptr = np.arange(n_out + 1, dtype=np.int32) * n_in
+        cols = np.tile(np.arange(n_in, dtype=np.int32), n_out)
+        return cls(n_in, _as_i32(row_ptr), _as_i32(cols), _as_i32(vals), device)
 
 
 class SdigEncoding(LcEncoding):
@@ -531,43 +514,47 @@ class SdigEncoding(LcEncoding):
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs.
 
-        Works in the column-major layout (n_cols, W, R): codeword positions
-        lead, so each level's input is a contiguous slice of one buffer
-        [x | y_1 .. y_{t-1} | rs | v_t .. v_1] and its output is written
-        right after the previous one (encode.rs:36-94).  Each of the
+        Works in the kernel's packed layout (n_cols, R, W32): codeword
+        positions lead and one (position, r) is W32 contiguous 32-bit words,
+        so each level's input is a contiguous slice of one buffer
+        [x | y_1 .. y_{t-1} | rs | v_t .. v_1] and its output is written in
+        place right after the previous one (encode.rs:36-94).  Each of the
         reference's `_apply_mat_device` and `_rs_device` calls is one
-        spmv_mont call here."""
+        spmv_mont call here.  Rows are packed on entry and unpacked on exit,
+        so the reference's limb-major layout holds at the boundary."""
         pre, post, rs = self.device_mats()
         w, r, npr = rows.shape
         if npr != self.n_per_row:
             raise ValueError(f"rows must be (W, R, {self.n_per_row}), got {tuple(rows.shape)}")
-        buf = torch.empty((self.n_cols, w, r), dtype=torch.int32, device=rows.device)
-        buf[:npr] = rows.permute(2, 0, 1)
+        buf = torch.empty((self.n_cols, r, w // 2), dtype=torch.int32, device=rows.device)
+        # pack where the limbs lie (coalesced), then move the words
+        buf[:npr] = pack_words(rows, 0).permute(2, 1, 0)
         starts = [0]  # segment starts: x, y_1 .. y_{t-1}, rs
         off = npr
 
-        def put(y):
+        def put(x, dm):
             nonlocal off
-            buf[off : off + y.shape[0]] = y
-            off += y.shape[0]
+            spmv_mont(self.spec, x, dm, out=buf[off : off + dm.n_out])
+            off += dm.n_out
 
         x = buf[:npr]
         for dm in pre[:-1]:
             starts.append(off)
-            put(spmv_mont(self.spec, x, dm.cols, dm.vals))
+            put(x, dm)
             x = buf[starts[-1] : off]
         # base case: the last precode feeds the Reed-Solomon code
-        tmp = spmv_mont(self.spec, x, pre[-1].cols, pre[-1].vals)
+        tmp = spmv_mont(self.spec, x, pre[-1])
         starts.append(off)
-        put(spmv_mont(self.spec, tmp, rs.cols, rs.vals))
+        put(tmp, rs)
         # backward pass: postcode i reads the encoded sub-codeword from
         # segment i+1 to the current end
         for i in range(len(post) - 1, -1, -1):
             inp = buf[starts[i + 1] : off]
             assert inp.shape[0] == post[i].n_in, (inp.shape, post[i].n_in)
-            put(spmv_mont(self.spec, inp, post[i].cols, post[i].vals))
+            put(inp, post[i])
         assert off == self.n_cols
-        return buf.permute(1, 2, 0).contiguous()
+        # move the words limb-major first, then unpack (coalesced)
+        return unpack_words(buf.permute(2, 1, 0).contiguous(), 0)
 
     def encode_row_host(self, row: list[int]) -> list[int]:
         assert len(row) <= self.n_cols

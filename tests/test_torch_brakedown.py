@@ -17,6 +17,7 @@ from lcpc_tpu_torch import convert
 from lcpc_tpu_torch.encodings import brakedown as bd
 from lcpc_tpu_torch.fields import FT63, FT255
 from lcpc_tpu_torch.fs.chacha import ChaCha20Rng
+from lcpc_tpu_torch.ops import spmv
 from lcpc_tpu_torch.ops.limbs import limbs_to_device
 from lcpc_tpu_torch.utils import native
 
@@ -130,8 +131,39 @@ def test_converted_matrices_equal_generated():
     for m, jm in zip(pre + post, jpre + jpost):
         c = convert.sparse_mats_from_numpy(jm.col_ptr, jm.row_idx, jm.vals_mont,
                                            spec=spec, n_out=jm.n_out, n_in=jm.n_in)
-        for a, b in zip(bd._csr_pad(c), bd._csr_pad(m)):
+        for a, b in zip(bd._csr_ragged(c), bd._csr_ragged(m)):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("spec", [FT63, FT255], ids=lambda s: s.name)
+def test_csr_ragged_holds_the_padded_rows(spec):
+    # the kernel's ragged rows are the live slots of lcpc_tpu's padded CSR,
+    # in the same order, with the limb pairs packed into 32-bit words
+    for m in sum(bd.generate(spec, bd.CODE3, 300, 4), []):
+        jm = jbd.SparseMat(_jspec(spec), m.n_out, m.n_in, m.col_ptr, m.row_idx,
+                           m.vals_mont)
+        pcols, pvals = jbd._csr_pad(jm)                   # (n_out, kmax), (.., W)
+        row_ptr, cols, vals = bd._csr_ragged(m)
+        lens = np.diff(row_ptr)
+        live = np.arange(pcols.shape[1])[None, :] < lens[:, None]
+        assert row_ptr[0] == 0 and row_ptr[-1] == m.row_idx.shape[0]
+        assert lens.max() == pcols.shape[1]
+        assert np.array_equal(cols, pcols[live])
+        assert np.array_equal(vals, pvals[live][:, 0::2] | (pvals[live][:, 1::2] << 16))
+
+
+def test_vandermonde_level_is_the_rs_code():
+    # the RS base case as a full ragged level reproduces reed_solomon_host
+    spec = FT255
+    dm = bd._DeviceMat.vandermonde(spec, 8, 13, "cpu")
+    assert (dm.n_in, dm.n_out, dm.nnz, dm.kmax) == (8, 13, 104, 8)
+    rng = random.Random(9)
+    xi = [spec.p - 1, 0] + [rng.randrange(spec.p) for _ in range(6)]
+    jops = j_get_ops(_jspec(spec))
+    x = torch.from_numpy(jops.encode_host(xi).T.astype(np.int32))[:, None, :]
+    y = spmv.spmv_mont(spec, spmv.pack_words(x, 2).contiguous(), dm)
+    got = jops.decode_host(spmv.unpack_words(y, 2)[:, 0, :].T.numpy())
+    assert got == bd.reed_solomon_host(spec, xi, 13)
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -1,5 +1,6 @@
-"""The port's import boundary: lcpc_tpu_torch and chip_smoke.py use neither
-JAX nor the JAX package, and importing the port loads neither."""
+"""The port's import boundary: lcpc_tpu_torch, chip_smoke.py and its helper
+module scripts/kernel_bench.py use neither JAX nor the JAX package, and
+importing the port loads neither."""
 
 import os
 import re
@@ -18,6 +19,7 @@ def _port_sources():
             if name.endswith((".py", ".cu")):
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
+    yield os.path.join(_REPO, "scripts", "kernel_bench.py")
 
 
 def test_sources_import_neither_jax_nor_reference():
