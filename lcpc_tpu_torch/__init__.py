@@ -10,9 +10,9 @@ Entry points run on the GPU unless the caller passes device="cpu" (the plain
 PyTorch path the tests use); without a GPU and without device="cpu" they
 raise.
 
-    from lcpc_tpu_torch import SdigEncoding, commit, Transcript, FT255
-    enc = SdigEncoding.new(FT255, len(coeffs), seed=0)      # device="cuda"
-    com = commit(coeffs, enc)
+    from lcpc_tpu_torch import LigeroEncoding, commit, Transcript, FT255
+    enc = LigeroEncoding.new(FT255, len(coeffs), 1, 4)      # device="cuda"
+    com = commit(coeffs, enc)                               # digest=SHA256 too
     tr = Transcript(b"my protocol")
     tr.append_message(b"polycommit", com.get_root())
     proof = com.prove(outer_tensor, tr)
@@ -30,6 +30,7 @@ from .core.protocol import (
 )
 from .core import wire
 from .core.encoding import LcEncoding
+from .encodings.ligero import LigeroEncoding
 from .encodings.brakedown import (
     SdigEncoding,
     CODE1,
@@ -40,13 +41,14 @@ from .encodings.brakedown import (
     CODE6,
 )
 from .fs.merlin import Transcript
+from .ops.digest import BLAKE3, SHA256, DIGESTS_BY_NAME, DeviceDigest
 from .utils.tensors import univariate_eval, univariate_tensors
 
 __all__ = [
     "FT63", "FT127", "FT191", "FT255", "ALL_FIELDS", "FieldSpec",
     "LcCommit", "LcEvalProof", "LcEncoding", "ProverError", "VerifierError",
     "commit", "prove", "verify", "wire",
-    "SdigEncoding", "CODE1", "CODE2", "CODE3", "CODE4", "CODE5", "CODE6",
-    "Transcript",
+    "LigeroEncoding", "SdigEncoding", "CODE1", "CODE2", "CODE3", "CODE4", "CODE5", "CODE6",
+    "Transcript", "BLAKE3", "SHA256", "DIGESTS_BY_NAME", "DeviceDigest",
     "univariate_tensors", "univariate_eval",
 ]

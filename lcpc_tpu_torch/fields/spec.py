@@ -7,10 +7,9 @@ reference (`lcpc-test-fields/src/lib.rs:13-59`):
 - `to_repr()` is the canonical value in little-endian bytes (8*L bytes);
 - `Field::random(rng)` rejection-samples L u64 words (masked to NUM_BITS) and
   *interprets the accepted integer as the Montgomery representation*, i.e. the
-  sampled field value is X * R^{-1} mod p (fs/sampling.py).
-
-This slice of the port keeps the members the Brakedown path reads; the NTT
-constants (2-adicity, roots of unity) return with the Ligero slice.
+  sampled field value is X * R^{-1} mod p (fs/sampling.py);
+- `s` (2-adicity) and `ROOT_OF_UNITY = g^((p-1)/2^s)` drive the Ligero NTT
+  (ops/ntt.py).
 
 All host arithmetic here is exact Python-int math; the device layer
 (`lcpc_tpu_torch.ops.limbs`) must agree with it bit-for-bit (twin-tested).
@@ -27,7 +26,8 @@ class FieldSpec:
     """A prime field p with a chosen multiplicative generator.
 
     Derived constants replicate ff 0.12's derive:
-    `num_bits` = bit length of p, `shave_bits` = 64*L - num_bits.
+    `num_bits` = bit length of p, `shave_bits` = 64*L - num_bits,
+    `s` = 2-adicity of p-1, `root_of_unity` = generator^t with p-1 = 2^s * t.
     """
 
     name: str
@@ -83,6 +83,31 @@ class FieldSpec:
         """-p^{-1} mod R (full-width Montgomery constant, R = 2^(16*w16))."""
         r = 1 << (16 * self.w16)
         return (-pow(self.p, -1, r)) % r
+
+    # ---- 2-adicity / roots of unity (NTT) --------------------------------------
+    @cached_property
+    def s(self) -> int:
+        """2-adicity: largest s with 2^s | p-1 (ff derive's `S`)."""
+        t = self.p - 1
+        s = 0
+        while t % 2 == 0:
+            t //= 2
+            s += 1
+        return s
+
+    @cached_property
+    def t_odd(self) -> int:
+        return (self.p - 1) >> self.s
+
+    @cached_property
+    def root_of_unity(self) -> int:
+        """g^t mod p: a primitive 2^s-th root of unity (ff's ROOT_OF_UNITY)."""
+        return pow(self.generator, self.t_odd, self.p)
+
+    def root_for_log_len(self, log_len: int) -> int:
+        """Primitive 2^log_len-th root of unity: ROOT_OF_UNITY^(2^(s - log_len))."""
+        assert 0 <= log_len <= self.s, (log_len, self.s)
+        return pow(self.root_of_unity, 1 << (self.s - log_len), self.p)
 
     # ---- Montgomery conversion (host) ----------------------------------------
     def to_mont(self, v: int) -> int:

@@ -187,6 +187,11 @@ class FieldOps:
         return self._out(_chunked(self._mul_stack, self._flat(a), self._flat(b)),
                          batch)
 
+    def mul_const(self, a: torch.Tensor, c_limbs: np.ndarray) -> torch.Tensor:
+        """Multiply by a host-constant element (already in Montgomery form)."""
+        c = torch.as_tensor(np.asarray(c_limbs, dtype=np.int32), device=a.device)
+        return self.mul(a, c.reshape(self.w, *([1] * (a.dim() - 1))))
+
     def to_mont(self, x: torch.Tensor) -> torch.Tensor:
         """Canonical (or any value < 2^(16W)) -> Montgomery form, reduced."""
         batch = x.shape[1:]
@@ -302,14 +307,12 @@ class FieldOps:
     # ---- host conversions ----------------------------------------------------
 
     def encode_host(self, values, to_mont: bool = True) -> np.ndarray:
-        """Python ints -> (W, n) uint32 limb array (optionally Montgomery)."""
-        spec = self.spec
-        out = np.empty((self.w, len(values)), dtype=np.uint32)
-        for i, v in enumerate(values):
-            m = spec.to_mont(v) if to_mont else v
-            for j in range(self.w):
-                out[j, i] = (m >> (16 * j)) & 0xFFFF
-        return out
+        """Python ints -> (W, n) uint32 limb array (optionally Montgomery).
+
+        Without to_mont each value must lie in [0, 2^(16W))."""
+        conv = self.spec.to_mont if to_mont else int
+        raw = b"".join(conv(v).to_bytes(2 * self.w, "little") for v in values)
+        return np.frombuffer(raw, dtype="<u2").reshape(-1, self.w).T.astype(np.uint32)
 
     def encode_repr_words(self, values) -> np.ndarray:
         """Python ints (canonical, < p) -> (n, W/2) u32 LE repr words."""

@@ -28,76 +28,37 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import numpy as np
 import torch
 
 from ..fields.spec import FieldSpec
+from ..utils import cuda_build
 from .limbs import get_ops
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO, "lcpc_tpu_torch", "csrc", "spmv_mont.cu")
-BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-SO_PATH = os.path.join(BUILD_DIR, "libspmv_mont.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NAME = "spmv_mont"
+SO_PATH = cuda_build.so_path(_NAME)
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 MAX_LANES = 32  # lanes per (output, r): at most one warp
 MAX_K = 1 << 20  # longest row the accumulator bound admits
 
-_lib = None
-build_log = ""  # nvcc output (ptxas register/spill report) of the last build
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found: the spmv_mont kernel cannot be built")
+def __getattr__(name):
+    if name == "build_log":  # nvcc output (ptxas register/spill report) of the last build
+        return cuda_build.build_logs.get(_NAME, "")
+    raise AttributeError(name)
 
 
 def build(force: bool = False) -> float:
     """Compile csrc/spmv_mont.cu into build/kernels/ if stale; returns the
     seconds spent compiling (0.0 when the library was up to date)."""
-    global build_log
-    if (not force and os.path.exists(SO_PATH)
-            and os.path.getmtime(SO_PATH) >= os.path.getmtime(_SRC)):
-        return 0.0
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True, timeout=600)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{build_log}")
-        os.replace(tmp, SO_PATH)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return time.perf_counter() - t0
+    return cuda_build.build(_NAME, force)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(SO_PATH)
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.lcpc_spmv_mont.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.lcpc_spmv_mont.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _bind(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lcpc_spmv_mont.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.lcpc_spmv_mont.restype = ctypes.c_int
 
 
 # ---- packed words ------------------------------------------------------------
@@ -319,7 +280,7 @@ def spmv_mont(spec: FieldSpec, x: torch.Tensor, mat: RaggedCsr,
             raise ValueError(f"spmv_mont: {name} is not {align}-byte aligned")
     if mat.n_out * r == 0:
         return y
-    lib = _load()
+    lib = cuda_build.load(_NAME, _bind)
     consts = _consts_on(spec, mat.kmax, x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.lcpc_spmv_mont(x.data_ptr(), mat.row_ptr.data_ptr(), mat.cols.data_ptr(),

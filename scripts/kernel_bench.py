@@ -59,13 +59,14 @@ def random_packed(spmv, spec, n, r, gen):
     return spmv.pack_words(limbs, 1).permute(0, 2, 1).contiguous()
 
 
-def ptxas_report(build_log):
-    """{W32: (registers, spill store bytes, spill load bytes)} from nvcc -v."""
+def ptxas_report(build_log, kernel="spmv_mont_kernel"):
+    """{W32: (registers, spill store bytes, spill load bytes)} of the
+    templates of `kernel` from nvcc -v."""
     out, w = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"spmv_mont_kernelILi(\d+)E", line)
-        if m:
-            w = int(m.group(1))
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = re.search(rf"{kernel}ILi(\d+)E", line)
+            w = int(m.group(1)) if m else None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and w is not None:
             out.setdefault(w, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]

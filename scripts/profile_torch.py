@@ -1,18 +1,19 @@
-"""Where the time goes in the port's Brakedown path on one GPU.
+"""Where the time goes in one of the port's main paths on one GPU.
 
-    python3 scripts/profile_torch_sdig.py
+    python3 scripts/profile_torch.py [sdig|ligero]
 
-ft255, CODE3, BLAKE3 at N = 2^23 (the chip_smoke.py size).
+ft255, BLAKE3 at N = 2^23 (the chip_smoke.py size): Brakedown CODE3
+(sdig, the default) or Ligero rho = 1/4 (ligero).
 After one warm-up commit -> prove -> verify it reports:
   - stage times (host clock around synchronized work, median of 3) for the
     pieces of commit (encode, from_mont, pack, column hash, Merkle layers),
-    prove (device collapse, everything else) and verify (row encode, core
-    check, eval dot, everything else);
+    prove (device collapse, everything else) and verify (row encode, the
+    opened columns' hash, eval dot, everything else);
   - per phase, a torch.profiler trace: wall ms, device-busy ms (sum of GPU
     kernel time), kernel launches, idle share, and the top kernels;
   - per phase, a cProfile of the host side: the functions with the most
     own time (tottime), i.e. where the host holds the device back.
-Writes chiprun_out/profile_torch_sdig.json; prints one JSON line last.
+Writes chiprun_out/profile_torch_<path>.json; prints one JSON line last.
 Needs a CUDA device (raises without one).
 """
 
@@ -90,15 +91,21 @@ def host_profile(fn, top=10):
 
 
 def main() -> int:
+    path = sys.argv[1] if len(sys.argv) > 1 else "sdig"
+    if path not in ("sdig", "ligero"):
+        raise SystemExit("usage: profile_torch.py [sdig|ligero]")
     if not torch.cuda.is_available():
-        raise RuntimeError("profile_torch_sdig.py needs a CUDA device")
+        raise RuntimeError("profile_torch.py needs a CUDA device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     spec, n = P.FT255, 1 << LOG_N
     ops = get_ops(spec)
-    enc = P.SdigEncoding.new(spec, n, seed=0, device="cuda")
-    enc.device_mats()
+    if path == "sdig":
+        enc = P.SdigEncoding.new(spec, n, seed=0, device="cuda")
+        enc.device_mats()
+    else:
+        enc = P.LigeroEncoding.new(spec, n, 1, 4, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     canon = torch.randint(0, 1 << 16, (spec.w16, n), generator=gen, device="cuda",
@@ -151,6 +158,11 @@ def main() -> int:
     rows_w = torch.randint(0, 1 << 16, (2, enc.n_per_row, spec.w16 // 2),
                            generator=gen, device="cuda", dtype=torch.int64)
     _, stages["verify.rows_encode(T=2)"] = timed(lambda: protocol._rows_encode(enc, rows_w))
+    k = enc.get_n_col_opens()
+    col_words = torch.randint(0, 1 << 32, (comm.n_rows * spec.w16 // 2, k), generator=gen,
+                              device="cuda", dtype=torch.int64)
+    _, stages[f"verify.hash_opened_columns(k={k})"] = timed(
+        lambda: blake3.hash_word_columns(col_words))
     inner_w = torch.from_numpy(ops.encode_repr_words(inner).astype("int64")).cuda()
     _, stages["verify.eval_dot"] = timed(lambda: protocol._eval_dot(ops, rows_w, inner_w))
     _, stages["verify.total"] = timed(
@@ -178,13 +190,13 @@ def main() -> int:
         for row in host[phase]:
             print(f"   {row['own_ms']:9.2f} ms own {row['cum_ms']:9.2f} ms cum "
                   f"x{row['calls']:<7} {row['function']}", flush=True)
-    result = {"card": card, "log_n": LOG_N, "stages_ms": stages, "traces": traces,
+    result = {"card": card, "path": path, "log_n": LOG_N, "stages_ms": stages, "traces": traces,
               "host": host}
     out_dir = os.path.join(_REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_torch_sdig.json"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_torch_{path}.json"), "w") as f:
         json.dump(result, f, indent=1)
-    print(json.dumps({"card": card, "stages_ms": stages,
+    print(json.dumps({"card": card, "path": path, "stages_ms": stages,
                       "idle_share": {k: v["idle_share"] for k, v in traces.items()}}))
     return 0
 

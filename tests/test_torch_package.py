@@ -7,6 +7,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lcpc_tpu)(\b(?!_torch)|\.)",
                         re.M)
@@ -41,8 +43,20 @@ def test_pattern_catches_forbidden_imports():
     assert not _FORBIDDEN.search("from lcpc_tpu_torch import wire\n")
 
 
+_MODULES = ["lcpc_tpu_torch", "lcpc_tpu_torch.convert", "lcpc_tpu_torch.ops.ntt",
+            "lcpc_tpu_torch.encodings.ligero", "lcpc_tpu_torch.ops.sha256",
+            "lcpc_tpu_torch.utils.cuda_build"]
+
+
+@pytest.mark.parametrize("rel", ["ops/ntt.py", "encodings/ligero.py", "ops/sha256.py",
+                                 "utils/cuda_build.py", "csrc/ntt_mont.cu",
+                                 "csrc/spmv_mont.cu"])
+def test_scan_covers_module(rel):
+    assert os.path.join(_REPO, "lcpc_tpu_torch", rel) in set(_port_sources())
+
+
 def test_import_loads_neither():
-    code = ("import sys, lcpc_tpu_torch, lcpc_tpu_torch.convert; "
+    code = (f"import sys, {', '.join(_MODULES)}; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'lcpc_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
