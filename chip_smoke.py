@@ -7,9 +7,9 @@ Phases, each fatal on failure:
   1. print the card's name and power limit (nvidia-smi);
   2. build both CUDA kernels from the checkout, one nvcc each, started
      together (csrc/spmv_mont.cu, csrc/ntt_mont.cu); print ptxas's registers
-     and spills per template (fatal if the SpMV's W32 = 8 spills; an NTT
-     spill is reported) and the SASS instruction count of the SpMV's W32 = 8
-     k loop per wide product (cuobjdump);
+     and spills per template (fatal if either kernel's W32 = 8 spills) and
+     the SASS instruction count of the SpMV's W32 = 8 k loop per wide product
+     (cuobjdump);
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
      Brakedown encoding at r = 36 (the commit's row count), on every level at
@@ -22,12 +22,15 @@ Phases, each fatal on failure:
      counted) and 3 times warm (median ms); check the evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
-  5. hold the NTT kernel against its plain PyTorch version
-     (ntt_forward_plain), limb for limb, at the 2^23 Ligero commit shape
-     (ft255, R = 256 rows of 32,768 padded to n = 2^17), at the verify shape
-     (R = 2) and on edge cases in each of the four fields (n = 2, 4, C/2, C,
-     2C, 2^12, 2^18 with rows all zero, all p-1, a delta and random); time both
-     against the bound of the ladder's butterflies;
+  5. hold the NTT kernel's two outputs against its plain PyTorch version
+     (ntt_forward_plain, then from_mont and the hash-word pack), limb for
+     limb and word for word, at the 2^23 Ligero commit shape (ft255, R = 256
+     rows of 32,768 padded to n = 2^17, limbs and words), at the verify shape
+     (R = 2, limbs) and on edge cases in each of the four fields (n = 2, 4,
+     C/2, C, 2C, 2^12, 2^18 and a 2^12 plan forced to 3 passes, with rows all
+     zero, all p-1, a delta and random); time each whole call (every pass)
+     and the plain version against the bound of the non-trivial butterflies,
+     the hash words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
      phase 4 (one cold run with the launches counted, 3 warm), with the
      evaluation and tamper checks; reproduce its golden fixture
@@ -42,6 +45,7 @@ the package is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -78,16 +82,20 @@ def level_cost(spec, nnz, n_in, n_out, r):
     return nbytes, products
 
 
-def ntt_cost(spec, r, k, n):
-    """(bytes, wide products, butterflies) of one forward NTT of r rows of k
-    elements zero-padded to n: the packed rows read once, the packed
-    codeword written once, the (n-1)-element twiddle table read once; every
-    butterfly of the ladder costs one CIOS product, 2 W32^2 + W32 wide
-    products."""
+def ntt_cost(spec, r, k, n, words):
+    """(bytes, wide products, non-trivial butterflies) of one ntt_forward of
+    r rows of k elements zero-padded to n: the (W, r, k) int32 limbs read
+    once, the (W, r, n) int32 limbs written once, with `words` the (r*W32,
+    n) hash words written once, and the (n-1, W32) twiddle table read once.
+    Each butterfly with a twiddle other than w^0 = 1 (all but n-1 a row)
+    costs one CIOS product, 2 W32^2 + W32 wide products; each hash word
+    element one Montgomery reduction, W32^2 + W32."""
     w32 = spec.w16 // 2
-    butterflies = r * (n // 2) * (n.bit_length() - 1)
-    nbytes = 4 * w32 * (r * k + r * n + (n - 1))
-    return nbytes, butterflies * (2 * w32 * w32 + w32), butterflies
+    butterflies = r * ((n // 2) * (n.bit_length() - 1) - (n - 1))
+    nbytes = 4 * (spec.w16 * r * k + spec.w16 * r * n + (n - 1) * w32
+                  + (w32 * r * n if words else 0))
+    products = butterflies * (2 * w32 * w32 + w32) + (r * n * (w32 * w32 + w32) if words else 0)
+    return nbytes, products, butterflies
 
 
 def bound_ms(nbytes, products):
@@ -179,59 +187,86 @@ def edge_levels(torch, kb, spmv, spec, gen):
         f"r=36 and r=2, S=1..32: equal")
 
 
-def compare_ntt(torch, kb, nttm, plan, x, tag, rows):
-    """NTT kernel vs plain on x (W, R, k <= plan.n), limb for limb; times the
-    kernel's launches on the packed buffer, ntt_forward with its layout
-    copies, and the plain version; returns the shape's record."""
+def plain_ntt(nttm, plan, x, words):
+    """The plain version of ntt_forward(plan, x, canon_words=words)."""
+    from lcpc_tpu_torch.ops.limbs import pack_row_words
+
+    y = nttm.ntt_forward_plain(plan, x)
+    return (y, pack_row_words(plan.ops.from_mont(y))) if words else y
+
+
+def equal_outputs(torch, got, want):
+    """Limb for limb (and word for word): (equal, max abs err)."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    err = max(int((g.long() - w.long()).abs().max().item()) if g.numel() else 0
+              for g, w in zip(got, want))
+    return err == 0 and all(torch.equal(g, w) for g, w in zip(got, want)), err
+
+
+def compare_ntt(torch, kb, nttm, plan, x, tag, rows, words):
+    """NTT kernel vs plain on x (W, R, k <= plan.n): the limbs and, with
+    `words`, the hash words; times the whole ntt_forward call (every pass)
+    and the plain version; returns the shape's record."""
     spec = plan.spec
-    y = nttm.ntt_forward(plan, x)
-    y_plain, plain_ms = time_host(torch, lambda: nttm.ntt_forward_plain(plan, x))
-    err = int((y.long() - y_plain.long()).abs().max().item())
-    if err:
+    got = nttm.ntt_forward(plan, x, canon_words=words)
+    want, plain_ms = time_host(torch, lambda: plain_ntt(nttm, plan, x, words))
+    ok, err = equal_outputs(torch, got, want)
+    if not ok:
         raise AssertionError(f"ntt {tag}: kernel != plain (max err {err})")
-    buf = nttm.pack_rows(x, plan.n)
-    ms = kb.time_kernel(lambda: nttm.ntt_packed_(plan, buf))
-    fwd_ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x))
+    del got, want
+    ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x, canon_words=words))
+    limbs_ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x)) if words else ms
     r, k = x.shape[1], x.shape[2]
-    nbytes, products, butterflies = ntt_cost(spec, r, k, plan.n)
+    nbytes, products, butterflies = ntt_cost(spec, r, k, plan.n, words)
     b, tb, to = bound_ms(nbytes, products)
     by = "bytes" if tb >= to else "operations"
-    rec = {"phase": tag, "field": spec.name, "r": r, "k": k, "n": plan.n,
-           "launches_per_call": plan.launches_per_call, "ms": ms,
-           "ntt_forward_ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": b,
-           "bound_by": by, "bytes": nbytes, "products": products,
-           "butterflies": butterflies, "err": err}
+    rec = {"phase": tag, "field": spec.name, "r": r, "k": k, "n": plan.n, "words": words,
+           "passes": [dataclasses.astuple(ps) for ps in plan.passes],
+           "launches_per_call": plan.launches_per_call, "ms": ms, "limbs_only_ms": limbs_ms,
+           "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "bytes": nbytes,
+           "products": products, "butterflies": butterflies, "err": err}
     rows.append(rec)
     log(f"  ntt {tag}: {spec.name} R={r} k={k} n={plan.n}, {plan.launches_per_call} "
-        f"launches: equal, kernel {ms:.4f} ms, with layout copies {fwd_ms:.4f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {b:.4f} ms ({by}; bytes {tb:.4f}, "
-        f"products {to:.4f}; {butterflies} butterflies)")
+        f"launches, {'limbs and words' if words else 'limbs'}: equal, ntt_forward "
+        f"{ms:.4f} ms{f' (limbs only {limbs_ms:.4f} ms)' if words else ''}, plain "
+        f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by}; bytes {tb:.4f}, products {to:.4f}; "
+        f"{butterflies} non-trivial butterflies)")
     return rec
 
 
 def ntt_edges(torch, kb, nttm, spec, gen):
-    """Edge cases against the plain version, limb for limb: rows all zero,
-    all p-1, a delta and random, at n = 2, 4, C/2, C, 2C, 2^12 and 2^18."""
+    """Edge cases against the plain version, limbs and words: rows all zero,
+    all p-1, a delta and random, at n = 2, 4, C/2, C, 2C, 2^12 and 2^18, and
+    at 2^12 with a plan forced to 3 passes."""
     from lcpc_tpu_torch.ops.limbs import get_ops
 
     ops = get_ops(spec)
     pm1 = torch.from_numpy(ops.encode_host([spec.p - 1]).astype("int32")).cuda()
     one = torch.from_numpy(ops.encode_host([1]).astype("int32")).cuda()
-    c = nttm.TAIL_C
-    for n in (2, 4, c // 2, c, 2 * c, 1 << 12, 1 << 18):
-        plan = nttm.get_ntt(spec, n)
+    c = 1 << nttm.LOG_CHUNK
+    forced = dict(log_chunk=8, max_tile_bytes=64 * spec.w16)  # 2 + 2 + 8 stages
+    cases = [(n, {}) for n in (2, 4, c // 2, c, 2 * c, 1 << 12, 1 << 18)] + [(1 << 12, forced)]
+    for n, kw in cases:
+        plan = nttm.NttPlan(spec, n, **kw)
+        if kw and len(plan.passes) != 3:
+            raise AssertionError(f"ntt edge {spec.name}: forced plan has {plan.passes}")
         x = kb.random_mont(spec, (4, spec.w16, n), gen).permute(1, 0, 2).contiguous()
         x[:, 0] = 0
         x[:, 1] = pm1
         x[:, 2] = 0
         x[:, 2, n // 2] = one[:, 0]
-        y = nttm.ntt_forward(plan, x)
-        if not torch.equal(y, nttm.ntt_forward_plain(plan, x)):
-            raise AssertionError(f"ntt edge {spec.name} n={n}: kernel != plain")
-        if y[:, 0].any():
-            raise AssertionError(f"ntt edge {spec.name} n={n}: zero row not zero")
+        for xs in (x, x[:, :, : max(1, n // 4)].contiguous()):  # full and short rows
+            y = nttm.ntt_forward(plan, xs, canon_words=True)
+            if not equal_outputs(torch, y, plain_ntt(nttm, plan, xs, True))[0]:
+                raise AssertionError(f"ntt edge {spec.name} n={n} k={xs.shape[2]} "
+                                     f"{len(plan.passes)} passes: kernel != plain")
+            if not equal_outputs(torch, nttm.ntt_forward(plan, xs), y[0])[0]:
+                raise AssertionError(f"ntt edge {spec.name} n={n}: limbs differ with words")
+            if y[0][:, 0].any() or y[1][: spec.w16 // 2].any():
+                raise AssertionError(f"ntt edge {spec.name} n={n}: zero row not zero")
     log(f"  ntt edge {spec.name} (W32={spec.w16 // 2}): n = 2, 4, {c // 2}, {c}, "
-        f"{2 * c}, 4096, 2^18 x rows zero / p-1 / delta / random: equal")
+        f"{2 * c}, 4096, 2^18 and 4096 in 3 passes x rows zero / p-1 / delta / random, "
+        f"k = n and n/4, limbs and words: equal")
 
 
 def drive(torch, P, enc, coeffs_mont, outer, inner):
@@ -353,14 +388,14 @@ def main() -> int:
             f"{ld} bytes spill loads")
     if ptxas.get(8, (None, 1, 1))[1:] != (0, 0):
         raise AssertionError(f"W32=8 kernel spills or was not reported: {ptxas.get(8)}")
-    ntt_log = cuda_build.build_logs["ntt_mont"]
-    ntt_ptxas = {k: kb.ptxas_report(ntt_log, f"ntt_{k}_kernel") for k in ("head", "tail")}
-    for k, rep in ntt_ptxas.items():
-        if sorted(rep) != [2, 4, 6, 8]:
-            raise AssertionError(f"ntt_{k}_kernel templates not reported: {rep}")
-        for w32, (regs, st, ld) in sorted(rep.items()):
-            log(f"  ptxas ntt_{k}_kernel W32={w32}: {regs} registers, {st} bytes spill "
-                f"stores, {ld} bytes spill loads{' (reported, not fatal)' if st or ld else ''}")
+    ntt_ptxas = kb.ptxas_report(cuda_build.build_logs["ntt_mont"], "ntt_pass_kernel")
+    if sorted(ntt_ptxas) != [2, 4, 6, 8]:
+        raise AssertionError(f"ntt_pass_kernel templates not reported: {ntt_ptxas}")
+    for w32, (regs, st, ld) in sorted(ntt_ptxas.items()):
+        log(f"  ptxas ntt_pass_kernel W32={w32}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
+    if ntt_ptxas[8][1:] != (0, 0):
+        raise AssertionError(f"ntt_pass_kernel W32=8 spills: {ntt_ptxas[8]}")
     loop = kb.sass_loop(spmv.SO_PATH)
     if loop is None:
         log("  SASS: cuobjdump not found, k-loop count not measured")
@@ -436,16 +471,19 @@ def main() -> int:
         f"{lenc.get_n_col_opens()} column openings, "
         f"{lenc.get_n_degree_tests()} degree test(s)")
     plan = nttm.get_ntt(spec, lenc.n_cols)
-    log("ntt kernel vs plain: tolerance 0 — exact field arithmetic, every limb equal")
+    log(f"ntt kernel vs plain: tolerance 0 — exact field arithmetic, every limb and word "
+        f"equal; passes {[dataclasses.astuple(ps) for ps in plan.passes]} (hi, lo, log_t)")
     ntt_rows = []
     xc = kb.random_mont(spec, (n_rows, spec.w16, lenc.n_per_row), gen)
     xc = xc.permute(1, 0, 2).contiguous()
-    ntt_commit = compare_ntt(torch, kb, nttm, plan, xc, "commit", ntt_rows)
-    enc_ms = kb.time_kernel(lambda: lenc.encode_rows(xc))
-    log(f"  encode_rows at the commit shape (kernel + pack/pad + unpack): {enc_ms:.4f} ms")
+    ntt_commit = compare_ntt(torch, kb, nttm, plan, xc, "commit", ntt_rows, words=True)
+    enc_ms = kb.time_kernel(lambda: lenc.encode_rows_words(xc))
+    log(f"  encode_rows_words at the commit shape (every pass, limbs and words): "
+        f"{enc_ms:.4f} ms")
     del xc
     xv = kb.random_mont(spec, (2, spec.w16, lenc.n_per_row), gen).permute(1, 0, 2)
-    ntt_verify = compare_ntt(torch, kb, nttm, plan, xv.contiguous(), "verify", ntt_rows)
+    ntt_verify = compare_ntt(torch, kb, nttm, plan, xv.contiguous(), "verify", ntt_rows,
+                             words=False)
     for field in P.ALL_FIELDS:  # every template, W32 = 2, 4, 6, 8
         ntt_edges(torch, kb, nttm, field, gen)
     torch.cuda.empty_cache()
@@ -457,8 +495,7 @@ def main() -> int:
     if lig[0]["ntt_mont"] != 2 * per_encode:
         raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 2 encodes x "
                              f"{per_encode}")
-    log(f"  ntt launches {lig[0]['ntt_mont']} (= 2 encodes x {per_encode}: "
-        f"{per_encode - 1} head stages + the tail)")
+    log(f"  ntt launches {lig[0]['ntt_mont']} (= 2 encodes x {per_encode} passes)")
     with open(os.path.join(ROOT, "tests", "data", "torch_golden_ligero.json")) as f:
         golden = json.load(f)
     genc = P.LigeroEncoding.new(spec, golden["length"], *golden["rho"])
@@ -507,15 +544,16 @@ def main() -> int:
         "equal_to_plain": True,
         "tolerance": 0,
         "shape": (f"one {size} ft255 rho=1/4 commit encode: R={ntt_commit['r']} rows of "
-                  f"{ntt_commit['k']} padded to n={ntt_commit['n']}, {per_encode} launches"),
-        "ntt_forward_ms": ntt_commit["ntt_forward_ms"],
-        "encode_rows_ms": enc_ms,
+                  f"{ntt_commit['k']} padded to n={ntt_commit['n']}, limbs and hash words, "
+                  f"{per_encode} launches"),
+        "limbs_only_ms": ntt_commit["limbs_only_ms"],
+        "encode_rows_words_ms": enc_ms,
         "verify_encode_ms": ntt_verify["ms"],
         "verify_encode_plain_ms": ntt_verify["plain_ms"],
         "verify_encode_bound_ms": ntt_verify["bound_ms"],
         "verify_encode_bound_by": ntt_verify["bound_by"],
-        "ptxas": {k: {str(w): {"registers": v[0], "spill_bytes": v[1] + v[2]}
-                      for w, v in sorted(rep.items())} for k, rep in ntt_ptxas.items()},
+        "ptxas": {str(w): {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                  for w, v in sorted(ntt_ptxas.items())},
     }]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)

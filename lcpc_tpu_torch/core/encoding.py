@@ -19,6 +19,7 @@ import abc
 import torch
 
 from ..fields.spec import FieldSpec
+from ..ops.limbs import get_ops, pack_row_words
 
 LABEL_DT = b"$l//DT"
 LABEL_PR = b"$l//PR"
@@ -59,6 +60,15 @@ class LcEncoding(abc.ABC):
 
         Input/output int32 Montgomery limbs (limb-major) on self.device.
         """
+
+    def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """encode_rows and the codeword's column-hash words: ((W, R, n_cols)
+        Montgomery limbs, (R*W/2, n_cols) canonical LE u32 words as int32
+        storage, ops.limbs.pack_row_words' layout).  This default converts
+        and packs after the encode; an encoding whose kernel writes the words
+        itself overrides it."""
+        limbs = self.encode_rows(rows)
+        return limbs, pack_row_words(get_ops(self.spec).from_mont(limbs))
 
     @abc.abstractmethod
     def encode_row_host(self, row: list[int]) -> list[int]:

@@ -31,7 +31,7 @@ from ..fs.merlin import Transcript
 from ..fs.sampling import field_random_vec, uniform_indices
 from ..ops import blake3
 from ..ops.digest import BLAKE3, DeviceDigest
-from ..ops.limbs import get_ops, limbs_to_device
+from ..ops.limbs import get_ops, limbs_to_device, pack_row_words
 from .encoding import LcEncoding
 
 
@@ -273,21 +273,23 @@ class VerifierError(Exception):
 # ---------------------------------------------------------------------------
 
 
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 storage of u32 words -> their u32 values as int64."""
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
 def _pack_words(canon: torch.Tensor) -> torch.Tensor:
     """(W, R, C) canonical limbs -> (R*W/2, C) LE u32 words (int64), row-major."""
-    w, r, c = canon.shape
-    canon = canon.to(torch.int64)
-    words = canon[0::2] | (canon[1::2] << 16)  # (W/2, R, C)
-    return words.transpose(0, 1).reshape(r * (w // 2), c)
+    return _u32(pack_row_words(canon))
 
 
-def _hash_and_merkleize(ops, comm: torch.Tensor, n_cols_np2: int,
+def _hash_and_merkleize(words: torch.Tensor, n_cols_np2: int,
                         digest: DeviceDigest = BLAKE3) -> torch.Tensor:
-    """Column digests + every Merkle layer, flattened leaves first:
-    (8, 2*np2-1) int64."""
-    words = _pack_words(ops.from_mont(comm))
-    leaves = digest.hash_word_columns(words)  # (8, n_cols)
-    n_cols = comm.shape[2]
+    """Column digests of the (R*W/2, n_cols) canonical hash words (int32
+    storage) + every Merkle layer, flattened leaves first: (8, 2*np2-1)
+    int64."""
+    n_cols = words.shape[1]
+    leaves = digest.hash_word_columns(_u32(words))  # (8, n_cols)
     if n_cols_np2 > n_cols:  # zero digests pad the leaves (lib.rs:665)
         leaves = torch.nn.functional.pad(leaves, (0, n_cols_np2 - n_cols))
     layers = [leaves]
@@ -325,9 +327,9 @@ def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
     if pad:
         arr = torch.nn.functional.pad(arr, (0, pad))
     mat = arr.reshape(ops.w, n_rows, n_per_row)
-    comm_mat = enc.encode_rows(mat)  # (W, n_rows, n_cols)
+    comm_mat, words = enc.encode_rows_words(mat)  # (W, n_rows, n_cols), hash words
     n_cols_np2 = _next_pow2(n_cols)
-    flat = _hash_and_merkleize(ops, comm_mat, n_cols_np2, digest)
+    flat = _hash_and_merkleize(words, n_cols_np2, digest)
     assert flat.shape[1] == 2 * n_cols_np2 - 1
 
     return LcCommit(

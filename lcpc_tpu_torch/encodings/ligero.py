@@ -10,7 +10,8 @@ Port of lcpc_tpu/encodings/ligero.py, which reimplements
 - encode = zero-pad the row to n_cols and apply the in-order-input,
   bit-reversed-output NTT (fft_io_pc, lib.rs:162-164): ops/ntt.ntt_forward,
   which launches the CUDA ladder on the GPU and runs its plain twin on the
-  CPU.
+  CPU; the commit's encode (`encode_rows_words`) also takes the column-hash
+  words from the NTT's last pass.
 
 The dimension formulas use f64 arithmetic in Rust; Python floats are the same
 IEEE doubles, and the operation order is kept identical.
@@ -151,15 +152,23 @@ class LigeroEncoding(LcEncoding):
     def get_n_degree_tests(self) -> int:
         return self._n_degree_tests_static(self.spec, self.n_cols)
 
-    def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
-        """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs: each
-        row zero-padded to n_cols and transformed (ntt_forward pads while it
-        packs the kernel's buffer)."""
+    def _check_rows(self, rows: torch.Tensor) -> torch.Tensor:
         w, r, npr = rows.shape
         if npr != self.n_per_row or w != self.ops.w:
             raise ValueError(f"rows must be ({self.ops.w}, R, {self.n_per_row}), "
                              f"got {tuple(rows.shape)}")
-        return ntt_forward(get_ntt(self.spec, self.n_cols), rows)
+        return rows
+
+    def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs: each
+        row zero-padded to n_cols and transformed (the NTT's first pass reads
+        only the n_per_row columns)."""
+        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows))
+
+    def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """encode_rows with the hash words written by the NTT's last pass."""
+        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
+                           canon_words=True)
 
     def encode_row_host(self, row: list[int]) -> list[int]:
         assert len(row) <= self.n_cols

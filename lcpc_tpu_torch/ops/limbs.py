@@ -341,6 +341,16 @@ def get_ops(spec: FieldSpec) -> FieldOps:
     return FieldOps(spec)
 
 
+def pack_row_words(canon: torch.Tensor) -> torch.Tensor:
+    """(W, R, C) canonical limbs -> (R*W/2, C) LE u32 hash words as int32
+    storage, row-major: word r*W/2 + i of column c is limbs 2i | 2i+1 << 16
+    of (r, c).  A word with its top bit set is negative as int32 (torch
+    shifts the int32 bit pattern); mask with 0xFFFFFFFF to read it."""
+    w, r, c = canon.shape
+    words = canon[0::2] | (canon[1::2] << 16)  # (W/2, R, C)
+    return words.transpose(0, 1).reshape(r * (w // 2), c)
+
+
 def limbs_to_device(arr: np.ndarray, device) -> torch.Tensor:
     """Host uint32 16-bit limb array -> int32 tensor on `device`."""
     return torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)).to(device)

@@ -6,7 +6,9 @@ ft255, BLAKE3 at N = 2^23 (the chip_smoke.py size): Brakedown CODE3
 (sdig, the default) or Ligero rho = 1/4 (ligero).
 After one warm-up commit -> prove -> verify it reports:
   - stage times (host clock around synchronized work, median of 3) for the
-    pieces of commit (encode, from_mont, pack, column hash, Merkle layers),
+    pieces of commit (sdig: encode, from_mont, pack; ligero: the encode
+    with its hash words from the NTT, their u32 form; then the column hash
+    and the Merkle layers),
     prove (device collapse, everything else) and verify (row encode, the
     opened columns' hash, eval dot, everything else);
   - per phase, a torch.profiler trace: wall ms, device-busy ms (sum of GPU
@@ -130,9 +132,16 @@ def main() -> int:
     # commit stages
     stages = {}
     mat = comm.coeffs
-    cw, stages["commit.encode_rows"] = timed(lambda: enc.encode_rows(mat))
-    canon_cw, stages["commit.from_mont"] = timed(lambda: ops.from_mont(cw))
-    words, stages["commit.pack_words"] = timed(lambda: protocol._pack_words(canon_cw))
+    if path == "sdig":  # encode_rows_words' default: encode, from_mont, pack
+        cw, stages["commit.encode_rows"] = timed(lambda: enc.encode_rows(mat))
+        canon_cw, stages["commit.from_mont"] = timed(lambda: ops.from_mont(cw))
+        words, stages["commit.pack_words"] = timed(lambda: protocol._pack_words(canon_cw))
+        del canon_cw
+    else:  # the NTT's last pass writes the hash words
+        (cw, words32), stages["commit.encode_rows_words"] = timed(
+            lambda: enc.encode_rows_words(mat))
+        words, stages["commit.words_to_u32"] = timed(lambda: protocol._u32(words32))
+        del words32
     leaves, stages["commit.hash_columns"] = timed(lambda: blake3.hash_word_columns(words))
     np2 = protocol._next_pow2(comm.n_cols)
     padded = torch.nn.functional.pad(leaves, (0, np2 - comm.n_cols))
@@ -145,7 +154,7 @@ def main() -> int:
 
     _, stages["commit.merkle_layers"] = timed(merkle)
     _, stages["commit.total"] = timed(lambda: P.commit(coeffs, enc))
-    del cw, canon_cw, words
+    del cw, words
 
     # prove stages: the degree-test + eval collapse on the device
     ts = torch.from_numpy(

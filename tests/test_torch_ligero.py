@@ -29,7 +29,7 @@ from lcpc_tpu.ops.digest import DIGESTS_BY_NAME as J_DIGESTS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 import lcpc_tpu_torch as P
 from lcpc_tpu_torch.encodings.ligero import LigeroEncoding
-from lcpc_tpu_torch.ops.limbs import limbs_to_device
+from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
 from lcpc_tpu_torch.utils.tensors import seeded_values
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_golden_ligero.json")
@@ -119,6 +119,27 @@ def test_encode_rows_matches_host_twin_ft255():
     for r, row in enumerate(rows):
         assert jops.decode_host(got[:, r].numpy()) == jenc.encode_row_host(row)
         assert enc.encode_row_host(row) == jenc.encode_row_host(row)
+
+
+@pytest.mark.parametrize("spec", [P.FT63, P.FT255], ids=lambda s: s.name)
+def test_default_encode_rows_words_matches_ligero(spec):
+    # the LcEncoding default (encode_rows, from_mont, pack) and Ligero's
+    # override (the NTT's words) give the same limbs and words, and the words
+    # are the codeword's canonical values (tests/test_torch_ntt.py holds them
+    # to lcpc_tpu's _canon_pack_fn)
+    _, x = _rows(spec, 3, 64, seed=13)
+    enc = LigeroEncoding.new_from_dims(spec, 64, 256, 1, 4, device="cpu")
+    rows = limbs_to_device(x, "cpu")
+    limbs, words = enc.encode_rows_words(rows)
+    d_limbs, d_words = P.LcEncoding.encode_rows_words(enc, rows)
+    assert torch.equal(limbs, d_limbs) and torch.equal(words, d_words)
+    assert torch.equal(limbs, enc.encode_rows(rows))
+    # word r*W/2 + i of column c: the canonical value's LE u32 words
+    u = words.numpy().view(np.uint32)
+    w32 = spec.w16 // 2
+    for r in range(3):
+        got = [sum(int(u[w32 * r + i, c]) << (32 * i) for i in range(w32)) for c in range(256)]
+        assert got == get_ops(spec).decode_host(limbs[:, r])
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 vectors in all four fields, the twiddle tables carried across as numpy, the
 plain PyTorch ladder against lcpc_tpu's jitted ladder at ft63 (its ft255
 graph compiles for minutes on XLA:CPU) and against the host twin at ft255,
-the inverse, the kernel's packed layout and twiddle table, and the
-wrapper's contract on CPU tensors.  The CUDA kernel itself runs only on the
-GPU: chip_smoke.py holds it against ntt_forward_plain there, limb for limb.
+the inverse, the kernel's twiddle table, its pass plan and the pass-grouped
+plain ladder (the kernel's tile and butterfly index arithmetic), the hash
+words of its last pass, and the wrapper's contract on CPU tensors.  The
+CUDA kernel itself runs only on the GPU: chip_smoke.py holds it against
+ntt_forward_plain there, limb for limb and word for word.
 Tolerance is 0 throughout: exact field arithmetic."""
 
 import random
@@ -15,11 +17,12 @@ import torch
 
 from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops import ntt as jntt
+from lcpc_tpu.core import protocol as jproto
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.encodings.ligero import LigeroEncoding
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63, FT255
 from lcpc_tpu_torch.ops import ntt
-from lcpc_tpu_torch.ops.limbs import get_ops
+from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words
 
 
 def _vals(spec, n, seed):
@@ -190,16 +193,22 @@ def test_kernel_table_layout(spec):
 
 
 def test_pack_rows_round_trip():
-    # all-0xFFFF limbs (every word negative as int32), zero padding to n
+    # the hash words of the NTT's last pass: all-0xFFFF limbs (every word
+    # negative as int32), word r*W32 + i of column c, and back to limbs
     spec = FT255
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.integers(0, 1 << 16, (spec.w16, 3, 20)).astype(np.int32))
     x[:, 0] = 0xFFFF
-    buf = ntt.pack_rows(x, 32)
-    assert buf.shape == (3, 32, 8) and buf.is_contiguous() and int(buf.min()) < 0
-    assert not buf[:, 20:].any()
-    back = ntt.unpack_rows(buf)
-    assert torch.equal(back[:, :, :20], x) and not back[:, :, 20:].any()
+    words = pack_row_words(x)
+    assert words.shape == (3 * 8, 20) and words.dtype == torch.int32
+    assert int(words[:8].max()) == -1
+    u = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    for r, c in ((0, 0), (1, 7), (2, 19)):
+        limbs = [int(v) for v in x[:, r, c]]
+        assert [int(v) for v in u[8 * r:8 * r + 8, c]] == [
+            limbs[2 * i] | limbs[2 * i + 1] << 16 for i in range(8)]
+    back = np.stack([u & 0xFFFF, u >> 16], axis=1).reshape(3, 16, 20).transpose(1, 0, 2)
+    assert np.array_equal(back, x.numpy())
 
 
 def test_wrapper_on_cpu_takes_plain_without_counting():
@@ -208,10 +217,13 @@ def test_wrapper_on_cpu_takes_plain_without_counting():
     x = _limbs(spec, [_vals(spec, 50, seed=6)])
     before = ntt.ntt_forward.launches
     got = ntt.ntt_forward(plan, x)
+    got2, words = ntt.ntt_forward(plan, x, canon_words=True)
     assert ntt.ntt_forward.launches == before
-    assert torch.equal(got, ntt.ntt_forward_plain(plan, x))
-    with pytest.raises(ValueError, match="CUDA"):
-        ntt.ntt_packed_(plan, ntt.pack_rows(x, 64))
+    want = ntt.ntt_forward_plain(plan, x)
+    assert torch.equal(got, want) and torch.equal(got2, want)
+    assert torch.equal(words, pack_row_words(get_ops(spec).from_mont(want)))
+    with pytest.raises(ValueError, match="device"):
+        ntt.ntt_forward(plan, x.to("meta"))
     assert ntt.ntt_forward.launches == before
 
 
@@ -228,14 +240,121 @@ def test_wrapper_rejects_bad_operands():
         ntt.NttPlan(FT63, 48)
     with pytest.raises(ValueError):
         ntt.NttPlan(FT255, 1 << (FT255.s + 1))
+    with pytest.raises(ValueError):  # T wider than the head passes' stride
+        ntt.plan_passes(12, 8, log_chunk=3, log_t=4)
+    with pytest.raises(ValueError):  # more shared memory than a block has
+        ntt.plan_passes(14, 8, log_chunk=13)
 
 
 def test_launch_count_per_call():
-    # one launch per head stage (m >= C = 1024), one for the tail
-    assert ntt.get_ntt(FT255, 1 << 17).launches_per_call == 8
+    # one launch per pass: 7 head stages in one shared-memory pass, then the
+    # 1,024-element chunks; n <= 1,024 is one pass
+    assert ntt.get_ntt(FT255, 1 << 17).launches_per_call == 2
     assert ntt.get_ntt(FT255, 2048).launches_per_call == 2
     assert ntt.get_ntt(FT63, 1024).launches_per_call == 1
     assert ntt.get_ntt(FT63, 2).launches_per_call == 1
+    assert ntt.plan_passes(17, 8) == (ntt.NttPass(16, 10, 3), ntt.NttPass(9, 0, 0))
+    assert ntt.plan_passes(20, 8) == (ntt.NttPass(19, 15, 3), ntt.NttPass(14, 10, 3),
+                                      ntt.NttPass(9, 0, 0))
+
+
+# ---- the kernel's pass plan and the pass-grouped plain ladder ----------------------
+
+
+@pytest.mark.parametrize("spec", ALL_FIELDS, ids=lambda s: s.name)
+def test_plan_passes_cover_the_ladder(spec):
+    # every n from 2 to the 2-adicity cap: every stage exactly once, in
+    # ladder order; shared memory within a block's; T contiguous residues
+    w32 = spec.w16 // 2
+    for log_n in range(1, spec.s + 1):
+        passes = ntt.plan_passes(log_n, w32)
+        stages = [s for ps in passes for s in range(ps.hi, ps.lo - 1, -1)]
+        assert stages == list(range(log_n - 1, -1, -1)), log_n
+        assert passes[-1].lo == 0 and passes[-1].log_t == 0
+        assert passes[-1].log_tile == min(log_n, ntt.LOG_CHUNK)
+        assert len(passes) <= 1 + -(-max(0, log_n - ntt.LOG_CHUNK) // 8)
+        for ps in passes:
+            assert ps.smem_bytes(w32) <= 232448
+            assert ps.log_t <= ps.lo and ps.log_tile <= log_n
+            assert 32 <= ps.threads(1 << 20) <= 256 and 32 <= ps.threads(1) <= 256
+            if log_n <= 16:  # the tiles of a row partition it
+                idx = ps.tile_indices(log_n)
+                assert np.array_equal(np.sort(idx.ravel()), np.arange(1 << log_n))
+                # T consecutive residues per group row
+                t_n = 1 << ps.log_t
+                assert np.all(np.diff(idx.reshape(-1, t_n), axis=1) == 1)
+
+
+_FORCED_3 = dict(log_chunk=8, max_tile_bytes=512)  # ft63 n = 4096: 2 + 2 + 8 stages
+
+
+@pytest.mark.parametrize("n,kw", [(2, {}), (64, {}), (1024, {}), (4096, {}), (4096, _FORCED_3)],
+                         ids=["2", "64", "1024", "4096", "4096-3-passes"])
+def test_passes_plain_matches_reference_ladder_ft63(n, kw):
+    spec = FT63
+    plan = ntt.NttPlan(spec, n, **kw)
+    if kw:
+        assert len(plan.passes) == 3
+    # three rows: the reference ladder's shapes of test_plain_matches_reference_ladder_ft63
+    rows = [_vals(spec, n, seed=300 + n), [0] * n, [spec.p - 1] * n]
+    x = _limbs(spec, rows)
+    want = np.asarray(jntt.get_ntt(J_FIELDS[spec.name], n)(x.numpy().astype(np.uint32)))
+    got = ntt.ntt_forward_passes_plain(plan, x)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, ntt.ntt_forward_plain(plan, x))
+
+
+@pytest.mark.parametrize("n,kw", [(2, {}), (2048, {}), (2048, dict(log_chunk=6, log_t=2,
+                                                                    max_tile_bytes=1024))],
+                         ids=["2", "2048", "2048-3-passes"])
+def test_passes_plain_matches_host_ft255(n, kw):
+    # rows of 0, of p-1, a delta, random, and short rows zero-padded
+    spec = FT255
+    plan = ntt.NttPlan(spec, n, **kw)
+    delta = [0] * n
+    delta[n // 2] = 1
+    full = [[0] * n, [spec.p - 1] * n, delta, _vals(spec, n, seed=n + 1)]
+    got = _decode(spec, ntt.ntt_forward_passes_plain(plan, _limbs(spec, full)))
+    assert got == [ntt.ntt_host(spec, row) for row in full]
+    k = max(1, n // 4)
+    short = [_vals(spec, k, seed=n + 2), [spec.p - 1] * k]
+    got = _decode(spec, ntt.ntt_forward_passes_plain(plan, _limbs(spec, short)))
+    assert got == [ntt.ntt_host(spec, row + [0] * (n - k)) for row in short]
+
+
+@pytest.mark.parametrize("n", [64, 1024])
+def test_words_match_reference_canon_pack_ft63(n):
+    # short rows (zero-padded), p-1 and a delta; three rows, so the reference
+    # ladder reuses the shapes compiled above
+    spec = FT63
+    js = J_FIELDS[spec.name]
+    k = n * 3 // 4
+    delta = [0] * k
+    delta[1] = 1
+    x = _limbs(spec, [_vals(spec, k, seed=400 + n), [spec.p - 1] * (n // 2) + [0] * (k - n // 2),
+                      delta])
+    y = np.asarray(jntt.get_ntt(js, n)(np.pad(x.numpy(), ((0, 0), (0, 0), (0, n - k)))
+                                       .astype(np.uint32)))
+    want = np.asarray(jproto._canon_pack_fn(j_get_ops(js))(y)).astype(np.uint32)
+    limbs, words = ntt.ntt_forward(ntt.get_ntt(spec, n), x, canon_words=True)
+    assert np.array_equal(limbs.numpy(), y)
+    assert words.shape == (3 * 2, n) and words.dtype == torch.int32
+    assert np.array_equal(words.numpy().view(np.uint32), want)
+
+
+def test_words_match_host_ft255():
+    # the canonical value of column c of row r is words r*8 .. r*8+7, LE;
+    # values near p have words with the top bit set
+    spec, n = FT255, 256
+    rows = [_vals(spec, n, seed=41), [spec.p - 1] * 100]
+    _, words = ntt.ntt_forward(ntt.get_ntt(spec, n), _limbs(spec, [rows[0], rows[1] + [0] * 156]),
+                               canon_words=True)
+    u = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    assert int(words.min()) < 0
+    for r, row in enumerate(rows):
+        want = ntt.ntt_host(spec, row + [0] * (n - len(row)))
+        got = [sum(int(u[8 * r + i, c]) << (32 * i) for i in range(8)) for c in range(n)]
+        assert got == want
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
