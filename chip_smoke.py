@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure:
+Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build both CUDA kernels from the checkout, one nvcc each, started
-     together (csrc/spmv_mont.cu, csrc/ntt_mont.cu); print ptxas's registers
-     and spills per template (fatal if either kernel's W32 = 8 spills) and
-     the SASS instruction count of the SpMV's W32 = 8 k loop per wide product
+  2. build the three CUDA kernel sources from the checkout, one nvcc each,
+     started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
+     csrc/blake3_cols.cu); print ptxas's registers and spills per template
+     (fatal if the SpMV's or the NTT's W32 = 8 spills) and the SASS
+     instruction count of the SpMV's W32 = 8 k loop per wide product
      (cuobjdump);
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
@@ -22,20 +23,46 @@ Phases, each fatal on failure:
      counted) and 3 times warm (median ms); check the evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
+     then commit_streaming the same coefficients (its encode launches the
+     SpMV) and hold its root and proof bytes to the in-memory ones;
   5. hold the NTT kernel's two outputs against its plain PyTorch version
      (ntt_forward_plain, then from_mont and the hash-word pack), limb for
      limb and word for word, at the 2^23 Ligero commit shape (ft255, R = 256
      rows of 32,768 padded to n = 2^17, limbs and words), at the verify shape
-     (R = 2, limbs) and on edge cases in each of the four fields (n = 2, 4,
-     C/2, C, 2C, 2^12, 2^18 and a 2^12 plan forced to 3 passes, with rows all
-     zero, all p-1, a delta and random); time each whole call (every pass)
-     and the plain version against the bound of the non-trivial butterflies,
-     the hash words' reductions and the bytes;
+     (R = 2, limbs), at n = 2^19 (2 rows: limbs, and the words-only last
+     pass) and on edge cases in each of the four fields (n = 2, 4, C/2, C,
+     2C, 2^12, 2^18 and a 2^12 plan forced to 3 passes, with rows all zero,
+     all p-1, a delta and random); time each whole call (every pass) and the
+     plain version against the bound of the non-trivial butterflies, the hash
+     words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
      phase 4 (one cold run with the launches counted, 3 warm), with the
      evaluation and tamper checks; reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
-  7. print the kernel table line, then the result line.
+  7. hold the BLAKE3 kernels (blake3_chunks, blake3_parents) against their
+     plain versions, word for word: the 2^23 Ligero commit's columns (2,048
+     words x 131,072), the 2^28 commit's column length (16,384 words) over
+     4,096 columns, 189 columns of both lengths, edge lengths (1, 8, 248,
+     504, 760, 2,040 words; a few columns also against the host hash),
+     streaming updates with carries of 0, 8 and 255 words, and Merkle trees
+     of 2^17 and 2^19 leaves; time each against its bound;
+  8. the streaming commit against the in-memory one at 2^26 (Ligero ft255
+     rho = 1/4, 1,024 x 65,536 coefficients, 262,144 columns): equal roots
+     and proof bytes with (a) unpacked coefficients on the card in 128-row
+     blocks, the words kept on the card, (b) a HostCoeffSource with the words
+     spilled to host RAM, (c) packed coefficients and no words kept (prove
+     re-encodes the blocks);
+  9. the slice's path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
+     131,072 coefficients (packed on the card, made from the seed), 524,288
+     columns: commit_streaming (spill="auto") -> prove -> verify once cold
+     with the launches counted, then warm runs (median ms, peak memory, proof
+     bytes); the evaluation against one computed on the card in the other
+     association order (rows against the inner tensor first, plain
+     FieldOps); tampered proofs; the retained words hashed in memory equal
+     to the streamed leaves (and the kernels timed at that shape); one row
+     block of the encode, words only, against the NTT's limbs-and-words
+     call and the plain version;
+  10. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -65,7 +92,21 @@ HBM_BYTES_PER_S = 3.35e12
 # 33.5 T ops/s counting a multiply-add as 2 ops -> 16.75e12 IMAD/s; a
 # 32x32 -> 64-bit product takes two (low and high halves)
 WIDE_PRODUCTS_PER_S = 16.75e12 / 2
+# a BLAKE3 compression: 7 rounds x 8 G x 12 integer instructions (2 three-
+# input adds, 2 adds, 4 xors, 4 rotates) + 8 output xors, at the same rate
+INT_OPS_PER_S = 16.75e12
+BLAKE3_OPS = 7 * 8 * 12 + 8
+B3_COMMIT = (2048, 131072)  # phase 7: words x columns of the 2^23 Ligero commit
+B3_LONG = (16384, 4096)     # phase 7: the 2^28 commit's column length, 4,096 columns
+B3_OPENED = 189             # phase 7: verify's opened columns
+MERKLE_LOGS = (17, 19)      # phase 7: Merkle trees of the 2^23 and 2^28 commits
+LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
+N_STREAM = 1 << 26   # phase 8: streaming against the in-memory commit
+N_BIG = 1 << 28      # phase 9: the slice's path
+BIG_WARM = 3         # warm runs of phase 9 (fewer when the time limit nears)
+BIG_WARM_DEADLINE_S = 900  # no warm run of phase 9 starts after this
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 
 def log(*a):
@@ -102,6 +143,45 @@ def bound_ms(nbytes, products):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = products / WIDE_PRODUCTS_PER_S * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
+
+
+class Phase:
+    """Prints a phase's name when made and, at done() (or the end of its
+    with block), the seconds it took."""
+
+    def __init__(self, name):
+        self.name, self.t0 = name, time.perf_counter()
+        log(f"== phase {name}")
+
+    def done(self):
+        log(f"== phase {self.name}: {time.perf_counter() - self.t0:.1f} s "
+            f"(run {time.perf_counter() - T_START:.1f} s)")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            self.done()
+
+
+def hash_cost(n_words, n_cols):
+    """(bytes, compressions) of hashing n_cols columns of n_words words
+    behind the 8-word prefix: blake3_chunks reads each word once and writes
+    each chunk's CV (32 bytes), one compression per 64-byte block;
+    merge_chunk_cvs reads the CVs and writes the 64-byte (int64) digests,
+    one compression per parent (n_chunks - 1 a column)."""
+    total = 8 + n_words
+    n_chunks = -(-total // 256)
+    k1 = (4 * n_words * n_cols + 32 * n_chunks * n_cols, -(-total // 16) * n_cols)
+    k2 = (32 * n_chunks * n_cols + 64 * n_cols, (n_chunks - 1) * n_cols)
+    return k1, k2
+
+
+def hash_bound_ms(nbytes, compressions):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = compressions * BLAKE3_OPS / INT_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_host(torch, fn):
@@ -188,7 +268,7 @@ def edge_levels(torch, kb, spmv, spec, gen):
 
 
 def plain_ntt(nttm, plan, x, words):
-    """The plain version of ntt_forward(plan, x, canon_words=words)."""
+    """The plain version of ntt_forward(plan, x), with the words if `words`."""
     from lcpc_tpu_torch.ops.limbs import pack_row_words
 
     y = nttm.ntt_forward_plain(plan, x)
@@ -208,13 +288,14 @@ def compare_ntt(torch, kb, nttm, plan, x, tag, rows, words):
     `words`, the hash words; times the whole ntt_forward call (every pass)
     and the plain version; returns the shape's record."""
     spec = plan.spec
-    got = nttm.ntt_forward(plan, x, canon_words=words)
+    output = "both" if words else "limbs"
+    got = nttm.ntt_forward(plan, x, output=output)
     want, plain_ms = time_host(torch, lambda: plain_ntt(nttm, plan, x, words))
     ok, err = equal_outputs(torch, got, want)
     if not ok:
         raise AssertionError(f"ntt {tag}: kernel != plain (max err {err})")
     del got, want
-    ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x, canon_words=words))
+    ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x, output=output))
     limbs_ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x)) if words else ms
     r, k = x.shape[1], x.shape[2]
     nbytes, products, butterflies = ntt_cost(spec, r, k, plan.n, words)
@@ -256,7 +337,7 @@ def ntt_edges(torch, kb, nttm, spec, gen):
         x[:, 2] = 0
         x[:, 2, n // 2] = one[:, 0]
         for xs in (x, x[:, :, : max(1, n // 4)].contiguous()):  # full and short rows
-            y = nttm.ntt_forward(plan, xs, canon_words=True)
+            y = nttm.ntt_forward(plan, xs, output="both")
             if not equal_outputs(torch, y, plain_ntt(nttm, plan, xs, True))[0]:
                 raise AssertionError(f"ntt edge {spec.name} n={n} k={xs.shape[2]} "
                                      f"{len(plan.passes)} passes: kernel != plain")
@@ -272,12 +353,7 @@ def ntt_edges(torch, kb, nttm, spec, gen):
 def drive(torch, P, enc, coeffs_mont, outer, inner):
     """commit -> prove -> verify through the public entry points; returns
     (comm, proof, value, (commit, prove, verify) ms, the transcript maker)."""
-    def transcript(root):
-        tr = P.Transcript(b"chip smoke")
-        tr.append_message(b"polycommit", root)
-        tr.append_message(b"ncols", enc.get_n_col_opens().to_bytes(8, "big"))
-        return tr
-
+    transcript = transcript_for(P, enc)
     comm, c_ms = time_host(torch, lambda: P.commit(coeffs_mont, enc))
     root = comm.get_root()
     proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
@@ -291,7 +367,7 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     count set to 0 just before and read just after (the kernels in
     `path_kernels` must have launched, the others not), then REPS warm runs.
     Checks the evaluation and the tamper kinds; returns (launches, cold ms,
-    warm ms, median ms, peak GiB, proof bytes)."""
+    warm ms, median ms, peak GiB, proof bytes, root, the proof)."""
     spec = enc.spec
     n_rows = -(-N_COEFFS // enc.n_per_row)
     outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
@@ -313,28 +389,15 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  n_rows {comm.n_rows}, n_per_row {comm.n_per_row}, n_cols {comm.n_cols}, "
         f"proof {len(data)} bytes, peak device memory {peak:.2f} GiB")
-    for what, kind_want in (("column", "ColumnDegree"), ("path", "ColumnPath")):
-        bad = P.wire.deserialize_proof(spec, data)
-        if what == "column":
-            bad.columns[0].col_mont[0, 0] ^= 1
-        else:
-            bad.columns[5].path[2] = bytes(32)
-        try:
-            bad.verify(root, outer, inner, enc, transcript(root))
-        except P.VerifierError as e:
-            if e.kind != kind_want:
-                raise AssertionError(f"tampered {what}: {e.kind} != {kind_want}")
-            log(f"  tampered {what}: VerifierError({e.kind!r})")
-        else:
-            raise AssertionError(f"tampered {what} verified")
-    del comm, proof, bad
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag)
+    del comm, proof
     warm = [drive(torch, P, enc, coeffs_mont, outer, inner)[3] for _ in range(REPS)]
     med = [statistics.median(t[i] for t in warm) for i in range(3)]
     size = f"2^{N_COEFFS.bit_length() - 1}"
     for i, name in enumerate(("commit", "prove", "verify")):
         log(f"{tag}_{name}_ms_median_{size}_ft255: {med[i]:.1f} "
             f"(warm runs {[round(t[i], 1) for t in warm]}; {card})")
-    return launches, cold, warm, med, peak, len(data)
+    return launches, cold, warm, med, peak, len(data), root, data
 
 
 def golden_run(torch, P, enc, spec, golden, digest):
@@ -353,6 +416,378 @@ def golden_run(torch, P, enc, spec, golden, digest):
     return root, P.wire.serialize_proof(spec, comm.prove(outer, tr))
 
 
+def tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag):
+    """A flipped column limb fails with ColumnDegree, a zeroed path node
+    with ColumnPath."""
+    for what, kind_want in (("column", "ColumnDegree"), ("path", "ColumnPath")):
+        bad = P.wire.deserialize_proof(spec, data)
+        if what == "column":
+            bad.columns[0].col_mont[0, 0] ^= 1
+        else:
+            bad.columns[5].path[2] = bytes(32)
+        try:
+            bad.verify(root, outer, inner, enc, transcript(root))
+        except P.VerifierError as e:
+            if e.kind != kind_want:
+                raise AssertionError(f"{tag} tampered {what}: {e.kind} != {kind_want}")
+            log(f"  {tag} tampered {what}: VerifierError({e.kind!r})")
+        else:
+            raise AssertionError(f"{tag} tampered {what} verified")
+
+
+def transcript_for(P, enc):
+    def transcript(root):
+        tr = P.Transcript(b"chip smoke")
+        tr.append_message(b"polycommit", root)
+        tr.append_message(b"ncols", enc.get_n_col_opens().to_bytes(8, "big"))
+        return tr
+    return transcript
+
+
+def random_packed_coeffs(torch, spec, n, gen, block=1 << 26):
+    """n random field elements (< p) as packed (W/2, n) int32 words on the
+    card, made in blocks from `gen`: random 16-bit limbs with the top one
+    below p's, which is also a valid Montgomery form as it is."""
+    w32 = spec.w16 // 2
+    top = spec.p >> (16 * (spec.w16 - 1))
+    out = torch.empty((w32, n), dtype=torch.int32, device="cuda")
+    for i0 in range(0, n, block):
+        i1 = min(n, i0 + block)
+        out[:, i0:i1] = torch.randint(-2**31, 2**31, (w32, i1 - i0), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+        hi = torch.randint(0, top, (i1 - i0,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        out[-1, i0:i1] = (out[-1, i0:i1] & 0xFFFF) | (hi << 16)
+    return out
+
+
+def max_err(torch, got, want):
+    """Largest |difference| of two word tensors read as u32 values."""
+    if got.numel() == 0:
+        return 0
+    g = got.to(torch.int64) & 0xFFFFFFFF
+    w = want.to(torch.int64) & 0xFFFFFFFF
+    return int((g - w).abs().max().item())
+
+
+def blake3_phase(torch, kb, b3, gen):
+    """Phase 7: both BLAKE3 kernels against their plain versions, word for
+    word, and timed against their bounds.  Returns the records."""
+    import numpy as np
+    from lcpc_tpu_torch.core.streaming import StreamingColumnHasher
+
+    def words(n, c):
+        return torch.randint(-2**31, 2**31, (n, c), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    recs, errs = {}, [0]
+
+    def check(tag, got, want):
+        err = max_err(torch, got, want)
+        errs[0] = max(errs[0], err)
+        if err or not torch.equal(got.to(torch.int64) & 0xFFFFFFFF,
+                                  want.to(torch.int64) & 0xFFFFFFFF):
+            raise AssertionError(f"blake3 {tag}: kernel != plain (max err {err})")
+
+    def columns(tag, w, host_cols=0, timed=False):
+        n_words, n_cols = w.shape
+        n_chunks = -(-(8 + n_words) // 256)
+        final_len = 8 + n_words - 256 * (n_chunks - 1)
+        root = n_chunks == 1
+        cvs = torch.empty((n_chunks, 8, n_cols), dtype=torch.int64 if root else torch.int32,
+                          device="cuda")
+        b3.blake3_chunks(w, cvs, final_len=final_len, root=root)
+        cvs_p, k1_plain = time_host(torch, lambda: b3.blake3_chunks_plain(
+            w, None, 8, 0, n_chunks, final_len, root))
+        check(f"{tag} chunks", cvs, cvs_p)
+        if root:
+            leaves, leaves_p, k2_plain = cvs[0], cvs_p[0], 0.0
+        else:
+            leaves = b3.merge_chunk_cvs(cvs)
+            leaves_p, k2_plain = time_host(torch, lambda: b3.merge_chunk_cvs_plain(cvs_p))
+            check(f"{tag} chunk tree", leaves, leaves_p)
+        check(f"{tag} hash_word_columns", b3.hash_word_columns(w), leaves_p)
+        if host_cols:
+            u = w[:, :host_cols].cpu().numpy().view(np.uint32)
+            got = b3.digests_to_bytes(leaves[:, :host_cols])
+            for c in range(host_cols):
+                if bytes(got[c]) != b3.blake3(bytes(32) + u[:, c].astype("<u4").tobytes()):
+                    raise AssertionError(f"blake3 {tag}: column {c} != the host hash")
+        rec = {"n_words": n_words, "n_cols": n_cols, "n_chunks": n_chunks}
+        if timed:
+            (k1_b, k1_c), (k2_b, k2_c) = hash_cost(n_words, n_cols)
+            k1_ms = kb.time_kernel(lambda: b3.blake3_chunks(w, cvs, final_len=final_len))
+            k2_ms = kb.time_kernel(lambda: b3.merge_chunk_cvs(cvs))
+            rec.update(k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_compressions=k1_c, k1_bytes=k1_b,
+                       k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_compressions=k2_c, k2_bytes=k2_b,
+                       k2_launches=(n_chunks - 1).bit_length())
+            rec["k1_bound_ms"], rec["k1_bound_by"] = hash_bound_ms(k1_b, k1_c)
+            rec["k2_bound_ms"], rec["k2_bound_by"] = hash_bound_ms(k2_b, k2_c)
+            log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
+                f"equal; blake3_chunks {k1_ms:.4f} ms (plain {k1_plain:.1f} ms, bound "
+                f"{rec['k1_bound_ms']:.4f} ms, {rec['k1_bound_by']}; {k1_c} compressions), "
+                f"chunk tree {k2_ms:.4f} ms in {rec['k2_launches']} blake3_parents launches "
+                f"(plain {k2_plain:.1f} ms, bound {rec['k2_bound_ms']:.4f} ms, "
+                f"{rec['k2_bound_by']})")
+        else:
+            log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
+                f"equal{f', {host_cols} columns equal to the host hash' if host_cols else ''}")
+        recs[tag] = rec
+
+    log("blake3 kernels vs plain: tolerance 0 — every digest word equal")
+    columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True)
+    columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True)
+    columns("2^23 verify (189 columns)", words(B3_COMMIT[0], B3_OPENED))
+    columns("2^28 verify (189 columns)", words(B3_LONG[0], B3_OPENED))
+    for n_words in (1, 8, 248, 504, 760, 2040):
+        columns(f"edge {n_words}", words(n_words, 300), host_cols=2)
+    for lens in ((248, 256, 256), (256, 256, 256), (247, 257)):
+        w = words(sum(lens), 1000)
+        h = StreamingColumnHasher(1000, 8 + sum(lens), "cuda")
+        carries, r0 = [], 0
+        for n in lens:
+            h.update(w[r0 : r0 + n])
+            carries.append(h.buf_len)
+            r0 += n
+        check(f"stream {lens}", h.finalize(), b3.hash_word_columns_plain(w))
+        log(f"  blake3 streaming updates of {lens} words (carries {carries[:-1]}): equal "
+            f"to the one-shot plain hash")
+
+    def tree(layer, fn):
+        out = [layer]
+        while out[-1].shape[1] > 1:
+            out.append(fn(out[-1]))
+        return torch.cat(out, dim=1)
+
+    for log_n in MERKLE_LOGS:
+        leaves = torch.randint(0, 2**32, (8, 1 << log_n), generator=gen, device="cuda",
+                               dtype=torch.int64)
+        got = tree(leaves, b3.merkle_layer)
+        want, plain_ms = time_host(torch, lambda: tree(leaves, b3.merkle_layer_plain))
+        check(f"merkle 2^{log_n}", got, want)
+        ms = kb.time_kernel(lambda: tree(leaves, b3.merkle_layer))
+        n = 1 << log_n
+        bound, by = hash_bound_ms(64 * n + 64 * (n - 1), n - 1)
+        recs[f"merkle {log_n}"] = {"leaves": n, "launches": log_n, "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        log(f"  blake3 merkle tree of 2^{log_n} leaves: equal; {log_n} blake3_parents "
+            f"launches {ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound:.4f} ms, {by})")
+    recs["max_abs_err"] = errs[0]
+    return recs
+
+
+def ntt_2_19(torch, kb, nttm, spec, gen, ntt_rows):
+    """Phase 5's n = 2^19 cases: 2 rows of 2^17 (the 2^28 verify shape),
+    limbs, and the words-only last pass against the plain words."""
+    log_n = LOG_N_VERIFY_BIG
+    plan = nttm.get_ntt(spec, 1 << log_n)
+    x = kb.random_mont(spec, (2, spec.w16, 1 << (log_n - 2)), gen).permute(1, 0, 2).contiguous()
+    rec = compare_ntt(torch, kb, nttm, plan, x, f"n=2^{log_n} verify", ntt_rows, words=False)
+    only = nttm.ntt_forward(plan, x, output="words")
+    if not equal_outputs(torch, only, plain_ntt(nttm, plan, x, True)[1])[0]:
+        raise AssertionError(f"ntt n=2^{log_n}: words-only pass != plain words")
+    ms = kb.time_kernel(lambda: nttm.ntt_forward(plan, x, output="words"))
+    log(f"  ntt n=2^{log_n} words only (output='words'): equal to the plain words, {ms:.4f} ms")
+    return rec
+
+
+def device_eval(torch, ops, mat, outer, inner, rb):
+    """Σ_r outer[r] (Σ_j inner[j] c[r, j]) on the card with plain FieldOps,
+    rows against the inner tensor first, in row blocks: mat is the packed
+    (W/2, R, n_per_row) Montgomery coefficient matrix."""
+    import numpy as np
+    from lcpc_tpu_torch.ops.spmv import unpack_words
+
+    def limbs(vals):
+        return torch.from_numpy(ops.encode_host(vals).astype(np.int32)).cuda()[:, None, :]
+
+    inner_t, parts = limbs(inner), []
+    for r0 in range(0, mat.shape[1], rb):
+        blk = unpack_words(mat[:, r0 : r0 + rb], 0)
+        parts.append(ops.collapse_canon(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
+    rows = ops.to_mont(torch.cat(parts, dim=2))
+    v = ops.collapse_canon(limbs(outer), rows.permute(0, 2, 1))  # (W, 1, 1) canonical
+    return int.from_bytes(v.reshape(-1).cpu().numpy().astype("<u2").tobytes(), "little")
+
+
+def streaming_2_26(torch, P, counters, gen):
+    """Phase 8: commit_streaming against commit at 2^26, three routes.  Each
+    route's commit_streaming and prove run with every launch count set to 0
+    just before and read just after: the NTT and both BLAKE3 kernels must
+    have launched, the SpMV not."""
+    import numpy as np
+    from lcpc_tpu_torch.ops.spmv import unpack_words
+
+    spec = P.FT255
+    enc = P.LigeroEncoding.new(spec, N_STREAM, *LIGERO_RHO)
+    packed = random_packed_coeffs(torch, spec, N_STREAM, gen)
+    limbs = unpack_words(packed, 0)
+    n_rows = -(-N_STREAM // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, 0x5EED, enc.n_per_row, n_rows)
+    transcript = transcript_for(P, enc)
+    comm, c_ms = time_host(torch, lambda: P.commit(limbs, enc))
+    root = comm.get_root()
+    proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
+    data = P.wire.serialize_proof(spec, proof)
+    value = proof.verify(root, outer, inner, enc, transcript(root))
+    del comm, proof
+    torch.cuda.empty_cache()
+    log(f"stream 2^26: {n_rows} x {enc.n_per_row} -> {enc.n_cols} columns; in-memory commit "
+        f"{c_ms:.1f} ms, prove {p_ms:.1f} ms, proof {len(data)} bytes")
+    host = limbs.cpu().numpy().view(np.uint32)
+    cases = (("a: unpacked on the card, 128-row blocks, words kept on the card", limbs,
+              dict(row_block=128, spill="device")),
+             ("b: HostCoeffSource, words spilled to host RAM",
+              P.HostCoeffSource(host, spec), dict(spill="host")),
+             ("c: packed on the card, no words kept (prove re-encodes)", packed,
+              dict(spill="none")))
+    out = []
+    path_kernels = {"ntt_mont", "blake3_chunks", "blake3_parents"}
+    for tag, src, kw in cases:
+        for fn in counters.values():
+            fn.launches = 0
+        cs, cs_ms = time_host(torch, lambda: P.commit_streaming(src, enc, **kw))
+        if cs.get_root() != root:
+            raise AssertionError(f"stream 2^26 {tag}: root differs from the in-memory commit")
+        pf, pf_ms = time_host(torch, lambda: cs.prove(outer, transcript(root)))
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for name, n in launches.items():
+            if (n > 0) != (name in path_kernels):
+                raise AssertionError(f"stream 2^26 {tag}: {name} launched {n} times")
+        got = P.wire.serialize_proof(spec, pf)
+        if got != data:
+            raise AssertionError(f"stream 2^26 {tag}: proof bytes differ")
+        if tag.startswith("c") and pf.verify(root, outer, inner, enc, transcript(root)) != value:
+            raise AssertionError("stream 2^26: the streamed proof's evaluation differs")
+        log(f"  stream 2^26 ({tag}): row block {cs.row_block}, root and {len(got)} proof bytes "
+            f"equal; commit_streaming {cs_ms:.1f} ms, prove {pf_ms:.1f} ms; launches {launches}")
+        out.append({"case": tag, "row_block": cs.row_block, "commit_ms": cs_ms, "prove_ms": pf_ms,
+                    "launches": launches})
+        del cs, pf
+        torch.cuda.empty_cache()
+    del packed, limbs, host
+    torch.cuda.empty_cache()
+    return {"in_memory_commit_ms": c_ms, "in_memory_prove_ms": p_ms, "proof_bytes": len(data),
+            "cases": out}
+
+
+def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
+    """Phase 9: the slice's path at 2^28 (see the module docstring)."""
+    from lcpc_tpu_torch.ops.limbs import get_ops
+
+    spec = P.FT255
+    ops = get_ops(spec)
+    enc = P.LigeroEncoding.new(spec, N_BIG, *LIGERO_RHO)
+    n_rows = -(-N_BIG // enc.n_per_row)
+    log(f"path 2^28: ligero ft255 rho={LIGERO_RHO[0]}/{LIGERO_RHO[1]}, {n_rows} rows x "
+        f"{enc.n_per_row} coefficients, {enc.n_cols} columns, {enc.get_n_col_opens()} "
+        f"column openings, {enc.get_n_degree_tests()} degree test(s)")
+    coeffs, gen_ms = time_host(torch, lambda: random_packed_coeffs(torch, spec, N_BIG, gen))
+    x_pt = 0x9E3779B97F4A7C15
+    outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
+    want, eval_ms = time_host(torch, lambda: device_eval(
+        torch, ops, coeffs.reshape(coeffs.shape[0], n_rows, enc.n_per_row), outer, inner, 256))
+    log(f"  coefficients made on the card ({coeffs.numel() * 4 / 2**30:.2f} GiB packed) in "
+        f"{gen_ms:.1f} ms; the evaluation in the other order in {eval_ms:.1f} ms")
+    transcript = transcript_for(P, enc)
+
+    def run():
+        comm, c_ms = time_host(torch, lambda: P.commit_streaming(coeffs, enc))
+        root = comm.get_root()
+        proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
+        value, v_ms = time_host(
+            torch, lambda: proof.verify(root, outer, inner, enc, transcript(root)))
+        return comm, proof, value, (c_ms, p_ms, v_ms)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    comm, proof, value, cold = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path 2^28 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
+        f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}, words kept on "
+        f"the card: {comm.words_dev is not None}; peak device memory {peak:.2f} GiB")
+    for name, n in launches.items():
+        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", "blake3_parents")):
+            raise AssertionError(f"path 2^28: {name} launched {n} times")
+    if comm.words_dev is None:
+        raise AssertionError("path 2^28: the words were not kept on the card")
+    if value != want:
+        raise AssertionError("path 2^28: verify's evaluation != the evaluation on the card")
+    log("  verify returned the evaluation computed on the card in the other order: ok")
+    root = comm.get_root()
+    data = P.wire.serialize_proof(spec, proof)
+    log(f"  proof {len(data)} bytes")
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28")
+
+    # the retained words hashed in memory: equal to the streamed leaves; the
+    # kernels timed at the 2^28 commit's shape
+    words = comm.words_dev
+    leaves = b3.hash_word_columns(words)
+    if not torch.equal(leaves, comm.hashes_dev[:, : enc.n_cols]):
+        raise AssertionError("path 2^28: in-memory hash of the kept words != streamed leaves")
+    (k1_b, k1_c), (k2_b, k2_c) = hash_cost(words.shape[0], words.shape[1])
+    n_chunks = -(-(8 + words.shape[0]) // 256)
+    cvs = torch.empty((n_chunks, 8, words.shape[1]), dtype=torch.int32, device="cuda")
+    final_len = 8 + words.shape[0] - 256 * (n_chunks - 1)
+    k1_ms = kb.time_kernel(lambda: b3.blake3_chunks(words, cvs, final_len=final_len), reps=3)
+    k2_ms = kb.time_kernel(lambda: b3.merge_chunk_cvs(cvs), reps=3)
+    hashes = {"k1_ms": k1_ms, "k2_ms": k2_ms, "k1_compressions": k1_c, "k1_bytes": k1_b,
+              "k2_compressions": k2_c, "k2_bytes": k2_b, "k2_launches": (n_chunks - 1).bit_length()}
+    hashes["k1_bound_ms"], hashes["k1_bound_by"] = hash_bound_ms(k1_b, k1_c)
+    hashes["k2_bound_ms"], hashes["k2_bound_by"] = hash_bound_ms(k2_b, k2_c)
+    log(f"  the kept words hashed in memory: equal to the streamed leaves; blake3_chunks "
+        f"{k1_ms:.4f} ms ({words.shape[1]} columns x {n_chunks} chunks, bound "
+        f"{hashes['k1_bound_ms']:.4f} ms, {hashes['k1_bound_by']}), chunk tree {k2_ms:.4f} ms "
+        f"(bound {hashes['k2_bound_ms']:.4f} ms, {hashes['k2_bound_by']})")
+    del cvs, leaves
+
+    # one row block of the encode: words only against limbs and words, and
+    # three of its rows against the plain version
+    rb = comm.row_block
+    block = comm.source.block(0, rb)
+    only = enc.encode_rows_words_only(block)
+    plan = nttm.get_ntt(spec, enc.n_cols)
+    if not torch.equal(only, nttm.ntt_forward(plan, block, output="both")[1]):
+        raise AssertionError("path 2^28: words-only block != the limbs-and-words call")
+    rows = torch.tensor([0, rb // 2, rb - 1], device="cuda")
+    sub = block.index_select(1, rows)
+    if not torch.equal(only.reshape(rb, -1, enc.n_cols).index_select(0, rows).reshape(
+            -1, enc.n_cols), plain_ntt(nttm, plan, sub, True)[1]):
+        raise AssertionError("path 2^28: words-only block rows != plain")
+    blk_ms = kb.time_kernel(lambda: enc.encode_rows_words_only(block), reps=3)
+    log(f"  one {rb}-row block of the encode (n = 2^{plan.log_n}, {plan.launches_per_call} "
+        f"passes), words only: equal to the limbs-and-words call and (rows 0, {rb // 2}, "
+        f"{rb - 1}) to plain; {blk_ms:.4f} ms")
+    del comm, proof, words, block, only, sub
+    torch.cuda.empty_cache()
+
+    warm = []
+    for _ in range(BIG_WARM):
+        if time.perf_counter() - T_START > BIG_WARM_DEADLINE_S:
+            log(f"  path 2^28: {len(warm)} warm runs, not {BIG_WARM}: the run is at "
+                f"{time.perf_counter() - T_START:.0f} s")
+            break
+        comm, proof, value, t = run()
+        if value != want:
+            raise AssertionError("path 2^28: warm run's evaluation differs")
+        warm.append(t)
+        del comm, proof
+        torch.cuda.empty_cache()
+    med = [statistics.median(t[i] for t in warm) if warm else None for i in range(3)]
+    for i, name in enumerate(("commit", "prove", "verify")):
+        log(f"streaming_ligero_{name}_ms_median_2^28_ft255: "
+            f"{med[i] if med[i] is None else round(med[i], 1)} "
+            f"(warm runs {[round(t[i], 1) for t in warm]}; cold {cold[i]:.1f}; {card})")
+    del coeffs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cold": cold, "warm": warm, "median": med, "peak_gib": peak,
+            "proof_bytes": len(data), "row_block": rb, "hashes": hashes,
+            "block_words_only_ms": blk_ms}
+
+
 def main() -> int:
     import torch
 
@@ -362,6 +797,7 @@ def main() -> int:
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     import kernel_bench as kb
     import lcpc_tpu_torch as P
+    from lcpc_tpu_torch.ops import blake3 as b3
     from lcpc_tpu_torch.ops import ntt as nttm
     from lcpc_tpu_torch.ops import spmv
     from lcpc_tpu_torch.ops.limbs import get_ops
@@ -369,7 +805,9 @@ def main() -> int:
 
     if "jax" in sys.modules or "lcpc_tpu" in sys.modules:
         raise RuntimeError("the port pulled in JAX or the JAX package")
-    counters = {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward}
+    counters = {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
+                "blake3_chunks": b3.blake3_chunks, "blake3_parents": b3.blake3_parents}
+    hashing = {"blake3_chunks", "blake3_parents"}
 
     # 1. the card
     card = kb.card_line()
@@ -377,9 +815,10 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # 2. build both kernels, one nvcc each, at once
+    # 2. build the three kernel sources, one nvcc each, at once
+    phase = Phase("2 build")
     t0 = time.perf_counter()
-    secs = cuda_build.build_all(["spmv_mont", "ntt_mont"], force=True)
+    secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols"], force=True)
     log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} "
         f"({time.perf_counter() - t0:.2f} s wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     ptxas = kb.ptxas_report(spmv.build_log)
@@ -396,6 +835,13 @@ def main() -> int:
             f"stores, {ld} bytes spill loads")
     if ntt_ptxas[8][1:] != (0, 0):
         raise AssertionError(f"ntt_pass_kernel W32=8 spills: {ntt_ptxas[8]}")
+    b3_ptxas = {k: v for name in ("blake3_chunks_kernel", "blake3_parents_kernel")
+                for k, v in kb.ptxas_entries(cuda_build.build_logs["blake3_cols"],
+                                             name).items()}
+    if len(b3_ptxas) != 6:  # chunks: 2 output types; parents: 4 type pairs
+        raise AssertionError(f"blake3 kernels not reported by ptxas: {b3_ptxas}")
+    for name, (regs, st, ld) in sorted(b3_ptxas.items()):
+        log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
     loop = kb.sass_loop(spmv.SO_PATH)
     if loop is None:
         log("  SASS: cuobjdump not found, k-loop count not measured")
@@ -404,6 +850,7 @@ def main() -> int:
             f"instructions, {loop[2]:.3f} per wide product; opcodes {loop[1]}")
     if native.get_lib() is None:
         raise RuntimeError("native C library did not build (needed for matgen)")
+    phase.done()
 
     spec = P.FT255
     ops = get_ops(spec)
@@ -427,6 +874,7 @@ def main() -> int:
     del coeffs
 
     # 3. SpMV kernel vs plain on the 2^23 levels
+    phase = Phase("3 spmv vs plain")
     t0 = time.perf_counter()
     enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device="cuda")
     pre, post, rs = enc.device_mats()
@@ -443,15 +891,33 @@ def main() -> int:
     for field in P.ALL_FIELDS:  # every template of the kernel, W32 = 2, 4, 6, 8
         edge_levels(torch, kb, spmv, field, gen)
 
-    # 4. the Brakedown path at 2^23 and its golden fixture
+    phase.done()
+
+    # 4. the Brakedown path at 2^23, its golden fixture, and its streaming commit
+    phase = Phase("4 brakedown 2^23")
     n_levels = len(pre) + len(post) + 1
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
-                     path_kernels={"spmv_mont"})
+                     path_kernels={"spmv_mont"} | hashing)
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
     log(f"  spmv_mont launches {sdig[0]['spmv_mont']} (= 2 encodes x {n_levels} levels)")
-    del enc, pre, post, rs, levels
+    outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, -(-N_COEFFS // enc.n_per_row))
+    for fn in counters.values():
+        fn.launches = 0
+    scomm, s_ms = time_host(torch, lambda: P.commit_streaming(coeffs_mont, enc))
+    s_launches = {name: fn.launches for name, fn in counters.items()}
+    if scomm.get_root() != sdig[6]:
+        raise AssertionError("sdig streaming root != the in-memory root")
+    sproof = scomm.prove(outer, transcript_for(P, enc)(sdig[6]))
+    if P.wire.serialize_proof(spec, sproof) != sdig[7]:
+        raise AssertionError("sdig streaming proof bytes != the in-memory proof")
+    if s_launches["spmv_mont"] != n_levels * -(-scomm.n_rows // scomm.row_block):
+        raise AssertionError(f"sdig streaming: spmv launches {s_launches}")
+    log(f"  sdig commit_streaming {s_ms:.1f} ms ({scomm.row_block}-row blocks, words kept "
+        f"{'on the card' if scomm.words_dev is not None else 'nowhere'}): root and proof bytes "
+        f"equal to the in-memory commit's; launches {s_launches}")
+    del enc, pre, post, rs, levels, scomm, sproof
     with open(os.path.join(ROOT, "tests", "data", "torch_golden_sdig.json")) as f:
         golden = json.load(f)
     genc = P.SdigEncoding(spec, golden["n_per_row"], seed=golden["matrix_seed"],
@@ -462,8 +928,10 @@ def main() -> int:
         raise AssertionError("sdig golden fixture not reproduced on the GPU")
     log(f"sdig golden fixture: root {groot.hex()[:16]}.. and proof sha256 reproduced")
     torch.cuda.empty_cache()
+    phase.done()
 
     # 5. NTT kernel vs plain at the Ligero shapes and on edge cases
+    phase = Phase("5 ntt vs plain")
     lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO)
     n_rows = -(-N_COEFFS // lenc.n_per_row)
     log(f"ligero {size} rho={LIGERO_RHO[0]}/{LIGERO_RHO[1]}: n_rows {n_rows}, "
@@ -484,13 +952,16 @@ def main() -> int:
     xv = kb.random_mont(spec, (2, spec.w16, lenc.n_per_row), gen).permute(1, 0, 2)
     ntt_verify = compare_ntt(torch, kb, nttm, plan, xv.contiguous(), "verify", ntt_rows,
                              words=False)
+    ntt_2_19(torch, kb, nttm, spec, gen, ntt_rows)
     for field in P.ALL_FIELDS:  # every template, W32 = 2, 4, 6, 8
         ntt_edges(torch, kb, nttm, field, gen)
     torch.cuda.empty_cache()
+    phase.done()
 
     # 6. the Ligero path at 2^23 and its golden fixture under both digests
+    phase = Phase("6 ligero 2^23")
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    path_kernels={"ntt_mont"})
+                    path_kernels={"ntt_mont"} | hashing)
     per_encode = plan.launches_per_call
     if lig[0]["ntt_mont"] != 2 * per_encode:
         raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 2 encodes x "
@@ -506,8 +977,25 @@ def main() -> int:
             raise AssertionError(f"ligero {name} golden fixture not reproduced on the GPU")
         log(f"ligero golden fixture ({name}): root {groot.hex()[:16]}.. and proof "
             f"sha256 reproduced")
+    del coeffs_mont, lenc, genc
+    torch.cuda.empty_cache()
+    phase.done()
 
-    # 7. kernel table
+    # 7. the BLAKE3 kernels against their plain versions
+    with Phase("7 blake3 vs plain"):
+        hashes = blake3_phase(torch, kb, b3, gen)
+        torch.cuda.empty_cache()
+
+    # 8. streaming against in-memory at 2^26
+    with Phase("8 streaming vs in-memory 2^26"):
+        stream26 = streaming_2_26(torch, P, counters, gen)
+
+    # 9. the slice's path at 2^28
+    with Phase("9 streaming ligero 2^28"):
+        big = path_2_28(torch, kb, P, counters, b3, nttm, gen, card)
+
+    # 10. kernel table
+    c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]
     kernels = [{
         "name": "spmv_mont",
         "route": "cuda",
@@ -554,6 +1042,60 @@ def main() -> int:
         "verify_encode_bound_by": ntt_verify["bound_by"],
         "ptxas": {str(w): {"registers": v[0], "spill_bytes": v[1] + v[2]}
                   for w, v in sorted(ntt_ptxas.items())},
+        "n_2_19_block_words_only_ms": big["block_words_only_ms"],
+        "launches_2_28_path": big["launches"]["ntt_mont"],
+    }, {
+        "name": "blake3_chunks",
+        "route": "cuda",
+        "source": "lcpc_tpu_torch/csrc/blake3_cols.cu",
+        "replaces": ("lcpc_tpu/ops/blake3_jax.py:130,160,249 (chunk_chain_scan, "
+                     "_hash_words_streams, hash_word_columns) and lcpc_tpu/core/streaming.py:48,90 "
+                     "(_update_fn, _finalize_fn); XLA-fused, not Pallas"),
+        "launches": big["launches"]["blake3_chunks"],
+        "max_abs_err": hashes["max_abs_err"],
+        "ms": c23["k1_ms"],
+        "plain_ms": c23["k1_plain_ms"],
+        "bound_ms": c23["k1_bound_ms"],
+        "bound_by": c23["k1_bound_by"],
+        "library_ms": None,
+        "equal_to_plain": True,
+        "tolerance": 0,
+        "shape": (f"the {size} ft255 rho=1/4 commit's columns: {c23['n_cols']} x "
+                  f"{c23['n_words']} words, {c23['n_chunks']} chunks, one launch"),
+        "launches_2_23_paths": {"sdig": sdig[0]["blake3_chunks"],
+                                "ligero": lig[0]["blake3_chunks"]},
+        "ms_2_28_commit": big["hashes"]["k1_ms"],
+        "bound_ms_2_28_commit": big["hashes"]["k1_bound_ms"],
+        "ms_2_28_length_4096_columns": c28["k1_ms"],
+        "plain_ms_2_28_length_4096_columns": c28["k1_plain_ms"],
+        "bound_ms_2_28_length_4096_columns": c28["k1_bound_ms"],
+        "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                  for k, v in sorted(b3_ptxas.items()) if "chunks" in k},
+    }, {
+        "name": "blake3_parents",
+        "route": "cuda",
+        "source": "lcpc_tpu_torch/csrc/blake3_cols.cu",
+        "replaces": ("lcpc_tpu/ops/blake3_jax.py:221-245,264,275 (the chunk tree, "
+                     "merkle_parent, merkle_layer) and lcpc_tpu/core/streaming.py:127 "
+                     "(_merge_fn); XLA-fused, not Pallas"),
+        "launches": big["launches"]["blake3_parents"],
+        "max_abs_err": hashes["max_abs_err"],
+        "ms": c23["k2_ms"],
+        "plain_ms": c23["k2_plain_ms"],
+        "bound_ms": c23["k2_bound_ms"],
+        "bound_by": c23["k2_bound_by"],
+        "library_ms": None,
+        "equal_to_plain": True,
+        "tolerance": 0,
+        "shape": (f"the {size} commit's chunk tree: {c23['n_cols']} columns x "
+                  f"{c23['n_chunks']} chunk CVs, {c23['k2_launches']} launches"),
+        "launches_2_23_paths": {"sdig": sdig[0]["blake3_parents"],
+                                "ligero": lig[0]["blake3_parents"]},
+        "merkle": {f"2^{k}": hashes[f"merkle {k}"] for k in MERKLE_LOGS},
+        "ms_2_28_commit_chunk_tree": big["hashes"]["k2_ms"],
+        "bound_ms_2_28_commit_chunk_tree": big["hashes"]["k2_bound_ms"],
+        "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                  for k, v in sorted(b3_ptxas.items()) if "parents" in k},
     }]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -563,7 +1105,10 @@ def main() -> int:
                    "main_path_ms": {
                        name: {"cold": r[1], "warm": r[2], "median": r[3],
                               "peak_gib": r[4], "proof_bytes": r[5]}
-                       for name, r in (("sdig", sdig), ("ligero", lig))}}, f, indent=1)
+                       for name, r in (("sdig", sdig), ("ligero", lig))},
+                   "blake3": hashes, "streaming_2_26": stream26, "path_2_28": big,
+                   "run_s": time.perf_counter() - T_START}, f, indent=1)
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -16,6 +16,10 @@ raise.
     tr = Transcript(b"my protocol")
     tr.append_message(b"polycommit", com.get_root())
     proof = com.prove(outer_tensor, tr)
+
+`commit_streaming(coeffs, enc)` commits by row blocks without holding the
+codeword (up to 2^28 ft255 on one 80 GB card); its proofs verify with the
+same `verify`.
 """
 
 from .fields import FT63, FT127, FT191, FT255, ALL_FIELDS, FieldSpec
@@ -29,6 +33,8 @@ from .core.protocol import (
     verify,
 )
 from .core import wire
+from .core.coeffs import ArrayCoeffSource, CoeffSource, HostCoeffSource, as_source
+from .core.streaming import LcCommitStreaming, commit_streaming, prove_streaming
 from .core.encoding import LcEncoding
 from .encodings.ligero import LigeroEncoding
 from .encodings.brakedown import (
@@ -48,6 +54,8 @@ __all__ = [
     "FT63", "FT127", "FT191", "FT255", "ALL_FIELDS", "FieldSpec",
     "LcCommit", "LcEvalProof", "LcEncoding", "ProverError", "VerifierError",
     "commit", "prove", "verify", "wire",
+    "commit_streaming", "prove_streaming", "LcCommitStreaming",
+    "CoeffSource", "ArrayCoeffSource", "HostCoeffSource", "as_source",
     "LigeroEncoding", "SdigEncoding", "CODE1", "CODE2", "CODE3", "CODE4", "CODE5", "CODE6",
     "Transcript", "BLAKE3", "SHA256", "DIGESTS_BY_NAME", "DeviceDigest",
     "univariate_tensors", "univariate_eval",

@@ -70,6 +70,22 @@ class LcEncoding(abc.ABC):
         limbs = self.encode_rows(rows)
         return limbs, pack_row_words(get_ops(self.spec).from_mont(limbs))
 
+    def encode_rows_words_only(self, rows: torch.Tensor) -> torch.Tensor:
+        """The hash words of encode_rows_words alone, (R*W/2, n_cols) int32
+        storage: the streaming commit's block encode (the contract of
+        lcpc_tpu's encode_rows_lowmem(post=_pack_words, canonical=True)).
+        An encoding whose kernel can skip the limbs overrides it."""
+        return self.encode_rows_words(rows)[1]
+
+    def stream_bytes_per_row(self) -> int:
+        """Device bytes one row of encode_rows_words_only holds while it
+        runs: the row's limbs in, then, per codeword column, the encode's
+        limbs and packed buffer, their canonical form and the words
+        (4 * (W n_per_row + 3 W n_cols)); the streaming commit sizes its row
+        blocks from it."""
+        w = self.spec.w16
+        return 4 * (w * self.n_per_row + 3 * w * self.n_cols)
+
     @abc.abstractmethod
     def encode_row_host(self, row: list[int]) -> list[int]:
         """Slow twin of encode_rows on one row of canonical Python ints."""

@@ -273,29 +273,25 @@ class VerifierError(Exception):
 # ---------------------------------------------------------------------------
 
 
-def _u32(words: torch.Tensor) -> torch.Tensor:
-    """int32 storage of u32 words -> their u32 values as int64."""
-    return words.to(torch.int64) & 0xFFFFFFFF
-
-
-def _pack_words(canon: torch.Tensor) -> torch.Tensor:
-    """(W, R, C) canonical limbs -> (R*W/2, C) LE u32 words (int64), row-major."""
-    return _u32(pack_row_words(canon))
-
-
-def _hash_and_merkleize(words: torch.Tensor, n_cols_np2: int,
-                        digest: DeviceDigest = BLAKE3) -> torch.Tensor:
-    """Column digests of the (R*W/2, n_cols) canonical hash words (int32
-    storage) + every Merkle layer, flattened leaves first: (8, 2*np2-1)
-    int64."""
-    n_cols = words.shape[1]
-    leaves = digest.hash_word_columns(_u32(words))  # (8, n_cols)
+def _merkleize(leaves: torch.Tensor, n_cols_np2: int,
+               digest: DeviceDigest = BLAKE3) -> torch.Tensor:
+    """Column digests (8, n_cols) + every Merkle layer, flattened leaves
+    first: (8, 2*np2-1) int64."""
+    n_cols = leaves.shape[1]
     if n_cols_np2 > n_cols:  # zero digests pad the leaves (lib.rs:665)
         leaves = torch.nn.functional.pad(leaves, (0, n_cols_np2 - n_cols))
     layers = [leaves]
     while layers[-1].shape[1] > 1:
         layers.append(digest.merkle_layer(layers[-1]))
     return torch.cat(layers, dim=1)
+
+
+def _hash_and_merkleize(words: torch.Tensor, n_cols_np2: int,
+                        digest: DeviceDigest = BLAKE3) -> torch.Tensor:
+    """Column digests of the (R*W/2, n_cols) canonical hash words (int32
+    storage, hashed as they are) + every Merkle layer, flattened leaves
+    first: (8, 2*np2-1) int64."""
+    return _merkleize(digest.hash_word_columns(words), n_cols_np2, digest)
 
 
 def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
@@ -402,15 +398,6 @@ def _pack_pairs(limbs: torch.Tensor) -> torch.Tensor:
     return limbs[0::2] | (limbs[1::2] << 16)
 
 
-def _gather_open(comm_arr: torch.Tensor, hashes_dev: torch.Tensor,
-                 col_idx: torch.Tensor, path_idx: torch.Tensor):
-    """Everything prove pulls per opening: packed column words (W/2, R, k)
-    and the sibling path digests (8, U) gathered from the Merkle array."""
-    packed = _pack_pairs(comm_arr.index_select(2, col_idx))
-    path_digs = hashes_dev.index_select(1, path_idx)
-    return packed, path_digs
-
-
 def _unpack_cols(words: np.ndarray) -> np.ndarray:
     """(W/2, R, k) u32 words -> (W, R, k) u32 16-bit limbs."""
     half, r, k = words.shape
@@ -420,20 +407,30 @@ def _unpack_cols(words: np.ndarray) -> np.ndarray:
     return out
 
 
-def _open_columns(comm: LcCommit, cols: list[int]) -> BatchedColumns:
-    """Extract columns + Merkle paths (open_column, lib.rs:788-825); only the
+def _column_paths(hashes_dev: torch.Tensor, n_cols: int, cols: list[int]) -> np.ndarray:
+    """(k, path_len, 32) sibling digests of each opened column; only the
     UNIQUE path nodes (paths share most upper-tree nodes) leave the device."""
-    device = comm.comm.device
-    col_idx = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=device)
-    path_idx = path_node_indices(comm.n_cols, cols)  # (k, L)
+    path_idx = path_node_indices(n_cols, cols)  # (k, L)
     uniq, inv = np.unique(path_idx.reshape(-1), return_inverse=True)
-    packed, path_digs = _gather_open(
-        comm.comm, comm.hashes_dev, col_idx,
-        torch.as_tensor(uniq.astype(np.int64), device=device))
-    uniq_bytes = blake3.digests_to_bytes(path_digs)  # (n_uniq, 32)
-    paths = uniq_bytes[inv.reshape(-1)].reshape(len(cols), path_idx.shape[1], 32)
-    return BatchedColumns(col_w=packed.cpu().numpy().astype(np.uint32),
-                          paths=paths)
+    digs = hashes_dev.index_select(
+        1, torch.as_tensor(uniq.astype(np.int64), device=hashes_dev.device))
+    uniq_bytes = blake3.digests_to_bytes(digs)  # (n_uniq, 32)
+    return uniq_bytes[inv.reshape(-1)].reshape(len(cols), path_idx.shape[1], 32)
+
+
+def _batched_columns(col_w: torch.Tensor, hashes_dev: torch.Tensor, n_cols: int,
+                     cols: list[int]) -> BatchedColumns:
+    """The proof's columns: packed Montgomery words (W/2, R, k) (int64 u32
+    values) and the Merkle paths of `cols`."""
+    return BatchedColumns(col_w=col_w.cpu().numpy().astype(np.uint32),
+                          paths=_column_paths(hashes_dev, n_cols, cols))
+
+
+def _open_columns(comm: LcCommit, cols: list[int]) -> BatchedColumns:
+    """Extract columns + Merkle paths (open_column, lib.rs:788-825)."""
+    col_idx = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=comm.comm.device)
+    packed = _pack_pairs(comm.comm.index_select(2, col_idx))
+    return _batched_columns(packed, comm.hashes_dev, comm.n_cols, cols)
 
 
 def prove_core(enc: LcEncoding, tr: Transcript, n_rows: int, n_cols: int,
@@ -554,7 +551,7 @@ def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
     want = ops.from_mont(enc_rows.index_select(2, idx))
     ok_rows = (got == want).all(dim=2).all(dim=0)        # (T,)
 
-    digs = digest.hash_word_columns(_pack_words(ops.from_mont(col_mat)))  # (8, k)
+    digs = digest.hash_word_columns(pack_row_words(ops.from_mont(col_mat)))  # (8, k)
     for lvl in range(inv.shape[0]):
         s = uniq_sibs.index_select(1, inv[lvl])          # (8, k)
         is_right = bits[lvl]

@@ -1,0 +1,362 @@
+"""Streaming commit: encode and hash by row blocks without holding the codeword
+(port of lcpc_tpu/core/streaming.py).
+
+For large polynomials the encoded matrix exceeds device memory: a 2^28 ft255
+rho = 1/4 Ligero commit is 2,048 rows x 524,288 columns, 68.7 GB of
+Montgomery limbs and 34.4 GB of hash words.  `commit_streaming` runs the
+commit over row blocks instead: each block is encoded to its column-hash
+words alone (`LcEncoding.encode_rows_words_only`), folded into per-column
+BLAKE3 chunk state (`StreamingColumnHasher`, over the two kernels of
+csrc/blake3_cols.cu), optionally retained, then dropped.  Only the
+coefficients (behind a CoeffSource, core/coeffs.py), the Merkle array and,
+where it fits, the packed canonical codeword persist.
+
+The column hash state is exact: BLAKE3 chunks never align with element rows
+(the 32-byte zero prefix shifts everything by 8 words), so the hasher keeps
+a carry buffer of sub-chunk words.  Row blocks whose word count is a multiple
+of the 256-word chunk keep that carry at the prefix's 8 words.
+
+`prove_streaming` collapses the coefficients block by block (each block's
+partial is canonical and FieldOps.add accumulates it) and opens columns from
+the retained words, from the systematic coefficients plus a retained tail
+(Brakedown), from the host copy, or by re-encoding blocks.  Its proof is an
+ordinary LcEvalProof: `verify` checks it, and its bytes equal the in-memory
+prove's.  The JAX package's MXU routes (digit-plane collapse, direct column
+evaluation) have no counterpart here; the non-MXU route gives the same bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+
+import numpy as np
+import torch
+
+from ..fs.merlin import Transcript
+from ..ops import blake3
+from ..ops.digest import BLAKE3, DeviceDigest
+from ..ops.limbs import get_ops, limbs_to_device
+from ..ops.spmv import unpack_words
+from ..utils import hbm
+from . import coeffs as coeffs_mod
+from .encoding import LcEncoding
+from .protocol import (
+    LcEvalProof,
+    ProverError,
+    _batched_columns,
+    _merkleize,
+    _next_pow2,
+    _pack_pairs,
+    prove_core,
+)
+
+
+class StreamingColumnHasher:
+    """Per-column BLAKE3 over row blocks with a sub-chunk carry buffer.
+
+    update() hashes the stream's whole chunks with one blake3_chunks launch
+    (the carry buffer's words first, then the block's) and keeps the rest,
+    fewer than 256 words, as the next carry; it never consumes the final
+    chunk, whose flags finalize() sets.  Between calls the state is the
+    chunk CVs, the carry and the counts."""
+
+    def __init__(self, n_cols: int, total_words: int, device):
+        self.n_cols = n_cols
+        self.total_words = total_words  # includes the 8-word zero prefix
+        self.n_chunks = max(1, -(-total_words // blake3.CHUNK_WORDS))
+        assert self.n_chunks > 1, "streaming hasher expects multi-chunk columns"
+        self.chunk_cvs = torch.empty((self.n_chunks, 8, n_cols), dtype=torch.int32,
+                                     device=device)
+        self.buf = torch.zeros((blake3.CHUNK_WORDS, n_cols), dtype=torch.int32, device=device)
+        self.buf_len = blake3.PREFIX_WORDS  # the zero prefix
+        self.words_done = 0
+        self.chunks_done = 0
+
+    def update(self, words: torch.Tensor) -> None:
+        """words: (L, n_cols) u32 words (int32 storage) appended to every
+        column's stream."""
+        l = words.shape[0]
+        total = self.buf_len + l
+        n_full = total // blake3.CHUNK_WORDS
+        # never consume the final chunk here; finalize() handles its flags
+        is_final = self.words_done + l + blake3.PREFIX_WORDS == self.total_words
+        if is_final and total % blake3.CHUNK_WORDS == 0 and n_full > 0:
+            n_full -= 1
+        if n_full:
+            c0 = self.chunks_done
+            blake3.blake3_chunks(words, self.chunk_cvs[c0 : c0 + n_full], carry=self.buf,
+                                 carry_len=self.buf_len, chunk_base=c0)
+        start = n_full * blake3.CHUNK_WORDS  # stream words [start, total) carry over
+        if start >= self.buf_len:
+            rest = words[start - self.buf_len :]
+            self.buf[: rest.shape[0]] = rest
+        else:  # no chunk completed: the block joins the carry
+            self.buf[self.buf_len : total] = words
+        self.buf_len = total - start
+        self.words_done += l
+        self.chunks_done += n_full
+
+    def finalize(self) -> torch.Tensor:
+        """Hash the final partial chunk and merge the chunk tree: (8, n_cols)
+        int64 digests."""
+        assert self.words_done + blake3.PREFIX_WORDS == self.total_words, (
+            self.words_done, self.total_words)
+        rem = self.buf_len
+        assert rem > 0 and self.chunks_done + 1 == self.n_chunks
+        c0 = self.chunks_done
+        blake3.blake3_chunks(self.buf[:0], self.chunk_cvs[c0 : c0 + 1], carry=self.buf,
+                             carry_len=rem, chunk_base=c0, final_len=rem)
+        chunk_cvs, self.chunk_cvs, self.buf = self.chunk_cvs, None, None
+        return blake3.merge_chunk_cvs(chunk_cvs)
+
+
+# streaming hashers by digest name (the digest= plug point of the streaming
+# path; protocol.commit covers the non-streaming one).  SHA-256 streams in
+# the JAX package but not yet here.
+_STREAM_HASHERS = {"blake3": StreamingColumnHasher}
+
+
+@dataclasses.dataclass
+class LcCommitStreaming:
+    """Commit state without the Montgomery codeword matrix.
+
+    When the packed CANONICAL codeword fits the device keep budget it is
+    retained (words_dev, (n_rows*W/2, n_cols - words_off) int32 storage of
+    u32 words) and prove gathers opened columns there; with spill="host" it
+    is retained in host RAM instead (words_host); otherwise prove re-encodes
+    the coefficient blocks.  `coeffs` is the (W or W/2, n_rows, n_per_row)
+    device matrix when the source is array-backed, else None.  Like
+    LcCommit, the Merkle array stays on the device as digest words."""
+
+    enc: LcEncoding
+    source: coeffs_mod.CoeffSource
+    coeffs: "torch.Tensor | None"
+    n_rows: int
+    n_per_row: int
+    n_cols: int
+    hashes_dev: torch.Tensor  # (8, 2*np2-1) int64 digest words, leaves first
+    row_block: int
+    digest: DeviceDigest = BLAKE3
+    words_dev: "torch.Tensor | None" = None
+    words_off: int = 0  # words_dev holds columns [words_off:] only (tail keep)
+    words_host: "np.ndarray | None" = None  # (n_rows*W/2, n_cols) uint32
+    packed: bool = False  # coeffs held as (W/2, n_rows, n_per_row) words
+    _hashes_np: "np.ndarray | None" = None
+    _root: "bytes | None" = None
+
+    @property
+    def hashes(self) -> np.ndarray:
+        if self._hashes_np is None:
+            self._hashes_np = blake3.digests_to_bytes(self.hashes_dev)
+        return self._hashes_np
+
+    def get_root(self) -> bytes:
+        if self._root is None:
+            self._root = blake3.digests_to_bytes(self.hashes_dev[:, -1:])[0].tobytes()
+        return self._root
+
+    def get_n_rows(self) -> int:
+        return self.n_rows
+
+    def get_n_per_row(self) -> int:
+        return self.n_per_row
+
+    def get_n_cols(self) -> int:
+        return self.n_cols
+
+    def prove(self, outer_tensor: list[int], tr: Transcript) -> LcEvalProof:
+        return prove_streaming(self, outer_tensor, self.enc, tr)
+
+
+def _row_block_for(enc: LcEncoding, n_rows: int, requested: "int | None",
+                   resident_bytes: int = 0) -> int:
+    """The encode/hash row block: sized from the device budget (hbm.py) less
+    the arrays resident for the whole commit, over the encoding's own block
+    footprint per row (stream_bytes_per_row), unless `requested`.  Blocks
+    of at least a 256-word boundary's rows are rounded to it (the carry
+    stays at the prefix's 8 words); smaller ones fall back to a power of
+    two (floor 8 rows), whose carry cycles through a few lengths."""
+    wpe = enc.spec.w16 // 2
+    if requested is None:
+        usable = hbm.usable_hbm_bytes(enc.device)
+        if usable - resident_bytes < 512 << 20:
+            warnings.warn(
+                f"streaming commit: resident arrays ({resident_bytes >> 20} MiB) leave "
+                f"under 512 MiB of the {usable >> 20} MiB usable for block transients; "
+                "falling back to minimum-size row blocks")
+        budget = max(min(hbm.stream_bytes(enc.device), usable - resident_bytes), 512 << 20)
+        requested = max(32, budget // enc.stream_bytes_per_row())
+    rb = max(1, min(requested, n_rows))
+    align = 256 // math.gcd(256, wpe)  # rows per 256-word boundary
+    if rb >= align:
+        return (rb // align) * align
+    return 1 << max(3, rb.bit_length() - 1)
+
+
+def commit_streaming(coeffs, enc: LcEncoding, row_block: "int | None" = None,
+                     digest: DeviceDigest = BLAKE3, packed: "bool | None" = None,
+                     spill: str = "auto") -> LcCommitStreaming:
+    """Streaming commit over row blocks on the encoding's device (see the
+    module docstring); the root equals commit()'s.
+
+    `coeffs` is a list of canonical ints, a (W, N) Montgomery limb tensor or
+    a packed (W/2, N) int32 word tensor (the layout inferred from the shape
+    unless `packed=` says it), a numpy array of either (kept in host RAM),
+    or a CoeffSource.
+
+    `spill` says where the packed canonical codeword is retained for
+    prove's column gather:
+      "auto"   on the device when it fits hbm.keep_bytes_budget, else (a
+               systematic encoding) only its non-systematic tail when that
+               fits, else nowhere;
+      "device" on the device;
+      "host"   in host RAM, block by block;
+      "none"   nowhere (prove re-encodes blocks).
+    """
+    hasher_cls = _STREAM_HASHERS.get(digest.name)
+    if hasher_cls is None:
+        raise ValueError(f"no streaming hasher for digest {digest.name!r}")
+    if spill not in ("auto", "device", "host", "none"):
+        raise ValueError(f"spill must be auto, device, host or none, got {spill!r}")
+    device = enc.device
+    source = coeffs_mod.as_source(coeffs, enc.spec, packed=packed, device=device)
+    # compared resolved: "cuda" and "cuda:0" are one device
+    if torch.empty(0, device=source.device).device != torch.empty(0, device=device).device:
+        raise ValueError(f"commit_streaming: the source's blocks lie on {source.device}, "
+                         f"the encoding runs on {device}")
+    n_rows, n_per_row, n_cols = enc.get_dims(source.length)
+    if not enc.dims_ok(n_per_row, n_cols):
+        raise ProverError("TooBig", "n_cols is too large for this encoding")
+    source.set_dims(n_rows, n_per_row)
+    array_backed = isinstance(source, coeffs_mod.ArrayCoeffSource)
+
+    wpe = enc.spec.w16 // 2
+    total_words = blake3.PREFIX_WORDS + n_rows * wpe
+    keep_bytes = n_rows * wpe * n_cols * 4
+    keep = (keep_bytes <= hbm.keep_bytes_budget(device) if spill == "auto"
+            else spill == "device")
+    # tail keep: a systematic encoding's first n_per_row columns are the
+    # coefficients (Brakedown, [x | z | v], encode.rs:36-94), which prove can
+    # take from the source; retaining the rest turns prove's column opening
+    # from a re-encode of every block into two gathers
+    words_off = 0
+    sys_pref = getattr(enc, "systematic_prefix", 0)
+    if (spill == "auto" and not keep and sys_pref
+            and not isinstance(source, coeffs_mod.HostCoeffSource)):
+        tail_bytes = n_rows * wpe * (n_cols - sys_pref) * 4
+        if tail_bytes <= hbm.keep_bytes_budget(device):
+            keep, words_off, keep_bytes = True, sys_pref, tail_bytes
+
+    # arrays resident for the whole commit, which the block transients fit
+    # beside: coefficients, the retained words, the hasher's chunk CVs (and
+    # the merge's first two levels), its carry
+    n_chunks = -(-total_words // blake3.CHUNK_WORDS)
+    resident = (source.resident_bytes + (keep_bytes if keep else 0)
+                + (n_chunks + (n_chunks + 1) // 2 + (n_chunks + 3) // 4) * 8 * n_cols * 4
+                + blake3.CHUNK_WORDS * n_cols * 4)
+    rb = _row_block_for(enc, n_rows, row_block, resident)
+    hasher = hasher_cls(n_cols, total_words, device)
+
+    words_dev = (torch.empty((n_rows * wpe, n_cols - words_off), dtype=torch.int32,
+                             device=device) if keep else None)
+    words_host = (np.empty((n_rows * wpe, n_cols), dtype=np.uint32)
+                  if spill == "host" else None)
+    prev = None
+    for r0 in range(0, n_rows, rb):
+        r1 = min(r0 + rb, n_rows)
+        words = enc.encode_rows_words_only(source.block(r0, r1))
+        hasher.update(words)
+        if words_dev is not None:
+            words_dev[r0 * wpe : r1 * wpe] = words[:, words_off:]
+        elif words_host is not None:
+            words_host[r0 * wpe : r1 * wpe] = words.cpu().numpy().view(np.uint32)
+        if device.type == "cuda":
+            # at most two blocks queued ahead of the card: the host waits
+            # for the previous block before it sets up the next
+            done = torch.cuda.Event()
+            done.record()
+            if prev is not None:
+                prev.synchronize()
+            prev = done
+        del words  # freed before the next block's encode allocates
+
+    flat = _merkleize(hasher.finalize(), _next_pow2(n_cols), digest)
+    return LcCommitStreaming(
+        enc=enc, source=source, coeffs=source.raw_block(0, n_rows) if array_backed else None,
+        n_rows=n_rows, n_per_row=n_per_row, n_cols=n_cols, hashes_dev=flat,
+        row_block=rb, digest=digest, words_dev=words_dev, words_off=words_off,
+        words_host=words_host, packed=source.packed)
+
+
+def _canon_to_proof_words(ops, cols: torch.Tensor) -> torch.Tensor:
+    """(R*W/2, k) canonical hash words -> (W/2, R, k) packed Montgomery
+    words (the proof's wire form, lib.rs:401-408)."""
+    canon = unpack_words(cols.reshape(-1, ops.w // 2, cols.shape[1]), 1)  # (R, W, k)
+    return _pack_pairs(ops.to_mont(canon.permute(1, 0, 2).contiguous()))
+
+
+def _systematic_columns(comm: LcCommitStreaming, idx: torch.Tensor) -> torch.Tensor:
+    """Codeword columns idx < systematic_prefix, which ARE the coefficient
+    columns in Montgomery form: (W/2, R, k) packed words."""
+    if comm.coeffs is not None:
+        cols = comm.coeffs.index_select(2, idx)
+        return cols.to(torch.int64) & 0xFFFFFFFF if comm.packed else _pack_pairs(cols)
+    return torch.cat([_pack_pairs(comm.source.block(r0, min(r0 + comm.row_block, comm.n_rows))
+                                  .index_select(2, idx))
+                      for r0 in range(0, comm.n_rows, comm.row_block)], dim=1)
+
+
+def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
+                    enc: LcEncoding, tr: Transcript) -> LcEvalProof:
+    """Evaluation proof for a streaming commitment; the same bytes as
+    prove() on the in-memory commitment of the same coefficients."""
+    ops = get_ops(enc.spec)
+    device = enc.device
+
+    def collapse_words_fn(ts: np.ndarray) -> np.ndarray:
+        # block by block: each partial is canonical (< p), so ops.add
+        # combines them exactly, and one block's limbs (and collapse_canon's
+        # float64 copy of them) are the only transients
+        ts_dev = limbs_to_device(ts, device)
+        acc = None
+        for r0 in range(0, comm.n_rows, comm.row_block):
+            r1 = min(r0 + comm.row_block, comm.n_rows)
+            part = ops.collapse_canon(ts_dev[:, :, r0:r1].contiguous(),
+                                      comm.source.block(r0, r1))
+            acc = part if acc is None else ops.add(acc, part)
+        words = _pack_pairs(acc).permute(1, 2, 0)  # (T, n_per_row, W/2)
+        return words.cpu().numpy().astype(np.uint32)
+
+    def open_columns_fn(cols: list[int]):
+        idx_np = np.asarray(cols, dtype=np.int64)
+        idx = torch.as_tensor(idx_np, device=device)
+        if comm.words_dev is not None and comm.words_off:
+            # tail keep: systematic columns from the coefficients, the rest
+            # from the retained tail, merged by one where()
+            off = comm.words_off
+            tail = _canon_to_proof_words(ops, comm.words_dev.index_select(
+                1, torch.as_tensor(np.maximum(idx_np - off, 0), device=device)))
+            sys_w = _systematic_columns(
+                comm, torch.as_tensor(np.minimum(idx_np, off - 1), device=device))
+            is_sys = torch.as_tensor(idx_np < off, device=device)
+            col_w = torch.where(is_sys[None, None, :], sys_w, tail)
+        elif comm.words_dev is not None:
+            col_w = _canon_to_proof_words(ops, comm.words_dev.index_select(1, idx))
+        elif comm.words_host is not None:
+            host = np.ascontiguousarray(comm.words_host[:, idx_np]).view(np.int32)
+            col_w = _canon_to_proof_words(ops, torch.from_numpy(host).to(device))
+        else:
+            # re-encode every block and keep the opened columns
+            pieces = []
+            for r0 in range(0, comm.n_rows, comm.row_block):
+                r1 = min(r0 + comm.row_block, comm.n_rows)
+                limbs = enc.encode_rows(comm.source.block(r0, r1))
+                pieces.append(_pack_pairs(limbs.index_select(2, idx)))
+                del limbs
+            col_w = torch.cat(pieces, dim=1)
+        return _batched_columns(col_w, comm.hashes_dev, comm.n_cols, cols)
+
+    return prove_core(enc, tr, comm.n_rows, comm.n_cols, outer_tensor,
+                      collapse_words_fn, open_columns_fn)

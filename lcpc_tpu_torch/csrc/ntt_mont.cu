@@ -34,10 +34,13 @@
 //                             zero and never read
 //   buf       (R, n, W)    -- between passes: one element is W contiguous
 //                             words; a middle pass works in place
-//   limbs_out (2W, R, n)   -- last pass: the transform as 16-bit limbs
+//   limbs_out (2W, R, n)   -- last pass, optional: the transform as 16-bit
+//                             limbs
 //   words_out (R W, n)     -- last pass, optional: from_mont of each output
 //                             as LE u32 hash words, word r W + i, column c
-//                             (core/protocol.py `_pack_words`' layout)
+//                             (ops/limbs.py `pack_row_words`' layout); the
+//                             streaming commit asks for the words alone
+//                             (at 2^28 a 256-row block's limbs are 8.6 GB)
 //   tw        (n - 1, W)   -- stage twiddles in Montgomery form, half-size m
 //                             at rows m - 1 .. 2m - 2: tw[m-1+j] = w_2m^j
 //                             (read through L1/L2: 4 MB at ft255, n = 2^17)
@@ -379,8 +382,8 @@ __device__ __forceinline__ long long bf_index(int sg, int b, int lo, int log_t, 
 
 // One pass (half-sizes 2^hi .. 2^lo) over every row; block = one tile of
 // G = 2^(hi-lo+1) group elements x T = 2^log_t consecutive residues.
-// Input: limbs_in (first pass) or buf_in; output: buf_out, or limbs_out
-// (last pass, lo = log_t = 0) and optionally words_out.
+// Input: limbs_in (first pass) or buf_in; output: buf_out, or (last pass,
+// lo = log_t = 0, buf_out null) limbs_out and/or words_out.
 template <int W>
 __global__ void __launch_bounds__(kMaxThreads)
 ntt_pass_kernel(const int32_t* __restrict__ limbs_in, const uint32_t* buf_in,
@@ -475,18 +478,20 @@ ntt_pass_kernel(const int32_t* __restrict__ limbs_in, const uint32_t* buf_in,
   }
 
   // ---- write the tile back
-  if (limbs_out != nullptr) {
+  if (buf_out == nullptr) {
     // last pass: contiguous chunk (lo = log_t = 0), element e at index base + e
     const size_t plane = (size_t)R * n;
-    int32_t* dst = limbs_out + (size_t)row * n + base;
+    int32_t* dst = limbs_out == nullptr ? nullptr : limbs_out + (size_t)row * n + base;
     int32_t* wdst = words_out == nullptr ? nullptr : words_out + ((size_t)row * W * n + base);
     for (int e = tid; e < tile; e += nth) {
       uint32_t v[W];
       load_words<W>(v, s + (size_t)e * W);
+      if (dst != nullptr) {
 #pragma unroll
-      for (int q = 0; q < W; ++q) {
-        dst[(2 * q) * plane + e] = (int32_t)(v[q] & 0xFFFFu);
-        dst[(2 * q + 1) * plane + e] = (int32_t)(v[q] >> 16);
+        for (int q = 0; q < W; ++q) {
+          dst[(2 * q) * plane + e] = (int32_t)(v[q] & 0xFFFFu);
+          dst[(2 * q + 1) * plane + e] = (int32_t)(v[q] >> 16);
+        }
       }
       if (wdst != nullptr) {
         uint32_t c[W];
@@ -538,22 +543,23 @@ cudaError_t launch_pass(const int32_t* limbs_in, const uint32_t* buf_in, uint32_
 // One pass of the ladder (half-sizes 2^hi .. 2^lo, tiles of 2^(hi-lo+1) x
 // 2^log_t elements, `threads` per block) over every row, on `stream` of CUDA
 // device `device`.  Exactly one input: limbs_in (2*w32, R, k) for the first
-// pass (hi = log_n - 1), else the packed (R, 2^log_n, w32) buf_in.  Exactly
-// one output: the packed buf_out (may equal buf_in), or for the last pass
-// (lo = log_t = 0) limbs_out (2*w32, R, 2^log_n) and, when not null,
-// words_out (R*w32, 2^log_n).  Returns the launch's cudaError_t (0 on
+// pass (hi = log_n - 1), else the packed (R, 2^log_n, w32) buf_in.  Output:
+// the packed buf_out (may equal buf_in), or for the last pass (lo = log_t =
+// 0, buf_out null) limbs_out (2*w32, R, 2^log_n) and/or words_out (R*w32,
+// 2^log_n), at least one of them.  Returns the launch's cudaError_t (0 on
 // success).
 extern "C" int lcpc_ntt_pass(const int32_t* limbs_in, const uint32_t* buf_in,
                              uint32_t* buf_out, int32_t* limbs_out, int32_t* words_out,
                              const uint32_t* tw, const uint32_t* consts, int w32, int R,
                              int log_n, int k, int hi, int lo, int log_t, int threads,
                              int device, void* stream) {
-  const bool first = limbs_in != nullptr, last = limbs_out != nullptr;
+  const bool first = limbs_in != nullptr, last = buf_out == nullptr;
   if (R < 0 || log_n < 1 || log_n > 30 || ((long long)R << log_n) >= (1LL << 40) ||
       hi >= log_n || lo < 0 || lo > hi || log_t < 0 || log_t > lo ||
       hi - lo + 1 + log_t > log_n || first == (buf_in != nullptr) ||
-      last == (buf_out != nullptr) || (first && (hi != log_n - 1 || k < 0 || k > (1 << log_n))) ||
-      (last && (lo != 0 || log_t != 0)) || (!last && words_out != nullptr) ||
+      (first && (hi != log_n - 1 || k < 0 || k > (1 << log_n))) ||
+      (last && (lo != 0 || log_t != 0 || (limbs_out == nullptr && words_out == nullptr))) ||
+      (!last && (limbs_out != nullptr || words_out != nullptr)) ||
       threads < 1 || threads > kMaxThreads ||
       ((size_t)w32 * 4 << (hi - lo + 1 + log_t)) > (size_t)kMaxSmem ||
       ((long long)R << (log_n - (hi - lo + 1 + log_t))) >= (1LL << 31))

@@ -429,6 +429,13 @@ class SdigEncoding(LcEncoding):
         self.n_cols = codeword_length(self.precodes, self.postcodes)
         self._dev = None
 
+    @property
+    def systematic_prefix(self) -> int:
+        """Codeword columns [0, n_per_row) are the coefficients verbatim
+        (layout [x | z | v], encode.rs:36-94): the streaming commit may keep
+        only the non-systematic tail (core/streaming.py's tail keep)."""
+        return self.n_per_row
+
     # ---- constructors (lib.rs:69-137) ----------------------------------------
 
     @classmethod

@@ -11,7 +11,8 @@ Port of lcpc_tpu/encodings/ligero.py, which reimplements
   bit-reversed-output NTT (fft_io_pc, lib.rs:162-164): ops/ntt.ntt_forward,
   which launches the CUDA ladder on the GPU and runs its plain twin on the
   CPU; the commit's encode (`encode_rows_words`) also takes the column-hash
-  words from the NTT's last pass.
+  words from the NTT's last pass, and the streaming commit's
+  (`encode_rows_words_only`) takes only those.
 
 The dimension formulas use f64 arithmetic in Rust; Python floats are the same
 IEEE doubles, and the operation order is kept identical.
@@ -168,7 +169,18 @@ class LigeroEncoding(LcEncoding):
     def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows with the hash words written by the NTT's last pass."""
         return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
-                           canon_words=True)
+                           output="both")
+
+    def encode_rows_words_only(self, rows: torch.Tensor) -> torch.Tensor:
+        """The hash words alone: the NTT's last pass writes no limbs."""
+        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
+                           output="words")
+
+    def stream_bytes_per_row(self) -> int:
+        """The row's limbs in, the NTT's packed scratch and the words out:
+        4 * (W n_per_row + W n_cols)."""
+        w = self.spec.w16
+        return 4 * (w * self.n_per_row + w * self.n_cols)
 
     def encode_row_host(self, row: list[int]) -> list[int]:
         assert len(row) <= self.n_cols

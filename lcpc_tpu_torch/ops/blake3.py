@@ -1,4 +1,4 @@
-"""BLAKE3: host reference and vectorized torch column hashing / Merkle layers.
+"""BLAKE3: host reference, the column-hash and Merkle kernels, and their plain twins.
 
 Implements the reference's column-hash convention
 (lcpc-2d/src/lib.rs:706-745): each column digest is
@@ -8,20 +8,36 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
 
 - `blake3(data)` is the plain host hash (32-byte output), the slow and
   obviously correct twin (port of lcpc_tpu/ops/blake3_ref.py).
-- `hash_word_columns`, `merkle_layer`, `merkle_parent` run the compression
-  vectorized over columns on any torch device (port of
-  lcpc_tpu/ops/blake3_jax.py).  Words are u32 values held in int64 tensors:
-  adds are masked with 0xFFFFFFFF and rotations are shift/or/mask in int64.
-  One G step updates the four columns (or four diagonals) of the state at
-  once, so a compression is ~100 tensor ops, not ~700.
+- `blake3_chunks` and `blake3_parents` are the wrappers of the two CUDA
+  kernels in `csrc/blake3_cols.cu` (built with nvcc for sm_90a at first use,
+  loaded with ctypes).  On CUDA tensors they launch the kernel, counted in
+  `.launches`, or raise; on CPU tensors they run the plain PyTorch versions
+  `blake3_chunks_plain` and `blake3_parents_plain`, which compute the same
+  thing chunk-parallel with the vectorized compression `_compress_t`.
+  `blake3_chunks` hashes whole 1 KiB chunks of every column's stream (an
+  optional carry buffer, then the words) into chunk CVs; `blake3_parents`
+  compresses node pairs (the chunk tree and the Merkle layers).
+- `hash_word_columns`, `merge_chunk_cvs`, `merkle_layer`, `merkle_parent`
+  are the digest entry points built on the two wrappers (port of
+  lcpc_tpu/ops/blake3_jax.py); `hash_word_columns_plain`,
+  `merge_chunk_cvs_plain` and `merkle_layer_plain` are the same through the
+  plain versions, on any device.  Column words are u32 values as int32
+  storage (the layout `encode_rows_words` returns) or as int64; digests are
+  (8, n) int64 tensors holding u32 values.
+- `hash_word_columns_sequential` is the block-by-block plain version (one
+  compression over all columns at a time, the chunk tree merged after); the
+  tests hold the kernels' plain versions to it and to the host hash.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 
 import numpy as np
 import torch
+
+from ..utils import cuda_build
 
 IV = (
     0x6A09E667,
@@ -43,8 +59,11 @@ ROOT = 1 << 3
 
 BLOCK_LEN = 64
 CHUNK_LEN = 1024
+CHUNK_WORDS = CHUNK_LEN // 4
+PREFIX_WORDS = 8  # the column hash's 32 zero bytes
 
 _MASK = 0xFFFFFFFF
+_NAME = "blake3_cols"
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +170,7 @@ def blake3(data: bytes) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# torch (vectorized over columns)
+# torch compression (vectorized over any batch)
 # ---------------------------------------------------------------------------
 
 # per round: message words feeding the column step, then the diagonal step
@@ -184,8 +203,8 @@ def _g4(a, b, c, d, mx, my):
 def _compress_t(cv: torch.Tensor, m: torch.Tensor, counter, block_len,
                 flags) -> torch.Tensor:
     """Vectorized compression: cv (8, ...), m (16, ...) int64 u32 words;
-    counter/block_len/flags are ints or tensors broadcastable to the batch.
-    Returns the 8-word output CV."""
+    counter (< 2^32)/block_len/flags are ints or tensors broadcastable to
+    the batch.  Returns the 8-word output CV."""
     batch = cv.shape[1:]
     a, b = cv[0:4], cv[4:8]
     c = torch.tensor(IV[0:4], dtype=torch.int64, device=cv.device)
@@ -203,31 +222,35 @@ def _compress_t(cv: torch.Tensor, m: torch.Tensor, counter, block_len,
     return torch.cat([a ^ c, b ^ d], dim=0)
 
 
-def _iv(n_cols: int, device) -> torch.Tensor:
-    return torch.tensor(IV, dtype=torch.int64, device=device)[:, None].expand(8, n_cols)
+def _iv(batch, device) -> torch.Tensor:
+    iv = torch.tensor(IV, dtype=torch.int64, device=device)
+    return iv.reshape(8, *([1] * len(batch))).expand(8, *batch)
 
 
-def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
-    """Hash each column of a word matrix behind a 32-zero-byte prefix.
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """u32 words as int32 storage or int64 -> their values as int64."""
+    return words.to(torch.int64) & _MASK
 
-    words: (L, C) u32 values (int64) — per-column message words (LE).  The
-    message of column c is 8 zero words followed by words[:, c]
-    (lib.rs:706-745).  Returns (8, C) int64 digests."""
-    prefix_words = 8
-    words = words.to(torch.int64)
+
+def hash_word_columns_sequential(words: torch.Tensor) -> torch.Tensor:
+    """Hash each column behind the 32-zero-byte prefix, one compression over
+    all columns at a time (block by block down each chunk, then the chunk
+    tree): the plain reference the tests hold the kernels' plain versions to.
+    words (L, C) u32 values; returns (8, C) int64."""
+    words = _u32(words)
     n_cols = words.shape[1]
-    total = prefix_words + words.shape[0]
+    total = PREFIX_WORDS + words.shape[0]
     n_blocks = max(1, (total + 15) // 16)
     n_chunks = max(1, (total + 255) // 256)
     last_len = (total % 16) * 4
     if last_len == 0:
         last_len = 64 if total > 0 else 0
     buf = words.new_zeros((n_blocks * 16, n_cols))
-    buf[prefix_words:total] = words
+    buf[PREFIX_WORDS:total] = words
 
     cvs = []
     for ci in range(n_chunks):
-        cv = _iv(n_cols, words.device)
+        cv = _iv((n_cols,), words.device)
         for k in range(16 * ci, min(16 * ci + 16, n_blocks)):
             is_start = k % 16 == 0
             is_last = k == n_blocks - 1
@@ -246,7 +269,7 @@ def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
         pairs = len(cvs) // 2
         left = torch.stack(cvs[0 : 2 * pairs : 2], dim=1)   # (8, pairs, C)
         right = torch.stack(cvs[1 : 2 * pairs : 2], dim=1)
-        out = _compress_t(_iv(n_cols, words.device)[:, None].expand(8, pairs, n_cols),
+        out = _compress_t(_iv((pairs, n_cols), words.device),
                           torch.cat([left, right], dim=0), 0, 64, flags)
         merged = list(out.unbind(dim=1))
         if len(cvs) % 2:
@@ -255,16 +278,264 @@ def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
     return cvs[0]
 
 
+# ---------------------------------------------------------------------------
+# the plain versions of the two kernels
+# ---------------------------------------------------------------------------
+
+
+def blake3_chunks_plain(words: torch.Tensor, carry, carry_len: int, chunk_base: int,
+                        n_chunks: int, final_len: int = 0,
+                        root: bool = False) -> torch.Tensor:
+    """The chunk CVs blake3_chunks writes, chunk-parallel: (n_chunks, 8, C)
+    int64 u32 values.  The stream of each column is carry[:carry_len] (zeros
+    when carry is None), then words (L, C); chunk j is stream words
+    [256 j, 256 j + 256), the last one final_len words when final_len > 0."""
+    n_cols = words.shape[1]
+    stream_len = CHUNK_WORDS * (n_chunks - 1) + (final_len or CHUNK_WORDS)
+    head = (words.new_zeros((carry_len, n_cols), dtype=torch.int64) if carry is None
+            else _u32(carry[:carry_len]))
+    data = torch.cat([head, _u32(words[: max(0, stream_len - carry_len)])])[:stream_len]
+    data = torch.nn.functional.pad(data, (0, 0, 0, n_chunks * CHUNK_WORDS - stream_len))
+    data = data.reshape(n_chunks, 16, 16, n_cols).permute(1, 2, 0, 3)  # (block, word, j, C)
+    lens = torch.full((n_chunks,), CHUNK_WORDS, dtype=torch.int64, device=words.device)
+    if final_len:
+        lens[-1] = final_len
+    n_blocks = (lens + 15) // 16
+    counter = (chunk_base + torch.arange(n_chunks, device=words.device))[:, None]
+    cv = _iv((n_chunks, n_cols), words.device)
+    for b in range(int(n_blocks.max())):
+        last = n_blocks - 1 == b
+        flags = (CHUNK_START if b == 0 else 0) | torch.where(
+            last, CHUNK_END | (ROOT if root else 0), 0)
+        blen = torch.where(last, (lens - 16 * b) * 4, 64)
+        new = _compress_t(cv, data[b], counter, blen[:, None], flags[:, None])
+        cv = torch.where((b < n_blocks)[None, :, None], new, cv)
+    return cv.permute(1, 0, 2)
+
+
+def blake3_parents_plain(left: torch.Tensor, right: torch.Tensor, n_pairs: int,
+                         flags: int) -> torch.Tensor:
+    """The nodes blake3_parents writes: left (n_out, 8, C), right (>= n_pairs,
+    8, C) -> (n_out, 8, C) int64 u32 values, compress(IV, left || right) for
+    the first n_pairs nodes and left as it is (a promoted node) after."""
+    out = _u32(left).clone()
+    if n_pairs:
+        lp = _u32(left[:n_pairs]).permute(1, 0, 2)   # (8, n_pairs, C)
+        rp = _u32(right[:n_pairs]).permute(1, 0, 2)
+        out[:n_pairs] = _compress_t(_iv(lp.shape[1:], left.device), torch.cat([lp, rp]),
+                                    0, 64, flags).permute(1, 0, 2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+
+def _bind(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lcpc_blake3_chunks.argtypes = [p, p, i, ll, i, ll, i, i, i, p, i, i, p]
+    lib.lcpc_blake3_chunks.restype = ctypes.c_int
+    lib.lcpc_blake3_parents.argtypes = [p, p, p, i, i, ll, ll, i] + [ll] * 9 + [
+        ctypes.c_uint, i, p]
+    lib.lcpc_blake3_parents.restype = ctypes.c_int
+
+
+def _check_words(name: str, t: torch.Tensor, dtypes) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: expected {dtypes}, got {t.dtype}")
+
+
+def _one_device(name: str, *tensors) -> torch.device:
+    """The device every operand lies on; raises when they differ."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: operands on different devices {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+def _launch_args(t: torch.Tensor):
+    return t.device.index or 0, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def blake3_chunks(words: torch.Tensor, out: torch.Tensor, *, carry=None,
+                  carry_len: int = PREFIX_WORDS, chunk_base: int = 0,
+                  final_len: int = 0, root: bool = False) -> None:
+    """Chunk CVs of out.shape[0] consecutive chunks of every column's stream
+    (carry[:carry_len], zeros when carry is None, then words (L, C)) into out
+    (n_chunks, 8, C), int32 storage of u32 words or int64; chunk j covers
+    stream words [256 j, 256 j + 256), the last one final_len (1 .. 256)
+    words when final_len > 0 (the column's final chunk); its counter is
+    chunk_base + j; `root` marks a column of one chunk (its CV is the
+    digest).
+
+    CUDA tensors launch csrc/blake3_cols.cu's blake3_chunks (counted in
+    blake3_chunks.launches) or raise; CPU tensors run blake3_chunks_plain."""
+    _check_words("blake3_chunks words", words, (torch.int32, torch.int64))
+    _check_words("blake3_chunks out", out, (torch.int32, torch.int64))
+    n_chunks, n_cols = out.shape[0], words.shape[1]
+    if words.dim() != 2 or out.shape[1:] != (8, n_cols) or not out.is_contiguous():
+        raise ValueError(f"blake3_chunks: words (L, C) and contiguous out (n, 8, C), got "
+                         f"{tuple(words.shape)} and {tuple(out.shape)}")
+    if carry is not None and (carry.shape[1] != n_cols or carry.shape[0] < carry_len):
+        raise ValueError(f"blake3_chunks: carry {tuple(carry.shape)} for {carry_len} words")
+    device = _one_device("blake3_chunks", words, out, carry)
+    if device.type == "cpu":
+        res = blake3_chunks_plain(words, carry, carry_len, chunk_base, n_chunks,
+                                  final_len, root)
+        out.copy_(res.to(out.dtype))
+        return
+    if device.type != "cuda":
+        raise ValueError(f"blake3_chunks: unsupported device {device}")
+    if words.dtype == torch.int64:
+        words = words.to(torch.int32)  # the same u32 bit patterns
+    words = words.contiguous()
+    if carry is not None:
+        _check_words("blake3_chunks carry", carry, (torch.int32,))
+        carry = carry.contiguous()
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(words)
+    err = lib.lcpc_blake3_chunks(
+        words.data_ptr() if words.numel() else None,
+        None if carry is None else carry.data_ptr(), carry_len, words.shape[0], n_cols,
+        chunk_base, n_chunks, final_len, int(root), out.data_ptr(),
+        int(out.dtype == torch.int64), dev, stream)
+    if err != 0:
+        raise RuntimeError(f"blake3_chunks launch failed: cudaError_t {err}")
+    blake3_chunks.launches += 1
+
+
+blake3_chunks.launches = 0
+
+
+def blake3_parents(left: torch.Tensor, right: torch.Tensor, out: torch.Tensor,
+                   flags: int) -> None:
+    """Parent nodes into out (n_out, 8, C): node i is compress(IV, left[i] ||
+    right[i], 0, 64, flags) for i < right.shape[0] and left[i] as it is (a
+    promoted odd node) after.  Operands are (node, word, column) views of
+    any strides, int32 storage of u32 words or int64.
+
+    CUDA tensors launch csrc/blake3_cols.cu's blake3_parents (counted in
+    blake3_parents.launches) or raise; CPU tensors run blake3_parents_plain."""
+    for name, t in (("left", left), ("right", right), ("out", out)):
+        _check_words(f"blake3_parents {name}", t, (torch.int32, torch.int64))
+        if t.dim() != 3 or t.shape[1] != 8 or t.shape[2] != out.shape[2]:
+            raise ValueError(f"blake3_parents: {name} must be (n, 8, C), got {tuple(t.shape)}")
+    n_out, n_pairs = out.shape[0], right.shape[0]
+    if left.dtype != right.dtype or left.shape[0] != n_out or n_pairs > n_out:
+        raise ValueError(f"blake3_parents: left {tuple(left.shape)} {left.dtype}, right "
+                         f"{tuple(right.shape)} {right.dtype}, out {tuple(out.shape)}")
+    device = _one_device("blake3_parents", left, right, out)
+    if device.type == "cpu":
+        out.copy_(blake3_parents_plain(left, right, n_pairs, flags).to(out.dtype))
+        return
+    if device.type != "cuda":
+        raise ValueError(f"blake3_parents: unsupported device {device}")
+    if n_out == 0 or out.shape[2] == 0:
+        return
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(out)
+    err = lib.lcpc_blake3_parents(
+        left.data_ptr(), right.data_ptr() if n_pairs else None, out.data_ptr(),
+        int(left.dtype == torch.int64), int(out.dtype == torch.int64), n_pairs, n_out,
+        out.shape[2], *left.stride(), *right.stride(), *out.stride(), flags, dev, stream)
+    if err != 0:
+        raise RuntimeError(f"blake3_parents launch failed: cudaError_t {err}")
+    blake3_parents.launches += 1
+
+
+blake3_parents.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# digest entry points
+# ---------------------------------------------------------------------------
+
+
+def merge_chunk_cvs(cvs: torch.Tensor) -> torch.Tensor:
+    """Chunk CVs (n >= 2, 8, C), int32 storage or int64 -> (8, C) int64
+    digests: the chunk tree, level by level (adjacent pairs, an odd last CV
+    promoted), which is BLAKE3's largest-power-of-two-left tree."""
+    n, _, n_cols = cvs.shape
+    assert n >= 2, n
+    while n > 2:
+        n_out = (n + 1) // 2
+        dst = torch.empty((n_out, 8, n_cols), dtype=torch.int32, device=cvs.device)
+        blake3_parents(cvs[0:n:2], cvs[1:n:2], dst, PARENT)
+        cvs, n = dst, n_out
+    out = torch.empty((1, 8, n_cols), dtype=torch.int64, device=cvs.device)
+    blake3_parents(cvs[0:1], cvs[1:2], out, PARENT | ROOT)
+    return out[0]
+
+
+def _chunking(n_words: int) -> tuple[int, int]:
+    """(chunks, words in the last chunk) of a column of n_words behind the
+    8-word prefix."""
+    total = PREFIX_WORDS + n_words
+    n_chunks = -(-total // CHUNK_WORDS)
+    return n_chunks, total - CHUNK_WORDS * (n_chunks - 1)
+
+
+def merge_chunk_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
+    """merge_chunk_cvs through blake3_parents_plain, on any device."""
+    while cvs.shape[0] > 2:
+        n = cvs.shape[0]
+        cvs = blake3_parents_plain(cvs[0:n:2], cvs[1:n:2], n // 2, PARENT)
+    return blake3_parents_plain(cvs[0:1], cvs[1:2], 1, PARENT | ROOT)[0]
+
+
+def hash_word_columns_plain(words: torch.Tensor) -> torch.Tensor:
+    """hash_word_columns through the kernels' plain versions, on any device
+    (what chip_smoke.py holds the kernels to on the card)."""
+    n_chunks, final_len = _chunking(words.shape[0])
+    cvs = blake3_chunks_plain(words, None, PREFIX_WORDS, 0, n_chunks, final_len,
+                              root=n_chunks == 1)
+    return cvs[0] if n_chunks == 1 else merge_chunk_cvs_plain(cvs)
+
+
+def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
+    """Hash each column of a word matrix behind a 32-zero-byte prefix.
+
+    words: (L, C) u32 words, int32 storage (as encode_rows_words returns
+    them) or int64 values — the message of column c is 8 zero words followed
+    by words[:, c] (lib.rs:706-745).  Returns (8, C) int64 digests.  One
+    blake3_chunks launch over every (column, chunk), then the chunk tree."""
+    n_cols = words.shape[1]
+    n_chunks, final_len = _chunking(words.shape[0])
+    if n_chunks == 1:
+        out = torch.empty((1, 8, n_cols), dtype=torch.int64, device=words.device)
+        blake3_chunks(words, out, final_len=final_len, root=True)
+        return out[0]
+    cvs = torch.empty((n_chunks, 8, n_cols), dtype=torch.int32, device=words.device)
+    blake3_chunks(words, cvs, final_len=final_len)
+    return merge_chunk_cvs(cvs)
+
+
+def _nodes(d: torch.Tensor) -> torch.Tensor:
+    """(8, n) digests -> the (n, 8, 1) node view the parents kernel takes."""
+    return d.t().unsqueeze(2)
+
+
 def merkle_parent(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """parent = blake3(left_digest_bytes || right_digest_bytes), (8, n) each."""
-    return _compress_t(_iv(left.shape[1], left.device),
-                       torch.cat([left, right], dim=0), 0, 64,
-                       CHUNK_START | CHUNK_END | ROOT)
+    """parent = blake3(left_digest_bytes || right_digest_bytes), (8, n) each;
+    returns (8, n) int64."""
+    out = torch.empty(left.shape, dtype=torch.int64, device=left.device)
+    blake3_parents(_nodes(left), _nodes(right), _nodes(out),
+                   CHUNK_START | CHUNK_END | ROOT)
+    return out
 
 
 def merkle_layer(digests: torch.Tensor) -> torch.Tensor:
     """One Merkle layer: (8, n) with n even -> (8, n // 2)."""
     return merkle_parent(digests[:, 0::2], digests[:, 1::2])
+
+
+def merkle_layer_plain(digests: torch.Tensor) -> torch.Tensor:
+    """merkle_layer through blake3_parents_plain, on any device."""
+    n = digests.shape[1] // 2
+    out = blake3_parents_plain(_nodes(digests[:, 0::2]), _nodes(digests[:, 1::2]), n,
+                               CHUNK_START | CHUNK_END | ROOT)
+    return out[:, :, 0].t()
 
 
 def digests_to_bytes(digests) -> np.ndarray:

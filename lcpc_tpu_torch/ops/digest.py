@@ -2,9 +2,11 @@
 genericity (lcpc-2d/src/lib.rs:34-58).
 
 The commitment pipeline needs three digest operations over (8, C) u32
-digest-word tensors (int64 storage): column leaf hashes, Merkle layers and
-one Merkle parent step; `host` is the byte-level twin.  BLAKE3 is the
-default; SHA256 is the second construction behind the same plug point.
+digest-word tensors (int64 storage): column leaf hashes (of (L, C) u32 words,
+int32 storage or int64), Merkle layers and one Merkle parent step; `host` is
+the byte-level twin.  BLAKE3 is the default, its entries the wrappers of the
+CUDA kernels in csrc/blake3_cols.cu (ops/blake3.py); SHA256 is the second
+construction behind the same plug point, plain PyTorch.
 Protocol entry points accept a `digest=` parameter; proofs do not record the
 digest (as in the reference, prover and verifier agree out of band).
 """

@@ -14,13 +14,14 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
 - `NttPlan` holds the stage twiddles as (W, m) Montgomery limbs, exactly
   lcpc_tpu's `NttPlan.stage_twiddles` (half-sizes m = n/2 .. 1), the passes,
   and one packed twiddle table per device for the kernel.
-- `ntt_forward(plan, x, canon_words=False)` is the wrapper.  On CUDA
+- `ntt_forward(plan, x, output="limbs")` is the wrapper.  On CUDA
   tensors it launches the hand-written ladder in `csrc/ntt_mont.cu`, one
   launch per pass: the first reads the (W, R, k) limbs, the last writes the
-  (W, R, n) limbs and, when asked, the canonical hash words; passes hand
-  over through one packed (R, n, W32) scratch buffer.  It raises if a launch
-  fails.  On CPU tensors it runs `ntt_forward_plain` (then from_mont and
-  the pack for the words).  `ntt_forward.launches` counts kernel launches.
+  (W, R, n) limbs, the canonical hash words or both (`output` = "limbs",
+  "words" or "both"); passes hand over through one packed (R, n, W32)
+  scratch buffer.  It raises if a launch fails.  On
+  CPU tensors it runs `ntt_forward_plain` (then from_mont and the pack for
+  the words).  `ntt_forward.launches` counts kernel launches.
 - `ntt_forward_plain` is the plain PyTorch twin: the Gentleman-Sande ladder
   of `_ntt_forward` with FieldOps.add/sub/mul, on any device.  Both return
   the unique residues < p, so they agree limb for limb.
@@ -263,12 +264,17 @@ def _bind(lib) -> None:
     lib.lcpc_ntt_pass.restype = ctypes.c_int
 
 
-def ntt_forward(plan: NttPlan, x: torch.Tensor, *, canon_words: bool = False):
+_OUTPUTS = ("limbs", "both", "words")
+
+
+def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
     """Forward NTT of each row: x (W, R, k <= n) int32 Montgomery limbs,
-    zero-padded to n -> (W, R, n) limbs in bit-reversed order; with
-    canon_words=True also the canonical hash words, (R*W/2, n) int32
-    storage of LE u32 words (word r*W/2 + i of column c), returned as
-    (limbs, words).
+    zero-padded to n.  `output` names what the last pass writes:
+      "limbs"  (W, R, n) limbs in bit-reversed order;
+      "both"   (limbs, words), words the canonical hash words, (R*W/2, n)
+               int32 storage of LE u32 words (word r*W/2 + i of column c);
+      "words"  the words alone (no limb stores: the streaming commit's
+               encode).
 
     CUDA tensors go through the kernel (csrc/ntt_mont.cu), one launch per
     pass, each counted in ntt_forward.launches, or raise; CPU tensors take
@@ -280,16 +286,22 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, canon_words: bool = False):
     if x.dim() != 3 or x.shape[0] != w or x.shape[2] > plan.n:
         raise ValueError(f"ntt_forward: x must be ({w}, R, k <= {plan.n}), "
                          f"got {tuple(x.shape)}")
+    if output not in _OUTPUTS:
+        raise ValueError(f"ntt_forward: output must be one of {_OUTPUTS}, got {output!r}")
     if x.device.type == "cpu":
         y = ntt_forward_plain(plan, x)
-        return (y, pack_row_words(plan.ops.from_mont(y))) if canon_words else y
+        if output == "limbs":
+            return y
+        words = pack_row_words(plan.ops.from_mont(y))
+        return (y, words) if output == "both" else words
     if x.device.type != "cuda":
         raise ValueError(f"ntt_forward: unsupported device {x.device}")
     x = x.contiguous()
     r, k, n, w32 = x.shape[1], x.shape[2], plan.n, w // 2
-    out = torch.empty((w, r, n), dtype=torch.int32, device=x.device)
+    out = (torch.empty((w, r, n), dtype=torch.int32, device=x.device)
+           if output != "words" else None)
     words = (torch.empty((r * w32, n), dtype=torch.int32, device=x.device)
-             if canon_words else None)
+             if output != "limbs" else None)
     if r:
         buf = (torch.empty((r, n, w32), dtype=torch.int32, device=x.device)
                if len(plan.passes) > 1 else None)
@@ -303,7 +315,7 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, canon_words: bool = False):
                 x.data_ptr() if i == 0 else None,
                 None if i == 0 else buf.data_ptr(),
                 None if i == last else buf.data_ptr(),
-                out.data_ptr() if i == last else None,
+                out.data_ptr() if i == last and out is not None else None,
                 words.data_ptr() if i == last and words is not None else None,
                 tw.data_ptr(), consts.data_ptr(), w32, r, plan.log_n, k,
                 ps.hi, ps.lo, ps.log_t, ps.threads(r << (plan.log_n - ps.log_tile)), dev,
@@ -312,7 +324,9 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, canon_words: bool = False):
                 raise RuntimeError(f"ntt_mont pass {i} (half-sizes 2^{ps.hi} .. 2^{ps.lo}) "
                                    f"launch failed: cudaError_t {err}")
             ntt_forward.launches += 1
-    return (out, words) if canon_words else out
+    if output == "limbs":
+        return out
+    return (out, words) if output == "both" else words
 
 
 ntt_forward.launches = 0

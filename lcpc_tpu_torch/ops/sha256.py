@@ -78,10 +78,10 @@ def _h0(n: int, device) -> torch.Tensor:
 def hash_word_columns(words: torch.Tensor, prefix_words: int = 8) -> torch.Tensor:
     """SHA-256 of each column of an LE word matrix behind a zero prefix.
 
-    words: (L, C) u32 values (int64); the message of column c is
-    `prefix_words` zero words, then words[:, c] (lib.rs:706-745).  Returns
-    (8, C) int64 digests in LE words."""
-    words = words.to(torch.int64)
+    words: (L, C) u32 words, int32 storage or int64 values; the message of
+    column c is `prefix_words` zero words, then words[:, c]
+    (lib.rs:706-745).  Returns (8, C) int64 digests in LE words."""
+    words = words.to(torch.int64) & _MASK
     total = prefix_words + words.shape[0]
     n_cols = words.shape[1]
     # padding in whole words (the message is word-aligned): 0x80000000, zero

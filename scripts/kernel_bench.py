@@ -76,6 +76,23 @@ def ptxas_report(build_log, kernel="spmv_mont_kernel"):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def ptxas_entries(build_log, kernel):
+    """{mangled entry name: (registers, spill store bytes, spill load bytes)}
+    of every entry function whose name contains `kernel`, from nvcc -v."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            m = re.search(r"(?:function '|properties for )(\w+)", line)
+            name = m.group(1) if m and kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name is not None:
+            out.setdefault(name, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.setdefault(name, [None, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def find_cuobjdump():
     """The CUDA toolkit's cuobjdump (PATH, then CUDA_HOME), or None."""
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")

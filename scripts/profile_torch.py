@@ -7,8 +7,8 @@ ft255, BLAKE3 at N = 2^23 (the chip_smoke.py size): Brakedown CODE3
 After one warm-up commit -> prove -> verify it reports:
   - stage times (host clock around synchronized work, median of 3) for the
     pieces of commit (sdig: encode, from_mont, pack; ligero: the encode
-    with its hash words from the NTT, their u32 form; then the column hash
-    and the Merkle layers),
+    with its hash words from the NTT; then the column hash and the Merkle
+    layers, both CUDA kernels),
     prove (device collapse, everything else) and verify (row encode, the
     opened columns' hash, eval dot, everything else);
   - per phase, a torch.profiler trace: wall ms, device-busy ms (sum of GPU
@@ -39,7 +39,7 @@ import torch  # noqa: E402
 import lcpc_tpu_torch as P  # noqa: E402
 from lcpc_tpu_torch.core import protocol  # noqa: E402
 from lcpc_tpu_torch.ops import blake3  # noqa: E402
-from lcpc_tpu_torch.ops.limbs import get_ops  # noqa: E402
+from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words  # noqa: E402
 
 LOG_N = 23
 
@@ -135,13 +135,11 @@ def main() -> int:
     if path == "sdig":  # encode_rows_words' default: encode, from_mont, pack
         cw, stages["commit.encode_rows"] = timed(lambda: enc.encode_rows(mat))
         canon_cw, stages["commit.from_mont"] = timed(lambda: ops.from_mont(cw))
-        words, stages["commit.pack_words"] = timed(lambda: protocol._pack_words(canon_cw))
+        words, stages["commit.pack_words"] = timed(lambda: pack_row_words(canon_cw))
         del canon_cw
     else:  # the NTT's last pass writes the hash words
-        (cw, words32), stages["commit.encode_rows_words"] = timed(
+        (cw, words), stages["commit.encode_rows_words"] = timed(
             lambda: enc.encode_rows_words(mat))
-        words, stages["commit.words_to_u32"] = timed(lambda: protocol._u32(words32))
-        del words32
     leaves, stages["commit.hash_columns"] = timed(lambda: blake3.hash_word_columns(words))
     np2 = protocol._next_pow2(comm.n_cols)
     padded = torch.nn.functional.pad(leaves, (0, np2 - comm.n_cols))

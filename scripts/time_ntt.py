@@ -10,7 +10,8 @@ events), on random ft255 rows:
     padded to n = 2^17) and at the verify shape (R = 2): every launch and
     layout copy of the call;
   - the commit's encode with its column-hash words: `ntt_forward(plan, x,
-    canon_words=True)` where the wrapper has it, else `ntt_forward`, then
+    output="both")` (or `canon_words=True`, its older spelling) where the
+    wrapper has it, else `ntt_forward`, then
     `from_mont` and `_pack_words` (what the commit ran before the NTT wrote
     the words).
 With --sweep it also times the commit shape under other pass plans, and
@@ -113,7 +114,9 @@ def main() -> int:
     enc = P.LigeroEncoding.new(spec, N_COEFFS, 1, 4, device="cuda")
     plan = nttm.get_ntt(spec, enc.n_cols)
     ops = plan.ops
-    fused = "canon_words" in inspect.signature(nttm.ntt_forward).parameters
+    params = inspect.signature(nttm.ntt_forward).parameters
+    both = {"output": "both"} if "output" in params else {"canon_words": True}
+    fused = "output" in params or "canon_words" in params
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     n_rows = -(-N_COEFFS // enc.n_per_row)
@@ -125,7 +128,7 @@ def main() -> int:
         rec = {"r": r, "ntt_forward_ms": kb.time_kernel(lambda: nttm.ntt_forward(plan, x))}
         if tag == "commit":
             if fused:
-                words = lambda: nttm.ntt_forward(plan, x, canon_words=True)  # noqa: E731
+                words = lambda: nttm.ntt_forward(plan, x, **both)  # noqa: E731
             else:
                 words = lambda: protocol._pack_words(  # noqa: E731
                     ops.from_mont(nttm.ntt_forward(plan, x)))
@@ -134,7 +137,7 @@ def main() -> int:
                 rec["sweep"] = []
                 for kw in SWEEP:
                     alt = nttm.NttPlan(spec, enc.n_cols, **kw)
-                    ms = kb.time_kernel(lambda: nttm.ntt_forward(alt, x, canon_words=True))
+                    ms = kb.time_kernel(lambda: nttm.ntt_forward(alt, x, **both))
                     rec["sweep"].append({"plan": kw, "passes": [list(vars(p).values())
                                                                 for p in alt.passes],
                                          "with_words_ms": ms})

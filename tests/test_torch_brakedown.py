@@ -21,6 +21,8 @@ from lcpc_tpu_torch.ops import spmv
 from lcpc_tpu_torch.ops.limbs import limbs_to_device
 from lcpc_tpu_torch.utils import native
 
+torch.set_num_threads(1)  # the xdist workers share the cores
+
 
 def _jspec(spec):
     return J_FIELDS[spec.name]

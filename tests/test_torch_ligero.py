@@ -32,6 +32,8 @@ from lcpc_tpu_torch.encodings.ligero import LigeroEncoding
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
 from lcpc_tpu_torch.utils.tensors import seeded_values
 
+torch.set_num_threads(1)  # the xdist workers share the cores
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_golden_ligero.json")
 DIGESTS = ["blake3", "sha256"]
 

@@ -9,11 +9,14 @@ while the port's ops are held to the field definition at every width."""
 
 import numpy as np
 import pytest
+import torch
 
 from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
+
+torch.set_num_threads(1)  # the xdist workers share the cores
 
 
 def _values(spec, n, seed):

@@ -24,6 +24,8 @@ from lcpc_tpu_torch.fields import ALL_FIELDS, FT63, FT255
 from lcpc_tpu_torch.ops import ntt
 from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words
 
+torch.set_num_threads(1)  # the xdist workers share the cores
+
 
 def _vals(spec, n, seed):
     """n values from a numpy seed, with p-1, 0 and 1 at the front."""
@@ -217,7 +219,7 @@ def test_wrapper_on_cpu_takes_plain_without_counting():
     x = _limbs(spec, [_vals(spec, 50, seed=6)])
     before = ntt.ntt_forward.launches
     got = ntt.ntt_forward(plan, x)
-    got2, words = ntt.ntt_forward(plan, x, canon_words=True)
+    got2, words = ntt.ntt_forward(plan, x, output="both")
     assert ntt.ntt_forward.launches == before
     want = ntt.ntt_forward_plain(plan, x)
     assert torch.equal(got, want) and torch.equal(got2, want)
@@ -336,7 +338,7 @@ def test_words_match_reference_canon_pack_ft63(n):
     y = np.asarray(jntt.get_ntt(js, n)(np.pad(x.numpy(), ((0, 0), (0, 0), (0, n - k)))
                                        .astype(np.uint32)))
     want = np.asarray(jproto._canon_pack_fn(j_get_ops(js))(y)).astype(np.uint32)
-    limbs, words = ntt.ntt_forward(ntt.get_ntt(spec, n), x, canon_words=True)
+    limbs, words = ntt.ntt_forward(ntt.get_ntt(spec, n), x, output="both")
     assert np.array_equal(limbs.numpy(), y)
     assert words.shape == (3 * 2, n) and words.dtype == torch.int32
     assert np.array_equal(words.numpy().view(np.uint32), want)
@@ -348,13 +350,29 @@ def test_words_match_host_ft255():
     spec, n = FT255, 256
     rows = [_vals(spec, n, seed=41), [spec.p - 1] * 100]
     _, words = ntt.ntt_forward(ntt.get_ntt(spec, n), _limbs(spec, [rows[0], rows[1] + [0] * 156]),
-                               canon_words=True)
+                               output="both")
     u = words.numpy().astype(np.int64) & 0xFFFFFFFF
     assert int(words.min()) < 0
     for r, row in enumerate(rows):
         want = ntt.ntt_host(spec, row + [0] * (n - len(row)))
         got = [sum(int(u[8 * r + i, c]) << (32 * i) for i in range(8)) for c in range(n)]
         assert got == want
+
+
+@pytest.mark.parametrize("spec", ALL_FIELDS, ids=lambda s: s.name)
+def test_words_only_last_pass(spec):
+    # output="words": the words alone, equal to the words written beside the
+    # limbs (the streaming commit's encode, Ligero's encode_rows_words_only)
+    n = 256
+    plan = ntt.get_ntt(spec, n)
+    x = _limbs(spec, [_vals(spec, 200, seed=50), [spec.p - 1] * 200])
+    limbs, words = ntt.ntt_forward(plan, x, output="both")
+    only = ntt.ntt_forward(plan, x, output="words")
+    assert torch.equal(only, words)
+    enc = LigeroEncoding.new_from_dims(spec, 200, n, 1, 2, device="cpu")
+    assert torch.equal(enc.encode_rows_words_only(x), words)
+    with pytest.raises(ValueError, match="output must be"):
+        ntt.ntt_forward(plan, x, output="none")
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -45,12 +45,14 @@ def test_pattern_catches_forbidden_imports():
 
 _MODULES = ["lcpc_tpu_torch", "lcpc_tpu_torch.convert", "lcpc_tpu_torch.ops.ntt",
             "lcpc_tpu_torch.encodings.ligero", "lcpc_tpu_torch.ops.sha256",
-            "lcpc_tpu_torch.utils.cuda_build"]
+            "lcpc_tpu_torch.utils.cuda_build", "lcpc_tpu_torch.core.streaming",
+            "lcpc_tpu_torch.core.coeffs", "lcpc_tpu_torch.utils.hbm"]
 
 
 @pytest.mark.parametrize("rel", ["ops/ntt.py", "encodings/ligero.py", "ops/sha256.py",
                                  "utils/cuda_build.py", "csrc/ntt_mont.cu",
-                                 "csrc/spmv_mont.cu"])
+                                 "csrc/spmv_mont.cu", "csrc/blake3_cols.cu", "ops/blake3.py",
+                                 "core/streaming.py", "core/coeffs.py", "utils/hbm.py"])
 def test_scan_covers_module(rel):
     assert os.path.join(_REPO, "lcpc_tpu_torch", rel) in set(_port_sources())
 

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import lcpc_tpu as J
 from lcpc_tpu.core import reference_impl as ref
@@ -23,6 +24,8 @@ from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 import lcpc_tpu_torch as P
 from lcpc_tpu_torch import convert
 from lcpc_tpu_torch.utils.tensors import seeded_values
+
+torch.set_num_threads(1)  # the xdist workers share the cores
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_golden_sdig.json")
 

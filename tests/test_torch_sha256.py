@@ -13,6 +13,8 @@ from lcpc_tpu.ops import sha256_jax
 from lcpc_tpu_torch.ops import digest, sha256
 from lcpc_tpu_torch.ops.blake3 import digests_to_bytes
 
+torch.set_num_threads(1)  # the xdist workers share the cores
+
 
 def _words(n_words, n_cols, seed):
     w = np.random.default_rng(seed).integers(0, 1 << 32, (n_words, n_cols), dtype=np.uint64)

@@ -20,6 +20,8 @@ from lcpc_tpu_torch.fields import FT63, FT255
 from lcpc_tpu_torch.fs.chacha import ChaCha20Rng
 from lcpc_tpu_torch.ops import spmv
 
+torch.set_num_threads(1)  # the xdist workers share the cores
+
 
 def _rand(spec, rng, n):
     return [int.from_bytes(rng.bytes(spec.repr_bytes), "little") % spec.p for _ in range(n)]
