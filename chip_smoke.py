@@ -8,9 +8,12 @@ Phases, each fatal on failure (each prints the seconds it took):
   2. build the three CUDA kernel sources from the checkout, one nvcc each,
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu); print ptxas's registers and spills per template
-     (fatal if the SpMV's or the NTT's W32 = 8 spills) and the SASS
-     instruction count of the SpMV's W32 = 8 k loop per wide product
-     (cuobjdump);
+     (fatal if the SpMV's or the NTT's W32 = 8 spills; every BLAKE3 kernel
+     reported, the per-level blake3_parents gone), the SASS instruction
+     count of the SpMV's W32 = 8 k loop per wide product and one BLAKE3
+     compression's instructions by pipe (cuobjdump; the compression
+     latency probe scripts/blake3_chain.cu is built beside the kernels),
+     from which every BLAKE3 bound is counted;
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
      Brakedown encoding at r = 36 (the commit's row count), on every level at
@@ -20,7 +23,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      bound of each level's nonzeros;
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
-     counted) and 3 times warm (median ms); check the evaluation against the
+     counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
+     path walk) and 3 times warm (median ms); check the evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
      then commit_streaming the same coefficients (its encode launches the
@@ -39,27 +43,37 @@ Phases, each fatal on failure (each prints the seconds it took):
      phase 4 (one cold run with the launches counted, 3 warm), with the
      evaluation and tamper checks; reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
-  7. hold the BLAKE3 kernels (blake3_chunks, blake3_parents) against their
-     plain versions, word for word: the 2^23 Ligero commit's columns (2,048
-     words x 131,072), the 2^28 commit's column length (16,384 words) over
-     4,096 columns, 189 columns of both lengths, edge lengths (1, 8, 248,
-     504, 760, 2,040 words; a few columns also against the host hash),
-     streaming updates with carries of 0, 8 and 255 words, and Merkle trees
-     of 2^17 and 2^19 leaves; time each against its bound;
+  7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
+     and merkle_walk, one launch each) against their plain versions, word
+     for word: the 2^23 Ligero commit's columns (2,048 words x 131,072), the
+     2^28 commit's column length (16,384 words) over 4,096 columns, 189
+     columns of both lengths, Brakedown's 6,593 opened columns, edge lengths
+     (1, 8, 248, 504, 760, 2,040 words; a few columns also against the host
+     hash), the chunk tree in both of its modes (a thread or a warp per
+     column), streaming updates with carries of 0, 8 and 255 words, Merkle
+     trees of 2^17 and 2^19 leaves and of 357,699 leaves padded to 2^19
+     (and 1, 2, 300 and 513 leaves), path walks of 189 x 17 and 6,593 x 19
+     (and 5 x 0, 40 x 3); time each (device, and the trees' host wall)
+     against its bound and the trees against their dependency floor (depth
+     x one compression's latency, from a one-thread chain of 4,096 in
+     scripts/blake3_chain.cu);
   8. the streaming commit against the in-memory one at 2^26 (Ligero ft255
      rho = 1/4, 1,024 x 65,536 coefficients, 262,144 columns): equal roots
      and proof bytes with (a) unpacked coefficients on the card in 128-row
      blocks, the words kept on the card, (b) a HostCoeffSource with the words
      spilled to host RAM, (c) packed coefficients and no words kept (prove
-     re-encodes the blocks);
+     re-encodes the blocks); each route's BLAKE3 trees: 1 chunk tree and 1
+     Merkle tree;
   9. the slice's path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
      131,072 coefficients (packed on the card, made from the seed), 524,288
      columns: commit_streaming (spill="auto") -> prove -> verify once cold
      with the launches counted, then warm runs (median ms, peak memory, proof
      bytes); the evaluation against one computed on the card in the other
      association order (rows against the inner tensor first, plain
-     FieldOps); tampered proofs; the retained words hashed in memory equal
-     to the streamed leaves (and the kernels timed at that shape); one row
+     FieldOps); the BLAKE3 trees launched 4 times; tampered proofs; the
+     retained words hashed in memory equal to the streamed leaves, the
+     chunk tree of 524,288 x 65 CVs equal to its plain version (and both
+     kernels timed at that shape); one row
      block of the encode, words only, against the NTT's limbs-and-words
      call and the plain version;
   10. print the kernel table line, then the result line.
@@ -72,6 +86,7 @@ the package is missing.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -92,14 +107,28 @@ HBM_BYTES_PER_S = 3.35e12
 # 33.5 T ops/s counting a multiply-add as 2 ops -> 16.75e12 IMAD/s; a
 # 32x32 -> 64-bit product takes two (low and high halves)
 WIDE_PRODUCTS_PER_S = 16.75e12 / 2
-# a BLAKE3 compression: 7 rounds x 8 G x 12 integer instructions (2 three-
-# input adds, 2 adds, 4 xors, 4 rotates) + 8 output xors, at the same rate
+# the integer pipes: the ALU pipe and the FMA pipe (IMAD family) each take
+# 64 lanes per SM a clock, 16.75e12 instructions/s over 132 SMs at 1.98 GHz;
+# the schedulers issue twice that in all.  A BLAKE3 compression's time on
+# them is counted from its SASS, split by pipe (phase 2, kernel_bench's
+# blake3_sass_mix): the larger of its ALU and its FMA instructions over
+# 16.75e12/s and of both together over the issue rate
 INT_OPS_PER_S = 16.75e12
-BLAKE3_OPS = 7 * 8 * 12 + 8
+ISSUE_PER_S = 2 * INT_OPS_PER_S
+B3_COMPRESSION_S = None  # set in phase 2 from the probe's SASS
 B3_COMMIT = (2048, 131072)  # phase 7: words x columns of the 2^23 Ligero commit
 B3_LONG = (16384, 4096)     # phase 7: the 2^28 commit's column length, 4,096 columns
 B3_OPENED = 189             # phase 7: verify's opened columns
-MERKLE_LOGS = (17, 19)      # phase 7: Merkle trees of the 2^23 and 2^28 commits
+# phase 7: Merkle trees of the 2^23 Ligero commit, the 2^28 commit and the
+# 2^23 Brakedown commit (leaves, padded width)
+MERKLE_TREES = ((1 << 17, 1 << 17), (1 << 19, 1 << 19), (357_699, 1 << 19))
+# phase 7: path walks of the 2^23 Ligero verify and the 2^23 Brakedown verify
+# (opened columns, levels)
+WALKS = ((189, 17), (6_593, 19))
+CHAIN = 4096                # phase 7: compressions of the latency probe
+TREES = ("chunk_tree", "merkle_tree", "merkle_walk")  # the BLAKE3 tree kernels
+B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
+              "merkle_tree_kernel", "merkle_walk_kernel")
 LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
 N_STREAM = 1 << 26   # phase 8: streaming against the in-memory commit
 N_BIG = 1 << 28      # phase 9: the slice's path
@@ -178,9 +207,15 @@ def hash_cost(n_words, n_cols):
     return k1, k2
 
 
+def compression_s(alu, fma):
+    """Seconds of one compression of alu ALU-pipe and fma FMA-pipe
+    instructions on the card at the peak rates (any SM, any lane)."""
+    return max(alu / INT_OPS_PER_S, fma / INT_OPS_PER_S, (alu + fma) / ISSUE_PER_S)
+
+
 def hash_bound_ms(nbytes, compressions):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = compressions * BLAKE3_OPS / INT_OPS_PER_S * 1e3
+    t_ops = compressions * B3_COMPRESSION_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -381,6 +416,7 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"{tag}: {name} launched {n} times")
+    check_tree_launches(launches, TREE_LAUNCHES_PATH, tag)
     if value != want:
         raise AssertionError(f"{tag}: verify returned the wrong evaluation")
     log(f"  verify returned univariate_eval of the {N_COEFFS} coefficients: ok")
@@ -398,6 +434,22 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
         log(f"{tag}_{name}_ms_median_{size}_ft255: {med[i]:.1f} "
             f"(warm runs {[round(t[i], 1) for t in warm]}; {card})")
     return launches, cold, warm, med, peak, len(data), root, data
+
+
+# BLAKE3 tree launches of commit -> prove -> verify: the chunk tree once in
+# commit (the column digests) and once in verify (the opened columns), the
+# Merkle tree in commit, the path walk in verify
+TREE_LAUNCHES_PATH = {"chunk_tree": 2, "merkle_tree": 1, "merkle_walk": 1}
+# of commit_streaming -> prove: the column digests' chunk tree and the Merkle tree
+TREE_LAUNCHES_STREAM = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 0}
+
+
+def check_tree_launches(launches, want, tag):
+    got = {name: launches[name] for name in TREES}
+    if got != want:
+        raise AssertionError(f"{tag}: BLAKE3 tree launches {got} != {want}")
+    log(f"  {tag}: BLAKE3 tree launches {sum(got.values())} ({got}); the per-level "
+        f"kernel is gone")
 
 
 def golden_run(torch, P, enc, spec, golden, digest):
@@ -470,15 +522,58 @@ def max_err(torch, got, want):
     return int((g - w).abs().max().item())
 
 
-def blake3_phase(torch, kb, b3, gen):
-    """Phase 7: both BLAKE3 kernels against their plain versions, word for
-    word, and timed against their bounds.  Returns the records."""
+def host_ms(torch, fn, reps=20):
+    """Median host wall per call, each call ending in synchronize(): what
+    the caller of a tree waits, its issue included."""
+    return statistics.median(time_host(torch, fn)[1] for _ in range(reps))
+
+
+def chunk_tree_check(torch, kb, b3, cvs, want, plain_ms, lat_ms, check, tag, timed):
+    """The chunk tree in every mode its shape allows against `want`, from
+    merge_chunk_cvs_plain in plain_ms; with `timed`, each mode's device time
+    (and the automatic choice's host wall) beside its bound and dependency
+    floor."""
+    n, _, n_cols = cvs.shape
+    modes = [None, 1] + ([32] if 2 < n <= 512 else [])
+    for lanes in modes:
+        check(f"{tag} chunk tree (lanes {lanes or 'auto'})", b3.merge_chunk_cvs(cvs, _lanes=lanes),
+              want)
+    if not timed:
+        return {}
+    nbytes, compressions = 4 * 8 * n * n_cols + 64 * n_cols, (n - 1) * n_cols
+    bound, by = hash_bound_ms(nbytes, compressions)
+    auto = 32 if 2 < n <= 512 and n_cols <= b3.WARP_TREE_MAX_COLS else 1
+    rec = {"n": n, "n_cols": n_cols, "auto_lanes": auto, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "compressions": compressions, "bytes": nbytes,
+           "host_ms": host_ms(torch, lambda: b3.merge_chunk_cvs(cvs)), "launches": 1}
+    for lanes in modes[1:]:
+        rec[f"ms_lanes_{lanes}"] = kb.time_kernel(lambda: b3.merge_chunk_cvs(cvs, _lanes=lanes))
+        depth = n - 1 if lanes == 1 else (n - 1).bit_length()
+        rec[f"floor_ms_lanes_{lanes}"] = depth * lat_ms
+    rec["ms"] = rec[f"ms_lanes_{auto}"]
+    log(f"  blake3 {tag} chunk tree ({n_cols} x {n} CVs): equal in every mode; 1 launch, "
+        f"device {rec['ms']:.4f} ms (lanes {auto}; "
+        + ", ".join(f"lanes {m}: {rec[f'ms_lanes_{m}']:.4f} ms, floor "
+                    f"{rec[f'floor_ms_lanes_{m}']:.4f}" for m in modes[1:])
+        + f"), host wall {rec['host_ms']:.4f} ms, bound {bound:.4f} ms ({by}), plain "
+        f"{plain_ms:.1f} ms")
+    return rec
+
+
+def blake3_phase(torch, kb, b3, gen, chain_so):
+    """Phase 7: the BLAKE3 kernels against their plain versions, word for
+    word, and timed against their bounds; the trees also against the
+    dependency floor of their depth (one compression's latency from the
+    probe library chain_so).  Returns the records."""
     import numpy as np
     from lcpc_tpu_torch.core.streaming import StreamingColumnHasher
 
     def words(n, c):
         return torch.randint(-2**31, 2**31, (n, c), generator=gen, device="cuda",
                              dtype=torch.int32)
+
+    def digests(n):
+        return torch.randint(0, 2**32, (8, n), generator=gen, device="cuda", dtype=torch.int64)
 
     recs, errs = {}, [0]
 
@@ -489,7 +584,18 @@ def blake3_phase(torch, kb, b3, gen):
                                   want.to(torch.int64) & 0xFFFFFFFF):
             raise AssertionError(f"blake3 {tag}: kernel != plain (max err {err})")
 
-    def columns(tag, w, host_cols=0, timed=False):
+    log("blake3 kernels vs plain: tolerance 0 — every digest word equal")
+    # one compression's latency: a thread running CHAIN dependent ones
+    cv0 = digests(1)[:, 0].contiguous()
+    node = cv0[None, :, None]
+    for _ in range(4):
+        node = b3.blake3_parents_plain(node, node, 1, b3.PARENT)
+    check("compress chain", kb.compress_chain(chain_so, cv0, 4), node[0, :, 0])
+    lat_ms = kb.time_kernel(lambda: kb.compress_chain(chain_so, cv0, CHAIN), reps=3) / CHAIN
+    recs["compression_latency_ms"] = lat_ms
+    log(f"  one compression's latency (a chain of {CHAIN} in one thread): {lat_ms * 1e3:.4f} us")
+
+    def columns(tag, w, host_cols=0, timed=False, tree_timed=False):
         n_words, n_cols = w.shape
         n_chunks = -(-(8 + n_words) // 256)
         final_len = 8 + n_words - 256 * (n_chunks - 1)
@@ -500,12 +606,14 @@ def blake3_phase(torch, kb, b3, gen):
         cvs_p, k1_plain = time_host(torch, lambda: b3.blake3_chunks_plain(
             w, None, 8, 0, n_chunks, final_len, root))
         check(f"{tag} chunks", cvs, cvs_p)
+        rec = {"n_words": n_words, "n_cols": n_cols, "n_chunks": n_chunks}
         if root:
-            leaves, leaves_p, k2_plain = cvs[0], cvs_p[0], 0.0
+            leaves, leaves_p = cvs[0], cvs_p[0]
         else:
-            leaves = b3.merge_chunk_cvs(cvs)
             leaves_p, k2_plain = time_host(torch, lambda: b3.merge_chunk_cvs_plain(cvs_p))
-            check(f"{tag} chunk tree", leaves, leaves_p)
+            rec["tree"] = chunk_tree_check(torch, kb, b3, cvs, leaves_p, k2_plain, lat_ms, check,
+                                           tag, timed or tree_timed)
+            leaves = b3.merge_chunk_cvs(cvs)
         check(f"{tag} hash_word_columns", b3.hash_word_columns(w), leaves_p)
         if host_cols:
             u = w[:, :host_cols].cpu().numpy().view(np.uint32)
@@ -513,32 +621,24 @@ def blake3_phase(torch, kb, b3, gen):
             for c in range(host_cols):
                 if bytes(got[c]) != b3.blake3(bytes(32) + u[:, c].astype("<u4").tobytes()):
                     raise AssertionError(f"blake3 {tag}: column {c} != the host hash")
-        rec = {"n_words": n_words, "n_cols": n_cols, "n_chunks": n_chunks}
         if timed:
-            (k1_b, k1_c), (k2_b, k2_c) = hash_cost(n_words, n_cols)
+            (k1_b, k1_c), _ = hash_cost(n_words, n_cols)
             k1_ms = kb.time_kernel(lambda: b3.blake3_chunks(w, cvs, final_len=final_len))
-            k2_ms = kb.time_kernel(lambda: b3.merge_chunk_cvs(cvs))
-            rec.update(k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_compressions=k1_c, k1_bytes=k1_b,
-                       k2_ms=k2_ms, k2_plain_ms=k2_plain, k2_compressions=k2_c, k2_bytes=k2_b,
-                       k2_launches=(n_chunks - 1).bit_length())
+            rec.update(k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_compressions=k1_c, k1_bytes=k1_b)
             rec["k1_bound_ms"], rec["k1_bound_by"] = hash_bound_ms(k1_b, k1_c)
-            rec["k2_bound_ms"], rec["k2_bound_by"] = hash_bound_ms(k2_b, k2_c)
             log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
                 f"equal; blake3_chunks {k1_ms:.4f} ms (plain {k1_plain:.1f} ms, bound "
-                f"{rec['k1_bound_ms']:.4f} ms, {rec['k1_bound_by']}; {k1_c} compressions), "
-                f"chunk tree {k2_ms:.4f} ms in {rec['k2_launches']} blake3_parents launches "
-                f"(plain {k2_plain:.1f} ms, bound {rec['k2_bound_ms']:.4f} ms, "
-                f"{rec['k2_bound_by']})")
+                f"{rec['k1_bound_ms']:.4f} ms, {rec['k1_bound_by']}; {k1_c} compressions)")
         else:
             log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
                 f"equal{f', {host_cols} columns equal to the host hash' if host_cols else ''}")
         recs[tag] = rec
 
-    log("blake3 kernels vs plain: tolerance 0 — every digest word equal")
     columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True)
     columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True)
-    columns("2^23 verify (189 columns)", words(B3_COMMIT[0], B3_OPENED))
-    columns("2^28 verify (189 columns)", words(B3_LONG[0], B3_OPENED))
+    columns("2^23 verify (189 columns)", words(B3_COMMIT[0], B3_OPENED), tree_timed=True)
+    columns("2^28 verify (189 columns)", words(B3_LONG[0], B3_OPENED), tree_timed=True)
+    columns("brakedown 2^23 verify (6,593 columns)", words(288, 6_593), tree_timed=True)
     for n_words in (1, 8, 248, 504, 760, 2040):
         columns(f"edge {n_words}", words(n_words, 300), host_cols=2)
     for lens in ((248, 256, 256), (256, 256, 256), (247, 257)):
@@ -553,25 +653,49 @@ def blake3_phase(torch, kb, b3, gen):
         log(f"  blake3 streaming updates of {lens} words (carries {carries[:-1]}): equal "
             f"to the one-shot plain hash")
 
-    def tree(layer, fn):
-        out = [layer]
-        while out[-1].shape[1] > 1:
-            out.append(fn(out[-1]))
-        return torch.cat(out, dim=1)
+    for n_cols, np2 in MERKLE_TREES + ((1, 1), (2, 2), (300, 512), (513, 1024)):
+        leaves = digests(n_cols)
+        got = b3.merkle_tree(leaves, np2)
+        want, plain_ms = time_host(torch, lambda: b3.merkle_tree_plain(leaves, np2))
+        check(f"merkle tree {n_cols} -> {np2}", got, want)
+        if (n_cols, np2) not in MERKLE_TREES:
+            continue
+        ms = kb.time_kernel(lambda: b3.merkle_tree(leaves, np2))
+        wall = host_ms(torch, lambda: b3.merkle_tree(leaves, np2))
+        bound, by = hash_bound_ms(64 * n_cols + 64 * (2 * np2 - 1), np2 - 1)
+        depth = np2.bit_length() - 1
+        recs[f"merkle {n_cols}"] = {
+            "leaves": n_cols, "np2": np2, "launches": 1, "ms": ms, "host_ms": wall,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "floor_ms": depth * lat_ms, "depth": depth}
+        log(f"  blake3 merkle tree of {n_cols} leaves (padded to 2^{depth}): equal; 1 launch, "
+            f"device {ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"floor {depth} x latency = {depth * lat_ms:.4f} ms, plain {plain_ms:.1f} ms")
+    log("  blake3 merkle trees of 1, 2, 300 -> 512 and 513 -> 1,024 leaves: equal")
 
-    for log_n in MERKLE_LOGS:
-        leaves = torch.randint(0, 2**32, (8, 1 << log_n), generator=gen, device="cuda",
-                               dtype=torch.int64)
-        got = tree(leaves, b3.merkle_layer)
-        want, plain_ms = time_host(torch, lambda: tree(leaves, b3.merkle_layer_plain))
-        check(f"merkle 2^{log_n}", got, want)
-        ms = kb.time_kernel(lambda: tree(leaves, b3.merkle_layer))
-        n = 1 << log_n
-        bound, by = hash_bound_ms(64 * n + 64 * (n - 1), n - 1)
-        recs[f"merkle {log_n}"] = {"leaves": n, "launches": log_n, "ms": ms,
-                                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-        log(f"  blake3 merkle tree of 2^{log_n} leaves: equal; {log_n} blake3_parents "
-            f"launches {ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound:.4f} ms, {by})")
+    for k, levels in WALKS + ((5, 0), (40, 3)):
+        n_sibs = max(1, k * levels // 2)
+        digs, sibs = digests(k), digests(n_sibs)
+        inv = torch.randint(0, n_sibs, (levels, k), generator=gen, device="cuda")
+        idx = torch.randint(0, 1 << levels, (k,), generator=gen, device="cuda")
+        idx[:2] = idx[2]  # opened columns repeat
+        got = b3.merkle_walk(digs, sibs, inv, idx)
+        want, plain_ms = time_host(torch, lambda: b3.merkle_walk_plain(digs, sibs, inv, idx))
+        check(f"merkle walk {k} x {levels}", got, want)
+        if (k, levels) not in WALKS:
+            continue
+        ms = kb.time_kernel(lambda: b3.merkle_walk(digs, sibs, inv, idx))
+        wall = host_ms(torch, lambda: b3.merkle_walk(digs, sibs, inv, idx))
+        read = int(torch.unique(inv).numel())
+        bound, by = hash_bound_ms(64 * k + 64 * read + 8 * levels * k + 8 * k + 64 * k,
+                                  k * levels)
+        recs[f"walk {k}"] = {"columns": k, "levels": levels, "launches": 1, "ms": ms,
+                             "host_ms": wall, "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": by, "floor_ms": levels * lat_ms}
+        log(f"  blake3 merkle walk of {k} columns x {levels} levels: equal; 1 launch, device "
+            f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
+            f"{levels * lat_ms:.4f} ms, plain {plain_ms:.1f} ms")
+    log("  blake3 merkle walks of 5 x 0 and 40 x 3: equal")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -642,7 +766,7 @@ def streaming_2_26(torch, P, counters, gen):
              ("c: packed on the card, no words kept (prove re-encodes)", packed,
               dict(spill="none")))
     out = []
-    path_kernels = {"ntt_mont", "blake3_chunks", "blake3_parents"}
+    path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree"}
     for tag, src, kw in cases:
         for fn in counters.values():
             fn.launches = 0
@@ -654,6 +778,7 @@ def streaming_2_26(torch, P, counters, gen):
         for name, n in launches.items():
             if (n > 0) != (name in path_kernels):
                 raise AssertionError(f"stream 2^26 {tag}: {name} launched {n} times")
+        check_tree_launches(launches, TREE_LAUNCHES_STREAM, f"stream 2^26 {tag[0]}")
         got = P.wire.serialize_proof(spec, pf)
         if got != data:
             raise AssertionError(f"stream 2^26 {tag}: proof bytes differ")
@@ -710,8 +835,9 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}, words kept on "
         f"the card: {comm.words_dev is not None}; peak device memory {peak:.2f} GiB")
     for name, n in launches.items():
-        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", "blake3_parents")):
+        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES)):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
+    check_tree_launches(launches, TREE_LAUNCHES_PATH, "path 2^28")
     if comm.words_dev is None:
         raise AssertionError("path 2^28: the words were not kept on the card")
     if value != want:
@@ -733,16 +859,29 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     cvs = torch.empty((n_chunks, 8, words.shape[1]), dtype=torch.int32, device="cuda")
     final_len = 8 + words.shape[0] - 256 * (n_chunks - 1)
     k1_ms = kb.time_kernel(lambda: b3.blake3_chunks(words, cvs, final_len=final_len), reps=3)
+    # the chunk tree at the commit's shape against its plain version, by
+    # column slices (the plain version's int64 temporaries at full width
+    # would take ~8 GB beside the kept words)
+    tree = b3.merge_chunk_cvs(cvs)
+    tree_plain_ms = 0.0
+    for c0 in range(0, cvs.shape[2], 1 << 16):
+        part, ms = time_host(torch, lambda: b3.merge_chunk_cvs_plain(cvs[:, :, c0 : c0 + (1 << 16)]))
+        tree_plain_ms += ms
+        if not torch.equal(tree[:, c0 : c0 + (1 << 16)], part):
+            raise AssertionError(f"path 2^28: chunk tree != plain at columns {c0}..")
     k2_ms = kb.time_kernel(lambda: b3.merge_chunk_cvs(cvs), reps=3)
     hashes = {"k1_ms": k1_ms, "k2_ms": k2_ms, "k1_compressions": k1_c, "k1_bytes": k1_b,
-              "k2_compressions": k2_c, "k2_bytes": k2_b, "k2_launches": (n_chunks - 1).bit_length()}
+              "k2_compressions": k2_c, "k2_bytes": k2_b, "k2_launches": 1,
+              "k2_plain_ms": tree_plain_ms,
+              "k2_host_ms": host_ms(torch, lambda: b3.merge_chunk_cvs(cvs), reps=5)}
     hashes["k1_bound_ms"], hashes["k1_bound_by"] = hash_bound_ms(k1_b, k1_c)
     hashes["k2_bound_ms"], hashes["k2_bound_by"] = hash_bound_ms(k2_b, k2_c)
     log(f"  the kept words hashed in memory: equal to the streamed leaves; blake3_chunks "
         f"{k1_ms:.4f} ms ({words.shape[1]} columns x {n_chunks} chunks, bound "
-        f"{hashes['k1_bound_ms']:.4f} ms, {hashes['k1_bound_by']}), chunk tree {k2_ms:.4f} ms "
-        f"(bound {hashes['k2_bound_ms']:.4f} ms, {hashes['k2_bound_by']})")
-    del cvs, leaves
+        f"{hashes['k1_bound_ms']:.4f} ms, {hashes['k1_bound_by']}); chunk tree equal to plain, "
+        f"1 launch, device {k2_ms:.4f} ms, host wall {hashes['k2_host_ms']:.4f} ms (bound "
+        f"{hashes['k2_bound_ms']:.4f} ms, {hashes['k2_bound_by']}; plain {tree_plain_ms:.1f} ms)")
+    del cvs, leaves, tree
 
     # one row block of the encode: words only against limbs and words, and
     # three of its rows against the plain version
@@ -788,6 +927,86 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
             "block_words_only_ms": blk_ms}
 
 
+def blake3_mix(kb, chain_so, lib_so):
+    """Phase 2: one BLAKE3 compression's instructions by pipe, from the SASS
+    of the latency probe's loop body (kb.CHAIN_PER_TRIP compressions) and
+    of each library kernel's longest straight-line block (per compression
+    it holds).  The least time any of them gives sets B3_COMPRESSION_S: no
+    kernel's compression issues less."""
+    global B3_COMPRESSION_S
+    mix = kb.blake3_sass_mix(chain_so, lib_so, B3_KERNELS)
+    if mix is None:
+        raise RuntimeError("cuobjdump not found: the BLAKE3 bound cannot be counted")
+    counts = {"probe": mix["chain"], **mix["kernels"]}
+    for name, (a, f, t, *n) in counts.items():
+        log(f"  SASS {name}: a compression is {a:g} ALU-pipe + {f:g} FMA-pipe of {t:g} "
+            f"instructions ({compression_s(a, f) * 1e12:.2f} ps at the card's integer rate)"
+            + (f", {n[0]} in its longest block" if n else ""))
+    least = min(counts, key=lambda k: compression_s(*counts[k][:2]))
+    B3_COMPRESSION_S = compression_s(*counts[least][:2])
+    log(f"  BLAKE3 bound: {B3_COMPRESSION_S * 1e12:.2f} ps a compression ({least}; 680 "
+        f"instructions on one pipe were {680 / INT_OPS_PER_S * 1e12:.2f} ps); probe loop "
+        f"opcodes {mix['chain_opcodes']}")
+    if mix["chain"][0] < 400:
+        raise AssertionError(f"the probe's compression is not on the vector ALU: {mix['chain']}")
+    return {"per_compression_alu_fma_all": counts, "least": least,
+            "chain_opcodes": mix["chain_opcodes"], "compression_ps": B3_COMPRESSION_S * 1e12}
+
+
+def tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix):
+    """The kernel table rows of the three BLAKE3 tree kernels: each one
+    launch, timed at the 2^23 Ligero commit's shape (the walk at its
+    verify's), with the other shapes, the host wall, the dependency floor
+    and ptxas's report beside."""
+    c23 = hashes["2^23 commit"]["tree"]
+    m17, w189 = hashes[f"merkle {MERKLE_TREES[0][0]}"], hashes[f"walk {WALKS[0][0]}"]
+    replaced = "redesigned from the per-level blake3_parents kernel (one launch per tree level)"
+
+    def ptx(*names):
+        return {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                for k, v in sorted(b3_ptxas.items()) if any(n in k for n in names)}
+
+    def row(name, replaces, rec, shape, **extra):
+        return {"name": name, "route": "cuda", "source": "lcpc_tpu_torch/csrc/blake3_cols.cu",
+                "replaces": replaces, "launches": big["launches"][name],
+                "max_abs_err": hashes["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None, "equal_to_plain": True,
+                "tolerance": 0, "shape": shape, "host_ms": rec["host_ms"],
+                "launches_2_23_paths": {"sdig": sdig[0][name], "ligero": lig[0][name]},
+                "compression_latency_ms": hashes["compression_latency_ms"], "note": replaced,
+                "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
+                    b3_mix["least"]][:3],
+                **extra}
+
+    return [
+        row("chunk_tree",
+            "lcpc_tpu/ops/blake3_jax.py:221-245 (the chunk tree) and lcpc_tpu/core/streaming.py:127 "
+            "(_merge_fn); XLA-fused, not Pallas", c23,
+            f"the {size} ligero commit's chunk tree: {c23['n_cols']} columns x {c23['n']} CVs",
+            floor_ms=c23["floor_ms_lanes_1"],
+            ms_2_28_commit=big["hashes"]["k2_ms"], host_ms_2_28_commit=big["hashes"]["k2_host_ms"],
+            bound_ms_2_28_commit=big["hashes"]["k2_bound_ms"],
+            verify_shapes={tag: hashes[tag]["tree"] for tag in (
+                "2^23 verify (189 columns)", "2^28 verify (189 columns)",
+                "brakedown 2^23 verify (6,593 columns)", "2^28 column length")},
+            ptxas=ptx("chunk_tree_stack_kernel", "chunk_tree_warp_kernel")),
+        row("merkle_tree",
+            "lcpc_tpu/ops/blake3_jax.py:264,275 (merkle_parent, merkle_layer) over the layer loop "
+            "of lcpc_tpu/core/protocol.py:322-333 and _commit_fused_fn :345-383; XLA-fused, "
+            "not Pallas", m17, f"the {size} ligero commit's tree: 2^17 leaves",
+            floor_ms=m17["floor_ms"],
+            other_shapes={k: v for k, v in hashes.items() if k.startswith("merkle ")},
+            ptxas=ptx("merkle_tree_kernel")),
+        row("merkle_walk",
+            "lcpc_tpu/core/protocol.py:840-845 (_verify_core_fn's path walk) and :793 "
+            "(_verify_core_cols_fn); XLA-fused, not Pallas", w189,
+            f"the {size} ligero verify's walk: 189 columns x 17 levels",
+            floor_ms=w189["floor_ms"], brakedown_2_23=hashes[f"walk {WALKS[1][0]}"],
+            ptxas=ptx("merkle_walk_kernel")),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -805,9 +1024,12 @@ def main() -> int:
 
     if "jax" in sys.modules or "lcpc_tpu" in sys.modules:
         raise RuntimeError("the port pulled in JAX or the JAX package")
+    if hasattr(b3, "blake3_parents"):
+        raise AssertionError("the per-level blake3_parents kernel is still in the port")
     counters = {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
-                "blake3_chunks": b3.blake3_chunks, "blake3_parents": b3.blake3_parents}
-    hashing = {"blake3_chunks", "blake3_parents"}
+                "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
+                "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk}
+    hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
     card = kb.card_line()
@@ -818,9 +1040,13 @@ def main() -> int:
     # 2. build the three kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
-    secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols"], force=True)
-    log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} "
-        f"({time.perf_counter() - t0:.2f} s wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the probe beside the kernels
+        chain_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR)
+        secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols"], force=True)
+        chain_so, chain_log = chain_f.result()
+    log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} and "
+        f"scripts/blake3_chain.cu ({time.perf_counter() - t0:.2f} s wall) with nvcc "
+        f"{' '.join(cuda_build.NVCC_FLAGS)}")
     ptxas = kb.ptxas_report(spmv.build_log)
     for w32, (regs, st, ld) in sorted(ptxas.items()):
         log(f"  ptxas spmv_mont W32={w32}: {regs} registers, {st} bytes spill stores, "
@@ -835,13 +1061,17 @@ def main() -> int:
             f"stores, {ld} bytes spill loads")
     if ntt_ptxas[8][1:] != (0, 0):
         raise AssertionError(f"ntt_pass_kernel W32=8 spills: {ntt_ptxas[8]}")
-    b3_ptxas = {k: v for name in ("blake3_chunks_kernel", "blake3_parents_kernel")
+    b3_ptxas = {k: v for name in B3_KERNELS
                 for k, v in kb.ptxas_entries(cuda_build.build_logs["blake3_cols"],
                                              name).items()}
-    if len(b3_ptxas) != 6:  # chunks: 2 output types; parents: 4 type pairs
+    if len(b3_ptxas) != 8:  # chunks 2 output types, the chunk tree 2 x 2 input types, 2
         raise AssertionError(f"blake3 kernels not reported by ptxas: {b3_ptxas}")
     for name, (regs, st, ld) in sorted(b3_ptxas.items()):
         log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    for name, (regs, st, ld) in kb.ptxas_entries(chain_log, "compress_chain_kernel").items():
+        log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
     loop = kb.sass_loop(spmv.SO_PATH)
     if loop is None:
         log("  SASS: cuobjdump not found, k-loop count not measured")
@@ -914,6 +1144,7 @@ def main() -> int:
         raise AssertionError("sdig streaming proof bytes != the in-memory proof")
     if s_launches["spmv_mont"] != n_levels * -(-scomm.n_rows // scomm.row_block):
         raise AssertionError(f"sdig streaming: spmv launches {s_launches}")
+    check_tree_launches(s_launches, TREE_LAUNCHES_STREAM, "sdig commit_streaming")
     log(f"  sdig commit_streaming {s_ms:.1f} ms ({scomm.row_block}-row blocks, words kept "
         f"{'on the card' if scomm.words_dev is not None else 'nowhere'}): root and proof bytes "
         f"equal to the in-memory commit's; launches {s_launches}")
@@ -983,7 +1214,7 @@ def main() -> int:
 
     # 7. the BLAKE3 kernels against their plain versions
     with Phase("7 blake3 vs plain"):
-        hashes = blake3_phase(torch, kb, b3, gen)
+        hashes = blake3_phase(torch, kb, b3, gen, chain_so)
         torch.cuda.empty_cache()
 
     # 8. streaming against in-memory at 2^26
@@ -995,7 +1226,7 @@ def main() -> int:
         big = path_2_28(torch, kb, P, counters, b3, nttm, gen, card)
 
     # 10. kernel table
-    c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]
+    c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
         "route": "cuda",
@@ -1071,37 +1302,14 @@ def main() -> int:
         "bound_ms_2_28_length_4096_columns": c28["k1_bound_ms"],
         "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
                   for k, v in sorted(b3_ptxas.items()) if "chunks" in k},
-    }, {
-        "name": "blake3_parents",
-        "route": "cuda",
-        "source": "lcpc_tpu_torch/csrc/blake3_cols.cu",
-        "replaces": ("lcpc_tpu/ops/blake3_jax.py:221-245,264,275 (the chunk tree, "
-                     "merkle_parent, merkle_layer) and lcpc_tpu/core/streaming.py:127 "
-                     "(_merge_fn); XLA-fused, not Pallas"),
-        "launches": big["launches"]["blake3_parents"],
-        "max_abs_err": hashes["max_abs_err"],
-        "ms": c23["k2_ms"],
-        "plain_ms": c23["k2_plain_ms"],
-        "bound_ms": c23["k2_bound_ms"],
-        "bound_by": c23["k2_bound_by"],
-        "library_ms": None,
-        "equal_to_plain": True,
-        "tolerance": 0,
-        "shape": (f"the {size} commit's chunk tree: {c23['n_cols']} columns x "
-                  f"{c23['n_chunks']} chunk CVs, {c23['k2_launches']} launches"),
-        "launches_2_23_paths": {"sdig": sdig[0]["blake3_parents"],
-                                "ligero": lig[0]["blake3_parents"]},
-        "merkle": {f"2^{k}": hashes[f"merkle {k}"] for k in MERKLE_LOGS},
-        "ms_2_28_commit_chunk_tree": big["hashes"]["k2_ms"],
-        "bound_ms_2_28_commit_chunk_tree": big["hashes"]["k2_bound_ms"],
-        "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
-                  for k, v in sorted(b3_ptxas.items()) if "parents" in k},
-    }]
+        "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
+            b3_mix["least"]][:3],
+    }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
         json.dump({"card": card, "levels": rows, "ntt": ntt_rows,
-                   "sass_k_loop": loop and loop[:3],
+                   "sass_k_loop": loop and loop[:3], "blake3_sass": b3_mix,
                    "main_path_ms": {
                        name: {"cold": r[1], "warm": r[2], "median": r[3],
                               "peak_gib": r[4], "proof_bytes": r[5]}

@@ -273,27 +273,6 @@ class VerifierError(Exception):
 # ---------------------------------------------------------------------------
 
 
-def _merkleize(leaves: torch.Tensor, n_cols_np2: int,
-               digest: DeviceDigest = BLAKE3) -> torch.Tensor:
-    """Column digests (8, n_cols) + every Merkle layer, flattened leaves
-    first: (8, 2*np2-1) int64."""
-    n_cols = leaves.shape[1]
-    if n_cols_np2 > n_cols:  # zero digests pad the leaves (lib.rs:665)
-        leaves = torch.nn.functional.pad(leaves, (0, n_cols_np2 - n_cols))
-    layers = [leaves]
-    while layers[-1].shape[1] > 1:
-        layers.append(digest.merkle_layer(layers[-1]))
-    return torch.cat(layers, dim=1)
-
-
-def _hash_and_merkleize(words: torch.Tensor, n_cols_np2: int,
-                        digest: DeviceDigest = BLAKE3) -> torch.Tensor:
-    """Column digests of the (R*W/2, n_cols) canonical hash words (int32
-    storage, hashed as they are) + every Merkle layer, flattened leaves
-    first: (8, 2*np2-1) int64."""
-    return _merkleize(digest.hash_word_columns(words), n_cols_np2, digest)
-
-
 def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
            digest: DeviceDigest = BLAKE3) -> LcCommit:
     """Commit to a polynomial (lib.rs:622-671) on the encoding's device.
@@ -325,7 +304,8 @@ def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
     mat = arr.reshape(ops.w, n_rows, n_per_row)
     comm_mat, words = enc.encode_rows_words(mat)  # (W, n_rows, n_cols), hash words
     n_cols_np2 = _next_pow2(n_cols)
-    flat = _hash_and_merkleize(words, n_cols_np2, digest)
+    # column digests of the (R*W/2, n_cols) hash words, then the Merkle array
+    flat = digest.merkle_tree(digest.hash_word_columns(words), n_cols_np2)
     assert flat.shape[1] == 2 * n_cols_np2 - 1
 
     return LcCommit(
@@ -533,7 +513,7 @@ def _eval_dot(ops, rows_w: torch.Tensor, inner_w: torch.Tensor) -> torch.Tensor:
 
 
 def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
-                 uniq_sibs, inv, bits, root_w) -> np.ndarray:
+                 uniq_sibs, inv, root_w) -> np.ndarray:
     """The batched verifier step, all on the device:
 
       enc_rows  (W, T, n_cols) Montgomery — encoded [p_random..., p_eval]
@@ -542,7 +522,6 @@ def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
       idx       (k,) — opened column indices
       uniq_sibs (8, U) — unique sibling digests
       inv       (L, k) — per-level map from column to unique digest
-      bits      (L, k) bool — is-right bit of the walk at each level
       root_w    (8,) — expected root digest words
     Returns (T+1,) bool flags: per-row dot checks [0..T), path check [T].
     """
@@ -552,12 +531,7 @@ def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
     ok_rows = (got == want).all(dim=2).all(dim=0)        # (T,)
 
     digs = digest.hash_word_columns(pack_row_words(ops.from_mont(col_mat)))  # (8, k)
-    for lvl in range(inv.shape[0]):
-        s = uniq_sibs.index_select(1, inv[lvl])          # (8, k)
-        is_right = bits[lvl]
-        left = torch.where(is_right, s, digs)
-        right = torch.where(is_right, digs, s)
-        digs = digest.merkle_parent(left, right)
+    digs = digest.merkle_walk(digs, uniq_sibs, inv, idx)  # bit l of idx: right child
     ok_path = (digs == root_w[:, None]).all()
     return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
 
@@ -694,14 +668,13 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
         uniq_bytes = np.ascontiguousarray(uniq_v.view(np.uint8)).reshape(-1, 32)
     uniq_sibs = blake3.bytes_to_digests(uniq_bytes)  # (8, U)
     inv = np.ascontiguousarray(inv.reshape(n_col_opens, path_len).T)  # (L, k)
-    bits = ((idx[None, :] >> np.arange(path_len)[:, None]) & 1).astype(bool)
     root_w = np.frombuffer(root, dtype="<u4").astype(np.int64)
 
     dev = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(device)
     flags = _verify_core(
         ops, digest, enc_rows, limbs_to_device(ts, device),
         dev(batched.col_w, np.int64), dev(idx, np.int64),
-        dev(uniq_sibs, np.int64), dev(inv, np.int64), dev(bits, np.bool_),
+        dev(uniq_sibs, np.int64), dev(inv, np.int64),
         dev(root_w, np.int64),
     )
     for i in range(n_degree_tests_):

@@ -46,7 +46,6 @@ from .protocol import (
     LcEvalProof,
     ProverError,
     _batched_columns,
-    _merkleize,
     _next_pow2,
     _pack_pairs,
     prove_core,
@@ -282,7 +281,7 @@ def commit_streaming(coeffs, enc: LcEncoding, row_block: "int | None" = None,
             prev = done
         del words  # freed before the next block's encode allocates
 
-    flat = _merkleize(hasher.finalize(), _next_pow2(n_cols), digest)
+    flat = digest.merkle_tree(hasher.finalize(), _next_pow2(n_cols))
     return LcCommitStreaming(
         enc=enc, source=source, coeffs=source.raw_block(0, n_rows) if array_backed else None,
         n_rows=n_rows, n_per_row=n_per_row, n_cols=n_cols, hashes_dev=flat,

@@ -1,4 +1,4 @@
-// BLAKE3 column hashing and Merkle layers: the commitment's digests.
+// BLAKE3 column hashing and the Merkle tree: the commitment's digests.
 //
 // Replaces the XLA-fused jnp graphs of the JAX package, none of them a Pallas
 // kernel:
@@ -9,48 +9,53 @@
 //   - lcpc_tpu/core/streaming.py: `_update_fn` (:48), `_finalize_fn` (:90)
 //     and `_merge_fn` (:127), the same chunk chain fed by row blocks with a
 //     sub-chunk carry buffer, its final partial chunk and its chunk-tree
-//     merge.
+//     merge;
+//   - lcpc_tpu/core/protocol.py: the commit's layer loop (:322-333, and
+//     `_commit_fused_fn` :345-383) and the verifier's path walk in
+//     `_verify_core_fn` (:840-845) and `_verify_core_cols_fn` (:793).
 //
-// Two kernels:
+// Under jit XLA sees each of those trees whole; here each is one launch:
 //
-//   blake3_chunks   one thread per (column, chunk).  BLAKE3's 1 KiB chunks
-//                   (256 words) are independent, so a thread runs its
-//                   chunk's up to 16 compressions with the chaining value
-//                   in registers and writes the chunk's CV; the counter is
-//                   the global chunk index (chunk_base + chunk).  Stream
-//                   word i of a column comes from the carry buffer when
-//                   i < carry_len (zeros when no buffer is given: the
-//                   in-memory hash's 8-word prefix), else from the words.
-//                   Consecutive threads take consecutive columns, so each
-//                   of a block's 16 word loads is one coalesced row read
-//                   across the warp.  A final partial chunk takes its
-//                   length: its last block has block_len = (len % 16) * 4
-//                   or 64; ROOT is set only when the column is one chunk.
-//   blake3_parents  one thread per output node and column: the node's CV is
-//                   compress(IV, left || right, counter 0, len 64, flags).
-//                   The chunk-tree merge runs it level by level with flags
-//                   PARENT (PARENT | ROOT at the top), pairing adjacent CVs
-//                   and promoting an odd last one (a copy), which is
-//                   BLAKE3's largest-power-of-two-left tree; the Merkle
-//                   layers run it with CHUNK_START | CHUNK_END | ROOT (a
-//                   64-byte single-chunk hash).  Each operand is a strided
-//                   (node, word, column) view, u32 words or int64 storage of
-//                   u32 values (the digest tensors of core/protocol.py).
+//   blake3_chunks     one thread per (column, chunk).  BLAKE3's 1 KiB chunks
+//                     (256 words) are independent, so a thread runs its
+//                     chunk's up to 16 compressions with the chaining value
+//                     in registers and writes the chunk's CV; the counter is
+//                     the global chunk index (chunk_base + chunk).  Stream
+//                     word i of a column comes from the carry buffer when
+//                     i < carry_len (zeros when no buffer is given: the
+//                     in-memory hash's 8-word prefix), else from the words.
+//                     Consecutive threads take consecutive columns, so each
+//                     of a block's 16 word loads is one coalesced row read
+//                     across the warp.  A final partial chunk takes its
+//                     length: its last block has block_len = (len % 16) * 4
+//                     or 64; ROOT is set only when the column is one chunk.
+//   chunk tree        the chunk CVs of every column merged into its digest:
+//                     with many columns a thread per column runs BLAKE3's CV
+//                     stack in shared memory (n - 1 compressions in a chain,
+//                     every thread busy); with few a warp per column merges
+//                     level by level (ceil(log2 n) deep).
+//   merkle_tree       the whole Merkle array.  A block of 256 threads builds
+//                     the subtree of 1,024 leaves, level 1 from the leaves
+//                     and the rest in shared memory, writing every node to
+//                     its flat offset; the last block to finish
+//                     (an atomic counter) builds the levels above the subtree
+//                     roots.  Zero digests pad the leaves to a power of two.
+//   merkle_walk       one thread per opened column walks its path to the
+//                     root, the sibling picked by the deduplicated index map
+//                     and its side by the column's index bits.
 //
-// The JAX package instead scans block by block over each column's chunks
-// in sequence: it vectorizes over columns only.  Here the chunks are a grid
-// dimension too, so verify's 189 opened columns of a 2^28 commit are
-// 189 x 65 threads rather than 189.
-//
-// What bounds them on an H100 (SXM, 700 W): the integer issue.  A
-// compression is 7 rounds x 8 G x 12 instructions (2 three-input adds, 2
+// What bounds them on an H100 (SXM, 700 W): blake3_chunks, the integer pipes.
+// A compression is 7 rounds x 8 G x 12 instructions (2 three-input adds, 2
 // adds, 4 xors, 4 rotates; rotates by 16 and 8 are byte permutes, by 12 and
-// 7 funnel shifts) plus 8 output xors, ~680 instructions, against 4 bytes of
-// message per word read once: 2,056-word columns are ~0.66 ms of
-// instructions per GB of words at 16.75e12 simple integer instructions/s,
-// twice the 0.30 ms/GB of reading them at 3.35 TB/s.  The design keeps
-// every message word in registers after one coalesced load and launches
-// enough threads ((column, chunk) pairs) to fill the card's 132 SMs.
+// 7 funnel shifts) plus 8 output xors, ~680 instructions.  The xors and
+// rotates run on the ALU pipe; ptxas moves about half the adds to the FMA
+// pipe (IMAD.IADD), so ~562 ALU-pipe instructions set the pace at 16.75e12
+// a second, against 4 bytes of message per word read once: 2,056-word
+// columns are ~0.53 ms of the ALU pipe per GB of words, 1.8 times the
+// 0.30 ms/GB of reading them at 3.35 TB/s.  The trees do far less
+// work (a 2^17-leaf tree is 0.005 ms of instructions), so what bounds them
+// is their depth: a compression's dependency chain times the tree's levels,
+// and before this design the host's issue of one launch per level.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,6 +65,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr uint32_t CHUNK_START = 1u << 0;
 constexpr uint32_t CHUNK_END = 1u << 1;
+constexpr uint32_t PARENT = 1u << 2;
 constexpr uint32_t ROOT = 1u << 3;
 
 __constant__ uint32_t kIV[8] = {0x6A09E667u, 0xBB67AE85u, 0x3C6EF372u, 0xA54FF53Au,
@@ -159,52 +165,282 @@ blake3_chunks_kernel(const uint32_t* __restrict__ words, const uint32_t* __restr
   for (int w = 0; w < 8; ++w) store_word(out + ((size_t)j * 8 + w) * n_cols + c, cv[w]);
 }
 
-struct View {  // element (node, word, column) at node * n + word * w + column * c
-  long long n, w, c;
-};
-
-// Output node `node` of column c: compress(IV, left || right) for node <
-// n_pairs, a copy of left (the promoted odd node) for n_pairs <= node < n_out.
-template <typename In, typename Out>
-__global__ void __launch_bounds__(kThreads)
-blake3_parents_kernel(const In* __restrict__ left, const In* __restrict__ right,
-                      Out* __restrict__ out, long long n_pairs, long long n_out, int n_cols,
-                      View lv, View rv, View ov, uint32_t flags) {
-  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= n_out * n_cols) return;
-  const long long node = idx / n_cols;
-  const long long c = idx - node * n_cols;
-  const In* l = left + node * lv.n + c * lv.c;
-  uint32_t cv[8];
-  if (node < n_pairs) {
-    const In* r = right + node * rv.n + c * rv.c;
-    uint32_t m[16];
+// cv <- compress(IV, left || right, counter 0, len 64, flags): a parent node
+__device__ __forceinline__ void parent_cv(uint32_t (&cv)[8], const uint32_t (&l)[8],
+                                          const uint32_t (&r)[8], uint32_t flags) {
+  uint32_t m[16];
 #pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      m[w] = (uint32_t)l[w * lv.w];
-      m[8 + w] = (uint32_t)r[w * rv.w];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) cv[i] = kIV[i];
-    compress(cv, m, 0, 64u, flags);
-  } else {
-#pragma unroll
-    for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)l[w * lv.w];
+  for (int w = 0; w < 8; ++w) {
+    m[w] = l[w];
+    m[8 + w] = r[w];
   }
-  Out* o = out + node * ov.n + c * ov.c;
 #pragma unroll
-  for (int w = 0; w < 8; ++w) store_word(o + w * ov.w, cv[w]);
+  for (int w = 0; w < 8; ++w) cv[w] = kIV[w];
+  compress(cv, m, 0, 64u, flags);
 }
 
-template <typename In, typename Out>
-cudaError_t launch_parents(const void* left, const void* right, void* out, long long n_pairs,
-                           long long n_out, int n_cols, View lv, View rv, View ov,
-                           uint32_t flags, cudaStream_t s) {
-  const long long blocks = (n_out * n_cols + kThreads - 1) / kThreads;
-  blake3_parents_kernel<In, Out><<<(unsigned)blocks, kThreads, 0, s>>>(
-      static_cast<const In*>(left), static_cast<const In*>(right), static_cast<Out*>(out),
-      n_pairs, n_out, n_cols, lv, rv, ov, flags);
-  return cudaGetLastError();
+// ---- the chunk tree: (n, 8, C) chunk CVs -> (8, C) digests ----------------
+
+// One thread per column, BLAKE3's CV stack: chunk i < n - 1 is pushed after
+// merging it with the stack top while the count of chunks so far (i + 1)
+// has a trailing zero bit; the last chunk is then folded into the stack top
+// down, ROOT on the last merge.  The stack lives in shared memory as
+// [depth][word][thread], so a warp's accesses hit 32 different banks.
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+chunk_tree_stack_kernel(const In* __restrict__ cvs, int n, int n_cols,
+                        long long* __restrict__ out) {
+  extern __shared__ uint32_t stack[];  // [depth][8][kThreads]
+  const int t = threadIdx.x;
+  const int c = blockIdx.x * kThreads + t;
+  if (c >= n_cols) return;
+  int top = 0;
+  uint32_t cv[8], l[8];
+  for (int i = 0;; ++i) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)cvs[((size_t)i * 8 + w) * n_cols + c];
+    if (i == n - 1) break;
+    for (unsigned total = i + 1; (total & 1u) == 0; total >>= 1) {
+      --top;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) l[w] = stack[(top * 8 + w) * kThreads + t];
+      parent_cv(cv, l, cv, PARENT);
+    }
+#pragma unroll
+    for (int w = 0; w < 8; ++w) stack[(top * 8 + w) * kThreads + t] = cv[w];
+    ++top;
+  }
+  while (top > 0) {
+    --top;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) l[w] = stack[(top * 8 + w) * kThreads + t];
+    parent_cv(cv, l, cv, PARENT | (top == 0 ? ROOT : 0u));
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) out[(size_t)w * n_cols + c] = cv[w];
+}
+
+// One warp per column, for few columns: the tree level by level, adjacent
+// pairs merged and an odd last node promoted (the same tree), each level in
+// the warp's slice of shared memory ([word][node], cap = ceil(n / 2)
+// nodes): ceil(log2 n) compressions deep instead of n - 1.
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+chunk_tree_warp_kernel(const In* __restrict__ cvs, int n, int n_cols,
+                       long long* __restrict__ out) {
+  extern __shared__ uint32_t nodes[];  // [warp][8][cap]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * (kThreads / 32) + warp;
+  if (c >= n_cols) return;  // the whole warp leaves together
+  const int cap = (n + 1) / 2;
+  uint32_t* s = nodes + (size_t)warp * 8 * cap;
+  uint32_t cv[8], l[8], r[8];
+  for (int i = lane; i < cap; i += 32) {  // level 1, from the chunk CVs
+#pragma unroll
+    for (int w = 0; w < 8; ++w) l[w] = (uint32_t)cvs[((size_t)2 * i * 8 + w) * n_cols + c];
+    if (2 * i + 1 < n) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        r[w] = (uint32_t)cvs[((size_t)(2 * i + 1) * 8 + w) * n_cols + c];
+      parent_cv(cv, l, r, PARENT | (n == 2 ? ROOT : 0u));
+    } else {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) cv[w] = l[w];  // the promoted odd CV
+    }
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[w * cap + i] = cv[w];
+  }
+  __syncwarp();
+  for (int m = cap; m > 1; m = (m + 1) / 2) {
+    const int pairs = m / 2;
+    // a round reads nodes [2 base, 2 base + 64) and writes [base, base + 32)
+    for (int base = 0; base < pairs; base += 32) {
+      const int i = base + lane;
+      if (i < pairs) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          l[w] = s[w * cap + 2 * i];
+          r[w] = s[w * cap + 2 * i + 1];
+        }
+        parent_cv(cv, l, r, PARENT | (m == 2 ? ROOT : 0u));
+      }
+      __syncwarp();
+      if (i < pairs) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s[w * cap + i] = cv[w];
+      }
+      __syncwarp();
+    }
+    if ((m & 1) && lane < 8) s[lane * cap + pairs] = s[lane * cap + m - 1];  // promote
+    __syncwarp();
+  }
+  if (lane < 8) out[(size_t)lane * n_cols + c] = s[lane * cap];
+}
+
+// ---- the Merkle tree: (8, n_cols) leaves -> flat (8, 2 np2 - 1) ----------
+
+constexpr int kTreeThreads = 256;
+constexpr int kTreeNodes = 2 * kTreeThreads;  // a level in shared memory
+constexpr int kTreeLeaves = 2 * kTreeNodes;   // a block's subtree
+constexpr uint32_t MERKLE = CHUNK_START | CHUNK_END | ROOT;  // a 64-byte message's hash
+
+// the first node of level lvl in the flat leaves-first array
+__device__ __forceinline__ long long level_offset(long long np2, int lvl) {
+  return 2 * np2 - 2 * (np2 >> lvl);
+}
+
+// Merge the n nodes s[.][0, n) (a power of two <= kTreeNodes; nodes first
+// .. first + n - 1 of level lvl) level by level in shared memory down to
+// one, writing every new node to its place in out.
+__device__ void merge_in_smem(uint32_t (*s)[kTreeNodes], int n, int lvl, long long first,
+                              long long np2, long long* __restrict__ out) {
+  const long long total = 2 * np2 - 1;
+  const int t = threadIdx.x;
+  for (; n > 1; n >>= 1) {
+    const int half = n >> 1;
+    uint32_t cv[8];
+    if (t < half) {
+      uint32_t l[8], r[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        l[w] = s[w][2 * t];
+        r[w] = s[w][2 * t + 1];
+      }
+      parent_cv(cv, l, r, MERKLE);
+    }
+    __syncthreads();
+    ++lvl;
+    first >>= 1;
+    if (t < half) {
+      const long long at = level_offset(np2, lvl) + first + t;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        s[w][t] = cv[w];
+        out[w * total + at] = cv[w];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Block b builds the subtree over leaves [b sub, (b + 1) sub), zero digests
+// past n_cols: level 1 straight from the leaves (two parents a thread,
+// copying the leaves into out on the way; at most 512 blocks for a 2^19 tree,
+// so all of them are resident at once and their leaf loads overlap), the
+// levels above it in shared memory.  The last block to finish (a counter in
+// device memory, which that block resets) builds the levels above the
+// subtree roots, reading them through L2.
+__global__ void __launch_bounds__(kTreeThreads)
+merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_cols,
+                   long long np2, int log_sub, long long* __restrict__ out,
+                   unsigned* __restrict__ counter) {
+  __shared__ uint32_t s[8][kTreeNodes];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  const long long total = 2 * np2 - 1;
+  if (np2 == 1) {  // the leaf is the root
+    if (t < 8) out[t] = (uint32_t)leaves[t * ld];
+    return;
+  }
+  const int pairs = 1 << (log_sub - 1);
+  const long long first = (long long)blockIdx.x * pairs;  // of level 1
+  for (int i = t; i < pairs; i += kTreeThreads) {
+    const long long leaf = 2 * (first + i);
+    uint32_t l[8], r[8], cv[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      l[w] = leaf < n_cols ? (uint32_t)leaves[w * ld + leaf] : 0u;
+      r[w] = leaf + 1 < n_cols ? (uint32_t)leaves[w * ld + leaf + 1] : 0u;
+      out[w * total + leaf] = l[w];
+      out[w * total + leaf + 1] = r[w];
+    }
+    parent_cv(cv, l, r, MERKLE);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      s[w][i] = cv[w];
+      out[w * total + np2 + first + i] = cv[w];  // level 1 starts at np2
+    }
+  }
+  __syncthreads();
+  merge_in_smem(s, pairs, 1, first, np2, out);
+  if (gridDim.x == 1) return;
+  __threadfence();  // this block's nodes are visible before its count is
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int lvl = log_sub;
+  long long n = gridDim.x;  // the subtree roots
+  for (; n > kTreeNodes; n >>= 1, ++lvl) {  // levels wider than s
+    const long long src = level_offset(np2, lvl), dst = level_offset(np2, lvl + 1);
+    for (long long i = t; i < n / 2; i += kTreeThreads) {
+      uint32_t l[8], r[8], cv[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        l[w] = (uint32_t)__ldcg(out + w * total + src + 2 * i);
+        r[w] = (uint32_t)__ldcg(out + w * total + src + 2 * i + 1);
+      }
+      parent_cv(cv, l, r, MERKLE);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) out[w * total + dst + i] = cv[w];
+    }
+    __syncthreads();
+  }
+  const long long src = level_offset(np2, lvl);
+  for (int i = t; i < n; i += kTreeThreads) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[w][i] = (uint32_t)__ldcg(out + w * total + src + i);
+  }
+  __syncthreads();
+  merge_in_smem(s, (int)n, lvl, 0, np2, out);
+  if (t == 0) *counter = 0u;  // ready for the next launch on this stream
+}
+
+// ---- the verifier's path walk: one thread per opened column ---------------
+
+// Column j starts from its digest and walks `levels` levels: the sibling is
+// sibs[:, inv[l, j]], on the left when bit l of idx[j] is set.  The walk is
+// a chain of dependent compressions, but its gathers are not: the next
+// level's sibling and the index after it are loaded while this level's
+// compression runs, so the loop waits on the compression alone.
+__global__ void __launch_bounds__(kThreads)
+merkle_walk_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
+                   const long long* __restrict__ sibs, long long s_w, long long s_c,
+                   const long long* __restrict__ inv, const long long* __restrict__ idx,
+                   int k, int levels, long long* __restrict__ out) {
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= k) return;
+  uint32_t cv[8], sib[8], next[8] = {};
+#pragma unroll
+  for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)digs[w * d_w + j * d_c];
+  const long long col = idx[j];
+  long long at_next = levels > 1 ? inv[(long long)k + j] * s_c : 0;
+  if (levels > 0) {
+    const long long at = inv[j] * s_c;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at];
+  }
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    if (lvl + 1 < levels) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) next[w] = (uint32_t)sibs[w * s_w + at_next];
+      if (lvl + 2 < levels) at_next = inv[(long long)(lvl + 2) * k + j] * s_c;
+    }
+    // the side by selects, not a branch: the columns of a warp take both
+    // sides, and a branch would run the compression once for each
+    const bool right = (col >> lvl) & 1;
+    uint32_t l[8], r[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      l[w] = right ? sib[w] : cv[w];
+      r[w] = right ? cv[w] : sib[w];
+      sib[w] = next[w];
+    }
+    parent_cv(cv, l, r, MERKLE);
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) out[(size_t)w * k + j] = cv[w];
 }
 
 }  // namespace
@@ -243,34 +479,85 @@ extern "C" int lcpc_blake3_chunks(const int32_t* words, const int32_t* carry, in
   return (int)cudaGetLastError();
 }
 
-// Parent nodes: out node i (0 <= i < n_out) of every column is
-// compress(IV, left_i || right_i, 0, 64, flags) for i < n_pairs and a copy
-// of left_i otherwise.  Each operand is a strided (node, word, column) view
-// in elements (stride triples l_*, r_*, o_*), u32 words or, with in_i64 /
-// out_i64, int64 storage of u32 values.  Returns the launch's cudaError_t.
-extern "C" int lcpc_blake3_parents(const void* left, const void* right, void* out,
-                                   int in_i64, int out_i64, long long n_pairs, long long n_out,
-                                   int n_cols, long long l_n, long long l_w, long long l_c,
-                                   long long r_n, long long r_w, long long r_c, long long o_n,
-                                   long long o_w, long long o_c, unsigned flags, int device,
-                                   void* stream) {
-  if (n_cols < 1 || n_pairs < 0 || n_out < n_pairs || n_out < 1 || left == nullptr ||
-      out == nullptr || (n_pairs > 0 && right == nullptr) ||
-      (n_out * n_cols + kThreads - 1) / kThreads >= (1LL << 31))
+// The chunk tree of every column: cvs (n, 8, n_cols) chunk CVs, u32 words
+// or, with in_i64, int64 storage -> out (8, n_cols) int64 digests, BLAKE3's
+// largest-power-of-two-left tree over the n >= 2 CVs (PARENT, ROOT at the
+// top).  lanes = 1: a thread per column with the CV stack (n < 2^16);
+// lanes = 32: a warp per column, level by level (n <= 512).
+extern "C" int lcpc_blake3_chunk_tree(const void* cvs, int in_i64, int n, int n_cols, int lanes,
+                                      long long* out, int device, void* stream) {
+  if (cvs == nullptr || out == nullptr || n < 2 || n_cols < 1 ||
+      !((lanes == 1 && n <= 65536) || (lanes == 32 && n <= 512)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const View lv{l_n, l_w, l_c}, rv{r_n, r_w, r_c}, ov{o_n, o_w, o_c};
   cudaStream_t s = (cudaStream_t)stream;
-  if (in_i64 && out_i64)
-    return (int)launch_parents<long long, long long>(left, right, out, n_pairs, n_out, n_cols,
-                                                     lv, rv, ov, flags, s);
-  if (in_i64)
-    return (int)launch_parents<long long, uint32_t>(left, right, out, n_pairs, n_out, n_cols,
-                                                    lv, rv, ov, flags, s);
-  if (out_i64)
-    return (int)launch_parents<uint32_t, long long>(left, right, out, n_pairs, n_out, n_cols,
-                                                    lv, rv, ov, flags, s);
-  return (int)launch_parents<uint32_t, uint32_t>(left, right, out, n_pairs, n_out, n_cols, lv,
-                                                 rv, ov, flags, s);
+  if (lanes == 1) {
+    int depth = 0;  // the stack's height never exceeds the bit length of n - 1
+    for (unsigned v = n - 1; v; v >>= 1) ++depth;
+    const int smem = depth * 8 * kThreads * 4;
+    const unsigned blocks = (n_cols + kThreads - 1) / kThreads;
+    if (in_i64) {
+      auto k = chunk_tree_stack_kernel<long long>;
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      k<<<blocks, kThreads, smem, s>>>(static_cast<const long long*>(cvs), n, n_cols, out);
+    } else {
+      auto k = chunk_tree_stack_kernel<uint32_t>;
+      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      k<<<blocks, kThreads, smem, s>>>(static_cast<const uint32_t*>(cvs), n, n_cols, out);
+    }
+  } else {
+    const int per_block = kThreads / 32;
+    const int smem = per_block * 8 * ((n + 1) / 2) * 4;
+    const unsigned blocks = (n_cols + per_block - 1) / per_block;
+    if (in_i64)
+      chunk_tree_warp_kernel<long long><<<blocks, kThreads, smem, s>>>(
+          static_cast<const long long*>(cvs), n, n_cols, out);
+    else
+      chunk_tree_warp_kernel<uint32_t><<<blocks, kThreads, smem, s>>>(
+          static_cast<const uint32_t*>(cvs), n, n_cols, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The whole Merkle tree over leaves (8, n_cols) int64 (word stride ld,
+// column stride 1), zero digests padding them to np2 (a power of two >=
+// n_cols): out (8, 2 np2 - 1) int64, contiguous, leaves first, then each
+// level.  counter: one unsigned in device memory, 0 before the launch and
+// again after it; launches that may overlap need their own.
+extern "C" int lcpc_blake3_merkle_tree(const long long* leaves, long long ld, int n_cols,
+                                       long long np2, long long* out, unsigned* counter,
+                                       int device, void* stream) {
+  if (leaves == nullptr || out == nullptr || counter == nullptr || n_cols < 1 ||
+      np2 < n_cols || (np2 & (np2 - 1)) != 0 || np2 > (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int log_sub = 0;
+  while ((1LL << log_sub) < np2 && (1 << log_sub) < kTreeLeaves) ++log_sub;
+  const long long blocks = np2 >> log_sub;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  merkle_tree_kernel<<<(unsigned)blocks, kTreeThreads, 0, (cudaStream_t)stream>>>(
+      leaves, ld, n_cols, np2, log_sub, out, counter);
+  return (int)cudaGetLastError();
+}
+
+// The Merkle path walk of k opened columns over `levels` levels: digs (8, k)
+// and sibs (8, U) int64 at strides (d_w, d_c) and (s_w, s_c); inv (levels,
+// k) and idx (k,) int64, contiguous, every inv < U; out (8, k) int64,
+// contiguous.
+extern "C" int lcpc_blake3_merkle_walk(const long long* digs, long long d_w, long long d_c,
+                                       const long long* sibs, long long s_w, long long s_c,
+                                       const long long* inv, const long long* idx, int k,
+                                       int levels, long long* out, int device, void* stream) {
+  if (digs == nullptr || idx == nullptr || out == nullptr || k < 1 || levels < 0 ||
+      levels > 63 || (levels > 0 && (sibs == nullptr || inv == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  merkle_walk_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
+      digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out);
+  return (int)cudaGetLastError();
 }

@@ -8,25 +8,29 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
 
 - `blake3(data)` is the plain host hash (32-byte output), the slow and
   obviously correct twin (port of lcpc_tpu/ops/blake3_ref.py).
-- `blake3_chunks` and `blake3_parents` are the wrappers of the two CUDA
-  kernels in `csrc/blake3_cols.cu` (built with nvcc for sm_90a at first use,
-  loaded with ctypes).  On CUDA tensors they launch the kernel, counted in
-  `.launches`, or raise; on CPU tensors they run the plain PyTorch versions
-  `blake3_chunks_plain` and `blake3_parents_plain`, which compute the same
-  thing chunk-parallel with the vectorized compression `_compress_t`.
-  `blake3_chunks` hashes whole 1 KiB chunks of every column's stream (an
-  optional carry buffer, then the words) into chunk CVs; `blake3_parents`
-  compresses node pairs (the chunk tree and the Merkle layers).
-- `hash_word_columns`, `merge_chunk_cvs`, `merkle_layer`, `merkle_parent`
-  are the digest entry points built on the two wrappers (port of
-  lcpc_tpu/ops/blake3_jax.py); `hash_word_columns_plain`,
-  `merge_chunk_cvs_plain` and `merkle_layer_plain` are the same through the
-  plain versions, on any device.  Column words are u32 values as int32
+- The wrappers of the CUDA kernels in `csrc/blake3_cols.cu` (built with nvcc
+  for sm_90a at first use, loaded with ctypes), each one launch, counted in
+  its `.launches`: `blake3_chunks` hashes whole 1 KiB chunks of every
+  column's stream (an optional carry buffer, then the words) into chunk
+  CVs; `merge_chunk_cvs` merges each column's chunk CVs into its digest;
+  `merkle_tree` builds the whole Merkle array over the column digests;
+  `merkle_walk` walks the verifier's opened columns up to the root.  On
+  CUDA tensors they launch the kernel or raise; on CPU tensors they run
+  their plain PyTorch versions `blake3_chunks_plain`, `merge_chunk_cvs_plain`,
+  `merkle_tree_plain` and `merkle_walk_plain`, built from the vectorized
+  compression `_compress_t` (`blake3_parents_plain` for parent nodes).
+- `hash_word_columns` is the digest entry point built on them (port of
+  lcpc_tpu/ops/blake3_jax.py); `hash_word_columns_plain` is the same
+  through the plain versions, and `merkle_parent_plain` and
+  `merkle_layer_plain` (lcpc_tpu's `merkle_parent` and `merkle_layer`)
+  are the steps of the plain trees, on any device.  Column words are u32 values as int32
   storage (the layout `encode_rows_words` returns) or as int64; digests are
   (8, n) int64 tensors holding u32 values.
 - `hash_word_columns_sequential` is the block-by-block plain version (one
-  compression over all columns at a time, the chunk tree merged after); the
-  tests hold the kernels' plain versions to it and to the host hash.
+  compression over all columns at a time, the chunk tree merged after);
+  `merge_chunk_cvs_stack_plain` is the chunk tree in the CV-stack order of
+  the thread-per-column kernel; the tests hold the plain versions to them
+  and to the host hash.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
+from . import merkle
 
 IV = (
     0x6A09E667,
@@ -279,7 +284,7 @@ def hash_word_columns_sequential(words: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the plain versions of the two kernels
+# the plain chunk hash and parent nodes
 # ---------------------------------------------------------------------------
 
 
@@ -315,8 +320,8 @@ def blake3_chunks_plain(words: torch.Tensor, carry, carry_len: int, chunk_base: 
 
 def blake3_parents_plain(left: torch.Tensor, right: torch.Tensor, n_pairs: int,
                          flags: int) -> torch.Tensor:
-    """The nodes blake3_parents writes: left (n_out, 8, C), right (>= n_pairs,
-    8, C) -> (n_out, 8, C) int64 u32 values, compress(IV, left || right) for
+    """Parent nodes, the step every tree is built of: left (n_out, 8, C),
+    right (>= n_pairs, 8, C) -> (n_out, 8, C) int64 u32 values, compress(IV, left || right) for
     the first n_pairs nodes and left as it is (a promoted node) after."""
     out = _u32(left).clone()
     if n_pairs:
@@ -328,17 +333,19 @@ def blake3_parents_plain(left: torch.Tensor, right: torch.Tensor, n_pairs: int,
 
 
 # ---------------------------------------------------------------------------
-# the kernels' wrappers
+# the chunk-hash kernel's wrapper
 # ---------------------------------------------------------------------------
 
 
 def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lcpc_blake3_chunks.argtypes = [p, p, i, ll, i, ll, i, i, i, p, i, i, p]
-    lib.lcpc_blake3_chunks.restype = ctypes.c_int
-    lib.lcpc_blake3_parents.argtypes = [p, p, p, i, i, ll, ll, i] + [ll] * 9 + [
-        ctypes.c_uint, i, p]
-    lib.lcpc_blake3_parents.restype = ctypes.c_int
+    lib.lcpc_blake3_chunk_tree.argtypes = [p, i, i, i, i, p, i, p]
+    lib.lcpc_blake3_merkle_tree.argtypes = [p, ll, i, ll, p, p, i, p]
+    lib.lcpc_blake3_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, i, p]
+    for fn in (lib.lcpc_blake3_chunks, lib.lcpc_blake3_chunk_tree, lib.lcpc_blake3_merkle_tree,
+               lib.lcpc_blake3_merkle_walk):
+        fn.restype = ctypes.c_int
 
 
 def _check_words(name: str, t: torch.Tensor, dtypes) -> None:
@@ -352,6 +359,22 @@ def _one_device(name: str, *tensors) -> torch.device:
     if len(devs) != 1:
         raise ValueError(f"{name}: operands on different devices {sorted(map(str, devs))}")
     return devs.pop()
+
+
+def _plain_here(name: str, *tensors) -> bool:
+    """True when the operands lie on the CPU (the plain version runs), False
+    on CUDA (the kernel launches); raises for mixed or other devices."""
+    device = _one_device(name, *tensors)
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    return False
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
 
 
 def _launch_args(t: torch.Tensor):
@@ -379,14 +402,11 @@ def blake3_chunks(words: torch.Tensor, out: torch.Tensor, *, carry=None,
                          f"{tuple(words.shape)} and {tuple(out.shape)}")
     if carry is not None and (carry.shape[1] != n_cols or carry.shape[0] < carry_len):
         raise ValueError(f"blake3_chunks: carry {tuple(carry.shape)} for {carry_len} words")
-    device = _one_device("blake3_chunks", words, out, carry)
-    if device.type == "cpu":
+    if _plain_here("blake3_chunks", words, out, carry):
         res = blake3_chunks_plain(words, carry, carry_len, chunk_base, n_chunks,
                                   final_len, root)
         out.copy_(res.to(out.dtype))
         return
-    if device.type != "cuda":
-        raise ValueError(f"blake3_chunks: unsupported device {device}")
     if words.dtype == torch.int64:
         words = words.to(torch.int32)  # the same u32 bit patterns
     words = words.contiguous()
@@ -395,77 +415,88 @@ def blake3_chunks(words: torch.Tensor, out: torch.Tensor, *, carry=None,
         carry = carry.contiguous()
     lib = cuda_build.load(_NAME, _bind)
     dev, stream = _launch_args(words)
-    err = lib.lcpc_blake3_chunks(
+    _check_launch("blake3_chunks", lib.lcpc_blake3_chunks(
         words.data_ptr() if words.numel() else None,
         None if carry is None else carry.data_ptr(), carry_len, words.shape[0], n_cols,
         chunk_base, n_chunks, final_len, int(root), out.data_ptr(),
-        int(out.dtype == torch.int64), dev, stream)
-    if err != 0:
-        raise RuntimeError(f"blake3_chunks launch failed: cudaError_t {err}")
+        int(out.dtype == torch.int64), dev, stream))
     blake3_chunks.launches += 1
 
 
 blake3_chunks.launches = 0
 
 
-def blake3_parents(left: torch.Tensor, right: torch.Tensor, out: torch.Tensor,
-                   flags: int) -> None:
-    """Parent nodes into out (n_out, 8, C): node i is compress(IV, left[i] ||
-    right[i], 0, 64, flags) for i < right.shape[0] and left[i] as it is (a
-    promoted odd node) after.  Operands are (node, word, column) views of
-    any strides, int32 storage of u32 words or int64.
-
-    CUDA tensors launch csrc/blake3_cols.cu's blake3_parents (counted in
-    blake3_parents.launches) or raise; CPU tensors run blake3_parents_plain."""
-    for name, t in (("left", left), ("right", right), ("out", out)):
-        _check_words(f"blake3_parents {name}", t, (torch.int32, torch.int64))
-        if t.dim() != 3 or t.shape[1] != 8 or t.shape[2] != out.shape[2]:
-            raise ValueError(f"blake3_parents: {name} must be (n, 8, C), got {tuple(t.shape)}")
-    n_out, n_pairs = out.shape[0], right.shape[0]
-    if left.dtype != right.dtype or left.shape[0] != n_out or n_pairs > n_out:
-        raise ValueError(f"blake3_parents: left {tuple(left.shape)} {left.dtype}, right "
-                         f"{tuple(right.shape)} {right.dtype}, out {tuple(out.shape)}")
-    device = _one_device("blake3_parents", left, right, out)
-    if device.type == "cpu":
-        out.copy_(blake3_parents_plain(left, right, n_pairs, flags).to(out.dtype))
-        return
-    if device.type != "cuda":
-        raise ValueError(f"blake3_parents: unsupported device {device}")
-    if n_out == 0 or out.shape[2] == 0:
-        return
-    lib = cuda_build.load(_NAME, _bind)
-    dev, stream = _launch_args(out)
-    err = lib.lcpc_blake3_parents(
-        left.data_ptr(), right.data_ptr() if n_pairs else None, out.data_ptr(),
-        int(left.dtype == torch.int64), int(out.dtype == torch.int64), n_pairs, n_out,
-        out.shape[2], *left.stride(), *right.stride(), *out.stride(), flags, dev, stream)
-    if err != 0:
-        raise RuntimeError(f"blake3_parents launch failed: cudaError_t {err}")
-    blake3_parents.launches += 1
-
-
-blake3_parents.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# digest entry points
+# the trees: chunk tree, Merkle tree, path walk
 # ---------------------------------------------------------------------------
 
+# merge_chunk_cvs takes a warp per column up to here: at 4,096 columns of 65
+# CVs a warp per column still beat a thread per column on the H100
+WARP_TREE_MAX_COLS = 4096
 
-def merge_chunk_cvs(cvs: torch.Tensor) -> torch.Tensor:
+
+def merge_chunk_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
+    """The chunk tree through blake3_parents_plain, level by level (adjacent
+    pairs, an odd last CV promoted: BLAKE3's largest-power-of-two-left
+    tree), on any device; (n >= 2, 8, C) -> (8, C) int64."""
+    while cvs.shape[0] > 2:
+        n = cvs.shape[0]
+        cvs = blake3_parents_plain(cvs[0:n:2], cvs[1:n:2], n // 2, PARENT)
+    return blake3_parents_plain(cvs[0:1], cvs[1:2], 1, PARENT | ROOT)[0]
+
+
+def merge_chunk_cvs_stack_plain(cvs: torch.Tensor) -> torch.Tensor:
+    """The chunk tree in the order of the thread-per-column kernel: BLAKE3's
+    CV stack (chunk i < n - 1 pushed after merging with the top while i + 1
+    has a trailing zero bit, then the last chunk folded in top down, ROOT
+    last).  The same digests as merge_chunk_cvs_plain."""
+    def parent(left, right, flags):
+        return _compress_t(_iv(left.shape[1:], left.device), torch.cat([left, right]), 0, 64,
+                           flags)
+
+    stack = []
+    for i in range(cvs.shape[0] - 1):
+        cv, total = _u32(cvs[i]), i + 1
+        while total & 1 == 0:
+            cv, total = parent(stack.pop(), cv, PARENT), total >> 1
+        stack.append(cv)
+    cv = _u32(cvs[-1])
+    while stack:
+        left = stack.pop()
+        cv = parent(left, cv, PARENT | (0 if stack else ROOT))
+    return cv
+
+
+def merge_chunk_cvs(cvs: torch.Tensor, *, _lanes: "int | None" = None) -> torch.Tensor:
     """Chunk CVs (n >= 2, 8, C), int32 storage or int64 -> (8, C) int64
-    digests: the chunk tree, level by level (adjacent pairs, an odd last CV
-    promoted), which is BLAKE3's largest-power-of-two-left tree."""
+    digests: BLAKE3's largest-power-of-two-left chunk tree.
+
+    CUDA tensors launch csrc/blake3_cols.cu's chunk tree once (counted in
+    merge_chunk_cvs.launches) or raise: a thread per column running BLAKE3's
+    CV stack or, for at most WARP_TREE_MAX_COLS columns of 3 .. 512 CVs, a
+    warp per column level by level; `_lanes` (1 or 32) forces one (tests,
+    timing).  CPU tensors run merge_chunk_cvs_plain."""
+    _check_words("merge_chunk_cvs cvs", cvs, (torch.int32, torch.int64))
+    if cvs.dim() != 3 or cvs.shape[0] < 2 or cvs.shape[1] != 8:
+        raise ValueError(f"merge_chunk_cvs: cvs must be (n >= 2, 8, C), got {tuple(cvs.shape)}")
     n, _, n_cols = cvs.shape
-    assert n >= 2, n
-    while n > 2:
-        n_out = (n + 1) // 2
-        dst = torch.empty((n_out, 8, n_cols), dtype=torch.int32, device=cvs.device)
-        blake3_parents(cvs[0:n:2], cvs[1:n:2], dst, PARENT)
-        cvs, n = dst, n_out
-    out = torch.empty((1, 8, n_cols), dtype=torch.int64, device=cvs.device)
-    blake3_parents(cvs[0:1], cvs[1:2], out, PARENT | ROOT)
-    return out[0]
+    if _plain_here("merge_chunk_cvs", cvs):
+        return merge_chunk_cvs_plain(cvs)
+    out = torch.empty((8, n_cols), dtype=torch.int64, device=cvs.device)
+    if n_cols == 0:
+        return out
+    lanes = _lanes or (32 if 2 < n <= 512 and n_cols <= WARP_TREE_MAX_COLS else 1)
+    cvs = cvs.contiguous()
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(cvs)
+    _check_launch("merge_chunk_cvs", lib.lcpc_blake3_chunk_tree(
+        cvs.data_ptr(), int(cvs.dtype == torch.int64), n, n_cols, lanes, out.data_ptr(), dev,
+        stream))
+    merge_chunk_cvs.launches += 1
+    return out
+
+
+merge_chunk_cvs.launches = 0
 
 
 def _chunking(n_words: int) -> tuple[int, int]:
@@ -474,14 +505,6 @@ def _chunking(n_words: int) -> tuple[int, int]:
     total = PREFIX_WORDS + n_words
     n_chunks = -(-total // CHUNK_WORDS)
     return n_chunks, total - CHUNK_WORDS * (n_chunks - 1)
-
-
-def merge_chunk_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
-    """merge_chunk_cvs through blake3_parents_plain, on any device."""
-    while cvs.shape[0] > 2:
-        n = cvs.shape[0]
-        cvs = blake3_parents_plain(cvs[0:n:2], cvs[1:n:2], n // 2, PARENT)
-    return blake3_parents_plain(cvs[0:1], cvs[1:2], 1, PARENT | ROOT)[0]
 
 
 def hash_word_columns_plain(words: torch.Tensor) -> torch.Tensor:
@@ -499,7 +522,8 @@ def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
     words: (L, C) u32 words, int32 storage (as encode_rows_words returns
     them) or int64 values — the message of column c is 8 zero words followed
     by words[:, c] (lib.rs:706-745).  Returns (8, C) int64 digests.  One
-    blake3_chunks launch over every (column, chunk), then the chunk tree."""
+    blake3_chunks launch over every (column, chunk), then one chunk-tree
+    launch."""
     n_cols = words.shape[1]
     n_chunks, final_len = _chunking(words.shape[0])
     if n_chunks == 1:
@@ -512,30 +536,107 @@ def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
 
 
 def _nodes(d: torch.Tensor) -> torch.Tensor:
-    """(8, n) digests -> the (n, 8, 1) node view the parents kernel takes."""
+    """(8, n) digests -> the (n, 8, 1) node view blake3_parents_plain takes."""
     return d.t().unsqueeze(2)
 
 
-def merkle_parent(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """parent = blake3(left_digest_bytes || right_digest_bytes), (8, n) each;
-    returns (8, n) int64."""
-    out = torch.empty(left.shape, dtype=torch.int64, device=left.device)
-    blake3_parents(_nodes(left), _nodes(right), _nodes(out),
-                   CHUNK_START | CHUNK_END | ROOT)
-    return out
-
-
-def merkle_layer(digests: torch.Tensor) -> torch.Tensor:
-    """One Merkle layer: (8, n) with n even -> (8, n // 2)."""
-    return merkle_parent(digests[:, 0::2], digests[:, 1::2])
+def merkle_parent_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """parent = blake3(left_digest_bytes || right_digest_bytes), (8, n) each,
+    through blake3_parents_plain, on any device; returns (8, n) int64."""
+    out = blake3_parents_plain(_nodes(left), _nodes(right), left.shape[1],
+                               CHUNK_START | CHUNK_END | ROOT)
+    return out[:, :, 0].t()
 
 
 def merkle_layer_plain(digests: torch.Tensor) -> torch.Tensor:
-    """merkle_layer through blake3_parents_plain, on any device."""
-    n = digests.shape[1] // 2
-    out = blake3_parents_plain(_nodes(digests[:, 0::2]), _nodes(digests[:, 1::2]), n,
-                               CHUNK_START | CHUNK_END | ROOT)
-    return out[:, :, 0].t()
+    """One Merkle layer through blake3_parents_plain: (8, n), n even -> (8, n // 2)."""
+    return merkle_parent_plain(digests[:, 0::2], digests[:, 1::2])
+
+
+def merkle_tree_plain(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
+    """merkle_tree layer by layer through merkle_layer_plain, on any device."""
+    return merkle.tree_by_layers(leaves, n_cols_np2, merkle_layer_plain)
+
+
+_tree_counters: dict = {}  # (device, stream) -> the tree kernel's self-resetting counter
+
+
+def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
+    """The commitment's Merkle array: column digests (8, n_cols) int64,
+    zero digests padding them to n_cols_np2 leaves (a power of two), then
+    every layer up to the root, flattened leaves first: (8, 2 n_cols_np2 - 1)
+    int64 (lib.rs:665-704).
+
+    CUDA tensors launch csrc/blake3_cols.cu's merkle_tree once (counted in
+    merkle_tree.launches) or raise; CPU tensors run merkle_tree_plain."""
+    _check_words("merkle_tree leaves", leaves, (torch.int64,))
+    if (leaves.dim() != 2 or leaves.shape[0] != 8 or not 1 <= leaves.shape[1] <= n_cols_np2
+            or n_cols_np2 & (n_cols_np2 - 1)):
+        raise ValueError(f"merkle_tree: leaves (8, 1 .. {n_cols_np2}) for a power-of-two "
+                         f"width, got {tuple(leaves.shape)}")
+    if _plain_here("merkle_tree", leaves):
+        return merkle_tree_plain(leaves, n_cols_np2)
+    if leaves.stride(1) != 1:
+        leaves = leaves.contiguous()
+    out = torch.empty((8, 2 * n_cols_np2 - 1), dtype=torch.int64, device=leaves.device)
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(leaves)
+    counter = _tree_counters.get((dev, stream))
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=leaves.device)
+        _tree_counters[(dev, stream)] = counter
+    _check_launch("merkle_tree", lib.lcpc_blake3_merkle_tree(
+        leaves.data_ptr(), leaves.stride(0), leaves.shape[1], n_cols_np2, out.data_ptr(),
+        counter.data_ptr(), dev, stream))
+    merkle_tree.launches += 1
+    return out
+
+
+merkle_tree.launches = 0
+
+
+def merkle_walk_plain(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
+                      idx: torch.Tensor) -> torch.Tensor:
+    """merkle_walk level by level through merkle_parent_plain, on any device."""
+    return merkle.walk_by_parents(_u32(digs), _u32(uniq_sibs), inv, idx, merkle_parent_plain)
+
+
+def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """The verifier's Merkle path walk (lib.rs:955-982): from the opened
+    columns' digests digs (8, k), level l's sibling of column j is
+    uniq_sibs[:, inv[l, j]] (uniq_sibs (8, U), inv (L, k), every entry < U),
+    on the left when bit l of idx[j] is set (idx (k,), the columns'
+    indices).  All int64; returns the (8, k) int64 roots the paths reach.
+
+    CUDA tensors launch csrc/blake3_cols.cu's merkle_walk once (counted in
+    merkle_walk.launches) or raise; CPU tensors run merkle_walk_plain."""
+    for name, t in (("digs", digs), ("uniq_sibs", uniq_sibs), ("inv", inv), ("idx", idx)):
+        _check_words(f"merkle_walk {name}", t, (torch.int64,))
+    k = digs.shape[1] if digs.dim() == 2 else -1
+    if (digs.shape[0] != 8 or uniq_sibs.dim() != 2 or uniq_sibs.shape[0] != 8
+            or inv.dim() != 2 or inv.shape[1] != k or tuple(idx.shape) != (k,)):
+        raise ValueError(f"merkle_walk: digs (8, k), uniq_sibs (8, U), inv (L, k), idx (k,); "
+                         f"got {tuple(digs.shape)}, {tuple(uniq_sibs.shape)}, "
+                         f"{tuple(inv.shape)}, {tuple(idx.shape)}")
+    if _plain_here("merkle_walk", digs, uniq_sibs, inv, idx):
+        return merkle_walk_plain(digs, uniq_sibs, inv, idx)
+    out = torch.empty((8, k), dtype=torch.int64, device=digs.device)
+    if k == 0:
+        return out
+    levels = inv.shape[0]
+    inv, idx = inv.contiguous(), idx.contiguous()
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(digs)
+    _check_launch("merkle_walk", lib.lcpc_blake3_merkle_walk(
+        digs.data_ptr(), *digs.stride(), uniq_sibs.data_ptr() if levels else None,
+        *uniq_sibs.stride(), inv.data_ptr() if levels else None, idx.data_ptr(), k, levels,
+        out.data_ptr(), dev, stream))
+    merkle_walk.launches += 1
+    return out
+
+
+merkle_walk.launches = 0
 
 
 def digests_to_bytes(digests) -> np.ndarray:

@@ -1,12 +1,14 @@
 """Pluggable digest interface — the analogue of the reference's `D: Digest`
 genericity (lcpc-2d/src/lib.rs:34-58).
 
-The commitment pipeline needs three digest operations over (8, C) u32
+The commitment pipeline needs these digest operations over (8, C) u32
 digest-word tensors (int64 storage): column leaf hashes (of (L, C) u32 words,
-int32 storage or int64), Merkle layers and one Merkle parent step; `host` is
-the byte-level twin.  BLAKE3 is the default, its entries the wrappers of the
-CUDA kernels in csrc/blake3_cols.cu (ops/blake3.py); SHA256 is the second
-construction behind the same plug point, plain PyTorch.
+int32 storage or int64), the whole Merkle array and the verifier's path
+walk; `host` is the byte-level twin.  BLAKE3
+is the default, its entries the wrappers of the CUDA kernels in
+csrc/blake3_cols.cu (ops/blake3.py), each tree one launch; SHA256 is the
+second construction behind the same plug point, plain PyTorch, its tree and
+walk the layer and parent loops of ops/merkle.py.
 Protocol entry points accept a `digest=` parameter; proofs do not record the
 digest (as in the reference, prover and verifier agree out of band).
 """
@@ -23,24 +25,24 @@ from . import sha256 as _sha256
 class DeviceDigest:
     name: str
     hash_word_columns: callable  # (L, C) words -> (8, C)
-    merkle_layer: callable       # (8, 2n) -> (8, n)
-    merkle_parent: callable      # (8, n), (8, n) -> (8, n)
+    merkle_tree: callable        # (8, n) leaves, np2 -> (8, 2 np2 - 1), leaves first
+    merkle_walk: callable        # digs (8, k), sibs (8, U), inv (L, k), idx (k,) -> (8, k)
     host: callable               # bytes -> 32-byte digest
 
 
 BLAKE3 = DeviceDigest(
     name="blake3",
     hash_word_columns=_blake3.hash_word_columns,
-    merkle_layer=_blake3.merkle_layer,
-    merkle_parent=_blake3.merkle_parent,
+    merkle_tree=_blake3.merkle_tree,
+    merkle_walk=_blake3.merkle_walk,
     host=_blake3.blake3,
 )
 
 SHA256 = DeviceDigest(
     name="sha256",
     hash_word_columns=_sha256.hash_word_columns,
-    merkle_layer=_sha256.merkle_layer,
-    merkle_parent=_sha256.merkle_parent,
+    merkle_tree=_sha256.merkle_tree,
+    merkle_walk=_sha256.merkle_walk,
     host=_sha256.digest_host,
 )
 

@@ -17,6 +17,8 @@ import hashlib
 
 import torch
 
+from . import merkle
+
 _K = (
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
     0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
@@ -113,6 +115,18 @@ def merkle_parent(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
 def merkle_layer(digests: torch.Tensor) -> torch.Tensor:
     """One Merkle layer over digest pairs: (8, n) with n even -> (8, n // 2)."""
     return merkle_parent(digests[:, 0::2], digests[:, 1::2])
+
+
+def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
+    """Leaves zero-padded to n_cols_np2, then every layer, leaves first:
+    (8, 2 n_cols_np2 - 1) int64."""
+    return merkle.tree_by_layers(leaves, n_cols_np2, merkle_layer)
+
+
+def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """The verifier's path walk (ops/merkle.py: walk_by_parents)."""
+    return merkle.walk_by_parents(digs, uniq_sibs, inv, idx, merkle_parent)
 
 
 def digest_host(data: bytes) -> bytes:

@@ -1,7 +1,9 @@
 """Measurement helpers shared by chip_smoke.py and the kernel scripts
 (scripts/sweep_spmv_lanes.py, scripts/time_encode_spmv.py): the card's name
 and power limit, device time per kernel call, ptxas's register and spill
-report, the SASS of the SpMV kernel's k loop, and random packed operands.
+report, the SASS of the SpMV kernel's k loop, the BLAKE3 compression's
+latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, and
+random packed operands.
 
 Imports torch and nothing of the port, so a script can time any checkout's
 lcpc_tpu_torch with it.  Everything here needs a CUDA device except
@@ -11,6 +13,7 @@ lcpc_tpu_torch with it.  Everything here needs a CUDA device except
 from __future__ import annotations
 
 import collections
+import ctypes
 import os
 import re
 import shutil
@@ -93,10 +96,43 @@ def ptxas_entries(build_log, kernel):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def find_tool(name):
+    """A CUDA toolkit program (PATH, then CUDA_HOME), or None."""
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    return shutil.which(name) or (cand if os.path.exists(cand) else None)
+
+
 def find_cuobjdump():
-    """The CUDA toolkit's cuobjdump (PATH, then CUDA_HOME), or None."""
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    return shutil.which("cuobjdump") or (cand if os.path.exists(cand) else None)
+    return find_tool("cuobjdump")
+
+
+def sass_functions(so_path):
+    """{function name: [(address, instruction without its predicate)]} of
+    every kernel in a built library's SASS, or None without cuobjdump."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    out = {}
+    for f in re.split(r"\n\s*Function : ", sass)[1:]:
+        head, body = f.split("\n", 1)
+        out[head.strip()] = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t)) for a, t in
+                             re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
+    return out
+
+
+def _branch_target(ins):
+    m = re.match(r"(?:BRA|BSSY|CALL)\S*\s+(?:\S+,\s*)?(?:`\()?0x([0-9a-f]+)", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def _loops(instrs):
+    """The instruction lists of every backward-branch loop."""
+    for addr, ins in instrs:
+        target = _branch_target(ins)
+        if ins.startswith("BRA") and target is not None and target <= addr:
+            yield [t for a, t in instrs if target <= a <= addr]
 
 
 def sass_loop(so_path, w32=8):
@@ -105,26 +141,113 @@ def sass_loop(so_path, w32=8):
     the wide products (one each; the unrolled loop holds several nonzeros).
     Returns (instructions, opcode counts, instructions per wide product, the
     loop's SASS lines) or None without cuobjdump."""
-    tool = find_cuobjdump()
-    if tool is None:
+    funcs = sass_functions(so_path)
+    if funcs is None:
         return None
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)
-    body = next(f for f in funcs if f"spmv_mont_kernelILi{w32}E" in f.split("\n", 1)[0])
-    instrs = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t)) for a, t in
-              re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", body)]
-    best = None
-    for addr, ins in instrs:
-        m = re.match(r"BRA\S*\s+(?:`\()?0x([0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) <= addr:
-            loop = [t for a, t in instrs if int(m.group(1), 16) <= a <= addr]
-            n_imad = sum(1 for t in loop if t.startswith("IMAD"))
-            if best is None or n_imad > best[0]:
-                best = (n_imad, loop)
+    instrs = next(v for k, v in funcs.items() if f"spmv_mont_kernelILi{w32}E" in k)
+    best = max(_loops(instrs), key=lambda lp: sum(t.startswith("IMAD") for t in lp),
+               default=None)
     if best is None:
         return None
-    loop = best[1]
-    ops = collections.Counter(t.split()[0] for t in loop)
+    ops = collections.Counter(t.split()[0] for t in best)
     products = sum(n for op, n in ops.items() if op.startswith("IMAD.WIDE.U32"))
-    return len(loop), dict(ops.most_common()), len(loop) / max(1, products), loop
+    return len(best), dict(ops.most_common()), len(best) / max(1, products), best
+
+
+# Hopper's pipes for the integer mix (the pipe names of Nsight Compute): the
+# ALU pipe runs the logic, shift, byte-permute, three-input add, compare and
+# select instructions, the FMA pipe the IMAD family (IMAD.IADD, IMAD.SHL,
+# IMAD.MOV, ...).  Each takes 64 lanes per SM a clock (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0); the
+# four schedulers of an SM issue 128 lanes' instructions a clock in all.
+ALU_OPS = ("LOP3", "LOP", "SHF", "PRMT", "IADD3", "ISETP", "SEL", "LEA", "IABS", "IMNMX")
+FMA_OPS = ("IMAD", "IMUL")
+
+
+def pipe_mix(instrs):
+    """(ALU-pipe, FMA-pipe, all) instruction counts of a list of SASS
+    instructions; loads, stores, moves and branches count only in `all`."""
+    ops = [t.split()[0].split(".")[0] for t in instrs]
+    return (sum(op in ALU_OPS for op in ops), sum(op in FMA_OPS for op in ops), len(ops))
+
+
+def _blocks(instrs):
+    """The basic blocks of a function: split at branch targets and after
+    branches, exits and barriers."""
+    targets = {_branch_target(t) for _, t in instrs} - {None}
+    block = []
+    for addr, ins in instrs:
+        if addr in targets and block:
+            yield block
+            block = []
+        block.append(ins)
+        if ins.split()[0].split(".")[0] in ("BRA", "EXIT", "RET", "BSYNC", "BAR", "WARPSYNC",
+                                            "CALL", "BSSY"):
+            yield block
+            block = []
+    if block:
+        yield block
+
+
+def blake3_sass_mix(chain_so, lib_so, kernels):
+    """The BLAKE3 compression's instruction mix by pipe from the SASS:
+    `chain`, the probe's loop body over its CHAIN_PER_TRIP compressions
+    (the loop's own instructions shared out among them) as (ALU, FMA,
+    all), and for each kernel of the library whose name holds one of
+    `kernels`, its longest basic block (the straight-line compression) per
+    compression it holds, by the probe's count, as (ALU, FMA, all,
+    compressions).  None without cuobjdump."""
+    chain_funcs, lib_funcs = sass_functions(chain_so), sass_functions(lib_so)
+    if chain_funcs is None or lib_funcs is None:
+        return None
+    probe = next(v for k, v in chain_funcs.items() if "compress_chain_kernel" in k)
+    body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
+    chain = tuple(x / CHAIN_PER_TRIP for x in pipe_mix(body))
+    per_kernel = {}
+    for name, instrs in lib_funcs.items():
+        if any(k in name for k in kernels):
+            mix = pipe_mix(max(_blocks(instrs), key=lambda b: pipe_mix(b)[0]))
+            n = max(1, round((mix[0] + mix[1]) / max(1, chain[0] + chain[1])))
+            per_kernel[name] = (*(x / n for x in mix), n)
+    return {"chain": chain, "kernels": per_kernel,
+            "chain_opcodes": dict(collections.Counter(t.split()[0] for t in body).most_common())}
+
+
+CHAIN_PER_TRIP = 4  # compressions in the probe's loop body (kPerTrip)
+CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blake3_chain.cu")
+_chain_libs = {}
+
+
+def build_chain(flags, out_dir):
+    """Compile scripts/blake3_chain.cu (the library's BLAKE3 source and the
+    one-thread chain kernel) with nvcc `flags` into out_dir; returns (the
+    library's path, nvcc's output)."""
+    nvcc = find_tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the latency probe cannot be built")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libblake3_chain.so")
+    proc = subprocess.run([nvcc, *flags, "-o", so, CHAIN_SRC], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {CHAIN_SRC}:\n{proc.stdout}{proc.stderr}")
+    return so, proc.stdout + proc.stderr
+
+
+def compress_chain(so, cv, n):
+    """n (a multiple of CHAIN_PER_TRIP) dependent compressions cv <-
+    compress(IV, cv || cv, 0, 64, PARENT) of an (8,) int64 CV on the card,
+    in one thread of the probe `so`."""
+    lib = _chain_libs.get(so)
+    if lib is None:
+        lib = _chain_libs[so] = ctypes.CDLL(so)
+        lib.lcpc_blake3_compress_chain.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                                   ctypes.c_void_p, ctypes.c_void_p]
+        lib.lcpc_blake3_compress_chain.restype = ctypes.c_int
+    cv = cv.contiguous()
+    out = torch.empty(8, dtype=torch.int64, device=cv.device)
+    err = lib.lcpc_blake3_compress_chain(cv.data_ptr(), n, out.data_ptr(),
+                                         torch.cuda.current_stream(cv.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"compress_chain launch failed: cudaError_t {err}")
+    return out

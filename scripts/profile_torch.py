@@ -8,7 +8,7 @@ After one warm-up commit -> prove -> verify it reports:
   - stage times (host clock around synchronized work, median of 3) for the
     pieces of commit (sdig: encode, from_mont, pack; ligero: the encode
     with its hash words from the NTT; then the column hash and the Merkle
-    layers, both CUDA kernels),
+    tree, each a CUDA kernel launch or two),
     prove (device collapse, everything else) and verify (row encode, the
     opened columns' hash, eval dot, everything else);
   - per phase, a torch.profiler trace: wall ms, device-busy ms (sum of GPU
@@ -142,15 +142,7 @@ def main() -> int:
             lambda: enc.encode_rows_words(mat))
     leaves, stages["commit.hash_columns"] = timed(lambda: blake3.hash_word_columns(words))
     np2 = protocol._next_pow2(comm.n_cols)
-    padded = torch.nn.functional.pad(leaves, (0, np2 - comm.n_cols))
-
-    def merkle():
-        layer = padded
-        while layer.shape[1] > 1:
-            layer = blake3.merkle_layer(layer)
-        return layer
-
-    _, stages["commit.merkle_layers"] = timed(merkle)
+    _, stages["commit.merkle_tree"] = timed(lambda: blake3.merkle_tree(leaves, np2))
     _, stages["commit.total"] = timed(lambda: P.commit(coeffs, enc))
     del cw, words
 

@@ -1,0 +1,171 @@
+"""End-to-end times of one checkout of the port on one GPU, for comparing two
+commits in one call.
+
+    python3 scripts/time_paths.py [--repo DIR] [--label NAME] [--reps N]
+
+Imports lcpc_tpu_torch from DIR (default: this checkout), so an older commit
+unpacked into the gitignored archive/ is timed by the same method:
+run parent, change, change, parent in one call.  ft255, BLAKE3, seed 0:
+
+  - Ligero rho = 1/4 at 2^23 (commit -> prove -> verify): one cold run, then
+    the median and the least of N warm runs (host clock around synchronized
+    calls; single runs spread with the shared host), and a
+    torch.profiler trace of one commit and one verify (kernel launches,
+    device busy, idle share);
+  - Ligero rho = 1/4 at 2^28 through commit_streaming (packed coefficients
+    made on the card), then prove and verify: one cold run and the median
+    and the least of 2 warm runs, and a trace of one verify.
+
+Prints one JSON line last and writes chiprun_out/time_paths_<label>.json.
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import statistics
+import sys
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, _HERE)
+
+import torch  # noqa: E402
+
+import kernel_bench as kb  # noqa: E402
+
+
+def synced(fn):
+    """(result, host ms) of one call ending in synchronize()."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def trace(fn):
+    """One synchronized call under torch.profiler: wall, device busy, kernel
+    launches, idle share."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = synced(fn)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "launches": len(kernels),
+            "idle_share": max(0.0, 1 - busy / wall) if wall else None}
+
+
+def packed_coeffs(spec, n, gen, block=1 << 26):
+    """n random elements (< p) as packed (W/2, n) int32 Montgomery words on the
+    card (random 16-bit limbs, the top one below p's)."""
+    w32, top = spec.w16 // 2, spec.p >> (16 * (spec.w16 - 1))
+    out = torch.empty((w32, n), dtype=torch.int32, device="cuda")
+    for i0 in range(0, n, block):
+        i1 = min(n, i0 + block)
+        out[:, i0:i1] = torch.randint(-2**31, 2**31, (w32, i1 - i0), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+        hi = torch.randint(0, top, (i1 - i0,), generator=gen, device="cuda", dtype=torch.int32)
+        out[-1, i0:i1] = (out[-1, i0:i1] & 0xFFFF) | (hi << 16)
+    return out
+
+
+def run_path(P, enc, commit, outer, inner, reps):
+    """Cold run, then `reps` warm runs of commit -> prove -> verify; returns
+    the per-run (commit, prove, verify) ms and the last run's objects."""
+    def transcript(root):
+        tr = P.Transcript(b"time paths")
+        tr.append_message(b"polycommit", root)
+        tr.append_message(b"ncols", enc.get_n_col_opens().to_bytes(8, "big"))
+        return tr
+
+    runs = []
+    for _ in range(reps + 1):
+        comm = proof = None  # the last run's state goes before the next commit allocates
+        torch.cuda.empty_cache()
+        comm, c_ms = synced(commit)
+        root = comm.get_root()
+        proof, p_ms = synced(lambda: comm.prove(outer, transcript(root)))
+        value, v_ms = synced(lambda: proof.verify(root, outer, inner, enc, transcript(root)))
+        runs.append((c_ms, p_ms, v_ms))
+    verify = lambda: proof.verify(root, outer, inner, enc, transcript(root))  # noqa: E731
+    return runs, comm, verify, value
+
+
+def summary(runs):
+    warm = runs[1:]
+    return {"cold": runs[0], "warm": warm,
+            "median": [statistics.median(r[i] for r in warm) for i in range(3)],
+            "min": [min(r[i] for r in warm) for i in range(3)]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--repo", default=os.path.dirname(_HERE))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--reps", type=int, default=21)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_paths.py needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.repo))
+    P = importlib.import_module("lcpc_tpu_torch")
+    if not P.__file__.startswith(os.path.abspath(args.repo)):
+        raise RuntimeError(f"lcpc_tpu_torch came from {P.__file__}, not {args.repo}")
+    spmv = importlib.import_module("lcpc_tpu_torch.ops.spmv")
+    card = kb.card_line()
+    spec = P.FT255
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    result = {"label": args.label, "repo": os.path.abspath(args.repo), "card": card}
+
+    # Ligero 2^23, in memory
+    n = 1 << 23
+    enc = P.LigeroEncoding.new(spec, n, 1, 4)
+    coeffs = spmv.unpack_words(packed_coeffs(spec, n, gen), 0)  # (W, n) Montgomery limbs
+    n_rows = -(-n // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, 0x5EED, enc.n_per_row, n_rows)
+    runs, comm, verify, value = run_path(P, enc, lambda: P.commit(coeffs, enc), outer, inner,
+                                         args.reps)
+    result["ligero_2_23"] = summary(runs)
+    result["ligero_2_23"]["traces"] = {"commit": trace(lambda: P.commit(coeffs, enc)),
+                                       "verify": trace(verify)}
+    del comm, verify, coeffs
+    torch.cuda.empty_cache()
+
+    # Ligero 2^28, streamed
+    n = 1 << 28
+    enc = P.LigeroEncoding.new(spec, n, 1, 4)
+    coeffs = packed_coeffs(spec, n, gen)
+    n_rows = -(-n // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, 0x9E3779B97F4A7C15, enc.n_per_row, n_rows)
+    runs, comm, verify, value_big = run_path(
+        P, enc, lambda: P.commit_streaming(coeffs, enc), outer, inner, 2)
+    result["ligero_2_28"] = summary(runs)
+    result["ligero_2_28"]["traces"] = {"verify": trace(verify)}
+    result["values"] = [value % (1 << 64), value_big % (1 << 64)]
+    del comm, verify, coeffs
+    torch.cuda.empty_cache()
+
+    for name in ("ligero_2_23", "ligero_2_28"):
+        r = result[name]
+        log = ", ".join(f"{k} {v['launches']} launches, busy {v['device_busy_ms']:.2f} of "
+                        f"{v['wall_ms']:.1f} ms, idle {v['idle_share']:.3f}"
+                        for k, v in r["traces"].items())
+        print(f"{args.label} {name}: commit / prove / verify median "
+              f"{' / '.join(f'{x:.2f}' for x in r['median'])} ms (least "
+              f"{' / '.join(f'{x:.2f}' for x in r['min'])}; cold "
+              f"{' / '.join(f'{x:.1f}' for x in r['cold'])}); traces: {log}", flush=True)
+    out_dir = os.path.join(os.path.dirname(_HERE), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"time_paths_{args.label}.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: result[k] for k in ("label", "card", "values")}
+                     | {name: result[name]["median"] for name in ("ligero_2_23", "ligero_2_28")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

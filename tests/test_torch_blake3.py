@@ -1,7 +1,8 @@
 """The port's BLAKE3: published vectors (pinned in tests/test_blake3.py), the
-kernels' plain versions (chunk-parallel column hash, parent nodes), the
-sequential plain twin and the streaming carry against the host hash, and
-equality with lcpc_tpu's device hash.  Tolerance 0: exact hashing."""
+kernels' plain versions (chunk-parallel column hash, chunk tree, Merkle
+tree, parent nodes), the sequential plain twin, the CV-stack order and the
+streaming carry against the host hash, and equality with lcpc_tpu's device
+hash and Merkle layers.  Tolerance 0: exact hashing."""
 
 import numpy as np
 import pytest
@@ -10,12 +11,12 @@ import torch
 from lcpc_tpu.ops import blake3_jax
 from lcpc_tpu_torch.core.streaming import StreamingColumnHasher
 from lcpc_tpu_torch.ops import blake3 as b3
+from lcpc_tpu_torch.ops import merkle
 from lcpc_tpu_torch.ops.blake3 import (
     blake3,
     bytes_to_digests,
     digests_to_bytes,
     hash_word_columns,
-    merkle_layer,
 )
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -109,7 +110,7 @@ def test_chunks_plain_carry_and_counter():
     b3.blake3_chunks(stream[808:], out, carry=carry.to(torch.int32), carry_len=40,
                      chunk_base=3)
     assert torch.equal(b3._u32(out), whole[3:5])
-    assert b3.blake3_chunks.launches == 0 and b3.blake3_parents.launches == 0
+    assert b3.blake3_chunks.launches == 0 and b3.merge_chunk_cvs.launches == 0
 
 
 def test_parents_plain_promotes_odd_node():
@@ -130,9 +131,14 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         b3.blake3_chunks(words, torch.empty((1, 8, 2), dtype=torch.int32, device="meta"),
                          final_len=24)
-    node = torch.zeros((1, 8, 2), dtype=torch.int64, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        b3.blake3_parents(node, node, node, b3.PARENT)
+    meta = dict(dtype=torch.int64, device="meta")
+    digs = torch.zeros((8, 3), **meta)
+    for call in (lambda: b3.merge_chunk_cvs(torch.zeros((3, 8, 2), **meta)),
+                 lambda: b3.merkle_tree(digs, 4),
+                 lambda: b3.merkle_walk(digs, digs, torch.zeros((2, 3), **meta),
+                                        torch.zeros(3, **meta))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
     with pytest.raises(TypeError):
         hash_word_columns(torch.zeros((16, 2), dtype=torch.float32))
 
@@ -146,12 +152,42 @@ def test_wrappers_refuse_mixed_devices():
     with pytest.raises(ValueError, match="different devices"):
         b3.blake3_chunks(words, torch.empty((1, 8, 2), dtype=torch.int32),
                          carry=torch.zeros((8, 2), **meta), final_len=24)
-    node = torch.zeros((1, 8, 2), dtype=torch.int32)
+    digs = torch.zeros((8, 3), dtype=torch.int64)
+    inv, idx = torch.zeros((2, 3), dtype=torch.int64), torch.zeros(3, dtype=torch.int64)
     with pytest.raises(ValueError, match="different devices"):
-        b3.blake3_parents(node, node, torch.empty((1, 8, 2), **meta), b3.PARENT)
+        b3.merkle_walk(digs, digs, inv, idx.to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        b3.merkle_walk(digs, digs.to("meta"), inv, idx)
 
 
-@pytest.mark.parametrize("fn", [merkle_layer, b3.merkle_layer_plain], ids=["wrapper", "plain"])
+def test_tree_wrappers_refuse_wrong_types_and_shapes():
+    digs = torch.zeros((8, 3), dtype=torch.int64)
+    inv, idx = torch.zeros((2, 3), dtype=torch.int64), torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(TypeError):
+        b3.merge_chunk_cvs(torch.zeros((3, 8, 2), dtype=torch.float32))
+    with pytest.raises(ValueError):
+        b3.merge_chunk_cvs(torch.zeros((1, 8, 2), dtype=torch.int32))
+    with pytest.raises(TypeError):
+        b3.merkle_tree(digs.to(torch.int32), 4)
+    with pytest.raises(ValueError):
+        b3.merkle_tree(digs, 2)  # fewer leaves than digests
+    with pytest.raises(ValueError):
+        b3.merkle_tree(digs, 6)  # not a power of two
+    with pytest.raises(TypeError):
+        b3.merkle_walk(digs, digs, inv.to(torch.int32), idx)
+    with pytest.raises(ValueError):
+        b3.merkle_walk(digs, digs, inv[:, :2], idx)
+
+
+def _walk_layer(digests):
+    """One Merkle layer through the walk wrapper: one level, every sibling
+    on the right."""
+    n = digests.shape[1] // 2
+    return b3.merkle_walk(digests[:, 0::2], digests[:, 1::2], torch.arange(n)[None],
+                          torch.zeros(n, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("fn", [_walk_layer, b3.merkle_layer_plain], ids=["wrapper", "plain"])
 def test_merkle_layer_vs_host_and_roundtrip(fn):
     leaves = np.random.default_rng(1).integers(0, 2**32, size=(8, 6), dtype=np.uint32)
     out = fn(torch.from_numpy(leaves.astype(np.int64)))
@@ -159,3 +195,51 @@ def test_merkle_layer_vs_host_and_roundtrip(fn):
     for i in range(3):
         assert bytes(ob[i]) == blake3(bytes(lb[2 * i]) + bytes(lb[2 * i + 1]))
     assert np.array_equal(bytes_to_digests(lb), leaves)
+
+
+def _host_chunk_tree(cvs, lo, hi, flags):
+    """BLAKE3's chunk tree over host CVs cvs[lo:hi], by its definition: the
+    left subtree takes the largest power of two of chunks below hi - lo."""
+    if hi - lo == 1:
+        return cvs[lo]
+    mid = lo + b3._left_len(hi - lo)
+    return b3.compress(list(b3.IV), _host_chunk_tree(cvs, lo, mid, b3.PARENT)
+                       + _host_chunk_tree(cvs, mid, hi, b3.PARENT), 0, 64, flags)[:8]
+
+
+def test_chunk_tree_stack_order():
+    # the thread-per-column kernel's CV stack, the level order and the warp
+    # kernel's pairing with promotion, and the definition: one tree, for
+    # every count of 2 .. 70 CVs
+    for n in range(2, 71):
+        cvs = np.random.default_rng(n).integers(0, 2**32, size=(n, 8, 2), dtype=np.uint32)
+        t = torch.from_numpy(cvs.view(np.int32))
+        stack = b3.merge_chunk_cvs_stack_plain(t)
+        assert stack.dtype == torch.int64
+        assert torch.equal(stack, b3.merge_chunk_cvs_plain(t)), n
+        assert torch.equal(stack, b3.merge_chunk_cvs(torch.from_numpy(cvs.astype(np.int64)))), n
+        want = _host_chunk_tree([cvs[i, :, 1].tolist() for i in range(n)], 0, n,
+                                b3.PARENT | b3.ROOT)
+        assert stack[:, 1].tolist() == want, n
+
+
+@pytest.mark.parametrize("n_cols,np2", [(1, 1), (5, 8), (64, 64)])
+def test_merkle_tree_vs_reference_layers(n_cols, np2):
+    leaves = np.random.default_rng(n_cols).integers(0, 2**32, size=(8, n_cols),
+                                                    dtype=np.uint32)
+    got = b3.merkle_tree(torch.from_numpy(leaves.astype(np.int64)), np2)
+    assert got.shape == (8, 2 * np2 - 1) and got.dtype == torch.int64
+    # lcpc_tpu's commit: zero digests pad the leaves, then merkle_layer
+    # until one node is left, concatenated leaves first (protocol.py:322-333)
+    layers = [np.pad(leaves, ((0, 0), (0, np2 - n_cols)))]
+    while layers[-1].shape[1] > 1:
+        layers.append(np.asarray(blake3_jax.merkle_layer(layers[-1])))
+    assert np.array_equal(got.numpy(), np.concatenate([np.asarray(x) for x in layers], axis=1))
+    assert not got[:, n_cols:np2].any()
+    # the port's composition before the one-launch tree: pad, layer loop, cat
+    assert torch.equal(got, merkle.tree_by_layers(torch.from_numpy(leaves.astype(np.int64)),
+                                                  np2, b3.merkle_layer_plain))
+    if np2 > 1:
+        nodes = digests_to_bytes(got)
+        assert bytes(nodes[-1]) == blake3(bytes(nodes[-3]) + bytes(nodes[-2]))
+

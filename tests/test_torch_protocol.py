@@ -13,6 +13,7 @@ import hashlib
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -20,9 +21,12 @@ import torch
 import lcpc_tpu as J
 from lcpc_tpu.core import reference_impl as ref
 from lcpc_tpu.core import wire as jwire
+from lcpc_tpu.core.protocol import merkle_paths as j_merkle_paths
+from lcpc_tpu.ops import blake3_jax
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 import lcpc_tpu_torch as P
 from lcpc_tpu_torch import convert
+from lcpc_tpu_torch.ops import blake3 as b3
 from lcpc_tpu_torch.utils.tensors import seeded_values
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -220,3 +224,48 @@ def test_malformed_wire_bytes_raise(ft255, cut):
         P.wire.deserialize_proof(ft255.spec, data)
     with pytest.raises(ValueError):
         P.wire.deserialize_root(P.wire.serialize_root(ft255.root)[:-1])
+
+
+_j_merkle_parent = jax.jit(blake3_jax.merkle_parent)  # one executable for every level
+
+
+@pytest.mark.parametrize("dedup", ["position", "value"])
+def test_merkle_walk_vs_reference_paths(dedup):
+    # the verifier's sibling table, built as verify builds it, from the
+    # paths lcpc_tpu's merkle_paths opens (protocol.py:528); opened columns
+    # repeat; one walk reaches the root from every column
+    rng = np.random.default_rng(12)
+    n_cols, np2, path_len = 13, 16, 4
+    leaves = torch.from_numpy(rng.integers(0, 2**32, size=(8, n_cols), dtype=np.uint32)
+                              .astype(np.int64))
+    flat = b3.merkle_tree(leaves, np2)
+    cols = [int(c) for c in rng.integers(0, n_cols, size=9)] + [4, 4, n_cols - 1]
+    paths = j_merkle_paths(b3.digests_to_bytes(flat), n_cols, cols)
+    nodes = np.frombuffer(b"".join(h for p in paths for h in p), np.uint8).reshape(-1, 32)
+    if dedup == "position":
+        pos = P.core.protocol.path_node_indices(n_cols, cols).reshape(-1)
+        _, first, inv = np.unique(pos, return_index=True, return_inverse=True)
+        uniq = nodes[first]
+    else:
+        uniq_v, inv = np.unique(nodes.view([("v", "V32")]).reshape(-1), return_inverse=True)
+        uniq = np.ascontiguousarray(uniq_v.view(np.uint8)).reshape(-1, 32)
+    inv = torch.from_numpy(np.ascontiguousarray(inv.reshape(len(cols), path_len).T)
+                           .astype(np.int64))
+    sibs = torch.from_numpy(b3.bytes_to_digests(uniq).astype(np.int64))
+    idx = torch.tensor(cols, dtype=torch.int64)
+    digs = flat.index_select(1, idx)
+    got = b3.merkle_walk(digs, sibs, inv, idx)
+    assert torch.equal(got, flat[:, -1:].expand(8, len(cols)))
+    # the per-level loop it replaces, through the plain parent and through
+    # lcpc_tpu's merkle_parent
+    loop, jloop = digs, digs.numpy().astype(np.uint32)
+    for lvl in range(path_len):
+        s = sibs.index_select(1, inv[lvl])
+        right = ((idx >> lvl) & 1).bool()
+        loop = b3.merkle_parent_plain(torch.where(right, s, loop), torch.where(right, loop, s))
+        sj, rj = s.numpy().astype(np.uint32), right.numpy()
+        jloop = np.asarray(_j_merkle_parent(np.where(rj, sj, jloop), np.where(rj, jloop, sj)))
+    assert torch.equal(got, loop) and np.array_equal(got.numpy(), jloop)
+    # a wrong sibling no longer reaches the root
+    sibs[0, int(inv[2, 0])] ^= 1
+    assert not torch.equal(b3.merkle_walk(digs, sibs, inv, idx)[:, 0], flat[:, -1])

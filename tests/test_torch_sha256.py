@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from lcpc_tpu.ops import sha256_jax
+from lcpc_tpu_torch.ops import blake3 as b3
 from lcpc_tpu_torch.ops import digest, sha256
 from lcpc_tpu_torch.ops.blake3 import digests_to_bytes
 
@@ -60,9 +61,28 @@ def test_merkle_parent_of_one_pair():
     assert bytes(digests_to_bytes(got)[0]) == want.digest()
 
 
+def test_merkle_tree_and_walk():
+    # SHA-256's tree and walk behind the digest plug point: the layer and
+    # parent loops, against hashlib
+    digs = _words(8, 3, seed=44)
+    flat = digest.SHA256.merkle_tree(torch.from_numpy(digs.astype(np.int64)), 4)
+    b = digests_to_bytes(flat)
+    assert flat.shape == (8, 7) and not flat[:, 3].any()
+    h = lambda x, y: hashlib.sha256(bytes(x) + bytes(y)).digest()
+    assert bytes(b[4]) == h(b[0], b[1]) and bytes(b[6]) == h(b[4], b[5])
+    idx = torch.tensor([2, 1], dtype=torch.int64)
+    sibs = flat[:, [3, 0, 4, 5]]  # level 0: leaf 3 (for 2), leaf 0 (for 1); level 1
+    inv = torch.tensor([[0, 1], [2, 3]], dtype=torch.int64)
+    got = digest.SHA256.merkle_walk(flat[:, [2, 1]], sibs, inv, idx)
+    assert torch.equal(got, flat[:, [6, 6]])
+
+
 def test_digest_registry():
     assert digest.DIGESTS_BY_NAME["blake3"] is digest.BLAKE3
     assert digest.DIGESTS_BY_NAME["sha256"] is digest.SHA256
     assert digest.SHA256.host(b"abc") == hashlib.sha256(b"abc").digest()
     assert digest.BLAKE3.host(b"abc") != digest.SHA256.host(b"abc")
-    assert digest.SHA256.merkle_layer is sha256.merkle_layer
+    assert digest.SHA256.merkle_tree is sha256.merkle_tree
+    assert digest.SHA256.merkle_walk is sha256.merkle_walk
+    assert digest.BLAKE3.merkle_tree is b3.merkle_tree
+    assert digest.BLAKE3.merkle_walk is b3.merkle_walk
