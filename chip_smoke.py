@@ -5,15 +5,20 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernel sources from the checkout, one nvcc each,
+  2. build the six CUDA kernel sources from the checkout, one nvcc each,
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
-     csrc/blake3_cols.cu); print ptxas's registers and spills per template
-     (fatal if the SpMV's or the NTT's W32 = 8 spills; every BLAKE3 kernel
-     reported, the per-level blake3_parents gone), the SASS instruction
-     count of the SpMV's W32 = 8 k loop per wide product and one BLAKE3
-     compression's instructions by pipe (cuobjdump; the compression
-     latency probe scripts/blake3_chain.cu is built beside the kernels),
-     from which every BLAKE3 bound is counted;
+     csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
+     csrc/power_table.cu); print ptxas's registers and spills per template
+     (fatal if the SpMV's, the NTT's, the generator's, the tiled mont_dot's
+     or the power table's W32 = 8 spills; every BLAKE3 kernel reported, the
+     per-level blake3_parents gone), what the generator's function needs
+     by pipe (its bound: 37 digits of one threefry2x32 and xor from the
+     SASS of the probe scripts/threefry_chain.cu, held to the plain
+     threefry, plus the digit packing; the kernel's whole SASS logged
+     beside), the SASS instruction count of the SpMV's W32 = 8 k loop per
+     wide product and one BLAKE3 compression's instructions by pipe
+     (cuobjdump; the compression latency probe scripts/blake3_chain.cu is
+     built beside the kernels), from which every BLAKE3 bound is counted;
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
      Brakedown encoding at r = 36 (the commit's row count), on every level at
@@ -24,7 +29,8 @@ Phases, each fatal on failure (each prints the seconds it took):
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
      counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
-     path walk) and 3 times warm (median ms); check the evaluation against the
+     path walk; the collapses through mont_dot) and 3 times warm (median
+     ms); check the evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
      then commit_streaming the same coefficients (its encode launches the
@@ -40,7 +46,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      plain version against the bound of the non-trivial butterflies, the hash
      words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
-     phase 4 (one cold run with the launches counted, 3 warm), with the
+     phase 4 (one cold run with the launches counted, 3 warm: one encode,
+     the commit's; prove's collapse through mont_dot; verify's rows
+     evaluated at the opened columns, one power table), with the
      evaluation and tamper checks; reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
   7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
@@ -62,24 +70,48 @@ Phases, each fatal on failure (each prints the seconds it took):
      and proof bytes with (a) unpacked coefficients on the card in 128-row
      blocks, the words kept on the card, (b) a HostCoeffSource with the words
      spilled to host RAM, (c) packed coefficients and no words kept (prove
-     re-encodes the blocks); each route's BLAKE3 trees: 1 chunk tree and 1
-     Merkle tree;
-  9. the slice's path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
+     evaluates the opened columns directly); each route's BLAKE3 trees: 1
+     chunk tree and 1 Merkle tree, its collapse through mont_dot, route (c)
+     one power table;
+  9. the streaming path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
      131,072 coefficients (packed on the card, made from the seed), 524,288
      columns: commit_streaming (spill="auto") -> prove -> verify once cold
-     with the launches counted, then warm runs (median ms, peak memory, proof
+     with the launches counted (verify at the columns: one power table, no
+     NTT), then warm runs (median ms, peak memory, proof
      bytes); the evaluation against one computed on the card in the other
      association order (rows against the inner tensor first, plain
-     FieldOps); the BLAKE3 trees launched 4 times; tampered proofs; the
+     FieldOps, collapse_canon_plain); the BLAKE3 trees launched 4 times;
+     tampered proofs; the
      retained words hashed in memory equal to the streamed leaves, the
      chunk tree of 524,288 x 65 CVs equal to its plain version (and both
      kernels timed at that shape); one row
      block of the encode, words only, against the NTT's limbs-and-words
      call and the plain version;
-  10. print the kernel table line, then the result line.
+  10. hold the prover's kernels against their plain versions, bit for bit:
+     the seeded generator (2^22 ft255 coefficients in all three forms, a
+     seed >= 2^32 with a zero tail, chunk-aligned and unaligned partitions,
+     every field), mont_dot at the 2^23 prove collapse (2 x 256 x 32,768),
+     the 2^23 verify column check (2 x 256 x 189) and rows at the columns
+     (2 x 32,768 x 189), a 64-row block of the 2^29 column evaluation (64 x
+     262,144 x 189) and edge shapes in every field (unreduced operands
+     too), the power table at 32,768 x 189 and 262,144 x 189 and edges;
+     each timed beside its bound;
+  11. the slice's path: SeededCoeffSource(FT255, 2^29, seed=0), 2,048 rows
+     x 262,144 coefficients, 2^20 columns, the 68.7 GB of hash words not
+     kept: commit_streaming -> prove (MxuCollapse and MxuColumnEval over
+     regenerated blocks) -> verify (at the columns) once cold with the
+     launches counted (the generator, the NTT, both BLAKE3 kernels, the
+     trees 4 times, mont_dot, the power table), then warm runs (median ms
+     beside the Rust reference's 64-core numbers, peak memory); the
+     evaluation against one over regenerated blocks with the plain collapse
+     in the other order; tampered proofs; the columns opened by direct
+     evaluation equal to the re-encode's, both timed, and prove's pieces
+     (generator, collapse, column evaluation, power table) timed;
+  12. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
+Per-shape numbers land in chiprun_out/chip_smoke_levels.json.
 Exits non-zero, without the result line, when no CUDA device is present or
 the package is missing.
 """
@@ -133,7 +165,16 @@ LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
 N_STREAM = 1 << 26   # phase 8: streaming against the in-memory commit
 N_BIG = 1 << 28      # phase 9: the slice's path
 BIG_WARM = 3         # warm runs of phase 9 (fewer when the time limit nears)
-BIG_WARM_DEADLINE_S = 900  # no warm run of phase 9 starts after this
+BIG_WARM_DEADLINE_S = 700  # no warm run of phase 9 starts after this
+GEN_CHECK = 1 << 22  # phase 10: seeded coefficients held to the plain generator
+EVAL_ROWS = 64       # phase 10: rows of the 2^29 column evaluation block
+N_SEEDED = 1 << 29   # phase 11: the seeded path
+SEEDED_WARM = 2      # warm runs of phase 11 (fewer when the time limit nears)
+SEEDED_WARM_DEADLINE_S = 900  # no warm run of phase 11 starts after this
+# the Rust reference on 64 cores at 2^29, Ligero ft255 rho = 1/4: commit,
+# prove, verify in ms (BASELINE.md:20)
+RUST_2_29 = (94_600.0, 1_513.0, 278.0)
+DEV = "cuda"         # the card (phases 10 and 11 name it once, for a CPU rehearsal)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -716,8 +757,9 @@ def ntt_2_19(torch, kb, nttm, spec, gen, ntt_rows):
 
 
 def device_eval(torch, ops, mat, outer, inner, rb):
-    """Σ_r outer[r] (Σ_j inner[j] c[r, j]) on the card with plain FieldOps,
-    rows against the inner tensor first, in row blocks: mat is the packed
+    """Σ_r outer[r] (Σ_j inner[j] c[r, j]) on the card with plain FieldOps
+    (collapse_canon_plain, not the mont_dot kernel the path uses), rows
+    against the inner tensor first, in row blocks: mat is the packed
     (W/2, R, n_per_row) Montgomery coefficient matrix."""
     import numpy as np
     from lcpc_tpu_torch.ops.spmv import unpack_words
@@ -728,9 +770,9 @@ def device_eval(torch, ops, mat, outer, inner, rb):
     inner_t, parts = limbs(inner), []
     for r0 in range(0, mat.shape[1], rb):
         blk = unpack_words(mat[:, r0 : r0 + rb], 0)
-        parts.append(ops.collapse_canon(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
+        parts.append(ops.collapse_canon_plain(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
     rows = ops.to_mont(torch.cat(parts, dim=2))
-    v = ops.collapse_canon(limbs(outer), rows.permute(0, 2, 1))  # (W, 1, 1) canonical
+    v = ops.collapse_canon_plain(limbs(outer), rows.permute(0, 2, 1))  # (W, 1, 1) canonical
     return int.from_bytes(v.reshape(-1).cpu().numpy().astype("<u2").tobytes(), "little")
 
 
@@ -763,11 +805,15 @@ def streaming_2_26(torch, P, counters, gen):
               dict(row_block=128, spill="device")),
              ("b: HostCoeffSource, words spilled to host RAM",
               P.HostCoeffSource(host, spec), dict(spill="host")),
-             ("c: packed on the card, no words kept (prove re-encodes)", packed,
+             ("c: packed on the card, no words kept (prove evaluates the opened columns)", packed,
               dict(spill="none")))
     out = []
-    path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree"}
     for tag, src, kw in cases:
+        # every route collapses through mont_dot; with no words kept prove
+        # evaluates the columns directly
+        path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree", "mont_dot"}
+        if kw["spill"] == "none":
+            path_kernels.add("power_table")
         for fn in counters.values():
             fn.launches = 0
         cs, cs_ms = time_host(torch, lambda: P.commit_streaming(src, enc, **kw))
@@ -834,9 +880,14 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     log(f"path 2^28 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}, words kept on "
         f"the card: {comm.words_dev is not None}; peak device memory {peak:.2f} GiB")
+    # prove collapses through mont_dot; verify (2^19 columns, lcpc_tpu's
+    # gate 2^17) evaluates the proof rows at the opened columns: the power
+    # table and mont_dot, no NTT
     for name, n in launches.items():
-        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES)):
+        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table")):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
+    if launches["power_table"] != 1:
+        raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times")
     check_tree_launches(launches, TREE_LAUNCHES_PATH, "path 2^28")
     if comm.words_dev is None:
         raise AssertionError("path 2^28: the words were not kept on the card")
@@ -927,6 +978,358 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
             "block_words_only_ms": blk_ms}
 
 
+def gen_pack_ops(w32, w7, form):
+    """ALU instructions a coefficient needs beyond its digits' threefry2x32
+    and xor: each digit shifted into its word where it does not start one
+    (one LEA: the bits do not overlap, so the add is an or), one more shift
+    where a digit straddles two words, and for limbs the split of each word
+    into its 16-bit halves (two).  Digit planes store the bytes as they are."""
+    if form == "digits":
+        return 0
+    ops = sum(bool(7 * d % 32) + (7 * d % 32 > 25 and 7 * d // 32 + 1 < w32)
+              for d in range(w7))
+    return ops + (2 * w32 if form == "limbs" else 0)
+
+
+def generator_mix(torch, kb, tf, tf_so, gen_so):
+    """Phase 2: what the generator's function needs, by pipe, per
+    coefficient: W7 digits of the threefry probe's per-step SASS
+    (scripts/threefry_chain.cu: one threefry2x32 on (0, counter) and the
+    xor) plus the packing (gen_pack_ops); the chunk keys (one threefry2x32
+    a 2^18-coefficient chunk) are added where the bound is taken.  The
+    probe's chain is first held to the plain threefry2x32.  The kernel's
+    whole SASS a thread (its own index arithmetic and chunk key included)
+    is logged beside.  Returns {"per_digit": (ALU, FMA, all), form: (ALU, FMA)}."""
+    key, x, n = (0x13198A2E, 0x03707344), 0xA4093822, 8
+    want = x
+    for _ in range(n):
+        x0, x1 = tf.threefry2x32_plain(key[0], key[1], torch.tensor([0]), torch.tensor([want]))
+        want = int(x0[0]) ^ int(x1[0])
+    got = kb.threefry_chain(tf_so, key, x, n)
+    if got != want:
+        raise AssertionError(f"threefry probe: {got:#x} != plain {want:#x}")
+    found = kb.threefry_sass_mix(tf_so)
+    if found is None:
+        raise RuntimeError("cuobjdump not found: the generator's bound cannot be counted")
+    digit, opcodes = found
+    w32, w7 = 8, 37
+    log(f"  SASS threefry probe (equal to plain over {n} steps): a digit is {digit[0]:g} "
+        f"ALU-pipe + {digit[1]:g} FMA-pipe of {digit[2]:g} instructions; loop opcodes "
+        f"{opcodes}")
+    mix = {"per_digit": digit}
+    for i, form in enumerate(tf.FORMS):
+        pack = gen_pack_ops(w32, w7, form)
+        mix[form] = (w7 * digit[0] + pack, w7 * digit[1])
+        whole = kb.sass_mix(gen_so, f"seeded_gen_kernelILi8ELi37ELi{i}E")
+        log(f"  seeded_gen W32=8 {form}: the function needs {w7} digits + {pack} packing = "
+            f"{mix[form][0]:g} ALU-pipe + {mix[form][1]:g} FMA-pipe a coefficient "
+            f"({compression_s(*mix[form]) * 1e12:.1f} ps); the kernel's SASS a thread "
+            f"{whole[0]} + {whole[1]} of {whole[2]} instructions "
+            f"({compression_s(whole[0], whole[1]) * 1e12:.1f} ps)")
+    return mix
+
+
+def gen_bound(n_elem, out_bytes, mix, form, chunk=1 << 18):
+    """(ms, by) of the generator: its output written once over the memory
+    rate against what its function needs on the integer pipes: n_elem
+    coefficients of mix[form] and one threefry2x32 a chunk key (the
+    probe's digit, whose xor stands in for fold_in's word select)."""
+    t_bytes = out_bytes / HBM_BYTES_PER_S * 1e3
+    digit, n_chunks = mix["per_digit"], -(-n_elem // chunk)
+    t_ops = (n_elem * compression_s(*mix[form]) + n_chunks * compression_s(*digit[:2])) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def dot_bound(spec, x, y, a, k, b):
+    """(ms, by) of a mont_dot: x and y read once, the (W/2, a, b) words
+    written once; (W/2)^2 wide products per multiply-add."""
+    w32 = spec.w16 // 2
+    nbytes = 4 * (x.numel() + y.numel() + w32 * a * b)
+    b_ms, t_bytes, t_ops = bound_ms(nbytes, a * k * b * w32 * w32)
+    return b_ms, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def table_bound(spec, big_k, k):
+    """(ms, by) of a power table: its words written once; one Montgomery
+    product (2 W32^2 + W32 wide products) an entry."""
+    w32 = spec.w16 // 2
+    b_ms, t_bytes, t_ops = bound_ms(4 * w32 * (big_k * k + k),
+                                    big_k * k * (2 * w32 * w32 + w32))
+    return b_ms, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
+    """Phase 10: the generator, mont_dot and the power table against their
+    plain versions on the card, bit for bit, at the main paths' shapes and
+    on edge cases; each timed beside its bound.  Returns the records."""
+    from lcpc_tpu_torch.ops.spmv import pack_words, unpack_words
+
+    spec = P.FT255
+    w32, w7, chunk = spec.w16 // 2, (spec.num_bits + 6) // 7, 1 << 18
+    recs, errs = {}, [0]
+
+    def check(tag, got, want):
+        err = max_err(torch, got, want)
+        errs[0] = max(errs[0], err)
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"{tag}: kernel != plain (max err {err})")
+
+    def gen_plain(key, i0, i1, length, form, field=spec):
+        fw7 = (field.num_bits + 6) // 7
+        c0, c1 = i0 // chunk, -(-i1 // chunk)
+        d = tf.seeded_digits_plain(key, c0, c1 - c0, chunk, fw7, tf.digit_masks(field),
+                                   device=DEV)[:, i0 - c0 * chunk : i1 - c0 * chunk].clone()
+        if length < i1:
+            d[:, max(0, length - i0):] = 0
+        if form == "digits":
+            return d
+        words = tf.digits_to_words_plain(d, field.w16 // 2)
+        return words if form == "packed" else unpack_words(words, 0)
+
+    log("seeded_gen, mont_dot and power_table vs plain: tolerance 0 — the generator's bits "
+        "and exact field arithmetic, every word equal")
+    key, n = tf.prng_key(SEED), GEN_CHECK
+    digits, digits_ms = time_host(torch, lambda: gen_plain(key, 0, n, n, "digits"))
+    for form in tf.FORMS:
+        got = tf.seeded_digits(spec, key, 0, n, n, chunk, form=form, device=DEV)
+        want, ms = time_host(torch, lambda: digits if form == "digits" else (
+            tf.digits_to_words_plain(digits, w32) if form == "packed"
+            else unpack_words(tf.digits_to_words_plain(digits, w32), 0)))
+        plain_ms = digits_ms + ms
+        check(f"seeded_gen {form}", got, want)
+        ms = kb.time_kernel(lambda: tf.seeded_digits(spec, key, 0, n, n, chunk, form=form,
+                                                     device=DEV))
+        out_bytes = n * {"digits": w7, "limbs": 4 * spec.w16, "packed": 4 * w32}[form]
+        bound, by = gen_bound(n, out_bytes, gen_mix, form)
+        recs[f"gen_{form}"] = {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                               "bound_by": by, "out_bytes": out_bytes}
+        log(f"  seeded_gen {form}: {n} ft255 coefficients equal to plain; {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms")
+    big = tf.prng_key((1 << 40) + 3)
+    length = 3 * chunk + 12_345
+    whole = tf.seeded_digits(spec, big, 0, 4 * chunk, length, chunk, form="limbs", device=DEV)
+    check("seeded_gen seed 2^40+3 with a zero tail", whole, gen_plain(big, 0, 4 * chunk, length,
+                                                                      "limbs"))
+    for cuts in ((0, chunk, 2 * chunk, 4 * chunk), (0, 1000, 300_001, 4 * chunk - 7, 4 * chunk)):
+        parts = [tf.seeded_digits(spec, big, a, b, length, chunk, form="limbs", device=DEV)
+                 for a, b in zip(cuts, cuts[1:])]
+        check(f"seeded_gen partition {cuts}", torch.cat(parts, dim=1), whole)
+    for field in P.ALL_FIELDS:
+        for form in tf.FORMS:
+            check(f"seeded_gen {field.name} {form}",
+                  tf.seeded_digits(field, big, 77, 5_000, 4_000, chunk, form=form, device=DEV),
+                  gen_plain(big, 77, 5_000, 4_000, form, field))
+    log("  seeded_gen: seed 2^40+3 with a zero tail, chunk-aligned and unaligned partitions "
+        "equal; every field and form on an edge range equal")
+
+    def rand(field, a, k, form="limbs"):
+        x = kb.random_mont(field, (a, field.w16, k), gen, device=DEV).permute(1, 0, 2).contiguous()
+        return x if form == "limbs" else pack_words(x, 0)
+
+    def dot(tag, x, y, out_form, x_form, y_form, timed=True, reps=10, field=spec):
+        got = md.mont_dot(field, x, y, out_form, x_form=x_form, y_form=y_form)
+        want, plain_ms = time_host(torch, lambda: md.mont_dot_plain(
+            field, x, y, out_form, x_form=x_form, y_form=y_form))
+        check(f"mont_dot {tag}", got, want)
+        if not timed:
+            return
+        a, k, b = x.shape[1], x.shape[2], y.shape[2]
+        ms = kb.time_kernel(lambda: md.mont_dot(field, x, y, out_form, x_form=x_form,
+                                                y_form=y_form), reps=reps)
+        bound, by = dot_bound(field, x, y, a, k, b)
+        recs[f"dot {tag}"] = {"a": a, "k": k, "b": b, "out_form": out_form, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+        log(f"  mont_dot {tag} ({a} x {k} x {b}, {out_form}): equal; {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms")
+
+    n23 = N_COEFFS // 256
+    dot("2^23 prove collapse", rand(spec, 2, 256, "packed"), rand(spec, 256, n23), "canonical",
+        "packed", "limbs")
+    dot("2^23 verify column check", rand(spec, 2, 256), rand(spec, 256, 189, "packed"), "mont",
+        "limbs", "packed")
+    g = pack_words(kb.random_mont(spec, (1, spec.w16, 189), gen, device=DEV)[0], 0)
+    for tag, big_k in (("2^23 verify", n23), ("2^29 prove", N_SEEDED // 2048)):
+        table = md.power_table(spec, g, big_k)
+        want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k))
+        check(f"power_table {tag}", table, want)
+        del want
+        ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k), reps=5)
+        bound, by = table_bound(spec, big_k, 189)
+        recs[f"table {tag}"] = {"K": big_k, "k": 189, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": by}
+        log(f"  power_table {tag} ({big_k} x 189): equal; {ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}), plain {plain_ms:.1f} ms")
+        if tag.startswith("2^23"):
+            dot("2^23 verify rows at the columns", rand(spec, 2, big_k), table, "mont", "limbs",
+                "packed")
+        else:
+            dot(f"2^29 column evaluation, a {EVAL_ROWS}-row block", rand(spec, EVAL_ROWS, big_k,
+                                                                          "packed"),
+                table, "mont", "packed", "packed", reps=3)
+        del table
+    for field in P.ALL_FIELDS:
+        for a, k, b in ((3, 1, 5), (37, 70, 45), (1, 5_000, 1), (33, 33, 33), (2, 3_000, 189)):
+            for out_form in md.OUT_FORMS:
+                dot(f"edge {field.name} {a}x{k}x{b}", rand(field, a, k), rand(field, k, b, "packed"),
+                    out_form, "limbs", "packed", timed=False, field=field)
+        ones = torch.full((field.w16, 2, 300), 0xFFFF, dtype=torch.int32, device=DEV)
+        dot(f"unreduced {field.name}", ones, rand(field, 300, 7), "canonical", "limbs", "limbs",
+            timed=False, field=field)
+        for big_k, k in ((1, 3), (70, 33), (5_000, 1)):
+            gg = pack_words(kb.random_mont(field, (1, field.w16, k), gen, device=DEV)[0], 0)
+            check(f"power_table {field.name} {big_k} x {k}", md.power_table(field, gg, big_k),
+                  md.power_table_plain(field, gg, big_k))
+    log("  mont_dot edges (3x1x5, 37x70x45, 1x5000x1, 33x33x33, 2x3000x189, both outputs; "
+        "all-0xFFFF operands) and power_table edges equal in every field")
+    recs["max_abs_err"] = errs[0]
+    return recs
+
+
+def seeded_eval(torch, ops, src, outer, inner, rb):
+    """Σ_r outer[r] (Σ_j inner[j] c[r, j]) over the seeded source's
+    regenerated limb blocks, rows against the inner tensor first, with the
+    PLAIN collapse (FieldOps.collapse_canon_plain): no mont_dot in it."""
+    import numpy as np
+
+    def limbs(vals):
+        return torch.from_numpy(ops.encode_host(vals).astype(np.int32)).to(DEV)[:, None, :]
+
+    inner_t, parts = limbs(inner), []
+    for r0 in range(0, src.n_rows, rb):
+        blk = src.block(r0, min(r0 + rb, src.n_rows))
+        parts.append(ops.collapse_canon_plain(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
+        del blk
+    rows = ops.to_mont(torch.cat(parts, dim=2))
+    v = ops.collapse_canon_plain(limbs(outer), rows.permute(0, 2, 1))
+    return int.from_bytes(v.reshape(-1).cpu().numpy().astype("<u2").tobytes(), "little")
+
+
+def path_2_29(torch, kb, P, counters, md, card):
+    """Phase 11: the seeded path at 2^29 (see the module docstring)."""
+    import random
+
+    from lcpc_tpu_torch.core import streaming
+    from lcpc_tpu_torch.ops.limbs import get_ops
+    from lcpc_tpu_torch.ops.mxu_prove import MxuColumnEval, _packed_ints
+
+    spec = P.FT255
+    ops = get_ops(spec)
+    src = P.SeededCoeffSource(spec, N_SEEDED, seed=SEED, device=DEV)
+    enc = P.LigeroEncoding.new(spec, N_SEEDED, *LIGERO_RHO, device=DEV)
+    n_rows = -(-N_SEEDED // enc.n_per_row)
+    wpe = spec.w16 // 2
+    log(f"path 2^29: seeded ligero ft255 rho={LIGERO_RHO[0]}/{LIGERO_RHO[1]}, {n_rows} rows x "
+        f"{enc.n_per_row} coefficients, {enc.n_cols} columns, {enc.get_n_col_opens()} column "
+        f"openings, {enc.get_n_degree_tests()} degree test(s); hash words "
+        f"{n_rows * wpe * enc.n_cols * 4 / 1e9:.1f} GB")
+    x_pt = 0x243F6A8885A308D3
+    outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
+    src.set_dims(n_rows, enc.n_per_row)
+    want, want_ms = time_host(torch, lambda: seeded_eval(torch, ops, src, outer, inner, 128))
+    log(f"  the evaluation over regenerated blocks with the plain collapse, rows first: "
+        f"{want_ms:.1f} ms")
+    transcript = transcript_for(P, enc)
+
+    def run():
+        comm, c_ms = time_host(torch, lambda: P.commit_streaming(src, enc))
+        root = comm.get_root()
+        proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
+        value, v_ms = time_host(
+            torch, lambda: proof.verify(root, outer, inner, enc, transcript(root)))
+        return comm, proof, value, (c_ms, p_ms, v_ms)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    comm, proof, value, cold = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"path 2^29 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
+        f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
+        f"memory {peak:.2f} GiB")
+    path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table"}
+    for name, n in launches.items():
+        if (n > 0) != (name in path_kernels):
+            raise AssertionError(f"path 2^29: {name} launched {n} times")
+    check_tree_launches(launches, TREE_LAUNCHES_PATH, "path 2^29")
+    if comm.words_dev is not None or comm.words_host is not None:
+        raise AssertionError("path 2^29: hash words were kept")
+    log("  no hash words kept (words_dev and words_host None): prove evaluated the opened "
+        "columns directly")
+    if value != want:
+        raise AssertionError("path 2^29: verify's evaluation != the plain evaluation")
+    log("  verify returned the evaluation computed with the plain collapse in the other "
+        "order: ok")
+    root = comm.get_root()
+    data = P.wire.serialize_proof(spec, proof)
+    log(f"  proof {len(data)} bytes")
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29")
+    del proof
+
+    # the opening both ways at this shape, and the prove's pieces timed
+    rng = random.Random(SEED)
+    cols = [rng.randrange(enc.n_cols) for _ in range(enc.get_n_col_opens())]
+    by_eval, eval_open_ms = time_host(torch, lambda: streaming._open_by_eval(comm, cols))
+    by_enc, reencode_ms = time_host(torch, lambda: streaming._open_by_reencode(comm, cols))
+    if not torch.equal(by_eval, by_enc):
+        raise AssertionError("path 2^29: _open_by_eval's columns != _open_by_reencode's")
+    del by_eval, by_enc
+    log(f"  {len(cols)} columns opened by direct evaluation ({eval_open_ms:.1f} ms) equal the "
+        f"re-encode's ({reencode_ms:.1f} ms)")
+    get_block, form, bpe = streaming._prove_block_source(comm)
+    ev = MxuColumnEval(enc)
+    ev.set_columns(cols)
+    rb = streaming._prove_row_block(comm, bpe, ev.table_bytes)
+    gen_ms = kb.time_kernel(lambda: get_block(0, rb), reps=2)
+    blk = get_block(0, rb)
+    eval_ms = kb.time_kernel(lambda: ev.eval_block(blk, in_form=form), reps=1)
+    ts = _packed_ints(spec, [outer, outer], DEV)[:, :, :rb]
+    collapse_ms = kb.time_kernel(lambda: md.mont_dot(spec, ts, blk, y_form=form), reps=2)
+    table_ms = host_ms(torch, lambda: ev.set_columns(cols), reps=3)
+    scale = n_rows / rb
+    pieces = {"prove_row_block": rb, "gen_block_ms": gen_ms, "eval_block_ms": eval_ms,
+              "collapse_block_ms": collapse_ms, "set_columns_host_ms": table_ms,
+              "eval_all_rows_ms": eval_ms * scale, "collapse_all_rows_ms": collapse_ms * scale,
+              "gen_all_rows_ms": gen_ms * scale, "open_by_eval_ms": eval_open_ms,
+              "open_by_reencode_ms": reencode_ms}
+    k = len(cols)
+    b_ms, t_bytes, t_ops = bound_ms(4 * wpe * (n_rows * enc.n_per_row + enc.n_per_row * k
+                                               + n_rows * k),
+                                    n_rows * enc.n_per_row * k * wpe * wpe)
+    pieces["eval_bound_ms"] = b_ms
+    pieces["eval_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  prove's pieces ({rb}-row blocks, x {scale:g} for all rows): seeded_gen packed "
+        f"{gen_ms:.2f} ms, mont_dot collapse {collapse_ms:.2f} ms, column evaluation "
+        f"{eval_ms:.2f} ms (all rows {eval_ms * scale:.1f} ms, bound "
+        f"{pieces['eval_bound_ms']:.1f} ms), set_columns with its power table {table_ms:.2f} ms")
+    del blk, ev, ts, comm
+    torch.cuda.empty_cache()
+
+    warm = []
+    for _ in range(SEEDED_WARM):
+        if time.perf_counter() - T_START > SEEDED_WARM_DEADLINE_S:
+            log(f"  path 2^29: {len(warm)} warm runs, not {SEEDED_WARM}: the run is at "
+                f"{time.perf_counter() - T_START:.0f} s")
+            break
+        comm, proof, value, t = run()
+        if value != want:
+            raise AssertionError("path 2^29: warm run's evaluation differs")
+        warm.append(t)
+        del comm, proof
+        torch.cuda.empty_cache()
+    med = [statistics.median(t[i] for t in warm) if warm else None for i in range(3)]
+    for i, name in enumerate(("commit", "prove", "verify")):
+        log(f"seeded_ligero_{name}_ms_median_2^29_ft255: "
+            f"{med[i] if med[i] is None else round(med[i], 1)} "
+            f"(warm runs {[round(t[i], 1) for t in warm]}; cold {cold[i]:.1f}; Rust on 64 cores "
+            f"{RUST_2_29[i]:g} ms, BASELINE.md; {card})")
+    return {"launches": launches, "cold": cold, "warm": warm, "median": med, "peak_gib": peak,
+            "proof_bytes": len(data), "row_block": rb, "pieces": pieces,
+            "plain_eval_ms": want_ms}
+
+
+
 def blake3_mix(kb, chain_so, lib_so):
     """Phase 2: one BLAKE3 compression's instructions by pipe, from the SASS
     of the latency probe's loop body (kb.CHAIN_PER_TRIP compressions) and
@@ -1007,6 +1410,58 @@ def tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix):
     ]
 
 
+def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
+    """The kernel table rows of the seeded generator, mont_dot and the power
+    table: each timed at a shape of the 2^29 seeded path or of the 2^23
+    main path, with the other shapes beside; launches from the 2^29 path."""
+
+    def ptx(src_name):
+        return {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                for k, v in sorted(prove_ptxas[src_name].items())}
+
+    def row(name, source, replaces, rec, shape, **extra):
+        return {"name": name, "route": "cuda", "source": f"lcpc_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": s29["launches"][name],
+                "max_abs_err": prv["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+                "equal_to_plain": True, "tolerance": 0, "shape": shape,
+                "launches_other_paths": {"sdig_2_23": sdig[0][name], "ligero_2_23": lig[0][name],
+                                         "streaming_2_28": big["launches"][name]},
+                "ptxas": ptx(source[:-3]), **extra}
+
+    ev29 = prv[f"dot 2^29 column evaluation, a {EVAL_ROWS}-row block"]
+    return [
+        row("seeded_gen", "seeded_gen.cu",
+            "lcpc_tpu/core/coeffs.py:143 (_gen_span_fn) and :194 (_digits_to_limbs_fn, "
+            "ops/mxu_ntt.py:324 _from7); XLA-fused, not Pallas", prv["gen_packed"],
+            f"{GEN_CHECK} ft255 coefficients as packed words (prove's form)",
+            other_forms={f: prv[f"gen_{f}"] for f in ("digits", "limbs")},
+            needed_per_coefficient_alu_fma={f: list(m) for f, m in gen_mix.items()
+                                            if f != "per_digit"},
+            threefry_digit_alu_fma_all=list(gen_mix["per_digit"]),
+            ms_2_29_prove_block=s29["pieces"]["gen_block_ms"],
+            prove_block_rows=s29["pieces"]["prove_row_block"]),
+        row("mont_dot", "mont_dot.cu",
+            "lcpc_tpu/ops/mxu_prove.py:86,128,184 (MxuCollapse: _banded_collapse_kernel, "
+            "_collapse_fns), :235,258,357 (MxuColumnEval: _eval_chunking, _eval_fns) and "
+            "lcpc_tpu/ops/limbs.py:375,421 (collapse_canon, collapse_words); XLA-fused, not "
+            "Pallas", prv["dot 2^23 prove collapse"],
+            "the 2^23 ft255 prove collapse: T=2 x R=256 x C=32,768 (canonical)",
+            column_evaluation_2_29_block=ev29,
+            column_evaluation_2_29_all_rows_ms=s29["pieces"]["eval_all_rows_ms"],
+            column_evaluation_2_29_bound_ms=s29["pieces"]["eval_bound_ms"],
+            open_by_eval_2_29_ms=s29["pieces"]["open_by_eval_ms"],
+            open_by_reencode_2_29_ms=s29["pieces"]["open_by_reencode_ms"],
+            collapse_2_29_all_rows_ms=s29["pieces"]["collapse_all_rows_ms"],
+            other_shapes={k: v for k, v in prv.items() if k.startswith("dot ")}),
+        row("power_table", "power_table.cu",
+            "lcpc_tpu/ops/mxu_prove.py:319 (_kernel_build_fns); XLA-fused, not Pallas",
+            prv["table 2^29 prove"], "the 2^29 prove's table: 262,144 x 189 entries",
+            verify_2_23=prv["table 2^23 verify"],
+            set_columns_2_29_host_ms=s29["pieces"]["set_columns_host_ms"]),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1017,8 +1472,10 @@ def main() -> int:
     import kernel_bench as kb
     import lcpc_tpu_torch as P
     from lcpc_tpu_torch.ops import blake3 as b3
+    from lcpc_tpu_torch.ops import mont_dot as md
     from lcpc_tpu_torch.ops import ntt as nttm
     from lcpc_tpu_torch.ops import spmv
+    from lcpc_tpu_torch.ops import threefry as tf
     from lcpc_tpu_torch.ops.limbs import get_ops
     from lcpc_tpu_torch.utils import cuda_build, native
 
@@ -1028,7 +1485,9 @@ def main() -> int:
         raise AssertionError("the per-level blake3_parents kernel is still in the port")
     counters = {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
                 "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
-                "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk}
+                "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
+                "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
+                "power_table": md.power_table}
     hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
@@ -1040,13 +1499,17 @@ def main() -> int:
     # 2. build the three kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # the probe beside the kernels
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # the probes beside the kernels
         chain_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR)
-        secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols"], force=True)
+        tf_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
+                           kb.TF_CHAIN_SRC)
+        secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
+                                     "mont_dot", "power_table"], force=True)
         chain_so, chain_log = chain_f.result()
+        tf_so, _ = tf_f.result()
     log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} and "
-        f"scripts/blake3_chain.cu ({time.perf_counter() - t0:.2f} s wall) with nvcc "
-        f"{' '.join(cuda_build.NVCC_FLAGS)}")
+        f"scripts/blake3_chain.cu, scripts/threefry_chain.cu ({time.perf_counter() - t0:.2f} s "
+        f"wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     ptxas = kb.ptxas_report(spmv.build_log)
     for w32, (regs, st, ld) in sorted(ptxas.items()):
         log(f"  ptxas spmv_mont W32={w32}: {regs} registers, {st} bytes spill stores, "
@@ -1072,6 +1535,23 @@ def main() -> int:
         log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
+    prove_ptxas = {}
+    for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
+                            ("power_table", "power_table_kernel")):
+        found = kb.ptxas_entries(cuda_build.build_logs[src_name], kname)
+        if len(found) != {"seeded_gen": 12, "mont_dot": 12, "power_table": 4}[src_name]:
+            raise AssertionError(f"{src_name} kernels not reported by ptxas: {found}")
+        for name, (regs, st, ld) in sorted(found.items()):
+            log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill "
+                f"loads")
+        prove_ptxas[src_name] = found
+    for src_name, kname in (("seeded_gen", "seeded_gen_kernelILi8ELi37E"),
+                            ("mont_dot", "mont_dot_tile_kernelILi8E"),
+                            ("power_table", "power_table_kernelILi8E")):
+        for k, (regs, st, ld) in prove_ptxas[src_name].items():
+            if kname in k and (st or ld):
+                raise AssertionError(f"{k} spills: {st} / {ld} bytes")
+    gen_mix = generator_mix(torch, kb, tf, tf_so, cuda_build.so_path("seeded_gen"))
     loop = kb.sass_loop(spmv.SO_PATH)
     if loop is None:
         log("  SASS: cuobjdump not found, k-loop count not measured")
@@ -1126,8 +1606,10 @@ def main() -> int:
     # 4. the Brakedown path at 2^23, its golden fixture, and its streaming commit
     phase = Phase("4 brakedown 2^23")
     n_levels = len(pre) + len(post) + 1
+    # prove and verify's column check collapse through mont_dot; Brakedown
+    # has no power table
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
-                     path_kernels={"spmv_mont"} | hashing)
+                     path_kernels={"spmv_mont", "mont_dot"} | hashing)
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -1191,13 +1673,17 @@ def main() -> int:
 
     # 6. the Ligero path at 2^23 and its golden fixture under both digests
     phase = Phase("6 ligero 2^23")
+    # prove collapses through mont_dot;
+    # verify (2^17 columns, its gate) evaluates the proof rows at the opened
+    # columns: one power table, mont_dot, and no encode
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    path_kernels={"ntt_mont"} | hashing)
+                    path_kernels={"ntt_mont", "mont_dot", "power_table"} | hashing)
     per_encode = plan.launches_per_call
-    if lig[0]["ntt_mont"] != 2 * per_encode:
-        raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 2 encodes x "
-                             f"{per_encode}")
-    log(f"  ntt launches {lig[0]['ntt_mont']} (= 2 encodes x {per_encode} passes)")
+    if lig[0]["ntt_mont"] != per_encode or lig[0]["power_table"] != 1:
+        raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 1 encode x {per_encode}, "
+                             f"or power_table {lig[0]['power_table']} != 1")
+    log(f"  ntt launches {lig[0]['ntt_mont']} (= the commit's encode, {per_encode} passes; "
+        f"verify evaluates at the columns), power_table 1, mont_dot {lig[0]['mont_dot']}")
     with open(os.path.join(ROOT, "tests", "data", "torch_golden_ligero.json")) as f:
         golden = json.load(f)
     genc = P.LigeroEncoding.new(spec, golden["length"], *golden["rho"])
@@ -1221,11 +1707,21 @@ def main() -> int:
     with Phase("8 streaming vs in-memory 2^26"):
         stream26 = streaming_2_26(torch, P, counters, gen)
 
-    # 9. the slice's path at 2^28
+    # 9. the streaming path at 2^28
     with Phase("9 streaming ligero 2^28"):
         big = path_2_28(torch, kb, P, counters, b3, nttm, gen, card)
 
-    # 10. kernel table
+    # 10. the prover's kernels against their plain versions
+    with Phase("10 seeded_gen, mont_dot, power_table vs plain"):
+        prv = prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix)
+        torch.cuda.empty_cache()
+
+    # 11. the slice's path: seeded 2^29
+    with Phase("11 seeded ligero 2^29"):
+        s29 = path_2_29(torch, kb, P, counters, md, card)
+        torch.cuda.empty_cache()
+
+    # 12. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -1304,7 +1800,8 @@ def main() -> int:
                   for k, v in sorted(b3_ptxas.items()) if "chunks" in k},
         "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
             b3_mix["least"]][:3],
-    }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix)]
+    }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
+        *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -1315,6 +1812,7 @@ def main() -> int:
                               "peak_gib": r[4], "proof_bytes": r[5]}
                        for name, r in (("sdig", sdig), ("ligero", lig))},
                    "blake3": hashes, "streaming_2_26": stream26, "path_2_28": big,
+                   "prove_kernels": prv, "path_2_29": s29,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -18,7 +18,8 @@ raise.
     proof = com.prove(outer_tensor, tr)
 
 `commit_streaming(coeffs, enc)` commits by row blocks without holding the
-codeword (up to 2^28 ft255 on one 80 GB card); its proofs verify with the
+codeword (2^29 ft255 on one 80 GB card with `SeededCoeffSource`, whose
+coefficients are lcpc_tpu's from the same seed); its proofs verify with the
 same `verify`.
 """
 
@@ -33,7 +34,13 @@ from .core.protocol import (
     verify,
 )
 from .core import wire
-from .core.coeffs import ArrayCoeffSource, CoeffSource, HostCoeffSource, as_source
+from .core.coeffs import (
+    ArrayCoeffSource,
+    CoeffSource,
+    HostCoeffSource,
+    SeededCoeffSource,
+    as_source,
+)
 from .core.streaming import LcCommitStreaming, commit_streaming, prove_streaming
 from .core.encoding import LcEncoding
 from .encodings.ligero import LigeroEncoding
@@ -48,15 +55,20 @@ from .encodings.brakedown import (
 )
 from .fs.merlin import Transcript
 from .ops.digest import BLAKE3, SHA256, DIGESTS_BY_NAME, DeviceDigest
-from .utils.tensors import univariate_eval, univariate_tensors
+from .utils.tensors import (
+    multilinear_eval,
+    multilinear_tensors,
+    univariate_eval,
+    univariate_tensors,
+)
 
 __all__ = [
     "FT63", "FT127", "FT191", "FT255", "ALL_FIELDS", "FieldSpec",
     "LcCommit", "LcEvalProof", "LcEncoding", "ProverError", "VerifierError",
     "commit", "prove", "verify", "wire",
     "commit_streaming", "prove_streaming", "LcCommitStreaming",
-    "CoeffSource", "ArrayCoeffSource", "HostCoeffSource", "as_source",
+    "CoeffSource", "ArrayCoeffSource", "HostCoeffSource", "SeededCoeffSource", "as_source",
     "LigeroEncoding", "SdigEncoding", "CODE1", "CODE2", "CODE3", "CODE4", "CODE5", "CODE6",
     "Transcript", "BLAKE3", "SHA256", "DIGESTS_BY_NAME", "DeviceDigest",
-    "univariate_tensors", "univariate_eval",
+    "univariate_tensors", "univariate_eval", "multilinear_tensors", "multilinear_eval",
 ]

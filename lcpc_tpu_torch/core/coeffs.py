@@ -14,9 +14,13 @@ A CoeffSource supplies the commit's coefficient matrix by row blocks, as
   and uploaded from there (synchronously: the buffer is reused only after
   the copy has finished).
 
-The JAX package's SeededCoeffSource (device-generated digit planes) is not
-ported yet.  Sources place their blocks on the device they are given
-(`cuda` unless the caller asks for the CPU).
+- SeededCoeffSource: coefficients made on the device from a seed, block by
+  block, never resident: lcpc_tpu's own values (the threefry generator of
+  ops/threefry.py, the kernel csrc/seeded_gen.cu), so a commit from the same
+  seed has the same root in both packages.
+
+Sources place their blocks on the device they are given (`cuda` unless the
+caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..fields.spec import FieldSpec
+from ..ops import threefry
 from ..ops.limbs import get_ops
 from ..ops.spmv import unpack_words
 from ..utils.device import resolve_device
@@ -146,6 +151,58 @@ class HostCoeffSource(CoeffSource):
         if self.packed:
             dev = unpack_words(dev, 0)
         return dev.reshape(-1, r1 - r0, npr)
+
+
+class SeededCoeffSource(CoeffSource):
+    """Deterministic device-generated coefficients, regenerated per block.
+
+    Element i lives in generation chunk i // chunk; chunk c is a pure
+    function of (seed, c): lcpc_tpu's 7-bit digit planes of
+    jax.random.bits(fold_in(PRNGKey(seed), c)), the top digit masked, their
+    value read as the Montgomery form (ops/threefry.py).  Any block
+    partitioning sees the same values, and `materialize()` equals
+    lcpc_tpu's SeededCoeffSource(spec, length, seed, chunk).materialize().
+    Blocks come as 16-bit limbs (`block`, what the encode reads), packed
+    words (`block_packed`, what prove's contractions read) or digit planes
+    (`block_digits`), each one generator launch on a CUDA device; nothing
+    stays resident."""
+
+    def __init__(self, spec: FieldSpec, length: int, seed: int = 0, chunk: int = 1 << 18,
+                 device=None):
+        if length < 1 or chunk < 1:
+            raise ValueError(f"SeededCoeffSource: length and chunk must be >= 1, got "
+                             f"{length}, {chunk}")
+        self.spec = spec
+        self.length = length
+        self.seed = seed
+        self.key = threefry.prng_key(seed)
+        self.chunk = chunk
+        self.w7 = (spec.num_bits + 6) // 7
+        self.device = resolve_device(device)
+
+    def _rows(self, r0: int, r1: int, form: str) -> torch.Tensor:
+        npr = self.n_per_row
+        span = threefry.seeded_digits(self.spec, self.key, r0 * npr, r1 * npr, self.length,
+                                      self.chunk, form=form, device=self.device)
+        return span.reshape(span.shape[0], r1 - r0, npr)
+
+    def block(self, r0: int, r1: int) -> torch.Tensor:
+        return self._rows(r0, r1, "limbs")
+
+    def block_packed(self, r0: int, r1: int) -> torch.Tensor:
+        """Rows [r0, r1) as (W/2, r1-r0, n_per_row) packed int32 words."""
+        return self._rows(r0, r1, "packed")
+
+    def block_digits(self, r0: int, r1: int) -> torch.Tensor:
+        """Rows [r0, r1) as (W7, r1-r0, n_per_row) uint8 digit planes."""
+        return self._rows(r0, r1, "digits")
+
+    def materialize(self) -> torch.Tensor:
+        """The whole (W, length) limb array (small sizes: tests, checks).
+        As in lcpc_tpu it sets n_per_row to length, so a commit must call
+        set_dims again (commit_streaming does)."""
+        self.n_per_row = self.length
+        return self.block(0, 1)[:, 0, :]
 
 
 def as_source(coeffs, spec: FieldSpec, packed: "bool | None" = None,

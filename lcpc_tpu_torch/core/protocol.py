@@ -10,7 +10,12 @@ Port of lcpc_tpu/core/protocol.py (itself lcpc-2d/src/lib.rs:622-1123):
   column openings (lib.rs:1004-1123);
 - verify: re-derive the challenges, re-encode the proof rows on the device,
   and check every opened column's Merkle path and degree-test/eval dot
-  products in one batched step (lib.rs:832-1000).
+  products in one batched step (lib.rs:832-1000).  A Reed-Solomon code from
+  2^17 columns (lcpc_tpu's gate) evaluates the proof rows at the opened
+  columns alone instead (`_verify_core_cols`).
+
+The collapses go through the mont_dot kernel on the GPU (prove's through
+ops/mxu_prove.py's MxuCollapse, verify's through FieldOps).
 
 Fiat-Shamir order is load-bearing: p_random(s) -> p_eval -> column indices,
 with columns sampled WITH replacement (lib.rs:1024-1080).  Device tensors are
@@ -32,7 +37,14 @@ from ..fs.sampling import field_random_vec, uniform_indices
 from ..ops import blake3
 from ..ops.digest import BLAKE3, DeviceDigest
 from ..ops.limbs import get_ops, limbs_to_device, pack_row_words
+from ..ops.mont_dot import mont_dot
+from ..ops.mxu_prove import MxuCollapse, MxuColumnEval, mxu_prove_enabled
 from .encoding import LcEncoding
+
+# lcpc_tpu's verify gate (lcpc_tpu/core/protocol.py:1014-1047): verify
+# evaluates the rows at the opened columns from this many columns.  Tests
+# lower it to take the route at small sizes.
+VERIFY_COLS_MIN = 1 << 17
 
 
 def _next_pow2(x: int) -> int:
@@ -418,13 +430,12 @@ def prove_core(enc: LcEncoding, tr: Transcript, n_rows: int, n_cols: int,
                ) -> LcEvalProof:
     """Fiat-Shamir choreography of prove (lib.rs:1004-1093).
 
-    collapse_words_fn: (W, T, n_rows) Montgomery np tensor stack ->
+    collapse_words_fn: T tensors of n_rows plain field ints ->
         (T, n_per_row, W/2) canonical wire words (numpy uint32).
     open_columns_fn: list of column indices -> BatchedColumns.
     The FS order p_random(s) -> p_eval -> column indices is load-bearing.
     """
     spec = enc.spec
-    ops = get_ops(spec)
     if len(outer_tensor) != n_rows:
         raise ProverError("OuterTensor", "outer tensor: wrong size")
 
@@ -432,23 +443,19 @@ def prove_core(enc: LcEncoding, tr: Transcript, n_rows: int, n_cols: int,
     # the eval collapse rides the final degree test's device call, so the
     # loop must run at least once (lib.rs:613-616: a ceil of a positive ratio)
     assert n_degree_tests_ >= 1
-    outer_limbs = ops.encode_host(outer_tensor)  # (W, R) Montgomery
     p_random_rows: list[np.ndarray] = []
     eval_rows = None
     for i in range(n_degree_tests_):
         key = tr.challenge_bytes(enc.LABEL_DT, 32)
         rng = ChaCha20Rng(key)
         rand_tensor = field_random_vec(spec, rng, n_rows)
-        t = ops.encode_host(rand_tensor)
-        if i == n_degree_tests_ - 1:
-            ts = np.stack([t, outer_limbs], axis=1)  # (W, 2, R)
-        else:
-            ts = t[:, None, :]
+        last = i == n_degree_tests_ - 1
+        ts = [rand_tensor, outer_tensor] if last else [rand_tensor]
         words = collapse_words_fn(ts)  # (T, npr, W/2) canonical words
         rows = _words_to_repr_rows(words[0])
         tr.append_elements(enc.LABEL_PR, rows)
         p_random_rows.append(rows)
-        if i == n_degree_tests_ - 1:
+        if last:
             eval_rows = _words_to_repr_rows(words[1])
 
     tr.append_elements(enc.LABEL_PE, eval_rows)
@@ -470,12 +477,10 @@ def prove_core(enc: LcEncoding, tr: Transcript, n_rows: int, n_cols: int,
 def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
           tr: Transcript) -> LcEvalProof:
     """Evaluation proof for `comm` on the commitment's device."""
-    ops = get_ops(enc.spec)
-    device = comm.coeffs.device
+    mc = MxuCollapse(enc.spec, comm.n_rows)
 
-    def collapse_words_fn(ts: np.ndarray) -> np.ndarray:
-        words = ops.collapse_words(limbs_to_device(ts, device), comm.coeffs)
-        return words.cpu().numpy().astype(np.uint32)
+    def collapse_words_fn(ts: list[list[int]]) -> np.ndarray:
+        return mc(ts, comm.coeffs).cpu().numpy().astype(np.uint32)
 
     return prove_core(
         enc, tr, comm.n_rows, comm.n_cols, outer_tensor,
@@ -512,6 +517,19 @@ def _eval_dot(ops, rows_w: torch.Tensor, inner_w: torch.Tensor) -> torch.Tensor:
     return ops.collapse_canon(inner, pe.permute(0, 2, 1)).reshape(-1)
 
 
+def _words_i32(words: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of u32 values -> the same bits as int32 storage."""
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def _path_ok(ops, digest: DeviceDigest, col_mat, idx, uniq_sibs, inv, root_w) -> torch.Tensor:
+    """Hash the opened columns (W, R, k) and walk their Merkle paths: do
+    they all reach the root?"""
+    digs = digest.hash_word_columns(pack_row_words(ops.from_mont(col_mat)))  # (8, k)
+    digs = digest.merkle_walk(digs, uniq_sibs, inv, idx)  # bit l of idx: right child
+    return (digs == root_w[:, None]).all()
+
+
 def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
                  uniq_sibs, inv, root_w) -> np.ndarray:
     """The batched verifier step, all on the device:
@@ -529,10 +547,21 @@ def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
     got = ops.collapse_canon(ts, col_mat)                # (W, T, k) canonical
     want = ops.from_mont(enc_rows.index_select(2, idx))
     ok_rows = (got == want).all(dim=2).all(dim=0)        # (T,)
+    ok_path = _path_ok(ops, digest, col_mat, idx, uniq_sibs, inv, root_w)
+    return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
 
-    digs = digest.hash_word_columns(pack_row_words(ops.from_mont(col_mat)))  # (8, k)
-    digs = digest.merkle_walk(digs, uniq_sibs, inv, idx)  # bit l of idx: right child
-    ok_path = (digs == root_w[:, None]).all()
+
+def _verify_core_cols(ops, digest: DeviceDigest, want_w, ts, col_w, idx, uniq_sibs, inv,
+                      root_w) -> np.ndarray:
+    """_verify_core with the encoded rows AT THE OPENED COLUMNS ONLY
+    (lcpc_tpu/core/protocol.py:767, _verify_core_cols_fn): want_w (W/2, T,
+    k) packed Montgomery words from MxuColumnEval.  A Reed-Solomon row's
+    opened values are the row polynomial at w^bitrev(c), so the k needed
+    entries come without the full-width encode.  The column check compares
+    Montgomery forms: got and want are each the unique residue < p."""
+    got = mont_dot(ops.spec, ts, _words_i32(col_w), "mont", x_form="limbs")  # (W/2, T, k)
+    ok_rows = ((got.to(torch.int64) & 0xFFFFFFFF) == want_w).all(dim=2).all(dim=0)
+    ok_path = _path_ok(ops, digest, _unpack_words(col_w), idx, uniq_sibs, inv, root_w)
     return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
 
 
@@ -641,6 +670,15 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
             axis=0,
         )  # (T, n_per_row, W/2) canonical repr words
         rows_dev = torch.from_numpy(rows_w.astype(np.int64)).to(device)
+    # Reed-Solomon rows at the opened columns alone (lcpc_tpu's gate), else
+    # the full-width encode
+    use_cols = (not odd_rows and getattr(enc, "supports_direct_col_eval", False)
+                and mxu_prove_enabled(spec) and n_cols >= VERIFY_COLS_MIN)
+    if use_cols:
+        ev = MxuColumnEval(enc)
+        ev.set_columns(cols_to_open)
+        want_w = ev.eval_block(ops.to_mont(_unpack_words(rows_dev.permute(2, 0, 1))))
+    elif not odd_rows:
         enc_rows = _rows_encode(enc, rows_dev)
 
     ts = np.stack(
@@ -671,12 +709,12 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     root_w = np.frombuffer(root, dtype="<u4").astype(np.int64)
 
     dev = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(device)
-    flags = _verify_core(
-        ops, digest, enc_rows, limbs_to_device(ts, device),
-        dev(batched.col_w, np.int64), dev(idx, np.int64),
-        dev(uniq_sibs, np.int64), dev(inv, np.int64),
-        dev(root_w, np.int64),
-    )
+    args = (limbs_to_device(ts, device), dev(batched.col_w, np.int64), dev(idx, np.int64),
+            dev(uniq_sibs, np.int64), dev(inv, np.int64), dev(root_w, np.int64))
+    if use_cols:
+        flags = _verify_core_cols(ops, digest, want_w, *args)
+    else:
+        flags = _verify_core(ops, digest, enc_rows, *args)
     for i in range(n_degree_tests_):
         if not flags[i]:
             raise VerifierError("ColumnDegree")

@@ -16,13 +16,18 @@ The column hash state is exact: BLAKE3 chunks never align with element rows
 a carry buffer of sub-chunk words.  Row blocks whose word count is a multiple
 of the 256-word chunk keep that carry at the prefix's 8 words.
 
-`prove_streaming` collapses the coefficients block by block (each block's
-partial is canonical and FieldOps.add accumulates it) and opens columns from
-the retained words, from the systematic coefficients plus a retained tail
-(Brakedown), from the host copy, or by re-encoding blocks.  Its proof is an
-ordinary LcEvalProof: `verify` checks it, and its bytes equal the in-memory
-prove's.  The JAX package's MXU routes (digit-plane collapse, direct column
-evaluation) have no counterpart here; the non-MXU route gives the same bytes.
+`prove_streaming` takes lcpc_tpu's routes.  It collapses the coefficients
+by prove-sized row blocks through MxuCollapse (ops/mxu_prove.py), each
+block's product a partial that one launch sums.  It opens columns from the
+retained words, from the systematic coefficients plus a retained tail
+(Brakedown), from the host copy, or, with no words kept, by evaluating the
+opened columns directly (`_open_by_eval`: MxuColumnEval over prove-sized
+blocks, a Reed-Solomon code's columns being its rows at w^bitrev(c)) or by
+re-encoding every block (`_open_by_reencode`, the other codes).  Its proof is an ordinary LcEvalProof: `verify` checks it,
+and its bytes equal the in-memory prove's.
+
+Column hashing is BLAKE3 (the kernels) or SHA-256 (StreamingSha256Hasher,
+plain PyTorch over ops/sha256.py).
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ import numpy as np
 import torch
 
 from ..fs.merlin import Transcript
-from ..ops import blake3
+from ..ops import blake3, sha256
 from ..ops.digest import BLAKE3, DeviceDigest
-from ..ops.limbs import get_ops, limbs_to_device
+from ..ops.limbs import get_ops
+from ..ops.mxu_prove import MxuCollapse, MxuColumnEval
 from ..ops.spmv import unpack_words
 from ..utils import hbm
 from . import coeffs as coeffs_mod
@@ -111,10 +117,58 @@ class StreamingColumnHasher:
         return blake3.merge_chunk_cvs(chunk_cvs)
 
 
+class StreamingSha256Hasher:
+    """Per-column SHA-256 over row blocks (Merkle-Damgard carry buffer), in
+    plain PyTorch over ops/sha256.py (lcpc_tpu/core/streaming.py:448).
+
+    Same update/finalize interface as StreamingColumnHasher and equal to
+    sha256.hash_word_columns over the concatenated stream; SHA-256 has no
+    chunk tree, so the carry state is the chaining value and fewer than 16
+    buffered words."""
+
+    def __init__(self, n_cols: int, total_words: int, device):
+        self.n_cols = n_cols
+        self.total_words = total_words  # includes the 8-word zero prefix
+        self.h = sha256._h0(n_cols, device).clone()
+        self.buf = torch.zeros((16, n_cols), dtype=torch.int64, device=device)
+        self.buf_len = blake3.PREFIX_WORDS  # the zero prefix
+        self.words_done = 0
+
+    def update(self, words: torch.Tensor) -> None:
+        """words: (L, n_cols) u32 words (int32 storage) appended to every
+        column's stream."""
+        data = torch.cat([self.buf[: self.buf_len], words.to(torch.int64) & 0xFFFFFFFF])
+        n_full = data.shape[0] // 16
+        be = sha256._bswap32(data[: 16 * n_full])
+        for b in range(n_full):
+            self.h = sha256._compress(self.h, be[16 * b : 16 * b + 16])
+        self.buf_len = data.shape[0] - 16 * n_full
+        self.buf[: self.buf_len] = data[16 * n_full :]
+        self.words_done += words.shape[0]
+
+    def finalize(self) -> torch.Tensor:
+        """The final block(s), padding and the 64-bit length: (8, n_cols)
+        int64 digests (LE words)."""
+        assert self.words_done + blake3.PREFIX_WORDS == self.total_words, (
+            self.words_done, self.total_words)
+        rem = self.buf_len
+        n_blocks = 1 if rem + 3 <= 16 else 2  # the pad word and 2 length words
+        be = self.buf.new_zeros((16 * n_blocks, self.n_cols))
+        be[:rem] = sha256._bswap32(self.buf[:rem])
+        be[rem] = 0x80000000
+        bits = self.total_words * 32
+        be[-2] = bits >> 32
+        be[-1] = bits & 0xFFFFFFFF
+        h = self.h
+        for b in range(n_blocks):
+            h = sha256._compress(h, be[16 * b : 16 * b + 16])
+        self.h = self.buf = None
+        return sha256._bswap32(h)
+
+
 # streaming hashers by digest name (the digest= plug point of the streaming
-# path; protocol.commit covers the non-streaming one).  SHA-256 streams in
-# the JAX package but not yet here.
-_STREAM_HASHERS = {"blake3": StreamingColumnHasher}
+# path; protocol.commit covers the non-streaming one)
+_STREAM_HASHERS = {"blake3": StreamingColumnHasher, "sha256": StreamingSha256Hasher}
 
 
 @dataclasses.dataclass
@@ -307,25 +361,80 @@ def _systematic_columns(comm: LcCommitStreaming, idx: torch.Tensor) -> torch.Ten
                       for r0 in range(0, comm.n_rows, comm.row_block)], dim=1)
 
 
+def _prove_block_source(comm: LcCommitStreaming):
+    """(get_block, in_form, bytes_per_elem) for prove's contractions: the
+    resident matrix sliced as it is (packed or limbs), a source's packed
+    words where it makes them (SeededCoeffSource), else its limb blocks."""
+    w = comm.enc.spec.w16
+    if comm.coeffs is not None:
+        get_block = lambda r0, r1: comm.coeffs[:, r0:r1, :]  # noqa: E731
+        return (get_block, "packed", 2 * w) if comm.packed else (get_block, "limbs", 4 * w)
+    if hasattr(comm.source, "block_packed"):
+        return comm.source.block_packed, "packed", 2 * w
+    return comm.source.block, "limbs", 4 * w
+
+
+def _prove_row_block(comm: LcCommitStreaming, bytes_per_elem: int, extra_bytes: int = 0) -> int:
+    """Row block of prove's contractions (lcpc_tpu/core/streaming.py:796).
+
+    The commit's row block is sized for the encode's transients (the NTT's
+    scratch and words, ~20x the coefficient bytes of a row); prove's passes
+    hold one coefficient block and small outputs, so much larger blocks fit:
+    two blocks beside the resident arrays (and `extra_bytes`, the column
+    evaluation's power table) with 1 GiB to spare, at least the commit's,
+    a power of two when larger."""
+    resident = comm.hashes_dev.numel() * comm.hashes_dev.element_size() + extra_bytes
+    for t in (comm.coeffs, comm.words_dev):
+        if t is not None:
+            resident += t.numel() * t.element_size()
+    free = hbm.usable_hbm_bytes(comm.enc.device) - resident - (1 << 30)
+    rb = min(max(comm.row_block, free // (2 * comm.n_per_row * bytes_per_elem)), comm.n_rows)
+    if rb > comm.row_block:
+        rb = 1 << (rb.bit_length() - 1)
+    return max(1, rb)
+
+
+def _open_by_eval(comm: LcCommitStreaming, cols: list[int]) -> torch.Tensor:
+    """The opened columns of a Reed-Solomon codeword evaluated directly
+    (MxuColumnEval over prove-sized blocks, written into one device
+    buffer): (W/2, n_rows, k) packed Montgomery words, int64 u32 values."""
+    ev = MxuColumnEval(comm.enc)
+    ev.set_columns(cols)
+    get_block, form, bpe = _prove_block_source(comm)
+    rb = _prove_row_block(comm, bpe, ev.table_bytes)
+    buf = torch.empty((comm.enc.spec.w16 // 2, comm.n_rows, len(cols)), dtype=torch.int64,
+                      device=comm.enc.device)
+    for r0 in range(0, comm.n_rows, rb):
+        r1 = min(r0 + rb, comm.n_rows)
+        buf[:, r0:r1] = ev.eval_block(get_block(r0, r1), in_form=form)
+    return buf
+
+
+def _open_by_reencode(comm: LcCommitStreaming, cols: list[int]) -> torch.Tensor:
+    """The opened columns by re-encoding every commit-sized row block and
+    keeping them: (W/2, n_rows, k) packed Montgomery words, int64."""
+    idx = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=comm.enc.device)
+    pieces = []
+    for r0 in range(0, comm.n_rows, comm.row_block):
+        r1 = min(r0 + comm.row_block, comm.n_rows)
+        limbs = comm.enc.encode_rows(comm.source.block(r0, r1))
+        pieces.append(_pack_pairs(limbs.index_select(2, idx)))
+        del limbs
+    return torch.cat(pieces, dim=1)
+
+
 def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
                     enc: LcEncoding, tr: Transcript) -> LcEvalProof:
     """Evaluation proof for a streaming commitment; the same bytes as
     prove() on the in-memory commitment of the same coefficients."""
-    ops = get_ops(enc.spec)
+    spec = enc.spec
+    ops = get_ops(spec)
     device = enc.device
 
-    def collapse_words_fn(ts: np.ndarray) -> np.ndarray:
-        # block by block: each partial is canonical (< p), so ops.add
-        # combines them exactly, and one block's limbs (and collapse_canon's
-        # float64 copy of them) are the only transients
-        ts_dev = limbs_to_device(ts, device)
-        acc = None
-        for r0 in range(0, comm.n_rows, comm.row_block):
-            r1 = min(r0 + comm.row_block, comm.n_rows)
-            part = ops.collapse_canon(ts_dev[:, :, r0:r1].contiguous(),
-                                      comm.source.block(r0, r1))
-            acc = part if acc is None else ops.add(acc, part)
-        words = _pack_pairs(acc).permute(1, 2, 0)  # (T, n_per_row, W/2)
+    def collapse_words_fn(ts: list[list[int]]) -> np.ndarray:
+        get_block, form, bpe = _prove_block_source(comm)
+        words = MxuCollapse(spec, comm.n_rows, in_form=form).collapse_source(
+            ts, get_block, comm.n_rows, _prove_row_block(comm, bpe))
         return words.cpu().numpy().astype(np.uint32)
 
     def open_columns_fn(cols: list[int]):
@@ -346,15 +455,10 @@ def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
         elif comm.words_host is not None:
             host = np.ascontiguousarray(comm.words_host[:, idx_np]).view(np.int32)
             col_w = _canon_to_proof_words(ops, torch.from_numpy(host).to(device))
+        elif getattr(enc, "supports_direct_col_eval", False):
+            col_w = _open_by_eval(comm, cols)
         else:
-            # re-encode every block and keep the opened columns
-            pieces = []
-            for r0 in range(0, comm.n_rows, comm.row_block):
-                r1 = min(r0 + comm.row_block, comm.n_rows)
-                limbs = enc.encode_rows(comm.source.block(r0, r1))
-                pieces.append(_pack_pairs(limbs.index_select(2, idx)))
-                del limbs
-            col_w = torch.cat(pieces, dim=1)
+            col_w = _open_by_reencode(comm, cols)
         return _batched_columns(col_w, comm.hashes_dev, comm.n_cols, cols)
 
     return prove_core(enc, tr, comm.n_rows, comm.n_cols, outer_tensor,

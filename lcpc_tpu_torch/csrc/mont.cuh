@@ -1,0 +1,234 @@
+// Montgomery arithmetic over 32-bit words, shared by the NTT and the
+// prover's kernels (ntt_mont.cu, mont_dot.cu, power_table.cu): a
+// word-serial CIOS product on a split accumulator (sppark's mont_t layout:
+// each 32 x 32 -> 64 product's lo/hi halves in one register pair of a PTX
+// carry chain, which ptxas fuses into one IMAD.WIDE.U32(.X)); an element
+// is W words, little-endian, R = 2^(32 W).  Every field's p has a spare top
+// bit, which keeps each chain's value inside its words.
+//
+// consts layout (uint32): p[W] | n0 (= -p^-1 mod 2^32), what Field reads;
+// the prover's kernels append r2[W] (R^2 mod p) | one[W] (R mod p, the
+// Montgomery form of 1).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace lcpc {
+
+
+// PTX carry-chain steps: one instruction each; the carry flag flows from
+// one to the next in program order (nothing between them touches it)
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// one 32 x 32 -> 64 product added into a word pair (lo, hi) in one carry
+// chain; ptxas fuses each lo/hi pair into one IMAD.WIDE.U32(.X)
+__device__ __forceinline__ void mul_pair(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b) {
+  asm volatile("mul.lo.u32 %0, %2, %3;\n\tmul.hi.u32 %1, %2, %3;"
+               : "=&r"(lo), "=&r"(hi) : "r"(a), "r"(b));
+}
+__device__ __forceinline__ void mad_pair_cc(uint32_t& lo, uint32_t& hi, uint32_t a,
+                                            uint32_t b) {
+  asm volatile("mad.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+r"(lo), "+r"(hi) : "r"(a), "r"(b));
+}
+__device__ __forceinline__ void madc_pair_cc(uint32_t& lo, uint32_t& hi, uint32_t a,
+                                             uint32_t b) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+r"(lo), "+r"(hi) : "r"(a), "r"(b));
+}
+// (lo, hi) = a b + (lo2, hi2) + carry: the pair two words up, moved down
+__device__ __forceinline__ void madc_pair_down_cc(uint32_t& lo, uint32_t& hi, uint32_t a,
+                                                  uint32_t b, uint32_t lo2, uint32_t hi2) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, %4;\n\tmadc.hi.cc.u32 %1, %2, %3, %5;"
+               : "=&r"(lo), "=&r"(hi) : "r"(a), "r"(b), "r"(lo2), "r"(hi2));
+}
+__device__ __forceinline__ void madc_pair_top(uint32_t& lo, uint32_t& hi, uint32_t a,
+                                              uint32_t b) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, 0;\n\tmadc.hi.u32 %1, %2, %3, 0;"
+               : "=&r"(lo), "=&r"(hi) : "r"(a), "r"(b));
+}
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// acc[0 .. 2H-1] += x[0], x[2], .. x[2H-2] times b at every other word, one
+// carry chain (carry out left in the flag)
+template <int W>
+__device__ __forceinline__ void cmad_even(uint32_t* acc, const uint32_t* x, uint32_t b) {
+  mad_pair_cc(acc[0], acc[1], x[0], b);
+#pragma unroll
+  for (int j = 2; j < W; j += 2) madc_pair_cc(acc[j], acc[j + 1], x[j], b);
+}
+
+template <int W>
+struct Field {
+  uint32_t p[W];
+  uint32_t n0;
+
+  __device__ __forceinline__ Field(const uint32_t* __restrict__ consts) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) p[i] = __ldg(consts + i);
+    n0 = __ldg(consts + W);
+  }
+
+  // r = a + b mod p for a, b < p (a + b < 2p < 2^(32 W): p has a spare
+  // top bit, so the sum never carries out)
+  __device__ __forceinline__ void add(uint32_t (&r)[W], const uint32_t (&a)[W],
+                                      const uint32_t (&b)[W]) const {
+    uint32_t s[W], d[W];
+    s[0] = add_cc(a[0], b[0]);
+#pragma unroll
+    for (int i = 1; i < W; ++i) s[i] = addc_cc(a[i], b[i]);
+    d[0] = sub_cc(s[0], p[0]);
+#pragma unroll
+    for (int i = 1; i < W; ++i) d[i] = subc_cc(s[i], p[i]);
+    const uint32_t lt = subc(0, 0);  // all ones where a + b < p
+#pragma unroll
+    for (int i = 0; i < W; ++i) r[i] = lt ? s[i] : d[i];
+  }
+
+  // r = a - b mod p for a, b < p
+  __device__ __forceinline__ void sub(uint32_t (&r)[W], const uint32_t (&a)[W],
+                                      const uint32_t (&b)[W]) const {
+    uint32_t d[W];
+    d[0] = sub_cc(a[0], b[0]);
+#pragma unroll
+    for (int i = 1; i < W; ++i) d[i] = subc_cc(a[i], b[i]);
+    const uint32_t mask = subc(0, 0);  // add p back where a < b
+    r[0] = add_cc(d[0], p[0] & mask);
+#pragma unroll
+    for (int i = 1; i < W - 1; ++i) r[i] = addc_cc(d[i], p[i] & mask);
+    r[W - 1] = addc(d[W - 1], p[W - 1] & mask);
+  }
+
+  // one CIOS step on the split accumulator (sppark's mont_t layout): `ev`
+  // holds words at positions k, `od` at k + 1, each product's lo/hi pair in
+  // one word pair, so every 32 x 32 -> 64 product is one IMAD.WIDE.  The
+  // step adds a * bi and m * p (m = ev[0] n0), zeroing position 0; the
+  // next step reads the shifted value with the two arrays' roles swapped.
+  // Every field's p has a spare top bit, so the value stays below
+  // 2^(32 (W + 1)) and no chain carries out of position W.
+  __device__ __forceinline__ void cios_step(uint32_t (&ev)[W], uint32_t (&od)[W],
+                                            const uint32_t (&a)[W], uint32_t bi,
+                                            bool first) const {
+    if (first) {
+#pragma unroll
+      for (int j = 0; j < W; j += 2) {
+        mul_pair(ev[j], ev[j + 1], a[j], bi);
+        mul_pair(od[j], od[j + 1], a[j + 1], bi);
+      }
+    } else {
+      // od holds the previous even array (position 0 zeroed): od[1] moves
+      // to position 0, od[k + 2] to odd position k
+      ev[0] = add_cc(ev[0], od[1]);
+#pragma unroll
+      for (int j = 0; j < W - 2; j += 2)
+        madc_pair_down_cc(od[j], od[j + 1], a[j + 1], bi, od[j + 2], od[j + 3]);
+      madc_pair_top(od[W - 2], od[W - 1], a[W - 1], bi);
+      cmad_even<W>(ev, a, bi);
+      od[W - 1] = addc(od[W - 1], 0);
+    }
+    const uint32_t m = ev[0] * n0;
+    cmad_even<W>(od, p + 1, m);
+    cmad_even<W>(ev, p, m);
+    od[W - 1] = addc(od[W - 1], 0);
+  }
+
+  // r = a * b * 2^(-32 W) mod p for a, b < p: CIOS word-serial over b, the
+  // result below 2p, then one conditional subtract
+  __device__ __forceinline__ void mul(uint32_t (&r)[W], const uint32_t (&a)[W],
+                                      const uint32_t (&b)[W]) const {
+    uint32_t ev[W], od[W];
+#pragma unroll
+    for (int i = 0; i < W; i += 2) {
+      cios_step(ev, od, a, b[i], i == 0);
+      cios_step(od, ev, a, b[i + 1], false);
+    }
+    uint32_t t[W];
+    merge(t, ev, od);  // the last step left od at positions k, ev at k + 1
+    uint32_t d[W];
+    uint32_t borrow = 0;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const uint64_t u = (uint64_t)t[i] - p[i] - borrow;
+      d[i] = (uint32_t)u;
+      borrow = (uint32_t)(u >> 63);
+    }
+#pragma unroll
+    for (int i = 0; i < W; ++i) r[i] = borrow == 0 ? d[i] : t[i];  // t >= p
+  }
+
+  // the split accumulator's reduction step alone (no product): adds m * p
+  // and leaves the value for the next step with the arrays' roles swapped
+  __device__ __forceinline__ void redc_step(uint32_t (&ev)[W], uint32_t (&od)[W],
+                                            bool first) const {
+    if (!first) {
+      ev[0] = add_cc(ev[0], od[1]);
+#pragma unroll
+      for (int j = 0; j < W - 2; ++j) od[j] = addc_cc(od[j + 2], 0);
+      od[W - 2] = addc(0, 0);
+      od[W - 1] = 0;
+    }
+    const uint32_t m = ev[0] * n0;
+    cmad_even<W>(od, p + 1, m);
+    cmad_even<W>(ev, p, m);
+    od[W - 1] = addc(od[W - 1], 0);
+  }
+
+  // ev[k] + od[k + 1] at position k: the split accumulator after its last
+  // step (od[0] zero), shifted, in W words
+  __device__ __forceinline__ void merge(uint32_t (&t)[W], const uint32_t (&ev)[W],
+                                        const uint32_t (&od)[W]) const {
+    t[0] = add_cc(ev[0], od[1]);
+#pragma unroll
+    for (int j = 1; j < W - 1; ++j) t[j] = addc_cc(ev[j], od[j + 1]);
+    t[W - 1] = addc(ev[W - 1], 0);
+  }
+
+  // r = a * 2^(-32 W) mod p for a < p: W reduction steps; the result
+  // (a + M p) / 2^(32 W) with M < 2^(32 W) is below p, so no subtract
+  __device__ __forceinline__ void from_mont(uint32_t (&r)[W], const uint32_t (&a)[W]) const {
+    uint32_t ev[W], od[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      ev[i] = a[i];
+      od[i] = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < W; i += 2) {
+      redc_step(ev, od, i == 0);
+      redc_step(od, ev, false);
+    }
+    merge(r, ev, od);
+  }
+};
+
+}  // namespace lcpc

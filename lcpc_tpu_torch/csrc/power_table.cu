@@ -1,0 +1,174 @@
+// The power table of the direct column evaluation: V[m, j] = g_j^m in
+// Montgomery form, for m < K and the opened columns' points
+// g_j = w^bitrev(c_j) (MxuColumnEval, ops/mxu_prove.py), so that an opened
+// Reed-Solomon codeword column is the coefficient rows times V
+// (csrc/mont_dot.cu).
+//
+// Replaces `_kernel_build_fns` (lcpc_tpu/ops/mxu_prove.py:319), XLA-fused,
+// not Pallas: there a low ladder g^t (t < A) and a high ladder g^(A q) give
+// each entry of one super-chunk with one Montgomery product, and a scalar
+// per super-chunk folds the offsets in afterwards.  Here the same two
+// ladders give every entry of the table directly:
+//
+//   V[q A + t, j] = lo[t, j] hi[q, j],  lo[t, j] = g_j^t,  hi[q, j] = g_j^(A q)
+//
+// with A = 32.  A block owns 32 columns j (a warp's 32 threads, neighbouring
+// columns: every store is coalesced) and 64 values of q (2,048 rows m).  It
+// builds its columns' low ladder in shared memory (each of its 8 thread rows
+// raises g to t < 8 by squaring and multiplying, then steps by g^8), then
+// in 8 rounds the high values of 8 q each (the first by square and
+// multiply from g^A, each next round one product by g^(8 A)), and every
+// thread writes 32 entries a round, one Montgomery product each.  The only
+// host work is the k points g_j (one pow each, as in lcpc_tpu).
+//
+// What bounds it on an H100 (700 W): the products, 2 W^2 + W wide products
+// an entry (136 at ft255), at 8.4 T/s, about 1.2 of them an entry with the
+// ladders; against the table's bytes written once (32 bytes an entry at
+// ft255, 3.35 TB/s) the products take ~1.7x longer.  At the 2^29 prove
+// (262,144 x 189 entries, 1.6 GB) the bound is ~0.8 ms.
+
+#include "mont.cuh"
+
+namespace {
+
+using namespace lcpc;
+
+constexpr int kCols = 32;    // columns j a block (blockDim.x)
+constexpr int kRows = 8;     // thread rows (blockDim.y)
+constexpr int kA = 32;       // the low ladder's length
+constexpr int kRounds = 8;   // rounds of kRows q-values a block
+constexpr int kQ = kRounds * kRows;
+
+template <int W>
+__device__ __forceinline__ void copy(uint32_t (&r)[W], const uint32_t (&a)[W]) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) r[i] = a[i];
+}
+
+// r = g^e (Montgomery), left to right square and multiply; g^0 = one
+template <int W>
+__device__ __forceinline__ void pow_mont(uint32_t (&r)[W], const uint32_t (&g)[W], unsigned e,
+                                         const uint32_t (&one)[W], const Field<W>& f) {
+  if (e == 0) {
+    copy(r, one);
+    return;
+  }
+  copy(r, g);
+  for (int s = 30 - __clz(e); s >= 0; --s) {
+    uint32_t t[W];
+    copy(t, r);
+    f.mul(r, t, t);
+    if ((e >> s) & 1u) {
+      copy(t, r);
+      f.mul(r, t, g);
+    }
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void square_n(uint32_t (&r)[W], int n, const Field<W>& f) {
+  for (int s = 0; s < n; ++s) {
+    uint32_t t[W];
+    copy(t, r);
+    f.mul(r, t, t);
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kCols * kRows)
+power_table_kernel(const int32_t* __restrict__ g, int32_t* __restrict__ out,
+                   const uint32_t* __restrict__ consts, int K, int k) {
+  __shared__ uint32_t lo[W][kA][kCols];
+  __shared__ uint32_t hi[W][kRows][kCols];
+  const Field<W> f(consts);
+  const int jx = threadIdx.x, ty = threadIdx.y;
+  const int j = blockIdx.x * kCols + jx;
+  const int jc = j < k ? j : k - 1;
+  uint32_t gj[W], one[W];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    gj[i] = (uint32_t)__ldg(g + (long long)i * k + jc);
+    one[i] = __ldg(consts + 2 * W + 1 + i);
+  }
+  // the low ladder: thread row ty holds g^ty, g^(ty + 8), g^(ty + 16), ...
+  uint32_t step[W], cur[W];
+  copy(step, gj);
+  square_n(step, 3, f);  // g^8
+  pow_mont(cur, gj, (unsigned)ty, one, f);
+#pragma unroll
+  for (int s = 0; s < kA / kRows; ++s) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) lo[i][ty + kRows * s][jx] = cur[i];
+    uint32_t t[W];
+    copy(t, cur);
+    f.mul(cur, t, step);
+  }
+  // the high ladder: g^A, then thread row ty's first q, and g^(8 A) a round
+  uint32_t ga[W], h[W];
+  copy(ga, step);
+  square_n(ga, 2, f);  // g^32 = g^A
+  const unsigned q0 = blockIdx.y * kQ;
+  pow_mont(h, ga, q0 + ty, one, f);
+  square_n(ga, 3, f);  // g^(8 A)
+  for (int round = 0; round < kRounds; ++round) {
+    __syncthreads();  // the ladder is written; last round's readers are done
+#pragma unroll
+    for (int i = 0; i < W; ++i) hi[i][ty][jx] = h[i];
+    {
+      uint32_t t[W];
+      copy(t, h);
+      f.mul(h, t, ga);
+    }
+    __syncthreads();
+    const int qr = q0 + round * kRows;
+    for (int qq = 0; qq < kRows; ++qq) {
+      uint32_t hq[W];
+#pragma unroll
+      for (int i = 0; i < W; ++i) hq[i] = hi[i][qq][jx];
+#pragma unroll
+      for (int s = 0; s < kA / kRows; ++s) {
+        const int t = ty + kRows * s;
+        const long long m = (long long)(qr + qq) * kA + t;
+        if (m < K && j < k) {
+          uint32_t l[W], r[W];
+#pragma unroll
+          for (int i = 0; i < W; ++i) l[i] = lo[i][t][jx];
+          f.mul(r, l, hq);
+#pragma unroll
+          for (int i = 0; i < W; ++i) out[((long long)i * K + m) * k + j] = (int32_t)r[i];
+        }
+      }
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch(const int32_t* g, int32_t* out, const uint32_t* consts, int K, int k,
+                   cudaStream_t stream) {
+  const dim3 grid((unsigned)((k + kCols - 1) / kCols), (unsigned)((K + kA * kQ - 1) / (kA * kQ)));
+  power_table_kernel<W><<<grid, dim3(kCols, kRows), 0, stream>>>(g, out, consts, K, k);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// out (w32, K, k) int32 words: out[:, m, j] = g_j^m (Montgomery) for the
+// points g (w32, k) int32 words (Montgomery), on `stream` of CUDA device
+// `device`.  consts: p[w32] | n0 | r2[w32] | one[w32].  Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int lcpc_power_table(const int32_t* g, int32_t* out, const uint32_t* consts, int w32,
+                                int K, int k, int device, void* stream) {
+  if (g == nullptr || out == nullptr || consts == nullptr || K < 1 || k < 1 ||
+      (long long)K > (1LL << 30) || (K + kA * kQ - 1) / (kA * kQ) > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (w32) {
+    case 2: return (int)launch<2>(g, out, consts, K, k, s);
+    case 4: return (int)launch<4>(g, out, consts, K, k, s);
+    case 6: return (int)launch<6>(g, out, consts, K, k, s);
+    case 8: return (int)launch<8>(g, out, consts, K, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

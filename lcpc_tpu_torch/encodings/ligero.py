@@ -45,6 +45,10 @@ class LigeroEncoding(LcEncoding):
     `device=None` places the encode on the GPU and raises without one; pass
     device="cpu" for the plain PyTorch path."""
 
+    # an opened codeword column is the row polynomial at w^bitrev(c): prove
+    # and verify may evaluate it directly (ops/mxu_prove.py: MxuColumnEval)
+    supports_direct_col_eval = True
+
     def __init__(self, spec: FieldSpec, n_per_row: int, n_cols: int,
                  rho_num: int = 1, rho_den: int = 2, device=None):
         self.spec = spec

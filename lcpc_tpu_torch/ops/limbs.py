@@ -276,13 +276,15 @@ class FieldOps:
                 cols[i : i + w] += P[:, i].permute(1, 0, 2)
         return cols
 
-    def collapse_canon(self, ts: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    def collapse_canon_plain(self, ts: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
         """Batched field dot products with a single deferred reduction.
 
         ts: (W, T, R) and mat: (W, R, C), both Montgomery 16-bit limbs.
         Returns (W, T, C) **canonical** limbs of sum_r ts[t,r] * mat[r,c]:
         the exact sum Σab (< R p^2) is Montgomery-reduced twice, which takes
-        the double-Montgomery value (Σab·R² mod p) straight to canonical."""
+        the double-Montgomery value (Σab·R² mod p) straight to canonical.
+        The plain version of the mont_dot kernel (ops/mont_dot.py), on any
+        device."""
         w = self.w
         T, C = ts.shape[1], mat.shape[2]
         # slice C so the (T, W, W, c) float64 product block stays ~512 MB
@@ -294,6 +296,17 @@ class FieldOps:
             v = self._redc(self._redc(v))
             outs.append(self._cond_sub_p(v).reshape(w, T, -1))
         return torch.cat(outs, dim=2).to(torch.int32)
+
+    def collapse_canon(self, ts: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+        """collapse_canon_plain's result; CUDA tensors go through the
+        mont_dot kernel (csrc/mont_dot.cu), CPU tensors through the plain
+        version."""
+        if ts.device.type == "cuda" or mat.device.type == "cuda":
+            from .mont_dot import mont_dot
+            from .spmv import unpack_words
+
+            return unpack_words(mont_dot(self.spec, ts, mat, x_form="limbs", y_form="limbs"), 0)
+        return self.collapse_canon_plain(ts, mat)
 
     def collapse_words(self, ts: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
         """collapse_canon packed as wire words: (T, C, W/2) int64 (u32 values).

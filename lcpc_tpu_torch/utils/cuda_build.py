@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -47,10 +48,13 @@ def _nvcc() -> str:
 
 
 def build(name: str, force: bool = False) -> float:
-    """Compile csrc/<name>.cu into build/kernels/ if stale; returns the
-    seconds spent compiling (0.0 when the library was up to date)."""
+    """Compile csrc/<name>.cu into build/kernels/ if stale (older than the
+    source or a csrc/ header); returns the seconds spent compiling (0.0 when
+    the library was up to date)."""
     src, so = source_path(name), so_path(name)
-    if not force and os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+    headers = glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))
+    newest = max(os.path.getmtime(f) for f in [src, *headers])
+    if not force and os.path.exists(so) and os.path.getmtime(so) >= newest:
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)

@@ -2,7 +2,8 @@
 (scripts/sweep_spmv_lanes.py, scripts/time_encode_spmv.py): the card's name
 and power limit, device time per kernel call, ptxas's register and spill
 report, the SASS of the SpMV kernel's k loop, the BLAKE3 compression's
-latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, and
+latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, the
+generator's threefry probe (scripts/threefry_chain.cu) and its mix, and
 random packed operands.
 
 Imports torch and nothing of the port, so a script can time any checkout's
@@ -213,24 +214,25 @@ def blake3_sass_mix(chain_so, lib_so, kernels):
             "chain_opcodes": dict(collections.Counter(t.split()[0] for t in body).most_common())}
 
 
-CHAIN_PER_TRIP = 4  # compressions in the probe's loop body (kPerTrip)
+CHAIN_PER_TRIP = 4  # compressions (threefry steps) in a probe's loop body (kPerTrip)
 CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blake3_chain.cu")
+TF_CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "threefry_chain.cu")
 _chain_libs = {}
 
 
-def build_chain(flags, out_dir):
-    """Compile scripts/blake3_chain.cu (the library's BLAKE3 source and the
-    one-thread chain kernel) with nvcc `flags` into out_dir; returns (the
-    library's path, nvcc's output)."""
+def build_chain(flags, out_dir, src=CHAIN_SRC):
+    """Compile a one-thread chain probe (scripts/blake3_chain.cu, or
+    threefry_chain.cu: a library source and the chain kernel) with nvcc
+    `flags` into out_dir; returns (the library's path, nvcc's output)."""
     nvcc = find_tool("nvcc")
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the latency probe cannot be built")
+        raise RuntimeError("nvcc not found: the probe cannot be built")
     os.makedirs(out_dir, exist_ok=True)
-    so = os.path.join(out_dir, "libblake3_chain.so")
-    proc = subprocess.run([nvcc, *flags, "-o", so, CHAIN_SRC], capture_output=True, text=True,
+    so = os.path.join(out_dir, f"lib{os.path.basename(src)[:-3]}.so")
+    proc = subprocess.run([nvcc, *flags, "-o", so, src], capture_output=True, text=True,
                           timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {CHAIN_SRC}:\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     return so, proc.stdout + proc.stderr
 
 
@@ -251,3 +253,47 @@ def compress_chain(so, cv, n):
     if err:
         raise RuntimeError(f"compress_chain launch failed: cudaError_t {err}")
     return out
+
+
+def threefry_chain(so, key, x, n):
+    """n (a multiple of CHAIN_PER_TRIP) dependent steps x <- x0 ^ x1 of
+    threefry2x32(key, (0, x)) on the card, in one thread of the probe `so`
+    (scripts/threefry_chain.cu); returns the last x."""
+    lib = _chain_libs.get(so)
+    if lib is None:
+        lib = _chain_libs[so] = ctypes.CDLL(so)
+        lib.lcpc_threefry_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                            ctypes.c_void_p]
+        lib.lcpc_threefry_chain.restype = ctypes.c_int
+    inp = torch.tensor([key[0], key[1], x], dtype=torch.int64, device="cuda")
+    out = torch.empty(1, dtype=torch.int64, device="cuda")
+    err = lib.lcpc_threefry_chain(inp.data_ptr(), n, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"threefry_chain launch failed: cudaError_t {err}")
+    return int(out.item())
+
+
+def threefry_sass_mix(chain_so):
+    """One generator digit's instruction mix by pipe, from the SASS of the
+    threefry probe's loop body over its CHAIN_PER_TRIP steps (the loop's own
+    instructions shared out among them): ((ALU, FMA, all), the body's
+    opcodes), or None without cuobjdump."""
+    funcs = sass_functions(chain_so)
+    if funcs is None:
+        return None
+    probe = next(v for k, v in funcs.items() if "threefry_chain_kernel" in k)
+    body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
+    return (tuple(x / CHAIN_PER_TRIP for x in pipe_mix(body)),
+            dict(collections.Counter(t.split()[0] for t in body).most_common()))
+
+
+def sass_mix(so_path, kernel):
+    """(ALU-pipe, FMA-pipe, all) instruction counts of the whole first
+    function of a built library whose name holds `kernel` (a straight-line
+    kernel: one thread's work), or None without cuobjdump."""
+    funcs = sass_functions(so_path)
+    if funcs is None:
+        return None
+    instrs = next(v for k, v in funcs.items() if kernel in k)
+    return pipe_mix([t for _, t in instrs])

@@ -12,6 +12,10 @@ run parent, change, change, parent in one call.  ft255, BLAKE3, seed 0:
     calls; single runs spread with the shared host), and a
     torch.profiler trace of one commit and one verify (kernel launches,
     device busy, idle share);
+  - Ligero rho = 1/4 at 2^26 through commit_streaming with no hash words
+    kept (spill="none", chip_smoke.py phase 8's route (c): prove opens the
+    columns without the codeword), then prove and verify: one cold run and
+    the median and the least of 5 warm runs;
   - Ligero rho = 1/4 at 2^28 through commit_streaming (packed coefficients
     made on the card), then prove and verify: one cold run and the median
     and the least of 2 warm runs, and a trace of one verify.
@@ -135,6 +139,21 @@ def main() -> int:
     del comm, verify, coeffs
     torch.cuda.empty_cache()
 
+    # Ligero 2^26, streamed, no words kept
+    n = 1 << 26
+    enc = P.LigeroEncoding.new(spec, n, 1, 4)
+    coeffs = packed_coeffs(spec, n, gen)
+    n_rows = -(-n // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, 0x5EED, enc.n_per_row, n_rows)
+    runs, comm, verify, value_nokeep = run_path(
+        P, enc, lambda: P.commit_streaming(coeffs, enc, spill="none"), outer, inner, 5)
+    if comm.words_dev is not None or comm.words_host is not None:
+        raise AssertionError("the 2^26 spill='none' commit kept words")
+    result["ligero_2_26_nokeep"] = summary(runs)
+    result["ligero_2_26_nokeep"]["traces"] = {}
+    del comm, verify, coeffs
+    torch.cuda.empty_cache()
+
     # Ligero 2^28, streamed
     n = 1 << 28
     enc = P.LigeroEncoding.new(spec, n, 1, 4)
@@ -145,11 +164,12 @@ def main() -> int:
         P, enc, lambda: P.commit_streaming(coeffs, enc), outer, inner, 2)
     result["ligero_2_28"] = summary(runs)
     result["ligero_2_28"]["traces"] = {"verify": trace(verify)}
-    result["values"] = [value % (1 << 64), value_big % (1 << 64)]
+    result["values"] = [v % (1 << 64) for v in (value, value_nokeep, value_big)]
     del comm, verify, coeffs
     torch.cuda.empty_cache()
 
-    for name in ("ligero_2_23", "ligero_2_28"):
+    paths = ("ligero_2_23", "ligero_2_26_nokeep", "ligero_2_28")
+    for name in paths:
         r = result[name]
         log = ", ".join(f"{k} {v['launches']} launches, busy {v['device_busy_ms']:.2f} of "
                         f"{v['wall_ms']:.1f} ms, idle {v['idle_share']:.3f}"
@@ -163,7 +183,7 @@ def main() -> int:
     with open(os.path.join(out_dir, f"time_paths_{args.label}.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({k: result[k] for k in ("label", "card", "values")}
-                     | {name: result[name]["median"] for name in ("ligero_2_23", "ligero_2_28")}))
+                     | {name: result[name]["median"] for name in paths}))
     return 0
 
 

@@ -180,10 +180,63 @@ def test_row_block_sizing(ligero, monkeypatch):
 
 
 def test_sha256_has_no_streaming_hasher(ligero):
-    with pytest.raises(ValueError, match="no streaming hasher"):
-        P.commit_streaming(ligero.coeffs, ligero.enc, digest=P.SHA256)
+    """SHA-256 streams now (StreamingSha256Hasher; the name is the test's
+    history): a SHA-256 commit_streaming and its proof equal lcpc_tpu's
+    bytes at ft63 and the port's in-memory SHA-256 commit, each package
+    verifies the other's proof; a bad `spill` is still refused."""
+    import lcpc_tpu as J
+    from lcpc_tpu.core import streaming as jstreaming
+    from lcpc_tpu.core import wire as jwire
+    from lcpc_tpu.ops.digest import SHA256 as JSHA256
+
+    jenc = J.LigeroEncoding.new_from_dims(J.FT63, 16, 64, 1, 4)
+    jcs = jstreaming.commit_streaming(ligero.coeffs, jenc, row_block=128, digest=JSHA256)
+    cs = P.commit_streaming(ligero.coeffs, ligero.enc, row_block=40, digest=P.SHA256)
+    root = cs.get_root()
+    assert root == jcs.get_root() == P.commit(ligero.coeffs, ligero.enc,
+                                              digest=P.SHA256).get_root()
+    data = P.wire.serialize_proof(P.FT63, cs.prove(ligero.outer, _tr(P, ligero.enc, root)))
+    assert data == jwire.serialize_proof(J.FT63, jcs.prove(ligero.outer, _tr(J, jenc, root)))
+    want = P.univariate_eval(P.FT63, ligero.coeffs, ligero.x)
+    assert jwire.deserialize_proof(J.FT63, data).verify(
+        root, ligero.outer, ligero.inner, jenc, _tr(J, jenc, root), digest=JSHA256) == want
+    assert P.wire.deserialize_proof(P.FT63, data).verify(
+        root, ligero.outer, ligero.inner, ligero.enc, _tr(P, ligero.enc, root),
+        digest=P.SHA256) == want
     with pytest.raises(ValueError, match="spill"):
         P.commit_streaming(ligero.coeffs, ligero.enc, spill="disk")
+
+
+def test_open_by_eval_equals_reencode(monkeypatch):
+    """ft127, no words kept: prove collapses through MxuCollapse and opens
+    by evaluating the columns (_open_by_eval, prove-sized blocks over a
+    seeded source's packed words); the columns equal _open_by_reencode's,
+    and the proof bytes equal the in-memory prove's."""
+    spec = P.FT127
+    enc = P.LigeroEncoding.new_from_dims(spec, 16, 64, 1, 4, device="cpu")
+    src = P.SeededCoeffSource(spec, 16 * 150 - 3, seed=31, chunk=256, device="cpu")
+    coeffs = get_ops(spec).decode_host(P.SeededCoeffSource(
+        spec, src.length, seed=31, chunk=256, device="cpu").materialize())
+    comm = P.commit(coeffs, enc)
+    root = comm.get_root()
+    outer, inner = P.univariate_tensors(spec, 12345, 16, comm.n_rows)
+    want = P.wire.serialize_proof(spec, comm.prove(outer, _tr(P, enc, root)))
+    cs = P.commit_streaming(src, enc, row_block=64, spill="none")
+    assert cs.get_root() == root and cs.words_dev is None and cs.words_host is None
+    cols = [0, 63, 7, 7, 40]
+    assert torch.equal(streaming._open_by_eval(cs, cols), streaming._open_by_reencode(cs, cols))
+    monkeypatch.setattr(hbm, "usable_hbm_bytes", lambda device=None: (1 << 30) + 200_000)
+    assert 8 <= streaming._prove_row_block(cs, 2 * spec.w16) < cs.n_rows  # several blocks
+    calls = []
+    for name in ("_open_by_eval", "_open_by_reencode"):
+        fn = getattr(streaming, name)
+        monkeypatch.setattr(streaming, name, lambda c, k, fn=fn, name=name: (
+            calls.append(name), fn(c, k))[1])
+    proof = cs.prove(outer, _tr(P, enc, root))
+    assert calls == ["_open_by_eval"]
+    assert P.wire.serialize_proof(spec, proof) == want
+    assert proof.verify(root, outer, inner, enc, _tr(P, enc, root)) == P.univariate_eval(
+        spec, coeffs, 12345)
 
 
 def test_single_chunk_columns_are_refused():
