@@ -9,8 +9,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
      csrc/power_table.cu); print ptxas's registers and spills per template
-     (fatal if the SpMV's, the NTT's, the generator's, the tiled mont_dot's
-     or the power table's W32 = 8 spills; every BLAKE3 kernel reported, the
+     (fatal if the SpMV's, the NTT's, the generator's or the power table's
+     W32 = 8 spills, any of mont_dot's tensor-core templates spills, or
+     ptxas serializes its wgmmas; every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
      SASS of the probe scripts/threefry_chain.cu, held to the plain
@@ -90,12 +91,17 @@ Phases, each fatal on failure (each prints the seconds it took):
   10. hold the prover's kernels against their plain versions, bit for bit:
      the seeded generator (2^22 ft255 coefficients in all three forms, a
      seed >= 2^32 with a zero tail, chunk-aligned and unaligned partitions,
-     every field), mont_dot at the 2^23 prove collapse (2 x 256 x 32,768),
-     the 2^23 verify column check (2 x 256 x 189) and rows at the columns
-     (2 x 32,768 x 189), a 64-row block of the 2^29 column evaluation (64 x
-     262,144 x 189) and edge shapes in every field (unreduced operands
-     too), the power table at 32,768 x 189 and 262,144 x 189 and edges;
-     each timed beside its bound;
+     every field), mont_dot's thin kernel at the 2^23 prove collapse (2 x
+     256 x 32,768), the 2^23 verify column check (2 x 256 x 189) and rows at
+     the columns (2 x 32,768 x 189), its tensor-core kernel at a 64-row
+     block of the 2^29 column evaluation (64 x 262,144 x 189, the table as
+     digit planes) and both on edge shapes in every field (y as words and as
+     planes; ragged rows, k and points; unreduced operands; all-0xFF
+     operands at K = 2^15 - 1, 2^15, 2^15 + 1, the s32 accumulators'
+     limit), the power table as words at 32,768 x 189 and as planes at
+     262,144 x 189 and edges in both layouts; each timed beside its bound
+     (the tile path's: its byte products on the tensor cores, with the CUDA
+     cores' wide products beside);
   11. the slice's path: SeededCoeffSource(FT255, 2^29, seed=0), 2,048 rows
      x 262,144 coefficients, 2^20 columns, the 68.7 GB of hash words not
      kept: commit_streaming -> prove (MxuCollapse and MxuColumnEval over
@@ -139,6 +145,8 @@ HBM_BYTES_PER_S = 3.35e12
 # 33.5 T ops/s counting a multiply-add as 2 ops -> 16.75e12 IMAD/s; a
 # 32x32 -> 64-bit product takes two (low and high halves)
 WIDE_PRODUCTS_PER_S = 16.75e12 / 2
+# dense u8/s8 tensor-core operations (wgmma), 2 a multiply-add
+INT8_OPS_PER_S = 1979e12
 # the integer pipes: the ALU pipe and the FMA pipe (IMAD family) each take
 # 64 lanes per SM a clock, 16.75e12 instructions/s over 132 SMs at 1.98 GHz;
 # the schedulers issue twice that in all.  A BLAKE3 compression's time on
@@ -1040,18 +1048,26 @@ def gen_bound(n_elem, out_bytes, mix, form, chunk=1 << 18):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dot_bound(spec, x, y, a, k, b):
-    """(ms, by) of a mont_dot: x and y read once, the (W/2, a, b) words
-    written once; (W/2)^2 wide products per multiply-add."""
+def dot_bound(spec, x, y, a, k, b, tc):
+    """(ms, by, IMAD ms) of a mont_dot: x and y read once, the (W/2, a, b)
+    words written once; the thin kernel's (W/2)^2 wide products per
+    multiply-add on the CUDA cores or, with `tc` (the tile path), the
+    (2W)^2 byte products on the tensor cores; the IMAD count beside."""
     w32 = spec.w16 // 2
-    nbytes = 4 * (x.numel() + y.numel() + w32 * a * b)
-    b_ms, t_bytes, t_ops = bound_ms(nbytes, a * k * b * w32 * w32)
-    return b_ms, ("bytes" if t_bytes >= t_ops else "operations")
+    nbytes = x.numel() * x.element_size() + y.numel() * y.element_size() + 4 * w32 * a * b
+    b_ms, t_bytes, t_imad = bound_ms(nbytes, a * k * b * w32 * w32)
+    if tc:
+        t_ops = 2 * a * k * b * (4 * w32) ** 2 / INT8_OPS_PER_S * 1e3
+        b_ms = max(t_bytes, t_ops)
+    else:
+        t_ops = t_imad
+    return b_ms, ("bytes" if t_bytes >= t_ops else "operations"), t_imad
 
 
 def table_bound(spec, big_k, k):
-    """(ms, by) of a power table: its words written once; one Montgomery
-    product (2 W32^2 + W32 wide products) an entry."""
+    """(ms, by) of a power table (either layout, the same bytes): its words
+    written once; one Montgomery product (2 W32^2 + W32 wide products) an
+    entry."""
     w32 = spec.w16 // 2
     b_ms, t_bytes, t_ops = bound_ms(4 * w32 * (big_k * k + k),
                                     big_k * k * (2 * w32 * w32 + w32))
@@ -1133,14 +1149,19 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
         check(f"mont_dot {tag}", got, want)
         if not timed:
             return
-        a, k, b = x.shape[1], x.shape[2], y.shape[2]
+        a, k = x.shape[1], x.shape[2]
+        b = y.shape[1] if y_form == "planes" else y.shape[2]
         ms = kb.time_kernel(lambda: md.mont_dot(field, x, y, out_form, x_form=x_form,
                                                 y_form=y_form), reps=reps)
-        bound, by = dot_bound(field, x, y, a, k, b)
-        recs[f"dot {tag}"] = {"a": a, "k": k, "b": b, "out_form": out_form, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
-        log(f"  mont_dot {tag} ({a} x {k} x {b}, {out_form}): equal; {ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms")
+        tc = y_form == "planes" or a > 2
+        bound, by, imad = dot_bound(field, x, y, a, k, b, tc)
+        recs[f"dot {tag}"] = {"a": a, "k": k, "b": b, "out_form": out_form,
+                              "kernel": "tensor cores" if tc else "thin", "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                              "imad_bound_ms": imad, "bound_share": bound / ms}
+        log(f"  mont_dot {tag} ({a} x {k} x {b}, {out_form}, {recs[f'dot {tag}']['kernel']}): "
+            f"equal; {ms:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%}; the CUDA "
+            f"cores' wide products {imad:.4f} ms), plain {plain_ms:.1f} ms")
 
     n23 = N_COEFFS // 256
     dot("2^23 prove collapse", rand(spec, 2, 256, "packed"), rand(spec, 256, n23), "canonical",
@@ -1148,39 +1169,75 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
     dot("2^23 verify column check", rand(spec, 2, 256), rand(spec, 256, 189, "packed"), "mont",
         "limbs", "packed")
     g = pack_words(kb.random_mont(spec, (1, spec.w16, 189), gen, device=DEV)[0], 0)
-    for tag, big_k in (("2^23 verify", n23), ("2^29 prove", N_SEEDED // 2048)):
-        table = md.power_table(spec, g, big_k)
-        want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k))
+    # the verifier's table (words, the thin kernel's operand) and the
+    # prover's (digit planes, the tensor cores'), each at its path's shape
+    for tag, big_k, form in (("2^23 verify", n23, "words"), ("2^29 prove", N_SEEDED // 2048,
+                                                              "planes")):
+        table = md.power_table(spec, g, big_k, form)
+        want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k, form))
         check(f"power_table {tag}", table, want)
         del want
-        ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k), reps=5)
+        ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k, form), reps=5)
+        other = "words" if form == "planes" else "planes"
+        other_ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k, other), reps=5)
         bound, by = table_bound(spec, big_k, 189)
-        recs[f"table {tag}"] = {"K": big_k, "k": 189, "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": bound, "bound_by": by}
-        log(f"  power_table {tag} ({big_k} x 189): equal; {ms:.4f} ms, bound {bound:.4f} ms "
-            f"({by}), plain {plain_ms:.1f} ms")
+        recs[f"table {tag}"] = {"K": big_k, "k": 189, "form": form, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                f"{other}_ms": other_ms}
+        log(f"  power_table {tag} ({big_k} x 189, {form}): equal; {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms; as {other} {other_ms:.4f} ms")
         if tag.startswith("2^23"):
             dot("2^23 verify rows at the columns", rand(spec, 2, big_k), table, "mont", "limbs",
                 "packed")
         else:
             dot(f"2^29 column evaluation, a {EVAL_ROWS}-row block", rand(spec, EVAL_ROWS, big_k,
                                                                           "packed"),
-                table, "mont", "packed", "packed", reps=3)
+                table, "mont", "packed", "planes", reps=3)
         del table
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
     for field in P.ALL_FIELDS:
-        for a, k, b in ((3, 1, 5), (37, 70, 45), (1, 5_000, 1), (33, 33, 33), (2, 3_000, 189)):
+        d = 2 * field.w16
+        for a, k, b in ((3, 1, 5), (37, 70, 45), (1, 5_000, 1), (33, 33, 33), (2, 3_000, 189),
+                        (37, 300, 189), (5, 300, 190)):
             for out_form in md.OUT_FORMS:
-                dot(f"edge {field.name} {a}x{k}x{b}", rand(field, a, k), rand(field, k, b, "packed"),
-                    out_form, "limbs", "packed", timed=False, field=field)
+                x, y = rand(field, a, k), rand(field, k, b, "packed")
+                dot(f"edge {field.name} {a}x{k}x{b}", x, y, out_form, "limbs", "packed",
+                    timed=False, field=field)
+                dot(f"edge {field.name} {a}x{k}x{b} planes", pack_words(x, 0),
+                    md.to_planes(field, y), out_form, "packed", "planes", timed=False,
+                    field=field)
         ones = torch.full((field.w16, 2, 300), 0xFFFF, dtype=torch.int32, device=DEV)
         dot(f"unreduced {field.name}", ones, rand(field, 300, 7), "canonical", "limbs", "limbs",
             timed=False, field=field)
-        for big_k, k in ((1, 3), (70, 33), (5_000, 1)):
+        dot(f"unreduced {field.name} planes", torch.full((field.w16, 37, 300), 0xFFFF,
+                                                          dtype=torch.int32, device=DEV),
+            md.to_planes(field, rand(field, 300, 7), "limbs"), "canonical", "limbs", "planes",
+            timed=False, field=field)
+        for big_k, k in ((1, 3), (70, 33), (5_000, 1), (133, 7)):
             gg = pack_words(kb.random_mont(field, (1, field.w16, k), gen, device=DEV)[0], 0)
-            check(f"power_table {field.name} {big_k} x {k}", md.power_table(field, gg, big_k),
-                  md.power_table_plain(field, gg, big_k))
-    log("  mont_dot edges (3x1x5, 37x70x45, 1x5000x1, 33x33x33, 2x3000x189, both outputs; "
-        "all-0xFFFF operands) and power_table edges equal in every field")
+            for form in md.TABLE_FORMS:
+                check(f"power_table {field.name} {big_k} x {k} {form}",
+                      md.power_table(field, gg, big_k, form),
+                      md.power_table_plain(field, gg, big_k, form))
+    # the s32 accumulators' limit: all-0xFF bytes (every value R - 1) over
+    # K = 2^15 - 1, 2^15, 2^15 + 1 at a shape whose grid needs no further
+    # split, so a block's range is the fold limit itself
+    a, b = 64, 17 * (256 // (2 * spec.w16))
+    for k in (md.FOLD_K - 1, md.FOLD_K, md.FOLD_K + 1):
+        k_split, n_split = md.tc_split(spec, a, k, b, n_sm)
+        if n_split != -(-k // md.FOLD_K) or k_split > md.FOLD_K:
+            raise AssertionError(f"K = {k}: split ({k_split}, {n_split}), not the fold limit's")
+        x = torch.full((spec.w16, a, k), 0xFFFF, dtype=torch.int32, device=DEV)
+        y = torch.full((md.plane_tiles(k), b, 2 * spec.w16, md.TC_KT), 0xFF, dtype=torch.uint8,
+                       device=DEV)
+        for out_form in md.OUT_FORMS:
+            dot(f"all-0xFF {a}x{k}x{b}", x, y, out_form, "limbs", "planes", timed=False)
+        log(f"  mont_dot all-0xFF {a} x {k} x {b} (K ranges of {k_split}, {n_split} of them) "
+            f"equal")
+        del x, y
+    log("  mont_dot edges (3x1x5, 37x70x45, 1x5000x1, 33x33x33, 2x3000x189, 37x300x189, "
+        "5x300x190, both outputs, y as words and as planes; all-0xFFFF operands) and "
+        "power_table edges in both layouts equal in every field")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -1294,15 +1351,22 @@ def path_2_29(torch, kb, P, counters, md, card):
               "gen_all_rows_ms": gen_ms * scale, "open_by_eval_ms": eval_open_ms,
               "open_by_reencode_ms": reencode_ms}
     k = len(cols)
-    b_ms, t_bytes, t_ops = bound_ms(4 * wpe * (n_rows * enc.n_per_row + enc.n_per_row * k
-                                               + n_rows * k),
-                                    n_rows * enc.n_per_row * k * wpe * wpe)
-    pieces["eval_bound_ms"] = b_ms
+    # the evaluation on the tensor cores: (2W)^2 byte products a multiply-add;
+    # the CUDA cores' wide products beside
+    t_bytes = 4 * wpe * (n_rows * enc.n_per_row + enc.n_per_row * k + n_rows * k) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n_rows * enc.n_per_row * k * (4 * wpe) ** 2 / INT8_OPS_PER_S * 1e3
+    pieces["eval_bound_ms"] = max(t_bytes, t_ops)
     pieces["eval_bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    pieces["eval_imad_bound_ms"] = n_rows * enc.n_per_row * k * wpe * wpe \
+        / WIDE_PRODUCTS_PER_S * 1e3
+    pieces["eval_bound_share"] = pieces["eval_bound_ms"] / pieces["eval_all_rows_ms"]
     log(f"  prove's pieces ({rb}-row blocks, x {scale:g} for all rows): seeded_gen packed "
         f"{gen_ms:.2f} ms, mont_dot collapse {collapse_ms:.2f} ms, column evaluation "
-        f"{eval_ms:.2f} ms (all rows {eval_ms * scale:.1f} ms, bound "
-        f"{pieces['eval_bound_ms']:.1f} ms), set_columns with its power table {table_ms:.2f} ms")
+        f"{eval_ms:.2f} ms (all rows {eval_ms * scale:.1f} ms, tensor-core bound "
+        f"{pieces['eval_bound_ms']:.1f} ms, {pieces['eval_bound_share']:.1%}; the CUDA cores' "
+        f"wide products {pieces['eval_imad_bound_ms']:.1f} ms), set_columns with its power "
+        f"table {table_ms:.2f} ms")
     del blk, ev, ts, comm
     torch.cuda.empty_cache()
 
@@ -1445,18 +1509,21 @@ def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
             "lcpc_tpu/ops/mxu_prove.py:86,128,184 (MxuCollapse: _banded_collapse_kernel, "
             "_collapse_fns), :235,258,357 (MxuColumnEval: _eval_chunking, _eval_fns) and "
             "lcpc_tpu/ops/limbs.py:375,421 (collapse_canon, collapse_words); XLA-fused, not "
-            "Pallas", prv["dot 2^23 prove collapse"],
-            "the 2^23 ft255 prove collapse: T=2 x R=256 x C=32,768 (canonical)",
-            column_evaluation_2_29_block=ev29,
+            "Pallas", ev29,
+            f"the 2^29 ft255 column evaluation, a {EVAL_ROWS}-row block: {EVAL_ROWS} x 262,144 "
+            "x 189 (Montgomery), the tile kernel on the tensor cores (bound: u8 wgmma)",
+            collapse_2_23=prv["dot 2^23 prove collapse"],
             column_evaluation_2_29_all_rows_ms=s29["pieces"]["eval_all_rows_ms"],
             column_evaluation_2_29_bound_ms=s29["pieces"]["eval_bound_ms"],
+            column_evaluation_2_29_imad_bound_ms=s29["pieces"]["eval_imad_bound_ms"],
             open_by_eval_2_29_ms=s29["pieces"]["open_by_eval_ms"],
             open_by_reencode_2_29_ms=s29["pieces"]["open_by_reencode_ms"],
             collapse_2_29_all_rows_ms=s29["pieces"]["collapse_all_rows_ms"],
             other_shapes={k: v for k, v in prv.items() if k.startswith("dot ")}),
         row("power_table", "power_table.cu",
             "lcpc_tpu/ops/mxu_prove.py:319 (_kernel_build_fns); XLA-fused, not Pallas",
-            prv["table 2^29 prove"], "the 2^29 prove's table: 262,144 x 189 entries",
+            prv["table 2^29 prove"], "the 2^29 prove's table: 262,144 x 189 entries as digit "
+            "planes",
             verify_2_23=prv["table 2^23 verify"],
             set_columns_2_29_host_ms=s29["pieces"]["set_columns_host_ms"]),
     ]
@@ -1537,20 +1604,24 @@ def main() -> int:
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
     prove_ptxas = {}
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
-                            ("power_table", "power_table_kernel")):
+                            ("power_table", "power_")):
         found = kb.ptxas_entries(cuda_build.build_logs[src_name], kname)
-        if len(found) != {"seeded_gen": 12, "mont_dot": 12, "power_table": 4}[src_name]:
+        if len(found) != {"seeded_gen": 12, "mont_dot": 12, "power_table": 8}[src_name]:
             raise AssertionError(f"{src_name} kernels not reported by ptxas: {found}")
         for name, (regs, st, ld) in sorted(found.items()):
             log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill "
                 f"loads")
         prove_ptxas[src_name] = found
     for src_name, kname in (("seeded_gen", "seeded_gen_kernelILi8ELi37E"),
-                            ("mont_dot", "mont_dot_tile_kernelILi8E"),
-                            ("power_table", "power_table_kernelILi8E")):
+                            ("mont_dot", "mont_dot_tc_kernel"),  # every W
+                            ("power_table", "power_table_kernelILi8E"),
+                            ("power_table", "power_planes_kernelILi8E")):
         for k, (regs, st, ld) in prove_ptxas[src_name].items():
             if kname in k and (st or ld):
                 raise AssertionError(f"{k} spills: {st} / {ld} bytes")
+    serial = [ln for ln in cuda_build.build_logs["mont_dot"].splitlines() if "serialized" in ln]
+    if serial:  # ptxas could not keep the wgmmas in flight
+        raise AssertionError(f"mont_dot: {serial}")
     gen_mix = generator_mix(torch, kb, tf, tf_so, cuda_build.so_path("seeded_gen"))
     loop = kb.sass_loop(spmv.SO_PATH)
     if loop is None:

@@ -5,8 +5,7 @@
 // and `collapse_words` (lcpc_tpu/ops/limbs.py:375, 421), `MxuCollapse`
 // (`_banded_collapse_kernel`, `_collapse_fns`; ops/mxu_prove.py:86, 128, 184)
 // and `MxuColumnEval` (`_eval_fns`, `_eval_chunking`; ops/mxu_prove.py:235,
-// 258, 357); none is a Pallas kernel.  The TPU routes contract int8 digit
-// planes on the MXU; this kernel computes the same outputs directly:
+// 258, 357); none is a Pallas kernel.  Both compute
 //
 //   out[a, b] = (sum_k X[a, k] Y[k, b]) R^-2 mod p     ("canonical")
 //   out[a, b] = (sum_k X[a, k] Y[k, b]) R^-1 mod p     ("mont")
@@ -16,30 +15,69 @@
 // the column check compare), the Montgomery form that of an opened codeword
 // column (column c of a Reed-Solomon row is the row at w^bitrev(c): Y is the
 // power table of csrc/power_table.cu).  Any X, Y below R are taken: a
-// verifier's untrusted column words need not be reduced.
+// verifier's untrusted column words need not be reduced.  Each output's
+// exact sum S < K R^2 is reduced once: two Montgomery reductions take it
+// below 2p, one subtract to canonical, one Montgomery product by R^2 mod p
+// to the Montgomery form.
 //
-// Lazy accumulation.  Each output keeps the exact integer sum of its
-// products: 2W words of product columns plus W + 1 carry counters (the sum
-// stays below K R^2 < 2^(64 W + 31) for K < 2^31).  A product x y adds W
-// rows x_i y: the even-j and the odd-j products of a row each form one PTX
-// carry chain over adjacent word pairs (lo, hi), which ptxas fuses into one
-// IMAD.WIDE.U32(.X) per 32 x 32 -> 64 product, and each chain's carry out
-// goes to its counter: W^2 wide products and 2W adds a product.  The sum is
-// reduced once per output: two Montgomery reductions take it below 2p, one
-// subtract to canonical, one Montgomery product by R^2 mod p to the
-// Montgomery form.
+// Two kernels:
 //
-// Two shapes of work:
-//   thin   A <= 2 rows (the collapse's T = 2 tensors, the verifier's rows):
-//          a thread per output column b, both rows in its registers, the
-//          rows' X elements staged through shared memory (every thread
-//          reads the same ones), Y read by each thread from device memory
-//          (neighbouring threads, neighbouring columns).
-//   tile   A > 2 (the column evaluation: coefficient rows x the power
-//          table): a 32 x 32 output tile a block, 16 x 16 threads of 2 x 2
-//          outputs; X and Y tiles of 8 k-steps staged in shared memory, so
-//          each element loaded from device memory feeds 32 outputs.
-// Where the grid would not fill the card the wrapper splits K: each split
+// thin (A <= 2 rows: the collapse's T = 2 tensors, the verifier's rows; Y
+//   as words).  A thread per output column b, both rows in its registers,
+//   the rows' X elements staged through shared memory, Y read by each
+//   thread from device memory (neighbouring threads, neighbouring columns).
+//   Lazy accumulation on the CUDA cores: 2W words of product columns plus
+//   W + 1 carry counters; a product x y adds W rows x_i y, the even-j and
+//   the odd-j products of a row each one PTX carry chain over adjacent
+//   word pairs, which ptxas fuses into one IMAD.WIDE.U32(.X) per
+//   32 x 32 -> 64 product: W^2 wide products and 2W adds a product.  Bound
+//   by its bytes (Y read once).
+//
+// tile (the column evaluation: coefficient rows x the power table; Y as
+//   byte-digit planes).  lcpc_tpu runs this contraction on its matrix unit
+//   as int8 digit convolutions in base 2^7 (the MXU is signed); Hopper's
+//   wgmma takes u8 x u8 -> s32, so here a value's digits are simply its
+//   D = 4W bytes, x = sum_i x_i 2^(8 i), and the product is one u8 GEMM
+//   over digit planes:
+//
+//     P[(a, i), (b, j)] = sum_k x_i[a, k] y_j[k, b]     (M' = A D, N' = B D)
+//     S[a, b]           = sum_{i, j} P[(a, i), (b, j)] 2^(8 (i + j))
+//
+//   A block is two warpgroups; warpgroup g takes RA = 64 / D coefficient
+//   rows (64 digit rows) and the block PB = 256 / D points (256 digit
+//   columns), and issues wgmma.m64n256k32.s32.u8.u8 per 32 k-steps, A from
+//   registers, B from shared memory.  Per stage of 128 k-steps, thread 0
+//   issues two TMA copies, each as soon as its buffer is free: the table's
+//   256 x 128-byte tile (the planes laid out k-tile by k-tile, as
+//   power_table writes them, so the tile is one contiguous 32 KB slab;
+//   128-byte swizzle, the layout the wgmma descriptor reads; 4 stages) and
+//   the coefficients' own words (PA rows x W words, or 2W 16-bit limbs, x
+//   128 k; never transposed or copied in device memory; up to 6 stages).
+//   Each lane builds its A fragment from the raw words: byte i mod 4 of
+//   word i / 4 is digit i, and 3 PRMTs pack a digit's 4 neighbouring k.
+//   There is no A tile in shared memory, so no generic-to-async proxy
+//   fence stalls the wgmmas in flight.  mbarriers carry the copies' bytes
+//   and the stages' releases.
+//   An s32 accumulator holds at most floor((2^31 - 1) / 255^2) = 33,025
+//   byte products, so a block takes at most 2^15 k-steps: the wrapper
+//   splits K into ranges of at most 2^15 (more where the grid would not
+//   fill the card), each block folds its planes once, at its end, through
+//   shared memory (the anti-diagonal sums Q_s = sum_{i+j=s} P_ij < D 2^31,
+//   then S = sum_s Q_s 2^(8 s) with carries) and reduces S.
+//
+//   What bounds it on an H100 (700 W): the byte products, A K B D^2
+//   multiply-adds at 1,979 T int8 operations/s (2 a multiply-add); the
+//   2^29 column evaluation is 2,048 x 262,144 x 189 x 1,024 = 1.04e14 of
+//   them, ~105 ms (the CUDA cores' wide products bounded the former IMAD
+//   kernel at 775 ms).  The bytes are far below; the traffic from L2 into
+//   the SMs is not (each coefficient tile is read again for every tile of
+//   points, each table tile for every tile of rows: ~1.2 TB at 2^29), so
+//   the grid runs the row tiles of a chunk of kChunk point tiles together:
+//   a chunk's table slabs stay in L2 while its row tiles stream through.
+//   Measured (scripts/time_column_eval.py): 46% of the tensor-core bound at
+//   2^29; what holds it there is in PERF.md.
+//
+// Where a grid would not fill the card the wrapper splits K: each split
 // writes canonical partials, and a second, thin launch sums them (X the
 // constant R^2 mod p, so sum_s partial_s R^2 R^-2 = sum_s partial_s).
 //
@@ -47,14 +85,12 @@
 // ptr + w s_w + i s_0 + k s_1, in int32 storage; with `limbs` set the word
 // axis holds 16-bit limbs and word w is limb 2w | limb 2w+1 << 16.  So the
 // callers' limb-major (W, ...) limb tensors, packed (W/2, ...) word
-// tensors and transposes are read in place.
-//
-// What bounds it on an H100 (700 W): the wide products, W^2 a multiply-add
-// (64 at ft255), at 8.4 T/s (the 67 TFLOP/s fp32 lanes as 16.75 T IMADs/s,
-// two a wide product).  The 2^29 column evaluation is 2,048 x 262,144 x 189
-// x 64 = 6.5e12 of them, ~0.77 s; its bytes (17 GB of coefficients, 1.6 GB
-// of table a 32-row tile row) are far below.  The route past the IMAD pipe
-// is lcpc_tpu's int8 digit method on the tensor cores, left open.
+// tensors and transposes are read in place (the tile kernel's X by TMA:
+// unit stride along k, the other strides multiples of 4).  The tile
+// kernel's Y is the (KT, B, D, 128) u8 digit-plane tensor: [t, b, j, e] is
+// byte j of Y[128 t + e, b].
+
+#include <cuda.h>
 
 #include "mont.cuh"
 
@@ -64,9 +100,6 @@ using namespace lcpc;
 
 constexpr int kThinThreads = 128;
 constexpr int kThinBK = 32;  // k-steps of X staged a round (thin)
-constexpr int kTileThreads = 256;
-constexpr int kTile = 32;  // output tile (tile)
-constexpr int kTileBK = 8;  // k-steps of X and Y staged a round (tile)
 
 struct Operand {
   const int32_t* ptr;
@@ -144,22 +177,13 @@ __device__ __forceinline__ void redc_wide(uint32_t (&v)[2 * W + 1], const Field<
   }
 }
 
-// the sum's residue: canonical (S R^-2 mod p) or, with `mont`, S R^-1 mod p
+// the residue of the sum S = v (2W + 1 words, S < K R^2 for K < 2^31):
+// canonical (S R^-2 mod p) or, with `mont`, S R^-1 mod p
 template <int W>
-__device__ __forceinline__ void finish(uint32_t (&r)[W], const Acc<W>& a, const Field<W>& f,
-                                       const uint32_t* __restrict__ consts, bool mont) {
-  uint32_t v[2 * W + 1];
-#pragma unroll
-  for (int m = 0; m < W; ++m) v[m] = a.lo[m];
-  uint64_t c = 0;
-#pragma unroll
-  for (int m = W; m < 2 * W; ++m) {
-    const uint64_t t = (uint64_t)a.lo[m] + a.cw[m - W] + c;
-    v[m] = (uint32_t)t;
-    c = t >> 32;
-  }
-  v[2 * W] = a.cw[W] + (uint32_t)c;  // S < K R^2: the top word holds it
-  redc_wide<W>(v, f);                 // v[W .. 2W] < K R + p
+__device__ __forceinline__ void reduce_wide(uint32_t (&r)[W], uint32_t (&v)[2 * W + 1],
+                                            const Field<W>& f,
+                                            const uint32_t* __restrict__ consts, bool mont) {
+  redc_wide<W>(v, f);  // v[W .. 2W] < K R + p
   uint32_t u[2 * W + 1];
 #pragma unroll
   for (int m = 0; m <= W; ++m) u[m] = v[W + m];
@@ -185,6 +209,24 @@ __device__ __forceinline__ void finish(uint32_t (&r)[W], const Acc<W>& a, const 
     }
     f.mul(r, x, r2);
   }
+}
+
+// the residue of the thin kernel's lazy sum
+template <int W>
+__device__ __forceinline__ void finish(uint32_t (&r)[W], const Acc<W>& a, const Field<W>& f,
+                                       const uint32_t* __restrict__ consts, bool mont) {
+  uint32_t v[2 * W + 1];
+#pragma unroll
+  for (int m = 0; m < W; ++m) v[m] = a.lo[m];
+  uint64_t c = 0;
+#pragma unroll
+  for (int m = W; m < 2 * W; ++m) {
+    const uint64_t t = (uint64_t)a.lo[m] + a.cw[m - W] + c;
+    v[m] = (uint32_t)t;
+    c = t >> 32;
+  }
+  v[2 * W] = a.cw[W] + (uint32_t)c;  // S < K R^2: the top word holds it
+  reduce_wide<W>(r, v, f, consts, mont);
 }
 
 struct Out {
@@ -247,106 +289,429 @@ mont_dot_thin_kernel(Operand X, Operand Y, Out out, const uint32_t* __restrict__
   }
 }
 
+// ---- the tile kernel: byte-digit planes on the tensor cores ----------------------
+
+constexpr int kTcThreads = 256;  // two warpgroups: 8 warps, up to 255 registers a thread
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kKT = 128;         // k-steps a stage: one 128-byte swizzle row
+constexpr int kBStages = 4;      // the table's tiles in flight
+constexpr int kRawStages = 6;    // the coefficients' raw words in flight (at most)
+constexpr int kARows = 128;      // digit rows (a, i) a block, 64 a warpgroup
+constexpr int kBRows = 256;      // digit rows (b, j) a block: wgmma's N
+constexpr int kBTile = kBRows * kKT;
+constexpr int kRawOff = kBStages * kBTile;
+constexpr int kRawBytes = 98304;
+constexpr int kFoldK = 1 << 15;  // k-steps a block at most (s32 sums of byte products)
+constexpr int kAccStride = kBRows + 8;  // words a row of the staged accumulator
+constexpr int kChunk = 2;  // point tiles a raster chunk (timed at 2^29: 2 of 1..24 fastest)
+
 template <int W>
-__global__ void __launch_bounds__(kTileThreads)
-mont_dot_tile_kernel(Operand X, Operand Y, Out out, const uint32_t* __restrict__ consts,
-                     long long A, long long K, long long B, long long k_split, int mont) {
-  __shared__ uint32_t xs[kTileBK][W][kTile];
-  __shared__ uint32_t ys[kTileBK][W][kTile];
-  const Field<W> f(consts);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long a0 = (long long)blockIdx.y * kTile, b0 = (long long)blockIdx.x * kTile;
-  const long long k0 = (long long)blockIdx.z * k_split;
-  const long long k1 = k0 + k_split < K ? k0 + k_split : K;
-  Acc<W> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) acc[i][j].zero();
-  for (long long kb = k0; kb < k1; kb += kTileBK) {
-    const int n = (int)(k1 - kb < kTileBK ? k1 - kb : kTileBK);
-    __syncthreads();
-    {
-      // X: row r, step kk (neighbouring threads, neighbouring steps)
-      const int r = threadIdx.x / kTileBK, kk = threadIdx.x % kTileBK;
-      if (kk < n) {
-        const long long a = a0 + r < A ? a0 + r : A - 1;
-        uint32_t v[W];
-        load_elem<W>(v, X, a, kb + kk);
-#pragma unroll
-        for (int w = 0; w < W; ++w) xs[kk][w][r] = v[w];
-      }
-      // Y: step kk, column c (neighbouring threads, neighbouring columns)
-      const int kk2 = threadIdx.x / kTile, c = threadIdx.x % kTile;
-      if (kk2 < n) {
-        const long long b = b0 + c < B ? b0 + c : B - 1;
-        uint32_t v[W];
-        load_elem<W>(v, Y, kb + kk2, b);
-#pragma unroll
-        for (int w = 0; w < W; ++w) ys[kk2][w][c] = v[w];
-      }
-    }
-    __syncthreads();
-    for (int kk = 0; kk < n; ++kk) {
-      uint32_t x0[W], x1[W], y0[W], y1[W];
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        x0[w] = xs[kk][w][ty];
-        x1[w] = xs[kk][w][ty + 16];
-        y0[w] = ys[kk][w][tx];
-        y1[w] = ys[kk][w][tx + 16];
-      }
-      acc[0][0].mac(x0, y0);
-      acc[0][1].mac(x0, y1);
-      acc[1][0].mac(x1, y0);
-      acc[1][1].mac(x1, y1);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const long long a = a0 + ty + 16 * i, b = b0 + tx + 16 * j;
-      if (a < A && b < B) {
-        uint32_t r[W];
-        finish<W>(r, acc[i][j], f, consts, mont);
-        store<W>(out, blockIdx.z, a, b, r);
-      }
-    }
+struct Tc {
+  static constexpr int D = 4 * W;                    // digits (bytes) an element
+  static constexpr int RA = 64 / D;                  // coefficient rows a warpgroup
+  static constexpr int PA = 2 * RA;                  // coefficient rows a block
+  static constexpr int PB = kBRows / D;              // points a block
+  static constexpr int NOUT = PA * PB;
+  static constexpr int NQ = 2 * D - 1;               // anti-diagonals s = i + j
+  static constexpr int FOLD = kARows * kAccStride * 4 + NOUT * NQ * 8;
+  static constexpr int TILES = kRawOff + kRawBytes;
+  static constexpr int BARS = TILES > FOLD ? TILES : FOLD;
+  static constexpr int SMEM = BARS + 8 * (2 * kBStages + 2 * kRawStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_acc(uint32_t& r) { asm volatile("" : "+r"(r) :: "memory"); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// an arrival that also expects `bytes` of asynchronous copies on `bar`
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// a TMA copy of the box at (c0, c1, c2) of the tensor map into shared
+// memory, its bytes counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar) : "memory");
+}
+// wait for the phase of parity `parity` to complete; a wait past ~2^36
+// cycles traps (a fault, not a hang)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1LL << 36)) __trap();
+  } while (!done);
 }
 
-static_assert(kTileThreads == kTile * kTileBK, "one X and one Y element a thread a round");
+// the shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1,024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d[64 x 256] += A[64 x 32] B[256 x 32]^T, u8 x u8 -> s32: A from registers
+// (the m16n8k32 fragment per warp: a[0] row l/4, k 4 (l%4) .. + 3; a[1] row
+// + 8; a[2], a[3] k + 16), B from shared memory
+__device__ __forceinline__ void wgmma_u8(uint32_t (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
+        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
+        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
+        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
 
 template <int W>
-cudaError_t launch(const Operand& X, const Operand& Y, const Out& out, const uint32_t* consts,
-                   long long A, long long K, long long B, long long k_split, int n_split,
-                   int mont, cudaStream_t stream) {
-  if (A <= 2) {
-    const dim3 grid((unsigned)((B + kThinThreads - 1) / kThinThreads), (unsigned)n_split);
-    if (A == 1)
-      mont_dot_thin_kernel<W, 1><<<grid, kThinThreads, 0, stream>>>(X, Y, out, consts, 1, K, B,
-                                                                    k_split, mont);
-    else
-      mont_dot_thin_kernel<W, 2><<<grid, kThinThreads, 0, stream>>>(X, Y, out, consts, 2, K, B,
-                                                                    k_split, mont);
-  } else {
-    const dim3 grid((unsigned)((B + kTile - 1) / kTile), (unsigned)((A + kTile - 1) / kTile),
-                    (unsigned)n_split);
-    mont_dot_tile_kernel<W><<<grid, kTileThreads, 0, stream>>>(X, Y, out, consts, A, K, B,
-                                                               k_split, mont);
+__global__ void __launch_bounds__(kTcThreads, 1)
+mont_dot_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap planes, Out out,
+                   const uint32_t* __restrict__ consts, long long A, long long K, long long B,
+                   long long k_split, int mont, int limbs) {
+  using T = Tc<W>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw_base & 1023)) & 1023);  // 1,024-aligned tiles
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t bfull0 = sbase + T::BARS, bempty0 = bfull0 + 8 * kBStages;
+  const uint32_t rfull0 = bempty0 + 8 * kBStages, rempty0 = rfull0 + 8 * kRawStages;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  // the tile: point tiles in chunks of kChunk, a chunk's fastest, then the
+  // row tiles (the blocks that run together share row and point tiles)
+  long long ta, tb;
+  {
+    const long long n_tb = (B + T::PB - 1) / T::PB, n_ta = (A + T::PA - 1) / T::PA;
+    const long long chunk = blockIdx.x / (kChunk * n_ta), r = blockIdx.x % (kChunk * n_ta);
+    const long long w = n_tb - chunk * kChunk < kChunk ? n_tb - chunk * kChunk : kChunk;
+    ta = r / w;
+    tb = chunk * kChunk + r % w;
   }
+  const long long a0 = ta * T::PA, b0 = tb * T::PB;
+  const long long k0 = (long long)blockIdx.z * k_split;
+  const long long k1 = k0 + k_split < K ? k0 + k_split : K;
+  const int nt = (int)((k1 - k0 + kKT - 1) / kKT);
+  // the raw words of a stage: PA rows x W words (2W limbs) x 128 k, int32
+  const int raw_stage = T::PA * (limbs ? 2 * W : W) * kKT * 4;
+  const int ahead = kRawBytes / raw_stage < kRawStages ? kRawBytes / raw_stage : kRawStages;
+  uint32_t acc[128];  // this warpgroup's 64 x 256 accumulators
+  if (tid == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(bfull0 + 8 * s, 1);          // the TMA's bytes
+      mbar_init(bempty0 + 8 * s, kTcWarps);  // each warp, its wgmma done
+    }
+    for (int s = 0; s < kRawStages; ++s) {
+      mbar_init(rfull0 + 8 * s, 1);
+      mbar_init(rempty0 + 8 * s, kTcWarps);  // each warp, its fragments read
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  {
+    // warpgroup g owns digit rows 64 g .. + 63 (its RA coefficient rows),
+    // warp q of it rows 16 q .. + 15.  A lane's wgmma
+    // A fragment is two digit rows (l/4 and l/4 + 8 of its warp) at 4 + 4
+    // neighbouring k a 32-step: each 4 bytes are byte `sel` of 4
+    // neighbouring raw words (element (a, k) word or limb i / bpe holds
+    // digit i), read from the raw stage as 16 bytes and packed by 3 PRMTs;
+    // the 4 lanes of a row quad read the same words (broadcast)
+    const int lane = tid & 31, row = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int bpe = limbs ? 2 : 4;  // digit bytes a raw int32
+    int off[2];
+    uint32_t sel[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // rows `row` and `row + 8`
+      const int r = row + 8 * h - wg * 64, ar = r / T::D, i = r % T::D;
+      const int al = ar < T::RA ? wg * T::RA + ar : -1;  // -1: a padding row
+      off[h] = al < 0 ? -1 : (((i / bpe) * T::PA + al) * kKT + 4 * (lane & 3)) * 4;
+      const uint32_t b = i % bpe;
+      sel[h] = b | ((4 + b) << 4);
+    }
+    // thread 0 also issues the TMA copies: stage t's raw coefficient words
+    // and its table tile, each once its buffer is free
+    auto copy_raw = [&](int t) {
+      const int r = t % ahead;
+      mbar_arrive_tx(rfull0 + 8 * r, raw_stage);
+      tma_load_3d(sbase + kRawOff + r * raw_stage, &xmap, (int)(k0 + (long long)t * kKT),
+                  (int)a0, 0, rfull0 + 8 * r);
+    };
+    auto copy_b = [&](int t) {
+      const int s = t % kBStages;
+      mbar_arrive_tx(bfull0 + 8 * s, kBTile);
+      tma_load_3d(sbase + s * kBTile, &planes, 0, (int)(b0 * T::D), (int)(k0 / kKT) + t,
+                  bfull0 + 8 * s);
+    };
+    if (tid == 0) {
+      for (int t = 0; t < ahead && t < nt; ++t) copy_raw(t);
+      for (int t = 0; t < kBStages && t < nt; ++t) copy_b(t);
+    }
+    auto build = [&](uint32_t (&frag)[4][4], int t) {  // tile t's fragments, its raw stage freed
+      const int r = t % ahead;
+      mbar_wait(rfull0 + 8 * r, (t / ahead) & 1);
+      const uint8_t* raw = smem + kRawOff + r * raw_stage;
+#pragma unroll
+      for (int kk = 0; kk < kKT / 32; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {  // a[q]: row h = q & 1, k + 16 (q >> 1)
+          const int h = q & 1;
+          uint32_t v = 0;
+          if (off[h] >= 0) {
+            const uint4 x = *(const uint4*)(raw + off[h] + (32 * kk + 16 * (q >> 1)) * 4);
+            v = __byte_perm(__byte_perm(x.x, x.y, sel[h]), __byte_perm(x.z, x.w, sel[h]),
+                            0x5410);
+          }
+          frag[kk][q] = v;
+        }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(rempty0 + 8 * r);
+      if (tid == 0 && t + ahead < nt) {
+        mbar_wait(rempty0 + 8 * r, (t / ahead) & 1);
+        copy_raw(t + ahead);
+      }
+    };
+    // one stage: tile t's wgmmas from `cur`, then tile t + 1's fragments
+    // into `nxt` once tile t - 1's wgmmas (which read `nxt`) are done
+    auto stage = [&](int t, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+      const int s = t % kBStages;
+      mbar_wait(bfull0 + 8 * s, (t / kBStages) & 1);
+      const uint64_t db = sw128_desc(sbase + s * kBTile);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKT / 32; ++kk) wgmma_u8(acc, cur[kk], db + 2 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(nxt);
+      if (t > 0) {
+        const int sp = (t - 1) % kBStages;
+        if (lane == 0) mbar_arrive(bempty0 + 8 * sp);
+        if (tid == 0 && t - 1 + kBStages < nt) {
+          mbar_wait(bempty0 + 8 * sp, ((t - 1) / kBStages) & 1);
+          copy_b(t - 1 + kBStages);
+        }
+      }
+      if (t + 1 < nt) build(nxt, t + 1);
+    };
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0;
+    uint32_t f0[4][4], f1[4][4] = {};
+    build(f0, 0);
+    for (int t = 0; t < nt; t += 2) {
+      stage(t, f0, f1);
+      if (t + 1 < nt) stage(t + 1, f1, f0);
+    }
+    wgmma_wait<0>();
+    fence_regs(f0);
+    fence_regs(f1);
+#pragma unroll
+    for (int i = 0; i < 128; ++i) fence_acc(acc[i]);
+  }
+  __syncthreads();  // every stage consumed: the tiles' memory is free
+  // the fold: the accumulators into shared memory (row (a, i), column (b,
+  // j)), the anti-diagonal sums Q_s of each output, then its wide sum
+  {
+    uint32_t* sacc = (uint32_t*)smem;
+    const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2), c0 = 2 * (tid & 3);
+#pragma unroll
+    for (int g = 0; g < 32; ++g) {
+      *(uint2*)(sacc + r0 * kAccStride + 8 * g + c0) = make_uint2(acc[4 * g], acc[4 * g + 1]);
+      *(uint2*)(sacc + (r0 + 8) * kAccStride + 8 * g + c0) =
+          make_uint2(acc[4 * g + 2], acc[4 * g + 3]);
+    }
+  }
+  __syncthreads();
+  const uint32_t* sacc = (const uint32_t*)smem;
+  uint64_t* qs = (uint64_t*)(smem + kARows * kAccStride * 4);
+  for (int e = tid; e < T::NOUT * T::NQ; e += kTcThreads) {
+    const int o = e / T::NQ, s = e % T::NQ;
+    const int oa = o / T::PB;
+    const int rb = (oa / T::RA) * 64 + (oa % T::RA) * T::D, cb = (o % T::PB) * T::D;
+    const int i0 = s < T::D ? 0 : s - T::D + 1, i1 = s < T::D ? s : T::D - 1;
+    uint64_t sum = 0;
+    for (int i = i0; i <= i1; ++i) sum += sacc[(rb + i) * kAccStride + cb + s - i];
+    qs[e] = sum;  // < D 2^31
+  }
+  __syncthreads();
+  const Field<W> f(consts);
+  for (int o = tid; o < T::NOUT; o += kTcThreads) {
+    const long long a = a0 + o / T::PB, b = b0 + o % T::PB;
+    if (a >= A || b >= B) continue;
+    const uint64_t* q = qs + o * T::NQ;
+    uint32_t v[2 * W + 1];
+    uint64_t c = 0;
+#pragma unroll
+    for (int m = 0; m < 2 * W; ++m) {  // word m: Q_{4m .. 4m+3} and the carry, < 2^61
+      uint64_t t = c;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (4 * m + u < T::NQ) t += q[4 * m + u] << (8 * u);
+      v[m] = (uint32_t)t;
+      c = t >> 32;
+    }
+    v[2 * W] = (uint32_t)c;  // S < 2^15 R^2
+    uint32_t r[W];
+    reduce_wide<W>(r, v, f, consts, mont);
+    store<W>(out, blockIdx.z, a, b, r);
+  }
+}
+
+template <int W>
+cudaError_t launch_thin(const Operand& X, const Operand& Y, const Out& out,
+                        const uint32_t* consts, long long A, long long K, long long B,
+                        long long k_split, int n_split, int mont, cudaStream_t stream) {
+  const dim3 grid((unsigned)((B + kThinThreads - 1) / kThinThreads), (unsigned)n_split);
+  if (A == 1)
+    mont_dot_thin_kernel<W, 1><<<grid, kThinThreads, 0, stream>>>(X, Y, out, consts, 1, K, B,
+                                                                  k_split, mont);
+  else
+    mont_dot_thin_kernel<W, 2><<<grid, kThinThreads, 0, stream>>>(X, Y, out, consts, 2, K, B,
+                                                                  k_split, mont);
+  return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+template <int W>
+cudaError_t launch_tc(const int32_t* x, long long xs_w, long long xs_a, int x_limbs,
+                      const uint8_t* planes, long long kt, const Out& out, const uint32_t* consts,
+                      long long A, long long K, long long B, long long k_split, int n_split,
+                      int mont, cudaStream_t stream) {
+  using T = Tc<W>;
+  const long long ta = (A + T::PA - 1) / T::PA, tb = (B + T::PB - 1) / T::PB;
+  if (ta * tb >= (1LL << 31) || B * T::D >= (1LL << 31) || kt >= (1LL << 31) ||
+      A >= (1LL << 31) || K >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // X as (words or limbs) x A rows x K int32, read in boxes of PA rows x
+  // 128 k, every word (zero past A and K)
+  CUtensorMap xmap;
+  const cuuint32_t lw = x_limbs ? 2 * W : W;
+  const cuuint64_t xdims[3] = {(cuuint64_t)K, (cuuint64_t)A, lw};
+  const cuuint64_t xstrides[2] = {(cuuint64_t)xs_a * 4, (cuuint64_t)xs_w * 4};
+  const cuuint32_t xbox[3] = {kKT, T::PA, lw}, elem[3] = {1, 1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, (void*)x, xdims, xstrides, xbox, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  // the planes as kt k-tiles of (B D) rows of 128 bytes, read in boxes of
+  // 256 rows in the 128-byte swizzle (rows past B D read as zero)
+  CUtensorMap map;
+  const cuuint64_t dims[3] = {(cuuint64_t)kKT, (cuuint64_t)(B * T::D), (cuuint64_t)kt};
+  const cuuint64_t strides[2] = {(cuuint64_t)kKT, (cuuint64_t)(B * T::D * kKT)};
+  const cuuint32_t box[3] = {kKT, kBRows, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, (void*)planes, dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(mont_dot_tc_kernel<W>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(ta * tb), 1, (unsigned)n_split);
+  mont_dot_tc_kernel<W><<<grid, kTcThreads, T::SMEM, stream>>>(xmap, map, out, consts, A, K, B,
+                                                               k_split, mont, x_limbs);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // out[a, b] (+ split * os_split) = sum over k in split's range of X[a, k]
-// Y[k, b], reduced (mont = 0: canonical, 1: Montgomery), for a < A, b < B,
-// K split into n_split ranges of k_split; X element (a, k) word w at
+// Y[k, b], reduced (mont = 0: canonical, 1: Montgomery), for a < A <= 2,
+// b < B, K split into n_split ranges of k_split; X element (a, k) word w at
 // x + w xs_w + a xs_a + k xs_k (x_limbs: the word axis holds 16-bit limbs),
-// Y element (k, b) likewise, out words int32.  A <= 2 takes the thin
-// kernel, else the tiled one.  consts: p[w32] | n0 | r2[w32] | one[w32].
-// Returns the launch's cudaError_t (0 on success).
+// Y element (k, b) likewise, out words int32: the thin kernel.  consts:
+// p[w32] | n0 | r2[w32] | one[w32].  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int lcpc_mont_dot(const int32_t* x, long long xs_w, long long xs_a, long long xs_k,
                              int x_limbs, const int32_t* y, long long ys_w, long long ys_k,
                              long long ys_b, int y_limbs, int32_t* out, long long os_w,
@@ -354,11 +719,10 @@ extern "C" int lcpc_mont_dot(const int32_t* x, long long xs_w, long long xs_a, l
                              const uint32_t* consts, int w32, long long A, long long K,
                              long long B, long long k_split, int n_split, int mont, int device,
                              void* stream) {
-  if (x == nullptr || y == nullptr || out == nullptr || consts == nullptr || A < 1 || B < 1 ||
-      K < 1 || k_split < 1 || n_split < 1 || n_split > 65535 ||
+  if (x == nullptr || y == nullptr || out == nullptr || consts == nullptr || A < 1 || A > 2 ||
+      B < 1 || K < 1 || k_split < 1 || n_split < 1 || n_split > 65535 ||
       (long long)n_split * k_split < K || (long long)(n_split - 1) * k_split >= K ||
-      K >= (1LL << 31) || (A > 2 && (A + kTile - 1) / kTile > 65535) ||
-      (B + kThinThreads - 1) / kThinThreads >= (1LL << 31))
+      K >= (1LL << 31) || (B + kThinThreads - 1) / kThinThreads >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -366,10 +730,49 @@ extern "C" int lcpc_mont_dot(const int32_t* x, long long xs_w, long long xs_a, l
   const Out o{out, os_w, os_a, os_b, os_split};
   cudaStream_t s = (cudaStream_t)stream;
   switch (w32) {
-    case 2: return (int)launch<2>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
-    case 4: return (int)launch<4>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
-    case 6: return (int)launch<6>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
-    case 8: return (int)launch<8>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
+    case 2: return (int)launch_thin<2>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
+    case 4: return (int)launch_thin<4>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
+    case 6: return (int)launch_thin<6>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
+    case 8: return (int)launch_thin<8>(X, Y, o, consts, A, K, B, k_split, n_split, mont, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same product with Y as digit planes, on the tensor cores: planes
+// (kt, B, 4 w32, 128) u8, [t, b, j, e] byte j of Y[128 t + e, b] (kt >= K /
+// 128, the pointer 16-byte aligned); X element (a, k) word w at x + w xs_w +
+// a xs_a + k (x_limbs: the word axis holds 16-bit limbs), x 16-byte aligned
+// and xs_w, xs_a multiples of 4; any A >= 1.  k_split a multiple of 128, at
+// most 2^15.
+extern "C" int lcpc_mont_dot_planes(const int32_t* x, long long xs_w, long long xs_a,
+                                    int x_limbs, const uint8_t* planes, long long kt,
+                                    int32_t* out, long long os_w, long long os_a, long long os_b,
+                                    long long os_split, const uint32_t* consts, int w32,
+                                    long long A, long long K, long long B, long long k_split,
+                                    int n_split, int mont, int device, void* stream) {
+  if (x == nullptr || planes == nullptr || out == nullptr || consts == nullptr || A < 1 ||
+      B < 1 || K < 1 || kt * kKT < K || ((uintptr_t)planes & 15) || ((uintptr_t)x & 15) ||
+      xs_w % 4 || xs_a % 4 || k_split < 1 || k_split % kKT || k_split > kFoldK || n_split < 1 ||
+      n_split > 65535 || (long long)n_split * k_split < K ||
+      (long long)(n_split - 1) * k_split >= K)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Out o{out, os_w, os_a, os_b, os_split};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (w32) {
+    case 2:
+      return (int)launch_tc<2>(x, xs_w, xs_a, x_limbs, planes, kt, o, consts, A, K, B, k_split,
+                               n_split, mont, s);
+    case 4:
+      return (int)launch_tc<4>(x, xs_w, xs_a, x_limbs, planes, kt, o, consts, A, K, B, k_split,
+                               n_split, mont, s);
+    case 6:
+      return (int)launch_tc<6>(x, xs_w, xs_a, x_limbs, planes, kt, o, consts, A, K, B, k_split,
+                               n_split, mont, s);
+    case 8:
+      return (int)launch_tc<8>(x, xs_w, xs_a, x_limbs, planes, kt, o, consts, A, K, B, k_split,
+                               n_split, mont, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

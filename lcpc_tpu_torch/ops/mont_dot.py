@@ -6,20 +6,28 @@ csrc/power_table.cu).
   Montgomery operands x (W?, A, K) and y (W?, K, B), as (W/2, A, B) int32
   words, "canonical" (the plain value of the sum, what FieldOps.collapse_canon
   gives) or "mont" (its Montgomery form, what an opened codeword column
-  holds).  Each operand is "packed" ((W/2, ...) int32 words) or "limbs"
-  ((W, ...) int32 16-bit limbs), read in place whatever its strides.  On a
-  CUDA device it launches the kernel (each launch counted in
-  mont_dot.launches), splitting K over more blocks where the output alone
-  would not fill the card and summing the splits in a second launch; on the
+  holds).  x is "packed" ((W/2, ...) int32 words) or "limbs" ((W, ...)
+  int32 16-bit limbs), read in place whatever its strides; y is one of
+  those or "planes" ((KT, B, 2W, 128) uint8 byte-digit planes by k-tiles
+  of TC_KT, `to_planes`).
+  On a CUDA device it launches a kernel (each launch counted in
+  mont_dot.launches): the thin kernel for A <= 2 rows against y as words,
+  else the tensor-core kernel against y as planes (y given as words is
+  laid out as planes first); K is split into ranges of at most FOLD_K
+  (the tensor-core kernel's s32 limit), and more where the output alone
+  would not fill the card, and a second launch sums the splits.  On the
   CPU it runs `mont_dot_plain`, FieldOps.collapse_canon_plain's float64
   products.
-- `power_table(spec, g, K)`: V[m, j] = g_j^m (m < K) in Montgomery form as
-  (W/2, K, k) int32 words for the points g (W/2, k); CUDA launches the
-  kernel once (power_table.launches), the CPU runs `power_table_plain`
-  (the same two ladders with FieldOps).
+- `power_table(spec, g, K, form)`: V[m, j] = g_j^m (m < K) in Montgomery
+  form for the points g (W/2, k), as (W/2, K, k) int32 words ("words") or
+  as (KT, k, 2W, 128) digit planes ("planes"); CUDA launches the kernel once
+  (power_table.launches), the CPU runs `power_table_plain` (the same two
+  ladders with FieldOps).
 
 The plain versions run on any device; the tests use them on the CPU and
-chip_smoke.py holds the kernels to them on the card.
+chip_smoke.py holds the kernels to them on the card.  `mont_dot_planes_plain`
+models the tensor-core kernel's arithmetic (a u8 product of digit planes,
+folded every FOLD_K k-steps) for the tests; no path calls it.
 """
 
 from __future__ import annotations
@@ -36,10 +44,16 @@ from .limbs import get_ops
 from .spmv import pack_words, unpack_words
 
 FORMS = ("packed", "limbs")
+Y_FORMS = FORMS + ("planes",)
 OUT_FORMS = ("canonical", "mont")
-MIN_SPLIT_K = 64    # k-steps a K split at least
+TABLE_FORMS = ("words", "planes")
+MIN_SPLIT_K = 64    # k-steps a K split at least (thin)
 THIN_THREADS = 128  # csrc/mont_dot.cu kThinThreads
-TILE = 32           # csrc/mont_dot.cu kTile
+TC_KT = 128         # csrc/mont_dot.cu kKT: k-steps a stage (tensor cores)
+TC_MIN_SPLIT = 1024  # k-steps a K split at least (tensor cores)
+# csrc/mont_dot.cu kFoldK: k-steps an s32 accumulator of byte products takes
+# (2^15 * 255^2 < 2^31)
+FOLD_K = 1 << 15
 POWER_A = 32        # csrc/power_table.cu kA: the low ladder's length
 
 
@@ -72,12 +86,48 @@ def _n_sm(index: int) -> int:
 
 
 def _check(spec: FieldSpec, t: torch.Tensor, form: str, name: str) -> None:
-    if form not in FORMS:
-        raise ValueError(f"mont_dot: {name}_form must be one of {FORMS}, got {form!r}")
+    forms = Y_FORMS if name == "y" else FORMS
+    if form not in forms:
+        raise ValueError(f"mont_dot: {name}_form must be one of {forms}, got {form!r}")
+    if form == "planes":
+        if (t.dtype != torch.uint8 or t.dim() != 4 or t.shape[2] != 2 * spec.w16
+                or t.shape[3] != TC_KT or not t.is_contiguous()):
+            raise ValueError(f"mont_dot: planes must be contiguous (KT, B, {2 * spec.w16}, "
+                             f"{TC_KT}) uint8, got {tuple(t.shape)} {t.dtype}")
+        return
     rows = spec.w16 if form == "limbs" else spec.w16 // 2
     if t.dtype != torch.int32 or t.dim() != 3 or t.shape[0] != rows:
         raise ValueError(f"mont_dot: {name} must be ({rows}, ., .) int32 ({form}), got "
                          f"{tuple(t.shape)} {t.dtype}")
+
+
+def plane_tiles(K: int) -> int:
+    """The k-tiles of TC_KT bytes that hold K digits."""
+    return -(-K // TC_KT)
+
+
+def to_planes(spec: FieldSpec, y: torch.Tensor, form: str = "packed") -> torch.Tensor:
+    """(W/2 or W, K, B) words or limbs -> (KT, B, 2W, TC_KT) uint8 byte-digit
+    planes: [t, b, d, e] is byte d of y[t TC_KT + e, b] (byte d mod 4 of word
+    d // 4), zero from K on.  Each k-tile of every plane row is one
+    contiguous run, and a k-tile of all points one contiguous slab: what the
+    tensor-core kernel reads a stage at a time."""
+    w = pack_words(y, 0) if form == "limbs" else y
+    w32, K, B = w.shape
+    kt = plane_tiles(K)
+    b = torch.zeros((w32, kt * TC_KT, B, 4), dtype=torch.uint8, device=y.device)
+    b[:, :K] = w.contiguous().view(torch.uint8).reshape(w32, K, B, 4)  # little-endian bytes
+    b = b.reshape(w32, kt, TC_KT, B, 4).permute(1, 3, 0, 4, 2)
+    return b.reshape(kt, B, 4 * w32, TC_KT).contiguous()
+
+
+def planes_to_words(planes: torch.Tensor, K: int) -> torch.Tensor:
+    """The inverse of to_planes: (KT, B, 2W, TC_KT) uint8 -> (W/2, K, B) int32
+    words."""
+    kt, B, d, _ = planes.shape
+    b = planes.reshape(kt, B, d // 4, 4, TC_KT).permute(2, 0, 4, 1, 3)
+    b = b.reshape(d // 4, kt * TC_KT, B, 4)[:, :K].contiguous()
+    return b.view(torch.int32).reshape(d // 4, K, B)
 
 
 def mont_dot_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor,
@@ -85,6 +135,8 @@ def mont_dot_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor,
                    y_form: str = "packed") -> torch.Tensor:
     """The plain version of mont_dot, on any device: (W/2, A, B) int32 words."""
     ops = get_ops(spec)
+    if y_form == "planes":
+        y, y_form = planes_to_words(y, x.shape[2]), "packed"
     xl = x if x_form == "limbs" else unpack_words(x, 0)
     yl = y if y_form == "limbs" else unpack_words(y, 0)
     canon = ops.collapse_canon_plain(xl, yl)  # (W, A, B)
@@ -93,23 +145,102 @@ def mont_dot_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor,
     return pack_words(canon, 0)
 
 
+def mont_dot_planes_plain(spec: FieldSpec, x: torch.Tensor, planes: torch.Tensor,
+                          out_form: str = "canonical", *, x_form: str = "packed",
+                          fold: int = FOLD_K) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic in plain torch, on any device:
+    the u8 product of x's digit planes (rows (a, i)) with the planes (rows
+    (b, j)) over each range of `fold` k-steps, its entries held to the s32
+    accumulator's limit, each range folded into the exact wide sum
+    S = sum_{i, j} P_ij 2^(8 (i + j)), and S reduced over Python ints.
+    Exact: integer products (float64 where torch has no integer matmul, its
+    sums < 2^53).  (W/2, A, B) int32 words."""
+    w32, d = spec.w16 // 2, 2 * spec.w16
+    xw = pack_words(x, 0) if x_form == "limbs" else x
+    A, K, B = xw.shape[1], xw.shape[2], planes.shape[1]
+    xp = xw.contiguous().view(torch.uint8).reshape(w32, A, K, 4).permute(1, 0, 3, 2)
+    xp = xp.reshape(A * d, K)                  # row (a, i): byte i of x[a, k]
+    yp = planes.permute(1, 2, 0, 3).reshape(B * d, -1)[:, :K]  # row (b, j)
+    dt = torch.int64 if x.device.type == "cpu" else torch.float64
+    sums = [[0] * B for _ in range(A)]
+    for k0 in range(0, K, fold):
+        p = (xp[:, k0 : k0 + fold].to(dt) @ yp[:, k0 : k0 + fold].to(dt).T).to(torch.int64)
+        if int(p.max()) >= 1 << 31:
+            raise OverflowError(f"mont_dot_planes_plain: a digit-plane sum {int(p.max())} "
+                                f"passes the s32 accumulator over {fold} k-steps")
+        p = p.reshape(A, d, B, d)
+        q = torch.zeros((A, B, 2 * d - 1), dtype=torch.int64, device=p.device)
+        for i in range(d):  # the anti-diagonal sums Q_s = sum_{i + j = s} P_ij
+            q[:, :, i : i + d] += p[:, i]
+        q = q.cpu().tolist()
+        for a in range(A):
+            for b in range(B):
+                sums[a][b] += sum(v << (8 * s) for s, v in enumerate(q[a][b]))
+    p_, shift = spec.p, 2 if out_form == "canonical" else 1
+    scale = pow(pow(spec.R, -1, p_), shift, p_)
+    vals = [[s * scale % p_ for s in row] for row in sums]
+    words = torch.tensor([[[(v >> (32 * w)) & 0xFFFFFFFF for v in row] for row in vals]
+                          for w in range(w32)], dtype=torch.int64).reshape(w32, A, B)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)  # int32 storage of u32
+    return words.to(torch.int32).to(x.device)
+
+
+def _tma_operand(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor-core kernel's TMA reads it: unit stride along K, the
+    other strides multiples of 4 elements, 16-byte aligned.  Anything else
+    (a transpose, K not a multiple of 4: tests and edge shapes, never the
+    prover's blocks) is copied into such a tensor, zero past K."""
+    if (x.stride(2) == 1 and x.stride(1) % 4 == 0 and x.stride(0) % 4 == 0
+            and x.data_ptr() % 16 == 0):
+        return x
+    rows, A, K = x.shape
+    buf = torch.zeros((rows, A, -(-K // 4) * 4), dtype=x.dtype, device=x.device)
+    buf[:, :, :K] = x
+    return buf
+
+
+def tc_split(spec: FieldSpec, A: int, K: int, B: int, n_sm: int) -> tuple[int, int]:
+    """(k_split, n_split) of a tensor-core launch: ranges of at most FOLD_K
+    k-steps, a multiple of TC_KT; more of them where the blocks (PA rows x PB
+    points each, csrc/mont_dot.cu Tc<W>) would number fewer than twice the
+    SMs."""
+    d = 2 * spec.w16
+    base = -(-A // (2 * (64 // d))) * -(-B // (256 // d))
+    n = -(-K // FOLD_K)
+    if base * n < 2 * n_sm and K > TC_MIN_SPLIT:
+        n = max(n, min(-(-2 * n_sm // base), -(-K // TC_MIN_SPLIT), 65535))
+    k_split = -(-(-(-K // n)) // TC_KT) * TC_KT
+    return k_split, -(-K // k_split)
+
+
 def _bind_dot(lib) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.lcpc_mont_dot.argtypes = ([p, ll, ll, ll, i, p, ll, ll, ll, i, p, ll, ll, ll, ll, p, i,
                                    ll, ll, ll, ll, i, i, i, p])
     lib.lcpc_mont_dot.restype = ctypes.c_int
+    lib.lcpc_mont_dot_planes.argtypes = ([p, ll, ll, i, p, ll, p, ll, ll, ll, ll, p, i, ll,
+                                          ll, ll, ll, i, i, i, p])
+    lib.lcpc_mont_dot_planes.restype = ctypes.c_int
 
 
 def _launch(spec, x, xs, x_limbs, y, ys, y_limbs, out, os, A, K, B, k_split, n_split,
             mont) -> None:
-    """One kernel launch: x, y, out tensors with (word/limb, i, j) element
-    strides xs, ys and (word, a, b, split) strides os."""
+    """One launch: x, out tensors with (word/limb, i, j) element strides xs
+    and (word, a, b, split) strides os; y words with strides ys (the thin
+    kernel, A <= 2) or, with ys None, digit planes (the tensor-core kernel)."""
     device = out.device
     lib = cuda_build.load("mont_dot", _bind_dot)
-    err = lib.lcpc_mont_dot(x.data_ptr(), *xs, int(x_limbs), y.data_ptr(), *ys, int(y_limbs),
-                            out.data_ptr(), *os, field_consts(spec, device).data_ptr(),
-                            spec.w16 // 2, A, K, B, k_split, n_split, int(mont),
-                            device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    consts = field_consts(spec, device).data_ptr()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if ys is None:
+        err = lib.lcpc_mont_dot_planes(x.data_ptr(), xs[0], xs[1], int(x_limbs), y.data_ptr(),
+                                       y.shape[0], out.data_ptr(), *os, consts, spec.w16 // 2, A,
+                                       K, B, k_split, n_split, int(mont), device.index or 0,
+                                       stream)
+    else:
+        err = lib.lcpc_mont_dot(x.data_ptr(), *xs, int(x_limbs), y.data_ptr(), *ys,
+                                int(y_limbs), out.data_ptr(), *os, consts, spec.w16 // 2, A, K,
+                                B, k_split, n_split, int(mont), device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"mont_dot launch failed: cudaError_t {err}")
     mont_dot.launches += 1
@@ -125,9 +256,11 @@ def mont_dot(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor, out_form: str = 
     if out_form not in OUT_FORMS:
         raise ValueError(f"mont_dot: out_form must be one of {OUT_FORMS}, got {out_form!r}")
     A, K = x.shape[1], x.shape[2]
-    if y.shape[1] != K:
-        raise ValueError(f"mont_dot: x {tuple(x.shape)} and y {tuple(y.shape)} differ in K")
-    B = y.shape[2]
+    planes = y_form == "planes"
+    if planes and y.shape[0] != plane_tiles(K) or not planes and y.shape[1] != K:
+        raise ValueError(f"mont_dot: x {tuple(x.shape)} and y {tuple(y.shape)} ({y_form}) "
+                         f"differ in K")
+    B = y.shape[1] if planes else y.shape[2]
     w32 = spec.w16 // 2
     if x.device != y.device:
         raise ValueError(f"mont_dot: operands on {x.device} and {y.device}")
@@ -146,25 +279,38 @@ def mont_dot(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor, out_form: str = 
         return out
     if K == 0:
         return out.zero_()
-    # split K where the output's blocks number fewer than twice the SMs
-    base = -(-B // THIN_THREADS) if A <= 2 else -(-B // TILE) * -(-A // TILE)
-    n_split = 1
-    if base < 2 * _n_sm(device.index or 0) and K > MIN_SPLIT_K:
-        n_split = min(-(-2 * _n_sm(device.index or 0) // base), -(-K // MIN_SPLIT_K), 65535)
-    k_split = -(-K // n_split)
-    n_split = -(-K // k_split)
-    xs, ys = x.stride(), y.stride()
+    n_sm = _n_sm(device.index or 0)
+    tc = planes or A > 2
+    if tc:
+        if not planes:
+            y = to_planes(spec, y, y_form)
+        x = _tma_operand(x)
+        if K > 65535 * FOLD_K:
+            raise ValueError(f"mont_dot: K = {K} is past {65535 * FOLD_K}")
+        k_split, n_split = tc_split(spec, A, K, B, n_sm)
+        ys = None
+    else:
+        # split K where the output's blocks number fewer than twice the SMs
+        base = -(-B // THIN_THREADS)
+        n_split = 1
+        if base < 2 * n_sm and K > MIN_SPLIT_K:
+            n_split = min(-(-2 * n_sm // base), -(-K // MIN_SPLIT_K), 65535)
+        k_split = -(-K // n_split)
+        n_split = -(-K // k_split)
+        ys = y.stride()
+    xs = x.stride()
     mont = out_form == "mont"
+    y_limbs = y_form == "limbs"
     if n_split == 1:
-        _launch(spec, x, xs, x_form == "limbs", y, ys, y_form == "limbs", out,
-                (*out.stride(), 0), A, K, B, K, 1, mont)
+        _launch(spec, x, xs, x_form == "limbs", y, ys, y_limbs, out, (*out.stride(), 0), A, K,
+                B, k_split, 1, mont)
         return out
     # canonical partials of each K range, then their sum: a thin launch with
     # x the constant R^2 mod p (sum_s partial_s R^2 R^-2 = sum_s partial_s)
     n = A * B
     parts = torch.empty((w32, n_split, n), dtype=torch.int32, device=device)
-    _launch(spec, x, xs, x_form == "limbs", y, ys, y_form == "limbs", parts,
-            (n_split * n, B, 1, n), A, K, B, k_split, n_split, False)
+    _launch(spec, x, xs, x_form == "limbs", y, ys, y_limbs, parts, (n_split * n, B, 1, n), A,
+            K, B, k_split, n_split, False)
     r2 = field_consts(spec, device)[w32 + 1 :]
     flat = out if out.is_contiguous() else torch.empty_like(out)
     _launch(spec, r2, (1, 0, 0), False, parts, parts.stride(), False, flat, (n, 0, 1, 0),
@@ -178,10 +324,14 @@ mont_dot.launches = 0
 # ---- the power table ----------------------------------------------------------------
 
 
-def power_table_plain(spec: FieldSpec, g: torch.Tensor, K: int) -> torch.Tensor:
+def power_table_plain(spec: FieldSpec, g: torch.Tensor, K: int,
+                      form: str = "words") -> torch.Tensor:
     """The plain version of power_table, on any device: the low ladder g^t
     (t < POWER_A) and the high ladder g^(POWER_A q), each by doubling, then
-    one Montgomery product an entry."""
+    one Montgomery product an entry; "planes" lays the words out by
+    to_planes."""
+    if form not in TABLE_FORMS:
+        raise ValueError(f"power_table: form must be one of {TABLE_FORMS}, got {form!r}")
     ops = get_ops(spec)
     gl = unpack_words(g, 0)  # (W, k)
     one = torch.from_numpy(ops.encode_host([1]).astype(np.int32)).to(g.device)
@@ -196,36 +346,45 @@ def power_table_plain(spec: FieldSpec, g: torch.Tensor, K: int) -> torch.Tensor:
 
     lo, ga = ladder(gl, POWER_A)
     hi, _ = ladder(ga, -(-K // POWER_A))
-    table = ops.mul(hi[:, :, None, :], lo[:, None, :, :]).flatten(1, 2)[:, :K]
-    return pack_words(table, 0)
+    table = pack_words(ops.mul(hi[:, :, None, :], lo[:, None, :, :]).flatten(1, 2)[:, :K], 0)
+    return to_planes(spec, table) if form == "planes" else table
 
 
 def _bind_table(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.lcpc_power_table.argtypes = [p, p, p, i, i, i, i, p]
+    lib.lcpc_power_table.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.lcpc_power_table.restype = ctypes.c_int
 
 
-def power_table(spec: FieldSpec, g: torch.Tensor, K: int) -> torch.Tensor:
-    """V[m, j] = g_j^m for m < K: (W/2, K, k) int32 Montgomery words of the
-    points g ((W/2, k) int32 Montgomery words)."""
+def power_table(spec: FieldSpec, g: torch.Tensor, K: int, form: str = "words") -> torch.Tensor:
+    """V[m, j] = g_j^m for m < K of the points g ((W/2, k) int32 Montgomery
+    words), Montgomery: (W/2, K, k) int32 words ("words", what the thin
+    mont_dot kernel reads) or (KT, k, 2W, TC_KT) uint8 digit planes
+    ("planes", to_planes' layout, what the tensor-core kernel reads)."""
     w32 = spec.w16 // 2
     if g.dtype != torch.int32 or g.dim() != 2 or g.shape[0] != w32:
         raise ValueError(f"power_table: g must be ({w32}, k) int32, got {tuple(g.shape)}")
     if K < 1:
         raise ValueError(f"power_table: K must be >= 1, got {K}")
+    if form not in TABLE_FORMS:
+        raise ValueError(f"power_table: form must be one of {TABLE_FORMS}, got {form!r}")
     if g.device.type == "cpu":
-        return power_table_plain(spec, g, K)
+        return power_table_plain(spec, g, K, form)
     if g.device.type != "cuda":
         raise ValueError(f"power_table: unsupported device {g.device}")
     g = g.contiguous()
     k = g.shape[1]
-    out = torch.empty((w32, K, k), dtype=torch.int32, device=g.device)
+    planes = form == "planes"
+    if planes:
+        out = torch.empty((plane_tiles(K), k, 4 * w32, TC_KT), dtype=torch.uint8,
+                          device=g.device)
+    else:
+        out = torch.empty((w32, K, k), dtype=torch.int32, device=g.device)
     if k:
         lib = cuda_build.load("power_table", _bind_table)
         err = lib.lcpc_power_table(g.data_ptr(), out.data_ptr(),
                                    field_consts(spec, g.device).data_ptr(), w32, K, k,
-                                   g.device.index or 0,
+                                   int(planes), g.device.index or 0,
                                    torch.cuda.current_stream(g.device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"power_table launch failed: cudaError_t {err}")

@@ -13,11 +13,12 @@
    (ops/mont_dot.py: power_table) and evaluates blocks against it, in
    place of re-encoding every block when the codeword was not kept.
 
-lcpc_tpu contracts int8 digit planes on the TPU's matrix unit; here both
-products are the mont_dot kernel (csrc/mont_dot.cu), which computes the
-same outputs: MxuCollapse's equal FieldOps.collapse_words, MxuColumnEval's
-equal the columns gathered out of LcEncoding.encode_rows.  Only the outputs
-are reproduced, not the digit method.
+lcpc_tpu contracts int8 digit planes (base 2^7) on the TPU's matrix unit;
+here both products are mont_dot (csrc/mont_dot.cu): the collapse's two
+rows on the CUDA cores, the column evaluation on the tensor cores over the
+values' own bytes as u8 digit planes (power_table writes V as such planes).
+The outputs are lcpc_tpu's: MxuCollapse's equal FieldOps.collapse_words,
+MxuColumnEval's equal the columns gathered out of LcEncoding.encode_rows.
 """
 
 from __future__ import annotations
@@ -103,12 +104,17 @@ class MxuColumnEval:
     For LigeroEncoding: column c = row polynomial at w_nc^bitrev(c).  Usage:
     ev = MxuColumnEval(enc); ev.set_columns(cols); ev.eval_block(block) per
     row block -> (W/2, rows, k) packed Montgomery words, int64 u32 values,
-    equal to gathering the same columns out of enc.encode_rows(block)."""
+    equal to gathering the same columns out of enc.encode_rows(block).
 
-    def __init__(self, enc):
+    `table_form` is the power table's layout: "planes" (the prover's blocks
+    of many rows, on the tensor cores) or "words" (the verifier's few rows,
+    on the thin kernel)."""
+
+    def __init__(self, enc, table_form: str = "planes"):
         self.enc = enc
         self.spec = enc.spec
         self.ops = get_ops(enc.spec)
+        self.table_form = table_form
         self._table = None
 
     def set_columns(self, cols: "list[int]") -> None:
@@ -120,11 +126,11 @@ class MxuColumnEval:
         rev = bit_reverse_indices(n_cols)
         gs = [pow(w_nc, int(rev[c]), p) for c in cols]  # g_j = w^bitrev(c_j)
         g = pack_words(limbs_to_device(self.ops.encode_host(gs), self.enc.device), 0)
-        self._table = power_table(spec, g, self.enc.n_per_row)  # (W/2, npr, k)
+        self._table = power_table(spec, g, self.enc.n_per_row, self.table_form)
 
     @property
     def table_bytes(self) -> int:
-        return 0 if self._table is None else self._table.numel() * 4
+        return 0 if self._table is None else self._table.numel() * self._table.element_size()
 
     def eval_block(self, block: torch.Tensor, in_form: str = "limbs") -> torch.Tensor:
         """block (W | W/2, rows, n_per_row) -> (W/2, rows, k) packed
@@ -136,5 +142,6 @@ class MxuColumnEval:
         if block.shape[2] != self.enc.n_per_row:
             raise ValueError(f"eval_block: rows of {self.enc.n_per_row} coefficients, got "
                              f"{tuple(block.shape)}")
-        words = mont_dot(self.spec, block, self._table, "mont", x_form=in_form)
+        words = mont_dot(self.spec, block, self._table, "mont", x_form=in_form,
+                         y_form="planes" if self.table_form == "planes" else "packed")
         return words.to(torch.int64) & 0xFFFFFFFF

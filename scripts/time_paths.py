@@ -18,10 +18,14 @@ run parent, change, change, parent in one call.  ft255, BLAKE3, seed 0:
     the median and the least of 5 warm runs;
   - Ligero rho = 1/4 at 2^28 through commit_streaming (packed coefficients
     made on the card), then prove and verify: one cold run and the median
-    and the least of 2 warm runs, and a trace of one verify.
+    and the least of 2 warm runs, and a trace of one verify;
+  - seeded Ligero rho = 1/4 at 2^29 (SeededCoeffSource, seed 0, no hash
+    words kept: prove evaluates the opened columns directly): one commit,
+    then prove 3 times (the first cold) and verify once.
 
-Prints one JSON line last and writes chiprun_out/time_paths_<label>.json.
-Needs a CUDA device.
+Then ptxas's registers and spills of every mont_dot and power_table
+template the checkout built.  Prints one JSON line last and writes
+chiprun_out/time_paths_<label>.json.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -168,6 +172,47 @@ def main() -> int:
     del comm, verify, coeffs
     torch.cuda.empty_cache()
 
+    # seeded Ligero 2^29, no words kept: one commit, prove 3 times, verify once
+    n = 1 << 29
+    enc = P.LigeroEncoding.new(spec, n, 1, 4)
+    src = P.SeededCoeffSource(spec, n, seed=0, device="cuda")
+    n_rows = -(-n // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, 0x243F6A8885A308D3, enc.n_per_row, n_rows)
+    torch.cuda.empty_cache()
+    comm, c_ms = synced(lambda: P.commit_streaming(src, enc))
+    if comm.words_dev is not None or comm.words_host is not None:
+        raise AssertionError("the 2^29 commit kept words")
+    root = comm.get_root()
+
+    def transcript():
+        tr = P.Transcript(b"time paths")
+        tr.append_message(b"polycommit", root)
+        tr.append_message(b"ncols", enc.get_n_col_opens().to_bytes(8, "big"))
+        return tr
+
+    proves = []
+    for _ in range(3):
+        proof, p_ms = synced(lambda: comm.prove(outer, transcript()))
+        proves.append(p_ms)
+    value_29, v_ms = synced(lambda: proof.verify(root, outer, inner, enc, transcript()))
+    result["ligero_2_29_seeded"] = {"commit_ms": c_ms, "prove_ms": proves, "verify_ms": v_ms,
+                                    "prove_median_warm": statistics.median(proves[1:])}
+    result["values"].append(value_29 % (1 << 64))
+    del comm, proof, src
+    torch.cuda.empty_cache()
+    print(f"{args.label} ligero_2_29_seeded: commit {c_ms:.1f} ms (cold), prove "
+          f"{' / '.join(f'{x:.1f}' for x in proves)} ms (first cold), verify {v_ms:.1f} ms",
+          flush=True)
+
+    # the kernels this checkout built: registers and spills of every template
+    cb = importlib.import_module("lcpc_tpu_torch.utils.cuda_build")
+    result["ptxas"] = {name: {k: list(v) for k, v in
+                              kb.ptxas_entries(cb.build_logs.get(name, ""), kname).items()}
+                       for name, kname in (("mont_dot", "mont_dot_"), ("power_table", "power_"))}
+    for name, ents in result["ptxas"].items():
+        for k, (regs, st, ld) in sorted(ents.items()):
+            print(f"{args.label} ptxas {k}: {regs} registers, {st} / {ld} bytes spill", flush=True)
+
     paths = ("ligero_2_23", "ligero_2_26_nokeep", "ligero_2_28")
     for name in paths:
         r = result[name]
@@ -183,7 +228,8 @@ def main() -> int:
     with open(os.path.join(out_dir, f"time_paths_{args.label}.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps({k: result[k] for k in ("label", "card", "values")}
-                     | {name: result[name]["median"] for name in paths}))
+                     | {name: result[name]["median"] for name in paths}
+                     | {"ligero_2_29_seeded_prove_ms": result["ligero_2_29_seeded"]["prove_ms"]}))
     return 0
 
 

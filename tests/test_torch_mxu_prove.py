@@ -1,8 +1,11 @@
 """The prover's contractions (lcpc_tpu_torch.ops.mxu_prove, ops/mont_dot.py)
 on the CPU, where they run the kernels' plain versions: MxuCollapse against
-FieldOps.collapse_words and lcpc_tpu's MxuCollapse, MxuColumnEval against
-the columns of LcEncoding.encode_rows, lcpc_tpu's MxuColumnEval and Horner
-over Python ints, and mont_dot / power_table against Python ints.
+FieldOps.collapse_words and lcpc_tpu's MxuCollapse, MxuColumnEval (its power
+table as digit planes and as words) against the columns of
+LcEncoding.encode_rows, lcpc_tpu's MxuColumnEval and Horner over Python
+ints, and mont_dot / power_table against Python ints; the digit-plane
+layout and the tensor-core kernel's arithmetic (mont_dot_planes_plain, its
+folds and the s32 limit) against mont_dot_plain and Python ints.
 Tolerance 0 everywhere: exact field arithmetic."""
 
 import random
@@ -15,6 +18,7 @@ import torch
 import lcpc_tpu_torch as P
 from lcpc_tpu_torch.ops import mxu_prove as M
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
+from lcpc_tpu_torch.ops import mont_dot as MD
 from lcpc_tpu_torch.ops.mont_dot import mont_dot, mont_dot_plain, power_table
 from lcpc_tpu_torch.ops.ntt import bit_reverse_indices
 from lcpc_tpu_torch.ops.spmv import pack_words, unpack_words
@@ -59,7 +63,8 @@ def test_collapse_equals_collapse_words_and_reference(monkeypatch):
 
 def test_column_eval_equals_encode_gather_and_reference():
     """ft63: MxuColumnEval of a block (repeated and edge columns) equals the
-    same columns of encode_rows and lcpc_tpu's MxuColumnEval."""
+    same columns of encode_rows and lcpc_tpu's MxuColumnEval, with its
+    power table in either layout."""
     import lcpc_tpu as J
     from lcpc_tpu.ops import mxu_prove as JM
 
@@ -68,11 +73,13 @@ def test_column_eval_equals_encode_gather_and_reference():
     enc = P.LigeroEncoding.new_from_dims(spec, 40, 128, 1, 4, device="cpu")
     blk = _limbs(spec, [rnd.randrange(spec.p) for _ in range(6 * 40)], (6, 40))
     cols = [0, 127, 5, 64, 5, 99]
-    ev = M.MxuColumnEval(enc)
-    ev.set_columns(cols)
     want = pack_words(enc.encode_rows(blk)[:, :, cols], 0).to(torch.int64) & 0xFFFFFFFF
-    assert torch.equal(ev.eval_block(blk), want)
-    assert torch.equal(ev.eval_block(pack_words(blk, 0), in_form="packed"), want)
+    for table_form, table_bytes in (("planes", 6 * 8 * 128), ("words", 2 * 40 * 6 * 4)):
+        ev = M.MxuColumnEval(enc, table_form)
+        ev.set_columns(cols)
+        assert ev.table_bytes == table_bytes
+        assert torch.equal(ev.eval_block(blk), want)
+        assert torch.equal(ev.eval_block(pack_words(blk, 0), in_form="packed"), want)
     jev = JM.MxuColumnEval(J.LigeroEncoding.new_from_dims(J.FT63, 40, 128, 1, 4))
     jev.set_columns(cols)
     jgot = jev.eval_block(jnp.asarray(blk.numpy().astype(np.uint32)))
@@ -81,7 +88,8 @@ def test_column_eval_equals_encode_gather_and_reference():
 
 def test_column_eval_ft255_equals_horner():
     """ft255: the opened columns are the rows at w^bitrev(c), by Horner over
-    Python ints (no JAX compile of an ft255 graph)."""
+    Python ints (no JAX compile of an ft255 graph), with the power table in
+    either layout."""
     spec = P.FT255
     ops = get_ops(spec)
     rnd = random.Random(4)
@@ -90,15 +98,16 @@ def test_column_eval_ft255_equals_horner():
     vals = [[rnd.randrange(spec.p) for _ in range(npr)] for _ in range(rows)]
     blk = _limbs(spec, [v for r in vals for v in r], (rows, npr))
     cols = [1, 63, 17]
-    ev = M.MxuColumnEval(enc)
-    ev.set_columns(cols)
-    got = unpack_words(ev.eval_block(blk).to(torch.int32), 0)  # (W, rows, k) Montgomery
     w = spec.root_for_log_len(6)
     rev = bit_reverse_indices(n_cols)
-    for r in range(rows):
-        for j, c in enumerate(cols):
-            want = P.univariate_eval(spec, vals[r], pow(w, int(rev[c]), spec.p))
-            assert ops.decode_host(got[:, r, j]) == [want]
+    for table_form in MD.TABLE_FORMS:
+        ev = M.MxuColumnEval(enc, table_form)
+        ev.set_columns(cols)
+        got = unpack_words(ev.eval_block(blk).to(torch.int32), 0)  # (W, rows, k) Montgomery
+        for r in range(rows):
+            for j, c in enumerate(cols):
+                want = P.univariate_eval(spec, vals[r], pow(w, int(rev[c]), spec.p))
+                assert ops.decode_host(got[:, r, j]) == [want]
 
 
 def test_mont_dot_and_power_table_against_ints():
@@ -127,3 +136,107 @@ def test_mont_dot_and_power_table_against_ints():
         gs = [rnd.randrange(p) for _ in range(3)]
         table = unpack_words(power_table(spec, pack_words(_limbs(spec, gs, (3,)), 0), 70), 0)
         assert ops.decode_host(table) == [pow(g, m, p) for m in range(70) for g in gs]
+
+
+def _host_dot(spec, xi, yi, shift):
+    """sum_k x[a][k] y[k][b] R^-shift mod p over Python ints, (A, B)."""
+    p, r_inv = spec.p, pow(spec.R, -1, spec.p)
+    return [[sum(xa[k] * yi[k][b] for k in range(len(xa))) * pow(r_inv, shift, p) % p
+             for b in range(len(yi[0]))] for xa in xi]
+
+
+def _words_ints(spec, words):
+    """(W/2, A, B) int32 words -> (A, B) Python ints."""
+    w = (words.to(torch.int64) & 0xFFFFFFFF).tolist()
+    return [[sum(w[i][a][b] << (32 * i) for i in range(len(w))) for b in range(len(w[0][0]))]
+            for a in range(len(w[0]))]
+
+
+def test_plane_product_against_plain_and_ints():
+    """mont_dot_planes_plain (the tensor-core kernel's arithmetic: u8 digit
+    planes, a fold every `fold` k-steps) equals mont_dot_plain and Python
+    ints in every field, on random operands and on all-0xFF bytes (every
+    value R - 1, as an unreduced operand may be) across fold boundaries;
+    to_planes and planes_to_words invert each other."""
+    for spec in P.ALL_FIELDS:
+        _plane_product_case(spec)
+
+
+def _plane_product_case(spec):
+    ops = get_ops(spec)
+    rnd = random.Random(8)
+    A, K, B = 3, 11, 4
+    x = _limbs(spec, [rnd.randrange(spec.p) for _ in range(A * K)], (A, K))
+    y = pack_words(_limbs(spec, [rnd.randrange(spec.p) for _ in range(K * B)], (K, B)), 0)
+    planes = MD.to_planes(spec, y)
+    assert planes.shape == (1, B, 2 * spec.w16, MD.TC_KT) and not planes[..., K:].any()
+    assert torch.equal(MD.planes_to_words(planes, K), y)
+    ones_x = torch.full((spec.w16, A, K), 0xFFFF, dtype=torch.int32)
+    ones_y = torch.full((1, B, 2 * spec.w16, MD.TC_KT), 0xFF, dtype=torch.uint8)
+    ones_y[..., K:] = 0
+    for xx, yy in ((x, planes), (ones_x, ones_y)):
+        xi = [[v for v in r] for r in _words_ints(spec, pack_words(xx, 0))]
+        yi = _words_ints(spec, MD.planes_to_words(yy, K))
+        for out_form, shift in (("canonical", 2), ("mont", 1)):
+            want = mont_dot_plain(spec, xx, yy, out_form, x_form="limbs", y_form="planes")
+            assert _words_ints(spec, want) == _host_dot(spec, xi, yi, shift)
+            for fold in (3, 4, MD.FOLD_K):
+                got = MD.mont_dot_planes_plain(spec, xx, yy, out_form, x_form="limbs", fold=fold)
+                assert torch.equal(got, want)
+    assert ops.w == spec.w16
+
+
+def test_plane_product_s32_limit():
+    """The s32 accumulator's limit: all-0xFF bytes over 2^15 k-steps stay
+    below 2^31 (2^15 255^2 = 2,130,739,200), over 33,026 they pass it; at
+    K = 2^15 + 1 the fold at 2^15 gives mont_dot_plain's result.  The
+    tensor-core launch's K ranges (tc_split) keep to the limit: each at
+    most FOLD_K and a multiple of the stage's 128 k-steps, together
+    covering K with none empty, split no further than FOLD_K once the
+    blocks fill the card twice over."""
+    spec = P.FT63
+    d = 2 * spec.w16
+    K = MD.FOLD_K + 1
+    x = torch.full((spec.w16, 1, K), 0xFFFF, dtype=torch.int32)
+    y = MD.to_planes(spec, torch.full((spec.w16 // 2, K, 1), -1, dtype=torch.int32))
+    got = MD.mont_dot_planes_plain(spec, x, y, x_form="limbs")
+    assert torch.equal(got, mont_dot_plain(spec, x, y, x_form="limbs", y_form="planes"))
+    assert MD.FOLD_K * 255 * 255 < 2**31 <= 33_026 * 255 * 255
+    x2 = torch.full((spec.w16, 1, 33_026), 0xFFFF, dtype=torch.int32)
+    y2 = torch.full((MD.plane_tiles(33_026), 1, d, MD.TC_KT), 0xFF, dtype=torch.uint8)
+    with pytest.raises(OverflowError):
+        MD.mont_dot_planes_plain(spec, x2, y2, x_form="limbs", fold=33_026)
+    for A, K, B in ((2048, 1 << 18, 189), (64, 1 << 18, 189), (3, 70, 5), (64, MD.FOLD_K, 136),
+                    (64, MD.FOLD_K + 1, 136), (37, 1, 190)):
+        for field in P.ALL_FIELDS:
+            k_split, n = MD.tc_split(field, A, K, B, 132)
+            assert k_split % MD.TC_KT == 0 and k_split <= MD.FOLD_K
+            assert n * k_split >= K > (n - 1) * k_split
+            d = 2 * field.w16
+            blocks = -(-A // (2 * (64 // d))) * -(-B // (256 // d))
+            if blocks * -(-K // MD.FOLD_K) >= 2 * 132:
+                assert n == -(-K // MD.FOLD_K)
+
+
+def test_power_table_planes_against_ints():
+    """power_table's planes layout in every field: byte d of g_j^m
+    (Montgomery) at [m // 128, j, d, m % 128], zero past K, and the same
+    table as the words layout laid out by to_planes."""
+    for spec in P.ALL_FIELDS:
+        _power_table_planes_case(spec)
+
+
+def _power_table_planes_case(spec):
+    ops = get_ops(spec)
+    rnd = random.Random(9)
+    gs = [rnd.randrange(spec.p) for _ in range(3)]
+    g = pack_words(_limbs(spec, gs, (3,)), 0)
+    K = 133
+    planes = power_table(spec, g, K, "planes")
+    assert planes.shape == (2, 3, 2 * spec.w16, MD.TC_KT) and planes.dtype == torch.uint8
+    assert not planes[1, ..., K - MD.TC_KT:].any()
+    assert torch.equal(planes, MD.to_planes(spec, power_table(spec, g, K)))
+    table = unpack_words(MD.planes_to_words(planes, K), 0)  # (W, K, 3) Montgomery limbs
+    assert ops.decode_host(table) == [pow(g_, m, spec.p) for m in range(K) for g_ in gs]
+    with pytest.raises(ValueError):
+        power_table(spec, g, K, "bytes")
