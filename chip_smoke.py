@@ -10,8 +10,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
      csrc/power_table.cu); print ptxas's registers and spills per template
      (fatal if the SpMV's, the NTT's, the generator's or the power table's
-     W32 = 8 spills, any of mont_dot's tensor-core templates spills, or
-     ptxas serializes its wgmmas; every BLAKE3 kernel reported, the
+     W32 = 8 spills, any of mont_dot's tensor-core templates (tile and
+     thin_tc) spills, or ptxas serializes its wgmmas; every BLAKE3 kernel
+     reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
      SASS of the probe scripts/threefry_chain.cu, held to the plain
@@ -30,7 +31,8 @@ Phases, each fatal on failure (each prints the seconds it took):
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
      counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
-     path walk; the collapses through mont_dot) and 3 times warm (median
+     path walk; the collapses through mont_dot's CUDA-core thin kernel) and
+     3 times warm (median
      ms); check the evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
@@ -48,8 +50,10 @@ Phases, each fatal on failure (each prints the seconds it took):
      words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
      phase 4 (one cold run with the launches counted, 3 warm: one encode,
-     the commit's; prove's collapse through mont_dot; verify's rows
-     evaluated at the opened columns, one power table), with the
+     the commit's; prove's collapse and verify's column check through
+     mont_dot's thin tensor-core kernel; verify's rows evaluated at the
+     opened columns, one power table and the tile kernel; the evaluation's
+     dot on the thin kernel), with the
      evaluation and tamper checks; reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
   7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
@@ -72,8 +76,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      blocks, the words kept on the card, (b) a HostCoeffSource with the words
      spilled to host RAM, (c) packed coefficients and no words kept (prove
      evaluates the opened columns directly); each route's BLAKE3 trees: 1
-     chunk tree and 1 Merkle tree, its collapse through mont_dot, route (c)
-     one power table;
+     chunk tree and 1 Merkle tree, its collapse through mont_dot's thin
+     tensor-core kernel, route (c) one power table and the tile kernel;
   9. the streaming path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
      131,072 coefficients (packed on the card, made from the seed), 524,288
      columns: commit_streaming (spill="auto") -> prove -> verify once cold
@@ -91,17 +95,23 @@ Phases, each fatal on failure (each prints the seconds it took):
   10. hold the prover's kernels against their plain versions, bit for bit:
      the seeded generator (2^22 ft255 coefficients in all three forms, a
      seed >= 2^32 with a zero tail, chunk-aligned and unaligned partitions,
-     every field), mont_dot's thin kernel at the 2^23 prove collapse (2 x
-     256 x 32,768), the 2^23 verify column check (2 x 256 x 189) and rows at
-     the columns (2 x 32,768 x 189), its tensor-core kernel at a 64-row
-     block of the 2^29 column evaluation (64 x 262,144 x 189, the table as
-     digit planes) and both on edge shapes in every field (y as words and as
-     planes; ragged rows, k and points; unreduced operands; all-0xFF
-     operands at K = 2^15 - 1, 2^15, 2^15 + 1, the s32 accumulators'
-     limit), the power table as words at 32,768 x 189 and as planes at
-     262,144 x 189 and edges in both layouts; each timed beside its bound
-     (the tile path's: its byte products on the tensor cores, with the CUDA
-     cores' wide products beside);
+     every field); mont_dot's thin tensor-core kernel at the 2^23 Ligero
+     collapse (2 x 256 x 32,768 limbs), the Brakedown collapse (2 x 36 x
+     235,173 limbs, an odd row stride read in place), a 64-row block of the
+     2^29 collapse (2 x 64 x 262,144 packed) and the 2^23 verify column
+     check (2 x 256 x 189), its CUDA-core thin kernel beside it at the
+     same shapes, both on ragged shapes in every field (y as words and as
+     limbs, by TMA and word by word, one K range and several) and the
+     thin tensor-core kernel on all-0xFF operands across its range cap;
+     the tile kernel at the 2^23 verify rows at the columns (2 x 32,768 x
+     189) and a 64-row block of the 2^29 column evaluation (64 x 262,144 x
+     189), on edge shapes in every field (y as words and as planes; ragged
+     rows, k and points; unreduced operands; all-0xFF operands at K = 2^15
+     - 1, 2^15, 2^15 + 1, the s32 accumulators' limit); the power table
+     (digit planes) at 32,768 x 189 and 262,144 x 189 and edges; each
+     mont_dot shape timed beside the card's bound (its bytes or its byte
+     products on the u8 tensor cores, whichever kernel runs it) with the
+     CUDA cores' wide products beside;
   11. the slice's path: SeededCoeffSource(FT255, 2^29, seed=0), 2,048 rows
      x 262,144 coefficients, 2^20 columns, the 68.7 GB of hash words not
      kept: commit_streaming -> prove (MxuCollapse and MxuColumnEval over
@@ -112,7 +122,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      evaluation against one over regenerated blocks with the plain collapse
      in the other order; tampered proofs; the columns opened by direct
      evaluation equal to the re-encode's, both timed, and prove's pieces
-     (generator, collapse, column evaluation, power table) timed;
+     (generator, the collapse over all 2,048 rows beside its bound, column
+     evaluation, power table) and verify's two rows at the columns (the
+     tile kernel) timed;
   12. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
@@ -167,6 +179,7 @@ MERKLE_TREES = ((1 << 17, 1 << 17), (1 << 19, 1 << 19), (357_699, 1 << 19))
 WALKS = ((189, 17), (6_593, 19))
 CHAIN = 4096                # phase 7: compressions of the latency probe
 TREES = ("chunk_tree", "merkle_tree", "merkle_walk")  # the BLAKE3 tree kernels
+DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot's three
 B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
               "merkle_tree_kernel", "merkle_walk_kernel")
 LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
@@ -817,11 +830,14 @@ def streaming_2_26(torch, P, counters, gen):
               dict(spill="none")))
     out = []
     for tag, src, kw in cases:
-        # every route collapses through mont_dot; with no words kept prove
-        # evaluates the columns directly
-        path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree", "mont_dot"}
+        # every route collapses through mont_dot (one block of 1,024 rows: the
+        # thin tensor-core kernel); with no words kept prove evaluates the
+        # columns directly (the power table, the tile kernel, a thin launch
+        # summing its K splits)
+        path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree", "mont_dot",
+                        "mont_dot_thin_tc"}
         if kw["spill"] == "none":
-            path_kernels.add("power_table")
+            path_kernels |= {"power_table", "mont_dot_tile", "mont_dot_thin"}
         for fn in counters.values():
             fn.launches = 0
         cs, cs_ms = time_host(torch, lambda: P.commit_streaming(src, enc, **kw))
@@ -892,7 +908,8 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     # gate 2^17) evaluates the proof rows at the opened columns: the power
     # table and mont_dot, no NTT
     for name, n in launches.items():
-        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table")):
+        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
+                                *DOT_KERNELS)):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
     if launches["power_table"] != 1:
         raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times")
@@ -1048,20 +1065,16 @@ def gen_bound(n_elem, out_bytes, mix, form, chunk=1 << 18):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def dot_bound(spec, x, y, a, k, b, tc):
-    """(ms, by, IMAD ms) of a mont_dot: x and y read once, the (W/2, a, b)
-    words written once; the thin kernel's (W/2)^2 wide products per
-    multiply-add on the CUDA cores or, with `tc` (the tile path), the
-    (2W)^2 byte products on the tensor cores; the IMAD count beside."""
+def dot_bound(spec, x, y, a, k, b):
+    """(ms, by, IMAD ms) of a mont_dot: the card's least time for the work,
+    x and y read once and the (W/2, a, b) words written once against the
+    (2W)^2 byte products a multiply-add on the u8 tensor cores, whichever
+    kernel runs it; the CUDA cores' (W/2)^2 wide products beside."""
     w32 = spec.w16 // 2
     nbytes = x.numel() * x.element_size() + y.numel() * y.element_size() + 4 * w32 * a * b
-    b_ms, t_bytes, t_imad = bound_ms(nbytes, a * k * b * w32 * w32)
-    if tc:
-        t_ops = 2 * a * k * b * (4 * w32) ** 2 / INT8_OPS_PER_S * 1e3
-        b_ms = max(t_bytes, t_ops)
-    else:
-        t_ops = t_imad
-    return b_ms, ("bytes" if t_bytes >= t_ops else "operations"), t_imad
+    _, t_bytes, t_imad = bound_ms(nbytes, a * k * b * w32 * w32)
+    t_ops = 2 * a * k * b * (4 * w32) ** 2 / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_imad
 
 
 def table_bound(spec, big_k, k):
@@ -1142,53 +1155,66 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
         x = kb.random_mont(field, (a, field.w16, k), gen, device=DEV).permute(1, 0, 2).contiguous()
         return x if form == "limbs" else pack_words(x, 0)
 
-    def dot(tag, x, y, out_form, x_form, y_form, timed=True, reps=10, field=spec):
-        got = md.mont_dot(field, x, y, out_form, x_form=x_form, y_form=y_form)
-        want, plain_ms = time_host(torch, lambda: md.mont_dot_plain(
-            field, x, y, out_form, x_form=x_form, y_form=y_form))
-        check(f"mont_dot {tag}", got, want)
-        if not timed:
-            return
+    def dot(tag, x, y, out_form, x_form, y_form, timed=True, reps=10, field=spec, kernel=None):
+        """mont_dot by its route (or `kernel`) against mont_dot_plain; timed
+        beside the card's bound and the CUDA cores' wide products."""
+        kw = {} if kernel is None else {"_route": kernel}
         a, k = x.shape[1], x.shape[2]
         b = y.shape[1] if y_form == "planes" else y.shape[2]
+        kern = kernel or md.route(a, k, b, y_form)
+        got = md.mont_dot(field, x, y, out_form, x_form=x_form, y_form=y_form, **kw)
+        want, plain_ms = time_host(torch, lambda: md.mont_dot_plain(
+            field, x, y, out_form, x_form=x_form, y_form=y_form))
+        check(f"mont_dot {tag} ({kern})", got, want)
+        if not timed:
+            return
         ms = kb.time_kernel(lambda: md.mont_dot(field, x, y, out_form, x_form=x_form,
-                                                y_form=y_form), reps=reps)
-        tc = y_form == "planes" or a > 2
-        bound, by, imad = dot_bound(field, x, y, a, k, b, tc)
-        recs[f"dot {tag}"] = {"a": a, "k": k, "b": b, "out_form": out_form,
-                              "kernel": "tensor cores" if tc else "thin", "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                                y_form=y_form, **kw), reps=reps)
+        bound, by, imad = dot_bound(field, x, y, a, k, b)
+        recs[f"dot {tag}"] = {"a": a, "k": k, "b": b, "out_form": out_form, "kernel": kern,
+                              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                               "imad_bound_ms": imad, "bound_share": bound / ms}
-        log(f"  mont_dot {tag} ({a} x {k} x {b}, {out_form}, {recs[f'dot {tag}']['kernel']}): "
-            f"equal; {ms:.4f} ms, bound {bound:.4f} ms ({by}, {bound / ms:.1%}; the CUDA "
-            f"cores' wide products {imad:.4f} ms), plain {plain_ms:.1f} ms")
+        log(f"  mont_dot {tag} ({a} x {k} x {b}, {out_form}, {kern}): equal; {ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}, {bound / ms:.1%}; the CUDA cores' wide products "
+            f"{imad:.4f} ms), plain {plain_ms:.1f} ms")
 
+    # the collapses: the thin tensor-core kernel at its shapes, the CUDA
+    # cores' kernel beside; Brakedown's odd row stride (235,173 words) read
+    # in place by both
     n23 = N_COEFFS // 256
-    dot("2^23 prove collapse", rand(spec, 2, 256, "packed"), rand(spec, 256, n23), "canonical",
-        "packed", "limbs")
-    dot("2^23 verify column check", rand(spec, 2, 256), rand(spec, 256, 189, "packed"), "mont",
-        "limbs", "packed")
+    x, y = rand(spec, 2, 256, "packed"), rand(spec, 256, n23)
+    dot("2^23 prove collapse", x, y, "canonical", "packed", "limbs")
+    dot("2^23 prove collapse on the CUDA cores", x, y, "canonical", "packed", "limbs",
+        kernel="thin")
+    x, y = rand(spec, 2, 36, "packed"), rand(spec, 36, 235_173)
+    dot("2^23 brakedown collapse", x, y, "canonical", "packed", "limbs")
+    dot("2^23 brakedown collapse on the tensor cores", x, y, "canonical", "packed", "limbs",
+        kernel="thin_tc")
+    x, y = rand(spec, 2, 64, "packed"), rand(spec, 64, N_SEEDED // 2048, "packed")
+    dot("2^29 collapse, a 64-row block", x, y, "canonical", "packed", "packed",
+        kernel="thin_tc", reps=5)
+    x, y = rand(spec, 2, 256), rand(spec, 256, 189, "packed")
+    dot("2^23 verify column check", x, y, "mont", "limbs", "packed")
+    dot("2^23 verify column check on the CUDA cores", x, y, "mont", "limbs", "packed",
+        kernel="thin")
+    del x, y
     g = pack_words(kb.random_mont(spec, (1, spec.w16, 189), gen, device=DEV)[0], 0)
-    # the verifier's table (words, the thin kernel's operand) and the
-    # prover's (digit planes, the tensor cores'), each at its path's shape
-    for tag, big_k, form in (("2^23 verify", n23, "words"), ("2^29 prove", N_SEEDED // 2048,
-                                                              "planes")):
-        table = md.power_table(spec, g, big_k, form)
-        want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k, form))
+    # the table as digit planes at the verify's and the prover's shapes,
+    # each with the tile kernel's product there
+    for tag, big_k in (("2^23 verify", n23), ("2^29 prove", N_SEEDED // 2048)):
+        table = md.power_table(spec, g, big_k)
+        want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k))
         check(f"power_table {tag}", table, want)
         del want
-        ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k, form), reps=5)
-        other = "words" if form == "planes" else "planes"
-        other_ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k, other), reps=5)
+        ms = kb.time_kernel(lambda: md.power_table(spec, g, big_k), reps=5)
         bound, by = table_bound(spec, big_k, 189)
-        recs[f"table {tag}"] = {"K": big_k, "k": 189, "form": form, "ms": ms,
-                                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                                f"{other}_ms": other_ms}
-        log(f"  power_table {tag} ({big_k} x 189, {form}): equal; {ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms; as {other} {other_ms:.4f} ms")
+        recs[f"table {tag}"] = {"K": big_k, "k": 189, "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": bound, "bound_by": by}
+        log(f"  power_table {tag} ({big_k} x 189, digit planes): equal; {ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), plain {plain_ms:.1f} ms")
         if tag.startswith("2^23"):
             dot("2^23 verify rows at the columns", rand(spec, 2, big_k), table, "mont", "limbs",
-                "packed")
+                "planes")
         else:
             dot(f"2^29 column evaluation, a {EVAL_ROWS}-row block", rand(spec, EVAL_ROWS, big_k,
                                                                           "packed"),
@@ -1196,7 +1222,6 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
         del table
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count if DEV == "cuda" else 132
     for field in P.ALL_FIELDS:
-        d = 2 * field.w16
         for a, k, b in ((3, 1, 5), (37, 70, 45), (1, 5_000, 1), (33, 33, 33), (2, 3_000, 189),
                         (37, 300, 189), (5, 300, 190)):
             for out_form in md.OUT_FORMS:
@@ -1206,6 +1231,21 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
                 dot(f"edge {field.name} {a}x{k}x{b} planes", pack_words(x, 0),
                     md.to_planes(field, y), out_form, "packed", "planes", timed=False,
                     field=field)
+        # both thin kernels on ragged shapes, y as words and as limbs, by TMA
+        # (row stride a multiple of 4) and word by word (misaligned), one K
+        # range and several
+        for a, k, b in ((1, 1, 5), (2, 37, 19), (1, 70, 45), (2, 300, 129), (2, 3_000, 70),
+                        (1, 129, 1_000), (2, 2_049, 300)):
+            x = rand(field, a, k)
+            for y_form in md.FORMS:
+                big = rand(field, k, -(-(b + 1) // 4) * 4, y_form)
+                for y in (big[:, :, :b], big[:, :, 1 : b + 1]):
+                    for out_form in md.OUT_FORMS:
+                        for kernel in ("thin_tc", "thin"):
+                            dot(f"thin edge {field.name} {a}x{k}x{b} {y_form} "
+                                f"tma={md.thin_tc_tma(y)}", x, y, out_form, "limbs", y_form,
+                                timed=False, field=field, kernel=kernel)
+                del big
         ones = torch.full((field.w16, 2, 300), 0xFFFF, dtype=torch.int32, device=DEV)
         dot(f"unreduced {field.name}", ones, rand(field, 300, 7), "canonical", "limbs", "limbs",
             timed=False, field=field)
@@ -1213,12 +1253,21 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
                                                           dtype=torch.int32, device=DEV),
             md.to_planes(field, rand(field, 300, 7), "limbs"), "canonical", "limbs", "planes",
             timed=False, field=field)
+        # the thin tensor-core kernel's 32-bit fold at its range limit:
+        # all-0xFF words (every value R - 1) across a range's k-steps
+        for y_form, cap in (("packed", md.thin_tc_cap(False)), ("limbs", md.thin_tc_cap(True))):
+            for k in (cap - 1, cap, cap + 1):
+                x = torch.full((field.w16 // 2, 2, k), -1, dtype=torch.int32, device=DEV)
+                y = (torch.full((field.w16 // 2, k, 300), -1, dtype=torch.int32, device=DEV)
+                     if y_form == "packed" else
+                     torch.full((field.w16, k, 300), 0xFFFF, dtype=torch.int32, device=DEV))
+                for out_form in md.OUT_FORMS:
+                    dot(f"all-0xFF {field.name} 2x{k}x300 {y_form}", x, y, out_form, "packed",
+                        y_form, timed=False, field=field, kernel="thin_tc")
         for big_k, k in ((1, 3), (70, 33), (5_000, 1), (133, 7)):
             gg = pack_words(kb.random_mont(field, (1, field.w16, k), gen, device=DEV)[0], 0)
-            for form in md.TABLE_FORMS:
-                check(f"power_table {field.name} {big_k} x {k} {form}",
-                      md.power_table(field, gg, big_k, form),
-                      md.power_table_plain(field, gg, big_k, form))
+            check(f"power_table {field.name} {big_k} x {k}", md.power_table(field, gg, big_k),
+                  md.power_table_plain(field, gg, big_k))
     # the s32 accumulators' limit: all-0xFF bytes (every value R - 1) over
     # K = 2^15 - 1, 2^15, 2^15 + 1 at a shape whose grid needs no further
     # split, so a block's range is the fold limit itself
@@ -1236,8 +1285,10 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
             f"equal")
         del x, y
     log("  mont_dot edges (3x1x5, 37x70x45, 1x5000x1, 33x33x33, 2x3000x189, 37x300x189, "
-        "5x300x190, both outputs, y as words and as planes; all-0xFFFF operands) and "
-        "power_table edges in both layouts equal in every field")
+        "5x300x190, both outputs, y as words and as planes; all-0xFFFF operands), both thin "
+        "kernels on ragged shapes (y words and limbs, by TMA and word by word) and all-0xFF "
+        "across the thin tensor-core kernel's range limit, and power_table edges equal in "
+        "every field")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -1305,7 +1356,8 @@ def path_2_29(torch, kb, P, counters, md, card):
     log(f"path 2^29 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
         f"memory {peak:.2f} GiB")
-    path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table"}
+    path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
+                    *DOT_KERNELS}
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"path 2^29: {name} launched {n} times")
@@ -1343,10 +1395,25 @@ def path_2_29(torch, kb, P, counters, md, card):
     eval_ms = kb.time_kernel(lambda: ev.eval_block(blk, in_form=form), reps=1)
     ts = _packed_ints(spec, [outer, outer], DEV)[:, :, :rb]
     collapse_ms = kb.time_kernel(lambda: md.mont_dot(spec, ts, blk, y_form=form), reps=2)
+    collapse_route = md.route(2, rb, enc.n_per_row, form)
+    collapse_bound = dot_bound(spec, ts, blk, 2, rb, enc.n_per_row)
     table_ms = host_ms(torch, lambda: ev.set_columns(cols), reps=3)
+    # verify's rows at the opened columns by the route it takes: the two
+    # proof rows against the planes table on the tile kernel
+    rows2 = kb.random_mont(spec, (2, spec.w16, enc.n_per_row), torch.Generator(
+        device=DEV).manual_seed(SEED), device=DEV).permute(1, 0, 2).contiguous()
+    verify_rows_ms = kb.time_kernel(lambda: ev.eval_block(rows2), reps=3)
+    verify_rows_route = md.route(2, enc.n_per_row, len(cols), "planes")
+    del rows2
     scale = n_rows / rb
     pieces = {"prove_row_block": rb, "gen_block_ms": gen_ms, "eval_block_ms": eval_ms,
-              "collapse_block_ms": collapse_ms, "set_columns_host_ms": table_ms,
+              "collapse_block_ms": collapse_ms, "collapse_route": collapse_route,
+              "collapse_block_bound_ms": collapse_bound[0],
+              "collapse_block_bound_by": collapse_bound[1],
+              "collapse_block_imad_bound_ms": collapse_bound[2],
+              "collapse_bound_share": collapse_bound[0] / collapse_ms,
+              "verify_rows_ms": verify_rows_ms, "verify_rows_route": verify_rows_route,
+              "set_columns_host_ms": table_ms,
               "eval_all_rows_ms": eval_ms * scale, "collapse_all_rows_ms": collapse_ms * scale,
               "gen_all_rows_ms": gen_ms * scale, "open_by_eval_ms": eval_open_ms,
               "open_by_reencode_ms": reencode_ms}
@@ -1362,11 +1429,15 @@ def path_2_29(torch, kb, P, counters, md, card):
         / WIDE_PRODUCTS_PER_S * 1e3
     pieces["eval_bound_share"] = pieces["eval_bound_ms"] / pieces["eval_all_rows_ms"]
     log(f"  prove's pieces ({rb}-row blocks, x {scale:g} for all rows): seeded_gen packed "
-        f"{gen_ms:.2f} ms, mont_dot collapse {collapse_ms:.2f} ms, column evaluation "
+        f"{gen_ms:.2f} ms, mont_dot collapse {collapse_ms:.2f} ms ({collapse_route}; bound "
+        f"{collapse_bound[0]:.2f} ms, {collapse_bound[1]}, "
+        f"{pieces['collapse_bound_share']:.1%}; IMAD {collapse_bound[2]:.2f} ms), column "
+        f"evaluation "
         f"{eval_ms:.2f} ms (all rows {eval_ms * scale:.1f} ms, tensor-core bound "
         f"{pieces['eval_bound_ms']:.1f} ms, {pieces['eval_bound_share']:.1%}; the CUDA cores' "
         f"wide products {pieces['eval_imad_bound_ms']:.1f} ms), set_columns with its power "
-        f"table {table_ms:.2f} ms")
+        f"table {table_ms:.2f} ms; verify's two rows at the {len(cols)} columns "
+        f"{verify_rows_ms:.4f} ms ({verify_rows_route})")
     del blk, ev, ts, comm
     torch.cuda.empty_cache()
 
@@ -1505,21 +1576,41 @@ def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
             threefry_digit_alu_fma_all=list(gen_mix["per_digit"]),
             ms_2_29_prove_block=s29["pieces"]["gen_block_ms"],
             prove_block_rows=s29["pieces"]["prove_row_block"]),
-        row("mont_dot", "mont_dot.cu",
-            "lcpc_tpu/ops/mxu_prove.py:86,128,184 (MxuCollapse: _banded_collapse_kernel, "
-            "_collapse_fns), :235,258,357 (MxuColumnEval: _eval_chunking, _eval_fns) and "
-            "lcpc_tpu/ops/limbs.py:375,421 (collapse_canon, collapse_words); XLA-fused, not "
-            "Pallas", ev29,
+        row("mont_dot_tile", "mont_dot.cu",
+            "lcpc_tpu/ops/mxu_prove.py:235,258,357 (MxuColumnEval: _eval_chunking, _eval_fns); "
+            "XLA-fused, not Pallas", ev29,
             f"the 2^29 ft255 column evaluation, a {EVAL_ROWS}-row block: {EVAL_ROWS} x 262,144 "
             "x 189 (Montgomery), the tile kernel on the tensor cores (bound: u8 wgmma)",
-            collapse_2_23=prv["dot 2^23 prove collapse"],
             column_evaluation_2_29_all_rows_ms=s29["pieces"]["eval_all_rows_ms"],
             column_evaluation_2_29_bound_ms=s29["pieces"]["eval_bound_ms"],
             column_evaluation_2_29_imad_bound_ms=s29["pieces"]["eval_imad_bound_ms"],
             open_by_eval_2_29_ms=s29["pieces"]["open_by_eval_ms"],
             open_by_reencode_2_29_ms=s29["pieces"]["open_by_reencode_ms"],
+            verify_rows_2_23=prv["dot 2^23 verify rows at the columns"],
+            verify_rows_2_29_ms=s29["pieces"]["verify_rows_ms"]),
+        row("mont_dot_thin_tc", "mont_dot.cu",
+            "lcpc_tpu/ops/mxu_prove.py:86,128,212 (MxuCollapse: _banded_collapse_kernel, "
+            "_collapse_fns, collapse_source) and lcpc_tpu/ops/limbs.py:375,421 "
+            "(collapse_canon, collapse_words); XLA-fused, not Pallas",
+            prv["dot 2^23 prove collapse"],
+            "the 2^23 ft255 Ligero collapse: 2 x 256 x 32,768 (y limbs, canonical), the thin "
+            "kernel on the tensor cores (bound: the bytes)",
             collapse_2_29_all_rows_ms=s29["pieces"]["collapse_all_rows_ms"],
-            other_shapes={k: v for k, v in prv.items() if k.startswith("dot ")}),
+            collapse_2_29_block_rows=s29["pieces"]["prove_row_block"],
+            collapse_2_29_block_ms=s29["pieces"]["collapse_block_ms"],
+            collapse_2_29_block_bound_ms=s29["pieces"]["collapse_block_bound_ms"],
+            collapse_2_29_block_imad_bound_ms=s29["pieces"]["collapse_block_imad_bound_ms"],
+            collapse_2_29_block=prv["dot 2^29 collapse, a 64-row block"],
+            brakedown_collapse=prv["dot 2^23 brakedown collapse on the tensor cores"],
+            verify_column_check_2_23=prv["dot 2^23 verify column check"]),
+        row("mont_dot_thin", "mont_dot.cu",
+            "lcpc_tpu/ops/limbs.py:375 (collapse_canon: the sums of partials, the evaluation's "
+            "dot, Brakedown's collapses); XLA-fused, not Pallas",
+            prv["dot 2^23 brakedown collapse"],
+            "the 2^23 ft255 Brakedown collapse: 2 x 36 x 235,173 (y limbs, an odd row stride), "
+            "the thin kernel on the CUDA cores (bound: the bytes)",
+            ligero_collapse_2_23=prv["dot 2^23 prove collapse on the CUDA cores"],
+            verify_column_check_2_23=prv["dot 2^23 verify column check on the CUDA cores"]),
         row("power_table", "power_table.cu",
             "lcpc_tpu/ops/mxu_prove.py:319 (_kernel_build_fns); XLA-fused, not Pallas",
             prv["table 2^29 prove"], "the 2^29 prove's table: 262,144 x 189 entries as digit "
@@ -1554,6 +1645,7 @@ def main() -> int:
                 "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
                 "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
                 "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
+                **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
                 "power_table": md.power_table}
     hashing = {"blake3_chunks", *TREES}
 
@@ -1606,7 +1698,7 @@ def main() -> int:
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
                             ("power_table", "power_")):
         found = kb.ptxas_entries(cuda_build.build_logs[src_name], kname)
-        if len(found) != {"seeded_gen": 12, "mont_dot": 12, "power_table": 8}[src_name]:
+        if len(found) != {"seeded_gen": 12, "mont_dot": 20, "power_table": 4}[src_name]:
             raise AssertionError(f"{src_name} kernels not reported by ptxas: {found}")
         for name, (regs, st, ld) in sorted(found.items()):
             log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill "
@@ -1614,7 +1706,7 @@ def main() -> int:
         prove_ptxas[src_name] = found
     for src_name, kname in (("seeded_gen", "seeded_gen_kernelILi8ELi37E"),
                             ("mont_dot", "mont_dot_tc_kernel"),  # every W
-                            ("power_table", "power_table_kernelILi8E"),
+                            ("mont_dot", "mont_dot_thin_tc_kernel"),  # every W and y form
                             ("power_table", "power_planes_kernelILi8E")):
         for k, (regs, st, ld) in prove_ptxas[src_name].items():
             if kname in k and (st or ld):
@@ -1677,10 +1769,12 @@ def main() -> int:
     # 4. the Brakedown path at 2^23, its golden fixture, and its streaming commit
     phase = Phase("4 brakedown 2^23")
     n_levels = len(pre) + len(post) + 1
-    # prove and verify's column check collapse through mont_dot; Brakedown
+    # prove and verify's column check collapse through mont_dot, on the CUDA
+    # cores (K = 36 rows against 235,173 and 6,593 columns: below the thin
+    # tensor-core kernel's crossover), the evaluation's dot too; Brakedown
     # has no power table
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
-                     path_kernels={"spmv_mont", "mont_dot"} | hashing)
+                     path_kernels={"spmv_mont", "mont_dot", "mont_dot_thin"} | hashing)
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -1744,11 +1838,14 @@ def main() -> int:
 
     # 6. the Ligero path at 2^23 and its golden fixture under both digests
     phase = Phase("6 ligero 2^23")
-    # prove collapses through mont_dot;
+    # prove collapses through mont_dot (the thin tensor-core kernel);
     # verify (2^17 columns, its gate) evaluates the proof rows at the opened
-    # columns: one power table, mont_dot, and no encode
+    # columns: one power table, mont_dot's tile kernel (and a thin launch
+    # summing its K splits), the column check on the thin tensor-core
+    # kernel, the evaluation's dot on the thin kernel, and no encode
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    path_kernels={"ntt_mont", "mont_dot", "power_table"} | hashing)
+                    path_kernels={"ntt_mont", "mont_dot", "power_table"} | DOT_KERNELS
+                    | hashing)
     per_encode = plan.launches_per_call
     if lig[0]["ntt_mont"] != per_encode or lig[0]["power_table"] != 1:
         raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 1 encode x {per_encode}, "
@@ -1842,6 +1939,7 @@ def main() -> int:
                   for w, v in sorted(ntt_ptxas.items())},
         "n_2_19_block_words_only_ms": big["block_words_only_ms"],
         "launches_2_28_path": big["launches"]["ntt_mont"],
+        "launches_2_29_path": s29["launches"]["ntt_mont"],
     }, {
         "name": "blake3_chunks",
         "route": "cuda",

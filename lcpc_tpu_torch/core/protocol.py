@@ -675,7 +675,7 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     use_cols = (not odd_rows and getattr(enc, "supports_direct_col_eval", False)
                 and mxu_prove_enabled(spec) and n_cols >= VERIFY_COLS_MIN)
     if use_cols:
-        ev = MxuColumnEval(enc, table_form="words")  # the proof's few rows: the thin kernel
+        ev = MxuColumnEval(enc)
         ev.set_columns(cols_to_open)
         want_w = ev.eval_block(ops.to_mont(_unpack_words(rows_dev.permute(2, 0, 1))))
     elif not odd_rows:

@@ -88,6 +88,18 @@ __device__ __forceinline__ void cmad_even(uint32_t* acc, const uint32_t* x, uint
   for (int j = 2; j < W; j += 2) madc_pair_cc(acc[j], acc[j + 1], x[j], b);
 }
 
+// the 4 x 4 byte transpose: o[b] holds byte b of x[0], x[1], x[2], x[3], in
+// that order (four PRMTs make byte pairs, four more the quadruples); the
+// digit-plane kernels' step from four words to four planes of 4 bytes
+__device__ __forceinline__ void transpose4(const uint32_t (&x)[4], uint32_t (&o)[4]) {
+  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140), t1 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140), t3 = __byte_perm(x[2], x[3], 0x7362);
+  o[0] = __byte_perm(t0, t2, 0x5410);
+  o[1] = __byte_perm(t0, t2, 0x7632);
+  o[2] = __byte_perm(t1, t3, 0x5410);
+  o[3] = __byte_perm(t1, t3, 0x7632);
+}
+
 template <int W>
 struct Field {
   uint32_t p[W];

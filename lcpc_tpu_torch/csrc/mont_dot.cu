@@ -20,18 +20,48 @@
 // below 2p, one subtract to canonical, one Montgomery product by R^2 mod p
 // to the Montgomery form.
 //
-// Two kernels:
+// Three kernels:
 //
-// thin (A <= 2 rows: the collapse's T = 2 tensors, the verifier's rows; Y
-//   as words).  A thread per output column b, both rows in its registers,
-//   the rows' X elements staged through shared memory, Y read by each
-//   thread from device memory (neighbouring threads, neighbouring columns).
+// thin (A <= 2 rows below thin_tc's measured crossover, ops/mont_dot.py:
+//   route: the sums of partials, Brakedown's 36-row collapse, dots of one
+//   column; Y as words).  A thread per output column b, both rows in its
+//   registers, the rows' X elements staged through shared memory, Y read
+//   by each thread from device memory (neighbouring threads, neighbouring
+//   columns).
 //   Lazy accumulation on the CUDA cores: 2W words of product columns plus
 //   W + 1 carry counters; a product x y adds W rows x_i y, the even-j and
 //   the odd-j products of a row each one PTX carry chain over adjacent
 //   word pairs, which ptxas fuses into one IMAD.WIDE.U32(.X) per
 //   32 x 32 -> 64 product: W^2 wide products and 2W adds a product.  Bound
-//   by its bytes (Y read once).
+//   by those products on the CUDA cores.
+//
+// thin_tc (A <= 2 rows against many columns: every prove's collapse, the
+//   2 tensors against the coefficient block; Y as words or limbs, read in
+//   place).  The tile kernel's u8 GEMM (below) with the roles swapped:
+//   Y's byte digits are wgmma's register operand, M = its (column, digit)
+//   rows, and x's digit planes (N = 64: the 2 rows' D digits, zero past
+//   2D) the shared-memory operand, built once a block from x's words.  A
+//   block is two warpgroups walking tiles of CB = 2 (64 / W) columns (a
+//   grid-stride loop); its 64 quads each own a column pair and a word w,
+//   so a warpgroup's 4 wgmma.m64n64k32 tiles are the digits 4 w + d
+//   (d < 4) of its columns: the 64 rows of a tile are ordered digit by
+//   digit, and at W = 6 (CB = 20) 4 quads pad.  A stage is 32 rows of the
+//   tile's columns, every word, copied by TMA (16-byte strides) or, for
+//   any other strides (Brakedown's (W, 36, 235,173) limbs: a row is 940,692
+//   bytes), a word at a time by cp.async, in place either way; 4 stages
+//   in flight on mbarriers.  A thread takes 4 rows of one word of its 2
+//   columns and one 4 x 4 byte transpose (PRMT) gives its 4 digits' A
+//   fragments: no operand in shared memory is written by the threads
+//   while wgmmas run, so no proxy fence stalls them.  After a tile's k
+//   range the fold: each digit tile's accumulators through shared memory,
+//   each thread summing one (word, output) row into a window of 35
+//   anti-diagonal sums, the windows into Q_s by shared atomics (32 bits
+//   hold them for ranges of at most 2,048 k-steps), each output's exact
+//   sum S to scratch; the block reduces its outputs together after its
+//   last tile.  Bound by its bytes: the 2^29 collapse reads 17.2 GB of
+//   words (5.13 ms at 3.35 TB/s); its 2 K B D^2 byte products take 1.11.
+//   Measured on an H100 (scripts/time_thin_dot.py): 5.76 ms, 89% of the
+//   bytes bound (the CUDA-core thin kernel: 13.8 ms).
 //
 // tile (the column evaluation: coefficient rows x the power table; Y as
 //   byte-digit planes).  lcpc_tpu runs this contraction on its matrix unit
@@ -626,6 +656,328 @@ mont_dot_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ---- the thin path on the tensor cores: A <= 2 rows against words --------------
+
+constexpr int kTtThreads = 256;  // two warpgroups: 64 quads, each a column pair x a word
+constexpr int kTtWarps = kTtThreads / 32;
+constexpr int kTtN = 64;         // wgmma N: the x digit rows (a, i), zero past 2D
+constexpr int kTtStages = 4;     // stages of Y in flight
+constexpr int kTtStaging = 128 * kTtN * 4;  // the fold's staged accumulators
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block at most
+constexpr int kTtMaxK = 2048;     // k-steps a range at most: the fold's 32-bit sums
+
+template <int W, bool LIMBS>
+struct Tt {
+  static constexpr int D = 4 * W;                  // digits (bytes) an element
+  static constexpr int CPB = 64 / W;               // column pairs a tile
+  static constexpr int CB = 2 * CPB;               // columns a tile
+  static constexpr int NQ = 2 * D - 1;             // anti-diagonals s = i + j
+  static constexpr int NOUT = 2 * CB;              // outputs (a, b) a tile
+  static constexpr int UNITS = LIMBS ? 2 * W : W;  // int32 units an element of Y
+  static constexpr int STAGE = UNITS * 32 * CB * 4;  // a stage: 32 rows of a tile, every unit
+  static constexpr int AR = (kTtN + D - 1) / D;    // x rows the digit rows span (2 used)
+  static constexpr int WIDE = 2 * W + 1;           // words of an output's exact sum
+};
+
+// d[64 x 64] (+)= A[64 x 32] B[64 x 32]^T, u8 x u8 -> s32, A from registers
+// (the fragment of wgmma_u8), B from shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_u8_n64(uint32_t (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
+}
+// an arrival on `bar` once this thread's earlier cp.asyncs have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// word w of element (i, k) of an operand (limbs: limb 2w | limb 2w+1 << 16)
+__device__ __forceinline__ uint32_t load_word(const Operand& o, long long i, long long k, int w) {
+  const int32_t* p = o.ptr + i * o.s_0 + k * o.s_1;
+  if (o.limbs)
+    return __byte_perm((uint32_t)__ldg(p + (2 * w) * o.s_w),
+                       (uint32_t)__ldg(p + (2 * w + 1) * o.s_w), 0x5410);
+  return (uint32_t)__ldg(p + w * o.s_w);
+}
+
+template <int W, bool LIMBS>
+__global__ void __launch_bounds__(kTtThreads, 1)
+mont_dot_thin_tc_kernel(const __grid_constant__ CUtensorMap ymap, Operand X, Operand Y, Out out,
+                        int32_t* __restrict__ wide, const uint32_t* __restrict__ consts, int A,
+                        long long K, long long B, long long k_split, int mont, int tma) {
+  using T = Tt<W, LIMBS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_base = smem_u32(smem_raw);
+  uint8_t* smem = smem_raw + ((1024 - (raw_base & 1023)) & 1023);  // 1,024-aligned planes
+  const int kcp = (int)((k_split + kKT - 1) / kKT * kKT);          // planes' k, whole k-tiles
+  const int ring_off = kTtN * kcp, stg_off = ring_off + kTtStages * T::STAGE;
+  const uint32_t sbase = smem_u32(smem);
+  const uint32_t full0 = sbase + stg_off + kTtStaging, empty0 = full0 + 8 * kTtStages;
+  const int tid = threadIdx.x, lane = tid & 31, c = lane & 3;
+  const long long k0 = (long long)blockIdx.y * k_split;
+  const long long k1 = k0 + k_split < K ? k0 + k_split : K;
+  const int nks = (int)((k1 - k0 + 31) / 32);  // k32 steps
+  const long long n_tiles = (B + T::CB - 1) / T::CB;
+  const int my_tiles = blockIdx.x < n_tiles
+                           ? (int)((n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x) : 0;
+  const int total = my_tiles * nks;  // stages (tile, k32 step) of this block
+  if (tid == 0) {
+    for (int s = 0; s < kTtStages; ++s) {
+      mbar_init(full0 + 8 * s, tma ? 1 : kTtThreads);  // the TMA's bytes, or every thread's
+      mbar_init(empty0 + 8 * s, kTtWarps);             // each warp, its fragments read
+    }
+    fence_mbar_init();
+  }
+
+  // x's digit planes for this K range, once: row n = a D + i holds byte i
+  // of x[a, k] (zero for a >= A and past the range), k-tiles of 128 k in
+  // the 128-byte swizzle the wgmma descriptor reads (16-byte chunk index
+  // xor the row mod 8).  Within each 16 k the positions are transposed as
+  // 4 x 4, position 4 c + u holding k = c + 4 u, the order in which the
+  // fragments read Y's rows (below).  Written by generic stores, so the
+  // async proxy that the wgmmas read through is fenced once.
+  {
+    const int kq_n = kcp / 4;
+    for (int t = tid; t < T::AR * W * kq_n; t += kTtThreads) {
+      const int kq = t % kq_n, w = (t / kq_n) % W, a = t / (kq_n * W);
+      const long long kb = k0 + 16 * (kq >> 2) + (kq & 3);
+      uint32_t v[4], o[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long k = kb + 4 * u;
+        v[u] = a < A && k < k1 ? load_word(X, a, k, w) : 0u;
+      }
+      transpose4(v, o);
+      const int kk = (4 * kq) & (kKT - 1), tile = (4 * kq) / kKT;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const int n = a * T::D + 4 * w + d;
+        if (n < kTtN)
+          *(uint32_t*)(smem + tile * kTtN * kKT + (n >> 3) * 1024 + (n & 7) * 128 +
+                       ((((kk >> 4) ^ (n & 7)) << 4) | (kk & 15))) = o[d];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  // stage g = (the block's tile g / nks, k32 step g % nks) into slot g %
+  // kTtStages: Y's 32 rows x CB columns x every unit, [unit][row][column];
+  // past B and this range the words are zero (TMA) or left stale
+  // (cp.async): they meet zero planes or fold into outputs never stored.  By TMA, one thread; else every thread copies words
+  // (any strides: Brakedown's odd row stride) and arrives when they land.
+  auto produce = [&](int g) {
+    const long long tile = blockIdx.x + (long long)(g / nks) * gridDim.x;
+    const long long row0 = k0 + 32LL * (g % nks), col0 = tile * T::CB;
+    const int slot = g % kTtStages;
+    const uint32_t dst = sbase + ring_off + slot * T::STAGE, bar = full0 + 8 * slot;
+    if (tma) {
+      mbar_arrive_tx(bar, T::STAGE);
+      tma_load_3d(dst, &ymap, (int)col0, (int)row0, 0, bar);
+      return;
+    }
+#pragma unroll 1
+    for (int e = tid; e < T::UNITS * 32 * T::CB; e += kTtThreads) {
+      const int col = e % T::CB, r = (e / T::CB) % 32, unit = e / (32 * T::CB);
+      if (row0 + r < k1 && col0 + col < B)  // else stale words: against zero planes or unread
+        cp_async4(dst + 4 * e, Y.ptr + unit * Y.s_w + (row0 + r) * Y.s_0 + (col0 + col) * Y.s_1);
+    }
+    cp_async_arrive(bar);
+  };
+  // this thread's quad: word w of the column pair cp (padding quads past W
+  // CPB, at W = 6, read slot 0's words: their rows are never folded)
+  const int qg = tid >> 2;
+  const int w = qg < W * T::CPB ? qg / T::CPB : 0, cp = qg < W * T::CPB ? qg % T::CPB : 0;
+  // stage g's fragments: tile d (digit 4 w + d) of this warpgroup's 64
+  // rows, a[2 h + e] = column 2 cp + e at positions 16 h + 4 c .. + 3,
+  // which hold rows 16 h + c + 4 u (u < 4: neighbouring lanes read
+  // neighbouring rows, two bank-free wavefronts a warp); the wgmma's row
+  // l/4 is column e = 0, row l/4 + 8 column e = 1; one 4 x 4 byte
+  // transpose of a column's 4 words gives its 4 digits.  Then the slot is
+  // released and, once every warp has, refilled with stage g + kTtStages.
+  auto build = [&](uint32_t (&frag)[4][4], int g) {
+    const int slot = g % kTtStages;
+    mbar_wait(full0 + 8 * slot, (g / kTtStages) & 1);
+    const uint8_t* base = smem + ring_off + slot * T::STAGE + 8 * cp;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t x0[4], x1[4], o0[4], o1[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int r = 16 * h + c + 4 * u;
+        uint2 v = *(const uint2*)(base + ((LIMBS ? 2 * w : w) * 32 + r) * T::CB * 4);
+        if (LIMBS) {
+          const uint2 hi = *(const uint2*)(base + ((2 * w + 1) * 32 + r) * T::CB * 4);
+          v.x = __byte_perm(v.x, hi.x, 0x5410);
+          v.y = __byte_perm(v.y, hi.y, 0x5410);
+        }
+        x0[u] = v.x;
+        x1[u] = v.y;
+      }
+      transpose4(x0, o0);
+      transpose4(x1, o1);
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        frag[d][2 * h] = o0[d];
+        frag[d][2 * h + 1] = o1[d];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+    if (g + kTtStages < total && (tma ? tid == 0 : true)) {
+      mbar_wait(empty0 + 8 * slot, (g / kTtStages) & 1);
+      produce(g + kTtStages);
+    }
+  };
+
+  for (int g = 0; g < kTtStages && g < total; ++g)
+    if (tma ? tid == 0 : true) produce(g);
+  uint32_t acc[4][32];  // this warpgroup's 4 tiles of 64 rows x 64 digit columns
+  uint32_t* stg = (uint32_t*)(smem + stg_off);
+  // the fold's roles: thread (fw, fo), word fw of output fo = (fa, b = 2
+  // cp + e), cp fastest (a warp's 8-lane phases read 8 rows of distinct
+  // swizzle, bank-free); its staged row, that of quad fw CPB + cp
+  const int fw = tid / T::NOUT, fo = tid % T::NOUT;
+  const bool fold_live = fw < W;
+  const int fa = fo / (2 * T::CPB), fq = fw * T::CPB + fo % T::CPB;
+  const int frow = (fq >> 3) * 16 + (fq & 7) + 8 * ((fo / T::CPB) % 2);
+  int g = 0;
+  for (int m = 0; m < my_tiles; ++m) {
+    const long long tile = blockIdx.x + (long long)m * gridDim.x;
+    {
+      // k32 step ks: the 4 tiles' wgmmas from `cur` (x's planes at k32 step
+      // ks), then step ks + 1's fragments into `nxt` once step ks - 1's
+      // wgmmas (which read `nxt`) are done
+      auto step = [&](int ks, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+        const uint64_t db = sw128_desc(sbase + (ks >> 2) * kTtN * kKT) + 2 * (ks & 3);
+        wgmma_fence();
+#pragma unroll
+        for (int d = 0; d < 4; ++d) wgmma_u8_n64(acc[d], cur[d], db, ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(nxt);
+        ++g;
+        if (ks + 1 < nks) build(nxt, g);
+      };
+      uint32_t f0[4][4], f1[4][4] = {};
+      build(f0, g);
+      for (int ks = 0; ks < nks; ks += 2) {
+        step(ks, f0, f1);
+        if (ks + 1 < nks) step(ks + 1, f1, f0);
+      }
+      wgmma_wait<0>();
+      fence_regs(f0);
+      fence_regs(f1);
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fence_acc(acc[d][i]);
+    }
+    // the fold, a tile d at a time: the accumulators into shared memory
+    // (row: the wgmma row, column: the digit column (a, i) xor 8 (row mod
+    // 8), bank-free both ways), then thread (word fw, output fo = (a, b))
+    // adds the D values of its row, P[(b, 4 fw + d), (a, i)], into its
+    // window win[d + i] of the anti-diagonal sums Q_{4 fw + d + i}; the
+    // windows then go into each output's Q_s by shared-memory atomics.
+    // Every sum fits 32 bits: a range of at most kTtMaxK k-steps gives
+    // P < 2048 255^2 < 2^27 and Q_s < D 2^27 <= 2^32.
+    uint32_t win[T::D + 3];
+#pragma unroll
+    for (int p = 0; p < T::D + 3; ++p) win[p] = 0;
+    const int r0 = (tid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+#pragma unroll
+      for (int g8 = 0; g8 < 8; ++g8) {
+        const int col = (8 * g8 + 2 * c) ^ ((r0 & 7) << 3);
+        *(uint2*)(stg + r0 * kTtN + col) = make_uint2(acc[d][4 * g8], acc[d][4 * g8 + 1]);
+        *(uint2*)(stg + (r0 + 8) * kTtN + col) =
+            make_uint2(acc[d][4 * g8 + 2], acc[d][4 * g8 + 3]);
+      }
+      __syncthreads();
+      if (fold_live) {
+#pragma unroll
+        for (int m4 = 0; m4 < T::D / 4; ++m4) {
+          const uint4 v = *(const uint4*)(stg + frow * kTtN +
+                                          ((fa * T::D + 4 * m4) ^ ((frow & 7) << 3)));
+          win[d + 4 * m4] += v.x;
+          win[d + 4 * m4 + 1] += v.y;
+          win[d + 4 * m4 + 2] += v.z;
+          win[d + 4 * m4 + 3] += v.w;
+        }
+      }
+      __syncthreads();
+    }
+    uint32_t* qs = stg;
+    for (int e = tid; e < T::NOUT * T::NQ; e += kTtThreads) qs[e] = 0;
+    __syncthreads();
+    if (fold_live) {
+#pragma unroll
+      for (int p = 0; p < T::D + 3; ++p) atomicAdd(qs + fo * T::NQ + 4 * fw + p, win[p]);
+    }
+    __syncthreads();
+    // each output's exact sum S = sum_s Q_s 2^(8 s) into `wide`: the block
+    // reduces its outputs together after its last tile, in parallel, not
+    // one warp a tile here
+    for (int o = tid; o < T::NOUT; o += kTtThreads) {
+      const int a = o / (2 * T::CPB);
+      const long long b = tile * T::CB + 2 * (o % T::CPB) + (o / T::CPB) % 2;
+      if (a >= A || b >= B) continue;
+      const uint32_t* qo = qs + o * T::NQ;
+      int32_t* wo = wide + (((long long)blockIdx.y * T::WIDE) * A + a) * B + b;
+      uint64_t cr = 0;
+#pragma unroll
+      for (int mm = 0; mm < 2 * W; ++mm) {  // word mm: Q_{4mm .. 4mm+3} and the carry
+        uint64_t t = cr;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (4 * mm + u < T::NQ) t += (uint64_t)qo[4 * mm + u] << (8 * u);
+        wo[mm * A * B] = (int32_t)(uint32_t)t;
+        cr = t >> 32;
+      }
+      wo[2 * W * A * B] = (int32_t)(uint32_t)cr;  // S < k_split R^2
+    }
+    __syncthreads();  // the sums read before the next tile's fold writes
+  }
+  // the block's outputs reduced: canonical (or Montgomery) residues of S
+  __syncthreads();
+  const Field<W> f(consts);
+  for (int idx = tid; idx < my_tiles * T::NOUT; idx += kTtThreads) {
+    const int o = idx % T::NOUT, a = o / (2 * T::CPB);
+    const long long b = (blockIdx.x + (long long)(idx / T::NOUT) * gridDim.x) * T::CB +
+                        2 * (o % T::CPB) + (o / T::CPB) % 2;
+    if (a >= A || b >= B) continue;
+    const int32_t* wo = wide + (((long long)blockIdx.y * T::WIDE) * A + a) * B + b;
+    uint32_t v[2 * W + 1], r[W];
+#pragma unroll
+    for (int mm = 0; mm <= 2 * W; ++mm) v[mm] = (uint32_t)wo[mm * A * B];
+    reduce_wide<W>(r, v, f, consts, mont);
+    store<W>(out, blockIdx.y, a, b, r);
+  }
+}
+
 template <int W>
 cudaError_t launch_thin(const Operand& X, const Operand& Y, const Out& out,
                         const uint32_t* consts, long long A, long long K, long long B,
@@ -703,6 +1055,59 @@ cudaError_t launch_tc(const int32_t* x, long long xs_w, long long xs_a, int x_li
   return cudaGetLastError();
 }
 
+template <int W, bool LIMBS>
+long long thin_tc_smem(long long k_split) {
+  return 1024 + kTtN * ((k_split + kKT - 1) / kKT * kKT) + kTtStages * Tt<W, LIMBS>::STAGE +
+         kTtStaging + 16 * kTtStages;
+}
+
+template <int W, bool LIMBS>
+cudaError_t launch_thin_tc(const Operand& X, const Operand& Y, const Out& out, int32_t* wide,
+                           const uint32_t* consts, long long A, long long K, long long B,
+                           long long k_split, int n_split, int mont, int tma, int grid_x,
+                           cudaStream_t stream) {
+  using T = Tt<W, LIMBS>;
+  const long long smem = thin_tc_smem<W, LIMBS>(k_split);
+  const long long n_tiles = (B + T::CB - 1) / T::CB;
+  if (smem > kSmemMax || n_tiles * ((k_split + 31) / 32) >= (1LL << 31) ||
+      (tma && (K >= (1LL << 31) || B >= (1LL << 31))))
+    return cudaErrorInvalidValue;
+  // Y as units x K rows x B columns of int32, read in boxes of every unit x
+  // 32 rows x CB columns (zero past B and K)
+  CUtensorMap ymap = {};
+  if (tma) {
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)K, (cuuint64_t)T::UNITS};
+    const cuuint64_t strides[2] = {(cuuint64_t)Y.s_0 * 4, (cuuint64_t)Y.s_w * 4};
+    const cuuint32_t box[3] = {T::CB, 32, T::UNITS}, elem[3] = {1, 1, 1};
+    if (encode(&ymap, CU_TENSOR_MAP_DATA_TYPE_INT32, 3, (void*)Y.ptr, dims, strides, box, elem,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+        CUDA_SUCCESS)
+      return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(mont_dot_thin_tc_kernel<W, LIMBS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)grid_x, (unsigned)n_split);
+  mont_dot_thin_tc_kernel<W, LIMBS><<<grid, kTtThreads, smem, stream>>>(
+      ymap, X, Y, out, wide, consts, (int)A, K, B, k_split, mont, tma);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_thin_tc_w(const Operand& X, const Operand& Y, const Out& out, int32_t* wide,
+                             const uint32_t* consts, long long A, long long K, long long B,
+                             long long k_split, int n_split, int mont, int tma, int grid_x,
+                             cudaStream_t stream) {
+  if (Y.limbs)
+    return launch_thin_tc<W, true>(X, Y, out, wide, consts, A, K, B, k_split, n_split, mont,
+                                   tma, grid_x, stream);
+  return launch_thin_tc<W, false>(X, Y, out, wide, consts, A, K, B, k_split, n_split, mont,
+                                  tma, grid_x, stream);
+}
+
 }  // namespace
 
 // out[a, b] (+ split * os_split) = sum over k in split's range of X[a, k]
@@ -773,6 +1178,51 @@ extern "C" int lcpc_mont_dot_planes(const int32_t* x, long long xs_w, long long 
     case 8:
       return (int)launch_tc<8>(x, xs_w, xs_a, x_limbs, planes, kt, o, consts, A, K, B, k_split,
                                n_split, mont, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The thin product on the tensor cores: the same operands and outputs as
+// lcpc_mont_dot (A <= 2 rows, Y as words or limbs read in place), K split
+// into n_split ranges of k_split, grid_x blocks a range, each taking every
+// grid_x-th tile of columns; wide is scratch of n_split (2 w32 + 1) A B
+// int32, the exact sums before their reduction.  tma = 1 reads Y by TMA:
+// ys_b = 1, y 16-byte aligned, ys_w and ys_k multiples of 4; else by
+// cp.async a word at a time (any strides).  The dynamic shared memory,
+// 1,024 + 64 ceil(k_split / 128) 128 + 4 stages of 16,384 (limbs: 32,768)
+// bytes + 32,832, must be at most 232,448 bytes.
+extern "C" int lcpc_mont_dot_thin_tc(const int32_t* x, long long xs_w, long long xs_a,
+                                     long long xs_k, int x_limbs, const int32_t* y,
+                                     long long ys_w, long long ys_k, long long ys_b, int y_limbs,
+                                     int32_t* out, long long os_w, long long os_a, long long os_b,
+                                     long long os_split, int32_t* wide, const uint32_t* consts,
+                                     int w32, long long A, long long K, long long B,
+                                     long long k_split, int n_split, int mont, int tma,
+                                     int grid_x, int device, void* stream) {
+  if (x == nullptr || y == nullptr || out == nullptr || wide == nullptr || consts == nullptr ||
+      A < 1 || A > 2 || B < 1 || K < 1 || k_split < 1 || k_split > kTtMaxK || n_split < 1 ||
+      n_split > 65535 || (long long)n_split * k_split < K ||
+      (long long)(n_split - 1) * k_split >= K || grid_x < 1 || grid_x > 65535 ||
+      (tma && (ys_b != 1 || ((uintptr_t)y & 15) || (ys_w & 3) || (ys_k & 3))))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Operand X{x, xs_w, xs_a, xs_k, x_limbs}, Y{y, ys_w, ys_k, ys_b, y_limbs};
+  const Out o{out, os_w, os_a, os_b, os_split};
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (w32) {
+    case 2:
+      return (int)launch_thin_tc_w<2>(X, Y, o, wide, consts, A, K, B, k_split, n_split, mont,
+                                      tma, grid_x, s);
+    case 4:
+      return (int)launch_thin_tc_w<4>(X, Y, o, wide, consts, A, K, B, k_split, n_split, mont,
+                                      tma, grid_x, s);
+    case 6:
+      return (int)launch_thin_tc_w<6>(X, Y, o, wide, consts, A, K, B, k_split, n_split, mont,
+                                      tma, grid_x, s);
+    case 8:
+      return (int)launch_thin_tc_w<8>(X, Y, o, wide, consts, A, K, B, k_split, n_split, mont,
+                                      tma, grid_x, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,39 +12,30 @@
 //
 //   V[q A + t, j] = lo[t, j] hi[q, j],  lo[t, j] = g_j^t,  hi[q, j] = g_j^(A q)
 //
-// with A = 32, in one of two layouts, a kernel each:
-//
-// words (W, K, k) int32, what the thin mont_dot kernel reads (the
-//   verifier's rows at the columns).  A block owns 32 columns j (a warp's
-//   32 threads, neighbouring columns: every store is coalesced) and 64
-//   values of q (2,048 rows m).  It builds its columns' low ladder in shared
-//   memory (each of its 8 thread rows raises g to t < 8 by squaring and
-//   multiplying, then steps by g^8), then in 8 rounds the high values of 8 q
-//   each (the first by square and multiply from g^A, each next round one
-//   product by g^(8 A)), and every thread writes 32 entries a round, one
-//   Montgomery product each.
-//
-// planes (KT, k, 4W, 128) u8, what the tile mont_dot kernel reads on the
-//   tensor cores (the prover's column evaluation): [t, j, d, e] is byte d of
-//   entry m = 128 t + e of point j, zero past K; each k-tile of 128 m is
-//   one contiguous slab of every point's planes, one TMA box of the wgmma's
-//   B operand.  The store runs along m, so a warp owns one point and 128
-//   neighbouring m: lane l takes t = 4 (l mod 8) .. + 3 of the q = l / 8,
-//   holds its four low powers in registers and forms four entries with one
-//   product each; a 4 x 4 byte transpose of each word gives four plane
-//   rows of 4 bytes, and the warp's 32 lanes store 128 contiguous bytes of
-//   each.  The high ladder is shared across the warp: lane l holds
-//   g^(A q) of the warp's q0 + l, advanced by one product by g^(32 A)
-//   every 32 q, and the lanes that need it read it by shuffle.
+// with A = 32, as digit planes (KT, k, 4W, 128) u8, what the tile mont_dot
+// kernel reads on the tensor cores (the prover's column evaluation and the
+// verifier's rows at the opened columns): [t, j, d, e] is byte d of entry
+// m = 128 t + e of point j, zero past K; each k-tile of 128 m is one
+// contiguous slab of every point's planes, one TMA box of the wgmma's B
+// operand.  The store runs along m, so a warp owns one point and 128
+// neighbouring m: lane l takes t = 4 (l mod 8) .. + 3 of the q = l / 8,
+// holds its four low powers in registers and forms four entries with one
+// product each; a 4 x 4 byte transpose of each word gives four plane rows
+// of 4 bytes, and the warp's 32 lanes store 128 contiguous bytes of each.
+// The high ladder is shared across the warp: lane l holds g^(A q) of the
+// warp's q0 + l, advanced by one product by g^(32 A) every 32 q, and the
+// lanes that need it read it by shuffle.  The verifier's two rows read
+// this layout too: with the tile kernel, table included, 0.363 ms against
+// 0.658 for a (W, K, k) words table with the CUDA-core kernel at 2^23, and
+// 1.924 against 4.358 at 2^29 (an H100, scripts/time_thin_dot.py).
 //
 // The only host work is the k points g_j (one pow each, as in lcpc_tpu).
 //
 // What bounds it on an H100 (700 W): the products, 2 W^2 + W wide products
-// an entry (136 at ft255), at 8.4 T/s, about 1.2 of them an entry with the
-// ladders in the words layout and ~1.06 in the planes layout; against the
-// table's bytes written once (32 bytes an entry at ft255, 3.35 TB/s) the
-// products take ~1.7x longer.  At the 2^29 prove (262,144 x 189 entries,
-// 1.6 GB) the bound is ~0.8 ms.
+// an entry (136 at ft255), at 8.4 T/s, ~1.06 of them an entry with the
+// ladders; against the table's bytes written once (32 bytes an entry at
+// ft255, 3.35 TB/s) the products take ~1.7x longer.  At the 2^29 prove
+// (262,144 x 189 entries, 1.6 GB) the bound is ~0.8 ms.
 
 #include "mont.cuh"
 
@@ -52,11 +43,7 @@ namespace {
 
 using namespace lcpc;
 
-constexpr int kCols = 32;    // columns j a block (blockDim.x)
-constexpr int kRows = 8;     // thread rows (blockDim.y)
-constexpr int kA = 32;       // the low ladder's length
-constexpr int kRounds = 8;   // rounds of kRows q-values a block
-constexpr int kQ = kRounds * kRows;
+constexpr int kA = 32;  // the low ladder's length
 
 template <int W>
 __device__ __forceinline__ void copy(uint32_t (&r)[W], const uint32_t (&a)[W]) {
@@ -84,91 +71,12 @@ __device__ __forceinline__ void pow_mont(uint32_t (&r)[W], const uint32_t (&g)[W
   }
 }
 
-// the 4 x 4 byte transpose: o[b] holds byte b of x[0], x[1], x[2], x[3], in
-// that order (four PRMTs make byte pairs, four more the quadruples)
-__device__ __forceinline__ void transpose4(const uint32_t (&x)[4], uint32_t (&o)[4]) {
-  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140), t1 = __byte_perm(x[0], x[1], 0x7362);
-  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140), t3 = __byte_perm(x[2], x[3], 0x7362);
-  o[0] = __byte_perm(t0, t2, 0x5410);
-  o[1] = __byte_perm(t0, t2, 0x7632);
-  o[2] = __byte_perm(t1, t3, 0x5410);
-  o[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 template <int W>
 __device__ __forceinline__ void square_n(uint32_t (&r)[W], int n, const Field<W>& f) {
   for (int s = 0; s < n; ++s) {
     uint32_t t[W];
     copy(t, r);
     f.mul(r, t, t);
-  }
-}
-
-template <int W>
-__global__ void __launch_bounds__(kCols * kRows)
-power_table_kernel(const int32_t* __restrict__ g, int32_t* __restrict__ out,
-                   const uint32_t* __restrict__ consts, int K, int k) {
-  __shared__ uint32_t lo[W][kA][kCols];
-  __shared__ uint32_t hi[W][kRows][kCols];
-  const Field<W> f(consts);
-  const int jx = threadIdx.x, ty = threadIdx.y;
-  const int j = blockIdx.x * kCols + jx;
-  const int jc = j < k ? j : k - 1;
-  uint32_t gj[W], one[W];
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    gj[i] = (uint32_t)__ldg(g + (long long)i * k + jc);
-    one[i] = __ldg(consts + 2 * W + 1 + i);
-  }
-  // the low ladder: thread row ty holds g^ty, g^(ty + 8), g^(ty + 16), ...
-  uint32_t step[W], cur[W];
-  copy(step, gj);
-  square_n(step, 3, f);  // g^8
-  pow_mont(cur, gj, (unsigned)ty, one, f);
-#pragma unroll
-  for (int s = 0; s < kA / kRows; ++s) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) lo[i][ty + kRows * s][jx] = cur[i];
-    uint32_t t[W];
-    copy(t, cur);
-    f.mul(cur, t, step);
-  }
-  // the high ladder: g^A, then thread row ty's first q, and g^(8 A) a round
-  uint32_t ga[W], h[W];
-  copy(ga, step);
-  square_n(ga, 2, f);  // g^32 = g^A
-  const unsigned q0 = blockIdx.y * kQ;
-  pow_mont(h, ga, q0 + ty, one, f);
-  square_n(ga, 3, f);  // g^(8 A)
-  for (int round = 0; round < kRounds; ++round) {
-    __syncthreads();  // the ladder is written; last round's readers are done
-#pragma unroll
-    for (int i = 0; i < W; ++i) hi[i][ty][jx] = h[i];
-    {
-      uint32_t t[W];
-      copy(t, h);
-      f.mul(h, t, ga);
-    }
-    __syncthreads();
-    const int qr = q0 + round * kRows;
-    for (int qq = 0; qq < kRows; ++qq) {
-      uint32_t hq[W];
-#pragma unroll
-      for (int i = 0; i < W; ++i) hq[i] = hi[i][qq][jx];
-#pragma unroll
-      for (int s = 0; s < kA / kRows; ++s) {
-        const int t = ty + kRows * s;
-        const long long m = (long long)(qr + qq) * kA + t;
-        if (m < K && j < k) {
-          uint32_t l[W], r[W];
-#pragma unroll
-          for (int i = 0; i < W; ++i) l[i] = lo[i][t][jx];
-          f.mul(r, l, hq);
-#pragma unroll
-          for (int i = 0; i < W; ++i) out[((long long)i * K + m) * k + j] = (int32_t)r[i];
-        }
-      }
-    }
   }
 }
 
@@ -243,43 +151,33 @@ power_planes_kernel(const int32_t* __restrict__ g, uint8_t* __restrict__ out,
 }
 
 template <int W>
-cudaError_t launch(const int32_t* g, void* out, const uint32_t* consts, int K, int k, int planes,
+cudaError_t launch(const int32_t* g, uint8_t* out, const uint32_t* consts, int K, int k,
                    cudaStream_t stream) {
-  if (planes) {
-    const dim3 grid((unsigned)((K + kPlaneM - 1) / kPlaneM), (unsigned)k);
-    power_planes_kernel<W><<<grid, 32 * kPlaneWarps, 0, stream>>>(g, (uint8_t*)out, consts, K,
-                                                                  k);
-  } else {
-    const dim3 grid((unsigned)((k + kCols - 1) / kCols),
-                    (unsigned)((K + kA * kQ - 1) / (kA * kQ)));
-    power_table_kernel<W><<<grid, dim3(kCols, kRows), 0, stream>>>(g, (int32_t*)out, consts, K,
-                                                                   k);
-  }
+  const dim3 grid((unsigned)((K + kPlaneM - 1) / kPlaneM), (unsigned)k);
+  power_planes_kernel<W><<<grid, 32 * kPlaneWarps, 0, stream>>>(g, out, consts, K, k);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The table of the points g (w32, k) int32 words (Montgomery) on `stream`
-// of CUDA device `device`: planes = 0 writes out (w32, K, k) int32 words,
-// out[:, m, j] = g_j^m (Montgomery); planes = 1 writes out (KT, k, 4 w32,
-// 128) u8, KT = ceil(K / 128), out[t, j, d, e] = byte d of g_j^(128 t + e)
-// (Montgomery), zero past K.  consts: p[w32] | n0 | r2[w32] | one[w32].
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int lcpc_power_table(const int32_t* g, void* out, const uint32_t* consts, int w32,
-                                int K, int k, int planes, int device, void* stream) {
+// of CUDA device `device`: out (KT, k, 4 w32, 128) u8, KT = ceil(K / 128),
+// out[t, j, d, e] = byte d of g_j^(128 t + e) (Montgomery), zero past K.
+// consts: p[w32] | n0 | r2[w32] | one[w32].  Returns the launch's
+// cudaError_t (0 on success).
+extern "C" int lcpc_power_table(const int32_t* g, uint8_t* out, const uint32_t* consts, int w32,
+                                int K, int k, int device, void* stream) {
   if (g == nullptr || out == nullptr || consts == nullptr || K < 1 || k < 1 ||
-      (long long)K > (1LL << 30) || (K + kA * kQ - 1) / (kA * kQ) > 65535 ||
-      (planes && (k > 65535 || ((uintptr_t)out & 3))))
+      (long long)K > (1LL << 30) || k > 65535 || ((uintptr_t)out & 3))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   switch (w32) {
-    case 2: return (int)launch<2>(g, out, consts, K, k, planes, s);
-    case 4: return (int)launch<4>(g, out, consts, K, k, planes, s);
-    case 6: return (int)launch<6>(g, out, consts, K, k, planes, s);
-    case 8: return (int)launch<8>(g, out, consts, K, k, planes, s);
+    case 2: return (int)launch<2>(g, out, consts, K, k, s);
+    case 4: return (int)launch<4>(g, out, consts, K, k, s);
+    case 6: return (int)launch<6>(g, out, consts, K, k, s);
+    case 8: return (int)launch<8>(g, out, consts, K, k, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,9 +14,10 @@
    place of re-encoding every block when the codeword was not kept.
 
 lcpc_tpu contracts int8 digit planes (base 2^7) on the TPU's matrix unit;
-here both products are mont_dot (csrc/mont_dot.cu): the collapse's two
-rows on the CUDA cores, the column evaluation on the tensor cores over the
-values' own bytes as u8 digit planes (power_table writes V as such planes).
+here both products are mont_dot (csrc/mont_dot.cu) on the tensor cores
+over the values' own bytes as u8 digits: the collapse's two rows against
+the coefficient words read in place, the column evaluation against V's
+digit planes (power_table writes V as such planes).
 The outputs are lcpc_tpu's: MxuCollapse's equal FieldOps.collapse_words,
 MxuColumnEval's equal the columns gathered out of LcEncoding.encode_rows.
 """
@@ -106,15 +107,15 @@ class MxuColumnEval:
     row block -> (W/2, rows, k) packed Montgomery words, int64 u32 values,
     equal to gathering the same columns out of enc.encode_rows(block).
 
-    `table_form` is the power table's layout: "planes" (the prover's blocks
-    of many rows, on the tensor cores) or "words" (the verifier's few rows,
-    on the thin kernel)."""
+    The power table is digit planes, read by mont_dot's tile kernel for
+    the prover's blocks and the verifier's two rows alike (at 2^23 and 2^29
+    the planes table and the tile kernel take half the time or less of a
+    words table and the thin kernel on an H100, scripts/time_thin_dot.py)."""
 
-    def __init__(self, enc, table_form: str = "planes"):
+    def __init__(self, enc):
         self.enc = enc
         self.spec = enc.spec
         self.ops = get_ops(enc.spec)
-        self.table_form = table_form
         self._table = None
 
     def set_columns(self, cols: "list[int]") -> None:
@@ -126,7 +127,7 @@ class MxuColumnEval:
         rev = bit_reverse_indices(n_cols)
         gs = [pow(w_nc, int(rev[c]), p) for c in cols]  # g_j = w^bitrev(c_j)
         g = pack_words(limbs_to_device(self.ops.encode_host(gs), self.enc.device), 0)
-        self._table = power_table(spec, g, self.enc.n_per_row, self.table_form)
+        self._table = power_table(spec, g, self.enc.n_per_row)
 
     @property
     def table_bytes(self) -> int:
@@ -142,6 +143,5 @@ class MxuColumnEval:
         if block.shape[2] != self.enc.n_per_row:
             raise ValueError(f"eval_block: rows of {self.enc.n_per_row} coefficients, got "
                              f"{tuple(block.shape)}")
-        words = mont_dot(self.spec, block, self._table, "mont", x_form=in_form,
-                         y_form="planes" if self.table_form == "planes" else "packed")
+        words = mont_dot(self.spec, block, self._table, "mont", x_form=in_form, y_form="planes")
         return words.to(torch.int64) & 0xFFFFFFFF

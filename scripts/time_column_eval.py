@@ -13,8 +13,7 @@ spills of every template printed, with any wgmma warning), then:
     limit), and the planes table against power_table_plain;
   - times: the 2^29 column evaluation (ft255, 262,144 coefficients a row,
     189 points) for each row count of --rows beside its tensor-core and
-    IMAD bounds, the plain version at the smallest, and the power table in
-    both layouts.
+    IMAD bounds, the plain version at the smallest, and the power table.
 Prints one JSON line last and writes chiprun_out/time_column_eval.json.
 Needs a CUDA device.
 """
@@ -120,7 +119,7 @@ def main() -> int:
             g = points(field, 11)
             for big_k in (1, 70, 5_000):
                 same(f"{field.name} planes table {big_k}",
-                     md.power_table(field, g, big_k, "planes"),
+                     md.power_table(field, g, big_k),
                      md.power_table_plain(field, g, big_k, "planes"))
             print(f"  {field.name}: tensor-core mont_dot and planes table equal to plain",
                   flush=True)
@@ -142,7 +141,7 @@ def main() -> int:
             print(f"  all-0xFF {a} x {k} x {b} (k_split {split[0]}, {split[1]} splits) equal",
                   flush=True)
         g = points(spec, POINTS)
-        same("2^29 planes table", md.power_table(spec, g, NPR, "planes"),
+        same("2^29 planes table", md.power_table(spec, g, NPR),
              md.power_table_plain(spec, g, NPR, "planes"))
         print(f"  the 2^29 planes table equal; checks {time.perf_counter() - t0:.1f} s",
               flush=True)
@@ -150,10 +149,9 @@ def main() -> int:
     spec = P.FT255
     w32 = spec.w16 // 2
     g = points(spec, POINTS)
-    res["table_ms"] = {form: kb.time_kernel(lambda: md.power_table(spec, g, NPR, form), reps=5)
-                       for form in md.TABLE_FORMS}
+    res["table_ms"] = {"planes": kb.time_kernel(lambda: md.power_table(spec, g, NPR), reps=5)}
     print(f"power_table {NPR} x {POINTS}: {res['table_ms']}", flush=True)
-    table = md.power_table(spec, g, NPR, "planes")
+    table = md.power_table(spec, g, NPR)
     res["eval"] = {}
     for rows in (int(r) for r in args.rows.split(",")):
         x = rand_packed(spec, rows, NPR)

@@ -1,11 +1,12 @@
 """The prover's contractions (lcpc_tpu_torch.ops.mxu_prove, ops/mont_dot.py)
 on the CPU, where they run the kernels' plain versions: MxuCollapse against
 FieldOps.collapse_words and lcpc_tpu's MxuCollapse, MxuColumnEval (its power
-table as digit planes and as words) against the columns of
+table as digit planes) against the columns of
 LcEncoding.encode_rows, lcpc_tpu's MxuColumnEval and Horner over Python
 ints, and mont_dot / power_table against Python ints; the digit-plane
-layout and the tensor-core kernel's arithmetic (mont_dot_planes_plain, its
-folds and the s32 limit) against mont_dot_plain and Python ints.
+layout and the tensor-core kernels' arithmetic (mont_dot_planes_plain and
+mont_dot_thin_tc_plain, their folds and the s32 limit) against
+mont_dot_plain and Python ints; the launches' K splits and the routes.
 Tolerance 0 everywhere: exact field arithmetic."""
 
 import random
@@ -62,9 +63,9 @@ def test_collapse_equals_collapse_words_and_reference(monkeypatch):
 
 
 def test_column_eval_equals_encode_gather_and_reference():
-    """ft63: MxuColumnEval of a block (repeated and edge columns) equals the
-    same columns of encode_rows and lcpc_tpu's MxuColumnEval, with its
-    power table in either layout."""
+    """ft63: MxuColumnEval of a block (repeated and edge columns, two sets)
+    equals the same columns of encode_rows and lcpc_tpu's MxuColumnEval,
+    its power table as digit planes."""
     import lcpc_tpu as J
     from lcpc_tpu.ops import mxu_prove as JM
 
@@ -74,12 +75,13 @@ def test_column_eval_equals_encode_gather_and_reference():
     blk = _limbs(spec, [rnd.randrange(spec.p) for _ in range(6 * 40)], (6, 40))
     cols = [0, 127, 5, 64, 5, 99]
     want = pack_words(enc.encode_rows(blk)[:, :, cols], 0).to(torch.int64) & 0xFFFFFFFF
-    for table_form, table_bytes in (("planes", 6 * 8 * 128), ("words", 2 * 40 * 6 * 4)):
-        ev = M.MxuColumnEval(enc, table_form)
-        ev.set_columns(cols)
-        assert ev.table_bytes == table_bytes
-        assert torch.equal(ev.eval_block(blk), want)
-        assert torch.equal(ev.eval_block(pack_words(blk, 0), in_form="packed"), want)
+    for cs in (cols, [127, 1, 1, 126, 63, 32, 0, 77, 100]):
+        ev = M.MxuColumnEval(enc)
+        ev.set_columns(cs)
+        assert ev.table_bytes == len(cs) * 8 * 128
+        want_cs = pack_words(enc.encode_rows(blk)[:, :, cs], 0).to(torch.int64) & 0xFFFFFFFF
+        assert torch.equal(ev.eval_block(blk), want_cs)
+        assert torch.equal(ev.eval_block(pack_words(blk, 0), in_form="packed"), want_cs)
     jev = JM.MxuColumnEval(J.LigeroEncoding.new_from_dims(J.FT63, 40, 128, 1, 4))
     jev.set_columns(cols)
     jgot = jev.eval_block(jnp.asarray(blk.numpy().astype(np.uint32)))
@@ -88,8 +90,8 @@ def test_column_eval_equals_encode_gather_and_reference():
 
 def test_column_eval_ft255_equals_horner():
     """ft255: the opened columns are the rows at w^bitrev(c), by Horner over
-    Python ints (no JAX compile of an ft255 graph), with the power table in
-    either layout."""
+    Python ints (no JAX compile of an ft255 graph), one column set and
+    another with a repeated column."""
     spec = P.FT255
     ops = get_ops(spec)
     rnd = random.Random(4)
@@ -97,11 +99,10 @@ def test_column_eval_ft255_equals_horner():
     enc = P.LigeroEncoding.new_from_dims(spec, npr, n_cols, 1, 4, device="cpu")
     vals = [[rnd.randrange(spec.p) for _ in range(npr)] for _ in range(rows)]
     blk = _limbs(spec, [v for r in vals for v in r], (rows, npr))
-    cols = [1, 63, 17]
     w = spec.root_for_log_len(6)
     rev = bit_reverse_indices(n_cols)
-    for table_form in MD.TABLE_FORMS:
-        ev = M.MxuColumnEval(enc, table_form)
+    for cols in ([1, 63, 17], [0, 40, 40, 5]):
+        ev = M.MxuColumnEval(enc)
         ev.set_columns(cols)
         got = unpack_words(ev.eval_block(blk).to(torch.int32), 0)  # (W, rows, k) Montgomery
         for r in range(rows):
@@ -134,7 +135,8 @@ def test_mont_dot_and_power_table_against_ints():
         assert torch.equal(buf.permute(0, 2, 1),
                            mont_dot_plain(spec, pack_words(x, 0), pack_words(y, 0)))
         gs = [rnd.randrange(p) for _ in range(3)]
-        table = unpack_words(power_table(spec, pack_words(_limbs(spec, gs, (3,)), 0), 70), 0)
+        table = unpack_words(MD.planes_to_words(power_table(
+            spec, pack_words(_limbs(spec, gs, (3,)), 0), 70), 70), 0)
         assert ops.decode_host(table) == [pow(g, m, p) for m in range(70) for g in gs]
 
 
@@ -153,13 +155,49 @@ def _words_ints(spec, words):
 
 
 def test_plane_product_against_plain_and_ints():
-    """mont_dot_planes_plain (the tensor-core kernel's arithmetic: u8 digit
-    planes, a fold every `fold` k-steps) equals mont_dot_plain and Python
+    """mont_dot_planes_plain (the tile kernel's arithmetic: u8 digit
+    planes, a fold every `fold` k-steps) and mont_dot_thin_tc_plain (the
+    thin tensor-core kernel's: y's digit rows against x's planes, K ranges
+    of `k_split`, the fold by digit rounds) equal mont_dot_plain and Python
     ints in every field, on random operands and on all-0xFF bytes (every
     value R - 1, as an unreduced operand may be) across fold boundaries;
     to_planes and planes_to_words invert each other."""
     for spec in P.ALL_FIELDS:
         _plane_product_case(spec)
+        _thin_tc_case(spec)
+
+
+def _thin_tc_case(spec):
+    """The thin tensor-core model: A = 1 and 2, ragged K and B, y packed and
+    as limbs read through a Brakedown-like odd row stride, both outputs,
+    one K range and several; all-0xFFFFFFFF words and all-0xFFFF limbs."""
+    rnd = random.Random(10)
+    K, B = 37, 19
+    big = _limbs(spec, [rnd.randrange(spec.p) for _ in range(K * (B + 2))], (K, B + 2))
+    for A in (1, 2):
+        x = _limbs(spec, [rnd.randrange(spec.p) for _ in range(A * K)], (A, K))
+        xi = _words_ints(spec, pack_words(x, 0))
+        for y_form, y in (("limbs", big[:, :, :B]), ("packed", pack_words(big, 0)[:, :, 1:])):
+            assert y.stride(1) % 2 == 1 and not MD.thin_tc_tma(y)  # read a word at a time
+            yi = _words_ints(spec, pack_words(y, 0) if y_form == "limbs" else y)
+            for out_form, shift in (("canonical", 2), ("mont", 1)):
+                want = mont_dot_plain(spec, x, y, out_form, x_form="limbs", y_form=y_form)
+                assert _words_ints(spec, want) == _host_dot(spec, xi, yi, shift)
+                for k_split in (16, K, None):
+                    got = MD.mont_dot_thin_tc_plain(spec, x, y, out_form, x_form="limbs",
+                                                    y_form=y_form, k_split=k_split)
+                    assert torch.equal(got, want)
+    ones_x = torch.full((spec.w16 // 2, 2, 300), -1, dtype=torch.int32)
+    for y_form, ones_y in (("packed", torch.full((spec.w16 // 2, 300, 5), -1, dtype=torch.int32)),
+                           ("limbs", torch.full((spec.w16, 300, 5), 0xFFFF, dtype=torch.int32))):
+        for out_form in MD.OUT_FORMS:
+            want = mont_dot_plain(spec, ones_x, ones_y, out_form, y_form=y_form)
+            assert _words_ints(spec, want) == _host_dot(
+                spec, [[spec.R - 1] * 300] * 2, [[spec.R - 1] * 5] * 300, 2 if out_form ==
+                "canonical" else 1)
+            for k_split in (128, None):
+                assert torch.equal(MD.mont_dot_thin_tc_plain(
+                    spec, ones_x, ones_y, out_form, y_form=y_form, k_split=k_split), want)
 
 
 def _plane_product_case(spec):
@@ -193,7 +231,9 @@ def test_plane_product_s32_limit():
     tensor-core launch's K ranges (tc_split) keep to the limit: each at
     most FOLD_K and a multiple of the stage's 128 k-steps, together
     covering K with none empty, split no further than FOLD_K once the
-    blocks fill the card twice over."""
+    blocks fill the card twice over.  The thin tensor-core launch's
+    (thin_tc_split) fit its shared memory and cover K; `route` picks the
+    kernel."""
     spec = P.FT63
     d = 2 * spec.w16
     K = MD.FOLD_K + 1
@@ -216,12 +256,53 @@ def test_plane_product_s32_limit():
             blocks = -(-A // (2 * (64 // d))) * -(-B // (256 // d))
             if blocks * -(-K // MD.FOLD_K) >= 2 * 132:
                 assert n == -(-K // MD.FOLD_K)
+    # the thin tensor-core kernel: its shared memory (x's planes for the
+    # range, y's stages, the fold's staging) fits, a range keeps to the s32
+    # limit, the prover's collapses take one range and fill the card
+    for limbs in (False, True):
+        cap = MD.thin_tc_cap(limbs)
+        ring = MD.TT_STAGES * MD.TT_STAGE * (2 if limbs else 1)
+        assert 1024 + 64 * cap + ring + MD.TT_STAGING <= MD.SMEM_MAX
+        assert cap % MD.TC_KT == 0 and cap * 255 * 255 < 2**31
+        assert cap == (2048 if not limbs else 1024)
+    x2 = torch.full((spec.w16 // 2, 1, 33_026), -1, dtype=torch.int32)
+    with pytest.raises(OverflowError):
+        MD.mont_dot_thin_tc_plain(spec, x2, x2.permute(0, 2, 1), k_split=33_026)
+    # the fold's 32-bit anti-diagonal sums: D 2^27 at TT_MAX_K, 2^33 at 2^15
+    f255 = P.FT255
+    x3 = torch.full((f255.w16 // 2, 1, MD.FOLD_K), -1, dtype=torch.int32)
+    MD.mont_dot_thin_tc_plain(f255, x3[:, :, : MD.TT_MAX_K], x3[:, :, : MD.TT_MAX_K].permute(
+        0, 2, 1))
+    with pytest.raises(OverflowError):
+        MD.mont_dot_thin_tc_plain(f255, x3, x3.permute(0, 2, 1), k_split=MD.FOLD_K)
+    for field in P.ALL_FIELDS:
+        for limbs, K, B in ((False, 2048, 1 << 18), (False, 2048, 1 << 17), (True, 256, 1 << 15),
+                            (True, 36, 235_173), (False, 1 << 18, 189), (True, 2049, 70),
+                            (False, 1, 1)):
+            k_split, n, grid_x = MD.thin_tc_split(field, limbs, K, B, 132)
+            assert k_split <= MD.thin_tc_cap(limbs) and n * k_split >= K > (n - 1) * k_split
+            tiles = -(-B // (2 * (64 // (field.w16 // 2))))
+            assert 1 <= grid_x <= tiles and (grid_x * n >= 132 or grid_x == tiles)
+            if B >= 1 << 15:
+                assert (n, grid_x) == (-(-K // MD.thin_tc_cap(limbs)), 132)
+    # routes: the tile kernel for planes or more than two rows; the thin
+    # tensor-core kernel for the Ligero collapses and column checks; the
+    # CUDA cores for the sums of partials, Brakedown's collapse and dots of
+    # one column
+    assert MD.route(3, 70, 5, "packed") == MD.route(2, 2048, 189, "planes") == "tile"
+    for A, K, B, y_form in ((2, 2048, 1 << 18, "packed"), (2, 256, 1 << 15, "limbs"),
+                            (2, 256, 189, "packed"), (2, 2048, 189, "packed"),
+                            (2, 36, 4096, "packed")):
+        assert MD.route(A, K, B, y_form) == "thin_tc"
+    for A, K, B, y_form in ((1, 5, 1 << 18, "packed"), (1, 1 << 15, 1, "limbs"),
+                            (2, 36, 235_173, "limbs"), (2, 8, 189, "packed")):
+        assert MD.route(A, K, B, y_form) == "thin"
 
 
 def test_power_table_planes_against_ints():
-    """power_table's planes layout in every field: byte d of g_j^m
-    (Montgomery) at [m // 128, j, d, m % 128], zero past K, and the same
-    table as the words layout laid out by to_planes."""
+    """power_table's planes in every field: byte d of g_j^m (Montgomery) at
+    [m // 128, j, d, m % 128], zero past K, and the plain ladders' words
+    laid out by to_planes."""
     for spec in P.ALL_FIELDS:
         _power_table_planes_case(spec)
 
@@ -232,11 +313,13 @@ def _power_table_planes_case(spec):
     gs = [rnd.randrange(spec.p) for _ in range(3)]
     g = pack_words(_limbs(spec, gs, (3,)), 0)
     K = 133
-    planes = power_table(spec, g, K, "planes")
+    planes = power_table(spec, g, K)
     assert planes.shape == (2, 3, 2 * spec.w16, MD.TC_KT) and planes.dtype == torch.uint8
     assert not planes[1, ..., K - MD.TC_KT:].any()
-    assert torch.equal(planes, MD.to_planes(spec, power_table(spec, g, K)))
+    assert torch.equal(planes, MD.to_planes(spec, MD.power_table_plain(spec, g, K, "words")))
     table = unpack_words(MD.planes_to_words(planes, K), 0)  # (W, K, 3) Montgomery limbs
     assert ops.decode_host(table) == [pow(g_, m, spec.p) for m in range(K) for g_ in gs]
     with pytest.raises(ValueError):
-        power_table(spec, g, K, "bytes")
+        MD.power_table_plain(spec, g, K, "bytes")
+    with pytest.raises(ValueError):
+        power_table(spec, g, 0)
