@@ -5,12 +5,13 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the six CUDA kernel sources from the checkout, one nvcc each,
+  2. build the seven CUDA kernel sources from the checkout, one nvcc each,
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
-     csrc/power_table.cu); print ptxas's registers and spills per template
-     (fatal if the SpMV's, the NTT's, the generator's or the power table's
-     W32 = 8 spills, any of mont_dot's tensor-core templates (tile and
+     csrc/power_table.cu, csrc/mont_map.cu); print ptxas's registers and
+     spills per template (fatal if the SpMV's, the NTT's, the generator's,
+     the power table's or either field map's W32 = 8 spills, any of
+     mont_dot's tensor-core templates (tile and
      thin_tc) spills, or ptxas serializes its wgmmas; every BLAKE3 kernel
      reported, the
      per-level blake3_parents gone), what the generator's function needs
@@ -31,9 +32,12 @@ Phases, each fatal on failure (each prints the seconds it took):
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
      counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
-     path walk; the collapses through mont_dot's CUDA-core thin kernel) and
-     3 times warm (median
-     ms); check the evaluation against the
+     path walk; the collapses through mont_dot's CUDA-core thin kernel;
+     mont_mul_map) and 3 times warm (median ms), then once traced by stage
+     (mont_mul_map launched once in commit, where the plain limb graph
+     converted the codeword to hash words, 5 times in verify; every CUDA
+     kernel launch of each stage beside the parent commit's); check the
+     evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
      then commit_streaming the same coefficients (its encode launches the
@@ -53,7 +57,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      the commit's; prove's collapse and verify's column check through
      mont_dot's thin tensor-core kernel; verify's rows evaluated at the
      opened columns, one power table and the tile kernel; the evaluation's
-     dot on the thin kernel), with the
+     dot on the thin kernel; verify's 4 conversions through mont_mul_map,
+     none in commit), traced by stage as in phase 4, with the
      evaluation and tamper checks; reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
   7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
@@ -125,7 +130,17 @@ Phases, each fatal on failure (each prints the seconds it took):
      (generator, the collapse over all 2,048 rows beside its bound, column
      evaluation, power table) and verify's two rows at the columns (the
      tile kernel) timed;
-  12. print the kernel table line, then the result line.
+  12. hold the field maps (mont_mul_map, mont_addsub_map) against their
+     plain versions, bit for bit: the 2^23 Brakedown commit's conversion
+     (36 x 357,699 limbs -> hash words), Ligero 2^23 verify's rows (2 x
+     32,768 words -> words and limbs), verify's opened columns (256 x 189
+     and 36 x 6,593 words -> hash words), the 2^28 streaming prove's opened
+     columns (2,048 x 189 hash words -> words), add and sub at the codeword's
+     shape; each timed beside its bound (bytes or wide products) and the
+     plain version; edges in every field (unreduced inputs up to R - 1, 1,
+     7 and 41 elements, every form in and out, broadcast and
+     non-contiguous operands, no elements);
+  13. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -196,6 +211,19 @@ SEEDED_WARM_DEADLINE_S = 900  # no warm run of phase 11 starts after this
 # prove, verify in ms (BASELINE.md:20)
 RUST_2_29 = (94_600.0, 1_513.0, 278.0)
 DEV = "cuda"         # the card (phases 10 and 11 name it once, for a CPU rehearsal)
+# phase 12: the field maps' shapes on the slice's paths (ft255): the 2^23
+# Brakedown codeword (rows x columns), Ligero 2^23 verify's proof rows,
+# verify's opened columns (rows x columns, Ligero and Brakedown), the 2^28
+# streaming prove's opened columns
+MAP_CODEWORD = (36, 357_699)
+MAP_VERIFY_ROWS = (2, 32_768)
+MAP_OPENED = ((256, 189), (36, 6_593))
+MAP_STREAM_OPENED = (2_048, 189)
+# commit / prove / verify CUDA kernel launches (torch.profiler: every kernel,
+# torch's own included) of a warm run of each 2^23 path on commit 28b9104,
+# before the field maps were kernels (scripts/time_paths.py, two runs, on an
+# NVIDIA H100 80GB HBM3 at 700 W)
+PARENT_LAUNCHES = {"sdig": ("2,600", "16", "2,384"), "ligero": ("4-5", "15-16", "2,004-2,005")}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -369,7 +397,7 @@ def plain_ntt(nttm, plan, x, words):
     from lcpc_tpu_torch.ops.limbs import pack_row_words
 
     y = nttm.ntt_forward_plain(plan, x)
-    return (y, pack_row_words(plan.ops.from_mont(y))) if words else y
+    return (y, pack_row_words(plan.ops.from_mont_plain(y))) if words else y
 
 
 def equal_outputs(torch, got, want):
@@ -459,12 +487,40 @@ def drive(torch, P, enc, coeffs_mont, outer, inner):
     return comm, proof, value, (c_ms, p_ms, v_ms), transcript
 
 
+def stage_launches(torch, P, counters, enc, coeffs_mont, outer, inner):
+    """One warm commit, prove and verify, each under torch.profiler with
+    every launch count set to 0 just before: per stage, the port's kernel
+    launches by counter and every CUDA kernel the trace saw (torch's own
+    included; scripts/time_paths.py counts the same way)."""
+    transcript = transcript_for(P, enc)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    st, out = {}, {}
+    stages = (("commit", lambda: P.commit(coeffs_mont, enc)),
+              ("prove", lambda: st["commit"].prove(outer, transcript(st["root"]))),
+              ("verify", lambda: st["prove"].verify(st["root"], outer, inner, enc,
+                                                    transcript(st["root"]))))
+    for name, fn in stages:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            st[name] = fn()
+            torch.cuda.synchronize()
+        if name == "commit":
+            st["root"] = st[name].get_root()
+        out[name] = {"counters": {k: c.launches for k, c in counters.items() if c.launches},
+                     "cuda_kernels": sum(1 for e in prof.events()
+                                         if e.device_type == torch.autograd.DeviceType.CUDA)}
+    return out
+
+
 def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_kernels):
     """The main path of one encoding at 2^23: once cold with every launch
     count set to 0 just before and read just after (the kernels in
-    `path_kernels` must have launched, the others not), then REPS warm runs.
-    Checks the evaluation and the tamper kinds; returns (launches, cold ms,
-    warm ms, median ms, peak GiB, proof bytes, root, the proof)."""
+    `path_kernels` must have launched, the others not), then REPS warm runs
+    and one traced run (stage_launches).  Checks the evaluation and the
+    tamper kinds; returns (launches, cold ms, warm ms, median ms, peak GiB,
+    proof bytes, root, the proof, the traced run's launches by stage)."""
     spec = enc.spec
     n_rows = -(-N_COEFFS // enc.n_per_row)
     outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
@@ -495,7 +551,12 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     for i, name in enumerate(("commit", "prove", "verify")):
         log(f"{tag}_{name}_ms_median_{size}_ft255: {med[i]:.1f} "
             f"(warm runs {[round(t[i], 1) for t in warm]}; {card})")
-    return launches, cold, warm, med, peak, len(data), root, data
+    stages = stage_launches(torch, P, counters, enc, coeffs_mont, outer, inner)
+    parent = PARENT_LAUNCHES[tag]
+    for i, (name, rec) in enumerate(stages.items()):
+        log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA kernel launches (before the field "
+            f"maps were kernels: {parent[i]}); the port's kernels {rec['counters']}")
+    return launches, cold, warm, med, peak, len(data), root, data, stages
 
 
 # BLAKE3 tree launches of commit -> prove -> verify: the chunk tree once in
@@ -504,6 +565,15 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
 TREE_LAUNCHES_PATH = {"chunk_tree": 2, "merkle_tree": 1, "merkle_walk": 1}
 # of commit_streaming -> prove: the column digests' chunk tree and the Merkle tree
 TREE_LAUNCHES_STREAM = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 0}
+
+
+def check_map_launches(stages, tag, want):
+    """mont_mul_map's launches by stage of a traced run equal `want`, and
+    mont_addsub_map launched nowhere."""
+    got = {name: rec["counters"].get("mont_mul_map", 0) for name, rec in stages.items()}
+    if got != want or any("mont_addsub_map" in rec["counters"] for rec in stages.values()):
+        raise AssertionError(f"{tag}: mont_mul_map launches by stage {got} != {want}")
+    log(f"  {tag}: mont_mul_map launches by stage {got}; mont_addsub_map none")
 
 
 def check_tree_launches(launches, want, tag):
@@ -792,7 +862,7 @@ def device_eval(torch, ops, mat, outer, inner, rb):
     for r0 in range(0, mat.shape[1], rb):
         blk = unpack_words(mat[:, r0 : r0 + rb], 0)
         parts.append(ops.collapse_canon_plain(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
-    rows = ops.to_mont(torch.cat(parts, dim=2))
+    rows = ops.to_mont_plain(torch.cat(parts, dim=2))
     v = ops.collapse_canon_plain(limbs(outer), rows.permute(0, 2, 1))  # (W, 1, 1) canonical
     return int.from_bytes(v.reshape(-1).cpu().numpy().astype("<u2").tobytes(), "little")
 
@@ -838,6 +908,8 @@ def streaming_2_26(torch, P, counters, gen):
                         "mont_dot_thin_tc"}
         if kw["spill"] == "none":
             path_kernels |= {"power_table", "mont_dot_tile", "mont_dot_thin"}
+        else:  # the kept words' opened columns to the proof's Montgomery words
+            path_kernels |= {"mont_mul_map"}
         for fn in counters.values():
             fn.launches = 0
         cs, cs_ms = time_host(torch, lambda: P.commit_streaming(src, enc, **kw))
@@ -909,7 +981,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     # table and mont_dot, no NTT
     for name, n in launches.items():
         if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
-                                *DOT_KERNELS)):
+                                *DOT_KERNELS, "mont_mul_map")):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
     if launches["power_table"] != 1:
         raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times")
@@ -1307,7 +1379,7 @@ def seeded_eval(torch, ops, src, outer, inner, rb):
         blk = src.block(r0, min(r0 + rb, src.n_rows))
         parts.append(ops.collapse_canon_plain(inner_t, blk.permute(0, 2, 1)))  # (W, 1, m)
         del blk
-    rows = ops.to_mont(torch.cat(parts, dim=2))
+    rows = ops.to_mont_plain(torch.cat(parts, dim=2))
     v = ops.collapse_canon_plain(limbs(outer), rows.permute(0, 2, 1))
     return int.from_bytes(v.reshape(-1).cpu().numpy().astype("<u2").tobytes(), "little")
 
@@ -1357,7 +1429,7 @@ def path_2_29(torch, kb, P, counters, md, card):
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
         f"memory {peak:.2f} GiB")
     path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
-                    *DOT_KERNELS}
+                    *DOT_KERNELS, "mont_mul_map"}  # verify's conversions
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"path 2^29: {name} launched {n} times")
@@ -1545,6 +1617,180 @@ def tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix):
     ]
 
 
+def map_cost(spec, n, rows_in, rows_out, products):
+    """(bytes, wide products) of an elementwise map over n elements: each
+    operand's rows (int32 limbs or words) read once, the output's written
+    once, `products` 32 x 32 -> 64 products an element."""
+    return 4 * n * (rows_in + rows_out), n * products
+
+
+def mont_map_phase(torch, kb, P, mm, gen):
+    """Phase 12: the field maps against their plain versions, bit for bit
+    (tolerance 0), at the slice's shapes (timed beside their bound and the
+    plain version) and on edges in every field; returns the records."""
+    from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    recs, errs = {}, [0]
+
+    def check(tag, kernel, plain, *args, timed=None, **kw):
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{kernel.__name__} {tag}: kernel != plain")
+        errs[0] = max(errs[0], max_err(torch, got, want))
+        if timed is None:
+            return
+        nbytes, products = timed
+        ms = kb.time_kernel(lambda: kernel(*args, **kw))
+        _, plain_ms = time_host(torch, lambda: plain(*args, **kw))
+        bound, t_bytes, t_ops = bound_ms(nbytes, products)
+        recs[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "share": bound / ms, "bytes": nbytes, "products": products}
+        log(f"  {kernel.__name__} {tag}: equal; {ms:.4f} ms (bound {bound:.4f} ms, "
+            f"{recs[tag]['bound_by']}, {100 * bound / ms:.1f}%), plain {plain_ms:.2f} ms")
+
+    spec = P.FT255
+    w, w32 = spec.w16, spec.w16 // 2
+    mul_p, from_p = 2 * w32 * w32 + w32, w32 * w32 + w32
+    log("mont_map kernels vs plain: tolerance 0 — exact field arithmetic, every limb and word "
+        "equal")
+    # the 2^23 Brakedown commit: the codeword's limbs -> canonical hash words
+    r, c = MAP_CODEWORD
+    cw = kb.random_mont(spec, (r, w, c), gen, DEV).permute(1, 0, 2).contiguous()
+    check("brakedown 2^23 commit: (16, 36, 357,699) limbs -> hash words", mm.mont_mul_map,
+          mm.mont_mul_map_plain, spec, cw, op="from_mont", out_form="hash",
+          timed=map_cost(spec, r * c, w, w32, from_p))
+    check("add at the brakedown 2^23 codeword: (16, 36, 357,699) limbs", mm.mont_addsub_map,
+          mm.mont_addsub_map_plain, spec, cw, cw.flip(1), op="add",
+          timed=map_cost(spec, r * c, 2 * w, w, 0))
+    check("sub at the brakedown 2^23 codeword", mm.mont_addsub_map, mm.mont_addsub_map_plain,
+          spec, cw, cw.flip(2), op="sub")
+    del cw
+    # Ligero 2^23 verify's proof rows: (T, npr, W/2) words -> Montgomery words
+    # (the column evaluation's input) and limbs (the full encode's)
+    t, npr = MAP_VERIFY_ROWS
+    rows = pack_words(kb.random_mont(spec, (t, w, npr), gen, DEV), 1).permute(0, 2, 1).contiguous()
+    check("ligero 2^23 verify rows: (2, 32,768) words -> words", mm.mont_mul_map,
+          mm.mont_mul_map_plain, spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
+          out_form="words", timed=map_cost(spec, t * npr, w32, w32, mul_p))
+    check("ligero 2^23 verify rows -> limbs", mm.mont_mul_map, mm.mont_mul_map_plain, spec,
+          rows.permute(2, 0, 1), op="to_mont", in_form="words")
+    # verify's opened columns: packed Montgomery words -> canonical hash words
+    for (r, k), name in zip(MAP_OPENED, ("ligero", "brakedown")):
+        col = pack_words(kb.random_mont(spec, (r, w, k), gen, DEV), 1).permute(1, 0, 2).contiguous()
+        check(f"{name} 2^23 opened columns: ({r}, {k}) words -> hash words", mm.mont_mul_map,
+              mm.mont_mul_map_plain, spec, col, op="from_mont", in_form="words",
+              out_form="hash", timed=map_cost(spec, r * k, w32, w32, from_p))
+    # the 2^28 streaming prove's opened columns: hash words -> Montgomery words
+    r, k = MAP_STREAM_OPENED
+    canon = pack_row_words(kb.random_mont(spec, (r, w, k), gen, DEV).permute(1, 0, 2).contiguous())
+    check("streaming 2^28 opened columns: (2,048, 189) hash words -> words", mm.mont_mul_map,
+          mm.mont_mul_map_plain, spec, canon, op="to_mont", in_form="hash", out_form="words",
+          timed=map_cost(spec, r * k, w32, w32, mul_p))
+    # edges in every field (every template): unreduced inputs (0, 1, p - 1,
+    # p, 2p - 1, 2p, R - 1 and random values below R), one element, odd
+    # counts, every form in and out, broadcast and non-contiguous operands,
+    # no elements
+    for field in P.ALL_FIELDS:
+        ops, fw = get_ops(field), field.w16
+        p, big = field.p, (1 << (16 * fw)) - 1
+        edge = ops.encode_host([0, 1, p - 1, p, 2 * p - 1, 2 * p, big], to_mont=False)
+        raw = torch.randint(0, 1 << 16, (fw, 41), generator=gen, device=DEV,
+                            dtype=torch.int32)
+        raw[:, :7] = torch.from_numpy(edge.astype("int32")).to(DEV)
+        red = kb.random_mont(field, (41, fw), gen, DEV).T.contiguous()
+        for n in (1, 7, 41):
+            for op in ("to_mont", "from_mont"):
+                for out_form in ("limbs", "words"):
+                    check(f"{field.name} {op} n={n} -> {out_form}", mm.mont_mul_map,
+                          mm.mont_mul_map_plain, field, raw[:, :n], op=op, out_form=out_form)
+                check(f"{field.name} {op} words n={n}", mm.mont_mul_map, mm.mont_mul_map_plain,
+                      field, pack_words(raw[:, :n], 0), op=op, in_form="words")
+            check(f"{field.name} mul n={n}", mm.mont_mul_map, mm.mont_mul_map_plain, field,
+                  red[:, :n], red[:, :n].flip(1), op="mul")
+            for op in ("add", "sub"):
+                check(f"{field.name} {op} n={n}", mm.mont_addsub_map, mm.mont_addsub_map_plain,
+                      field, red[:, :n], red[:, :n].flip(1), op=op)
+            check(f"{field.name} neg n={n}", mm.mont_addsub_map, mm.mont_addsub_map_plain,
+                  field, red[:, :n], op="neg")
+        grid = raw[:, :40].reshape(fw, 5, 8)
+        hw = pack_row_words(kb.random_mont(field, (5, fw, 8), gen, DEV).permute(1, 0, 2)
+                            .contiguous())
+        for op in ("to_mont", "from_mont"):
+            for out_form in ("limbs", "words", "hash"):
+                check(f"{field.name} {op} (5, 8) limbs -> {out_form}", mm.mont_mul_map,
+                      mm.mont_mul_map_plain, field, grid, op=op, out_form=out_form)
+                check(f"{field.name} {op} (5, 8) hash -> {out_form}", mm.mont_mul_map,
+                      mm.mont_mul_map_plain, field, hw, op=op, in_form="hash", out_form=out_form)
+        # broadcast operands: a twiddle row over a non-contiguous slice (the
+        # ladder's), a (W, 1, 1) constant (mul_const), either side
+        x = kb.random_mont(field, (2, fw, 4, 2, 3), gen, DEV).permute(1, 0, 2, 3, 4)[:, :, :, 1]
+        tw = kb.random_mont(field, (3, fw), gen, DEV).T.contiguous()[:, None, None, :]
+        const = torch.from_numpy(ops.encode_host([12345]).astype("int32")).to(DEV)[:, :, None, None]
+        for kernel, plain, op in ((mm.mont_mul_map, mm.mont_mul_map_plain, "mul"),
+                                  (mm.mont_addsub_map, mm.mont_addsub_map_plain, "sub"),
+                                  (mm.mont_addsub_map, mm.mont_addsub_map_plain, "add")):
+            for a, b in ((x, tw), (tw, x), (x, const), (const, x)):
+                check(f"{field.name} {op} broadcast {tuple(a.shape)} x {tuple(b.shape)}",
+                      kernel, plain, field, a, b, op=op)
+        # a 3-dim batch no two dims express (the operands copied contiguous)
+        y = kb.random_mont(field, (2, fw, 3, 4), gen, DEV).permute(1, 3, 0, 2)
+        z = kb.random_mont(field, (4, fw, 2, 3), gen, DEV).permute(1, 0, 2, 3)
+        check(f"{field.name} mul, a 3-dim batch", mm.mont_mul_map, mm.mont_mul_map_plain,
+              field, y, z, op="mul")
+        before = mm.mont_mul_map.launches
+        out = mm.mont_mul_map(field, raw[:, :0], op="to_mont", out_form="words")
+        if out.shape != (fw // 2, 0) or mm.mont_mul_map.launches != before:
+            raise AssertionError(f"{field.name}: an empty map launched or took the wrong shape")
+    log("  edges in every field (unreduced inputs 0, 1, p-1, p, 2p-1, 2p, R-1 and random "
+        "below R; n = 1, 7, 41; limbs, words and hash words in and out; broadcast and "
+        "non-contiguous operands; no elements): equal")
+    recs["max_abs_err"] = errs[0]
+    return recs
+
+
+def map_rows(maps, s29, big, sdig, lig, map_ptxas):
+    """The kernel table rows of the field maps: mont_mul_map timed at the
+    2^23 Brakedown commit's conversion (its launches from that path), the
+    other shapes beside; mont_addsub_map at the same codeword (no path
+    launches it)."""
+    def row(name, replaces, rec, shape, **extra):
+        return {"name": name, "route": "cuda", "source": "lcpc_tpu_torch/csrc/mont_map.cu",
+                "replaces": replaces, "launches": sdig[0][name],
+                "max_abs_err": maps["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+                "equal_to_plain": True, "tolerance": 0, "shape": shape,
+                "launches_by_stage": {"sdig_2_23": {k: v["counters"].get(name, 0)
+                                                    for k, v in sdig[8].items()},
+                                      "ligero_2_23": {k: v["counters"].get(name, 0)
+                                                      for k, v in lig[8].items()}},
+                "launches_other_paths": {"ligero_2_23": lig[0][name],
+                                         "streaming_2_28": big["launches"][name],
+                                         "seeded_2_29": s29["launches"][name]},
+                "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                          for k, v in sorted(map_ptxas.items()) if name in k}, **extra}
+
+    commit = "brakedown 2^23 commit: (16, 36, 357,699) limbs -> hash words"
+    return [
+        row("mont_mul_map",
+            "lcpc_tpu/ops/limbs.py:224 (_mul_unrolled, behind mul :262, mul_const :271, to_mont "
+            ":275, from_mont :279) and lcpc_tpu/core/protocol.py:307,315 (_pack_words, "
+            "_canon_pack_fn); XLA-fused, not Pallas", maps[commit],
+            "the 2^23 ft255 Brakedown commit's conversion: 36 x 357,699 Montgomery limbs -> "
+            "canonical hash words (from_mont and the pack, one launch)",
+            other_shapes={k: v for k, v in maps.items()
+                          if isinstance(v, dict) and k != commit and "add" not in k}),
+        row("mont_addsub_map",
+            "lcpc_tpu/ops/limbs.py:121,131,149 (add, sub, neg); XLA-fused, not Pallas",
+            maps["add at the brakedown 2^23 codeword: (16, 36, 357,699) limbs"],
+            "add over the 2^23 ft255 Brakedown codeword's shape: 2 x (16, 36, 357,699) limbs; "
+            "no path of the slice launches it (FieldOps.add, sub, neg, sum, dot_mont on the "
+            "card, intt_inverse)"),
+    ]
+
+
 def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
     """The kernel table rows of the seeded generator, mont_dot and the power
     table: each timed at a shape of the 2^29 seeded path or of the 2^23
@@ -1631,6 +1877,7 @@ def main() -> int:
     import lcpc_tpu_torch as P
     from lcpc_tpu_torch.ops import blake3 as b3
     from lcpc_tpu_torch.ops import mont_dot as md
+    from lcpc_tpu_torch.ops import mont_map as mm
     from lcpc_tpu_torch.ops import ntt as nttm
     from lcpc_tpu_torch.ops import spmv
     from lcpc_tpu_torch.ops import threefry as tf
@@ -1646,7 +1893,8 @@ def main() -> int:
                 "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
                 "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
                 **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
-                "power_table": md.power_table}
+                "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
+                "mont_addsub_map": mm.mont_addsub_map}
     hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
@@ -1655,7 +1903,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # 2. build the three kernel sources, one nvcc each, at once
+    # 2. build the seven kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(2) as pool:  # the probes beside the kernels
@@ -1663,7 +1911,7 @@ def main() -> int:
         tf_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
                            kb.TF_CHAIN_SRC)
         secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
-                                     "mont_dot", "power_table"], force=True)
+                                     "mont_dot", "power_table", "mont_map"], force=True)
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
     log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} and "
@@ -1696,9 +1944,10 @@ def main() -> int:
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
     prove_ptxas = {}
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
-                            ("power_table", "power_")):
+                            ("power_table", "power_"), ("mont_map", "map_kernel")):
         found = kb.ptxas_entries(cuda_build.build_logs[src_name], kname)
-        if len(found) != {"seeded_gen": 12, "mont_dot": 20, "power_table": 4}[src_name]:
+        n_want = {"seeded_gen": 12, "mont_dot": 20, "power_table": 4, "mont_map": 20}[src_name]
+        if len(found) != n_want:
             raise AssertionError(f"{src_name} kernels not reported by ptxas: {found}")
         for name, (regs, st, ld) in sorted(found.items()):
             log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill "
@@ -1707,7 +1956,9 @@ def main() -> int:
     for src_name, kname in (("seeded_gen", "seeded_gen_kernelILi8ELi37E"),
                             ("mont_dot", "mont_dot_tc_kernel"),  # every W
                             ("mont_dot", "mont_dot_thin_tc_kernel"),  # every W and y form
-                            ("power_table", "power_planes_kernelILi8E")):
+                            ("power_table", "power_planes_kernelILi8E"),
+                            ("mont_map", "mont_mul_map_kernelILi8E"),  # both ops at W32 = 8
+                            ("mont_map", "mont_addsub_map_kernelILi8E")):  # all three
         for k, (regs, st, ld) in prove_ptxas[src_name].items():
             if kname in k and (st or ld):
                 raise AssertionError(f"{k} spills: {st} / {ld} bytes")
@@ -1773,8 +2024,14 @@ def main() -> int:
     # cores (K = 36 rows against 235,173 and 6,593 columns: below the thin
     # tensor-core kernel's crossover), the evaluation's dot too; Brakedown
     # has no power table
+    # one conversion launch in the commit (the codeword's limbs -> its hash
+    # words), five in verify: the proof rows to Montgomery limbs, the
+    # encoded rows at the opened columns and the opened columns to canonical
+    # words, the evaluation's two operands to Montgomery form
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
-                     path_kernels={"spmv_mont", "mont_dot", "mont_dot_thin"} | hashing)
+                     path_kernels={"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map"}
+                     | hashing)
+    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": 5})
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -1843,9 +2100,13 @@ def main() -> int:
     # columns: one power table, mont_dot's tile kernel (and a thin launch
     # summing its K splits), the column check on the thin tensor-core
     # kernel, the evaluation's dot on the thin kernel, and no encode
+    # the commit's hash words come from the NTT's last pass: no conversion;
+    # verify converts the proof rows, the opened columns and the
+    # evaluation's two operands (four mont_mul_map launches)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    path_kernels={"ntt_mont", "mont_dot", "power_table"} | DOT_KERNELS
-                    | hashing)
+                    path_kernels={"ntt_mont", "mont_dot", "power_table", "mont_mul_map"}
+                    | DOT_KERNELS | hashing)
+    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0, "verify": 4})
     per_encode = plan.launches_per_call
     if lig[0]["ntt_mont"] != per_encode or lig[0]["power_table"] != 1:
         raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 1 encode x {per_encode}, "
@@ -1889,7 +2150,12 @@ def main() -> int:
         s29 = path_2_29(torch, kb, P, counters, md, card)
         torch.cuda.empty_cache()
 
-    # 12. kernel table
+    # 12. the field maps against their plain versions
+    with Phase("12 mont_mul_map, mont_addsub_map vs plain"):
+        maps = mont_map_phase(torch, kb, P, mm, gen)
+        torch.cuda.empty_cache()
+
+    # 13. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -1970,7 +2236,8 @@ def main() -> int:
         "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
             b3_mix["least"]][:3],
     }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
-        *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix)]
+        *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
+        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"])]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -1981,7 +2248,8 @@ def main() -> int:
                               "peak_gib": r[4], "proof_bytes": r[5]}
                        for name, r in (("sdig", sdig), ("ligero", lig))},
                    "blake3": hashes, "streaming_2_26": stream26, "path_2_28": big,
-                   "prove_kernels": prv, "path_2_29": s29,
+                   "prove_kernels": prv, "path_2_29": s29, "mont_map": maps,
+                   "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

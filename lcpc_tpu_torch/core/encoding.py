@@ -19,7 +19,7 @@ import abc
 import torch
 
 from ..fields.spec import FieldSpec
-from ..ops.limbs import get_ops, pack_row_words
+from ..ops.limbs import get_ops
 
 LABEL_DT = b"$l//DT"
 LABEL_PR = b"$l//PR"
@@ -65,10 +65,11 @@ class LcEncoding(abc.ABC):
         """encode_rows and the codeword's column-hash words: ((W, R, n_cols)
         Montgomery limbs, (R*W/2, n_cols) canonical LE u32 words as int32
         storage, ops.limbs.pack_row_words' layout).  This default converts
-        and packs after the encode; an encoding whose kernel writes the words
-        itself overrides it."""
+        and packs after the encode (FieldOps.canon_words: one mont_map launch
+        on the card); an encoding whose kernel writes the words itself
+        overrides it."""
         limbs = self.encode_rows(rows)
-        return limbs, pack_row_words(get_ops(self.spec).from_mont(limbs))
+        return limbs, get_ops(self.spec).canon_words(limbs)
 
     def encode_rows_words_only(self, rows: torch.Tensor) -> torch.Tensor:
         """The hash words of encode_rows_words alone, (R*W/2, n_cols) int32

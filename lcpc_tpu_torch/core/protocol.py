@@ -36,8 +36,9 @@ from ..fs.merlin import Transcript
 from ..fs.sampling import field_random_vec, uniform_indices
 from ..ops import blake3
 from ..ops.digest import BLAKE3, DeviceDigest
-from ..ops.limbs import get_ops, limbs_to_device, pack_row_words
+from ..ops.limbs import get_ops, limbs_to_device
 from ..ops.mont_dot import mont_dot
+from ..ops.mont_map import mont_mul_map
 from ..ops.mxu_prove import MxuCollapse, MxuColumnEval, mxu_prove_enabled
 from .encoding import LcEncoding
 
@@ -493,65 +494,54 @@ def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
 # ---------------------------------------------------------------------------
 
 
-def _unpack_words(words: torch.Tensor) -> torch.Tensor:
-    """(W/2, ...) u32 words (int64) -> (W, ...) int32 16-bit limbs."""
-    lo = words & 0xFFFF
-    hi = words >> 16
-    return torch.stack([lo, hi], dim=1).reshape(-1, *words.shape[1:]).to(torch.int32)
-
-
 def _rows_encode(enc: LcEncoding, rows_w: torch.Tensor) -> torch.Tensor:
-    """Packed repr words (T, npr, W/2) -> encoded rows (W, T, n_cols)."""
-    ops = get_ops(enc.spec)
-    rows_raw = _unpack_words(rows_w.permute(2, 0, 1))  # (W, T, npr) canonical
-    return enc.encode_rows(ops.to_mont(rows_raw))
+    """Packed repr words (T, npr, W/2) int32 -> encoded rows (W, T, n_cols):
+    to Montgomery limbs in one mont_map launch, then the encode."""
+    rows = mont_mul_map(enc.spec, rows_w.permute(2, 0, 1), op="to_mont", in_form="words")
+    return enc.encode_rows(rows)
 
 
-def _eval_dot(ops, rows_w: torch.Tensor, inner_w: torch.Tensor) -> torch.Tensor:
-    """Σ inner_tensor[j] * p_eval[j] mod p on the device, (W,) canonical limbs.
+def _eval_dot(spec, rows_w: torch.Tensor, inner_w: torch.Tensor) -> torch.Tensor:
+    """Σ inner_tensor[j] * p_eval[j] mod p on the device, (W/2,) canonical
+    int32 words.
 
     rows_w: (T, npr, W/2) canonical repr words, p_eval last; inner_w:
-    (npr, W/2) canonical words (lib.rs:947-951)."""
-    pe = ops.to_mont(_unpack_words(rows_w[-1:].permute(2, 0, 1)))     # (W, 1, npr)
-    inner = ops.to_mont(_unpack_words(inner_w[None].permute(2, 0, 1)))  # (W, 1, npr)
-    return ops.collapse_canon(inner, pe.permute(0, 2, 1)).reshape(-1)
+    (npr, W/2) canonical words (lib.rs:947-951); both int32."""
+    pe = mont_mul_map(spec, rows_w[-1].T, op="to_mont", in_form="words", out_form="words")
+    inner = mont_mul_map(spec, inner_w.T, op="to_mont", in_form="words", out_form="words")
+    return mont_dot(spec, inner[:, None, :], pe[:, :, None]).reshape(-1)
 
 
-def _words_i32(words: torch.Tensor) -> torch.Tensor:
-    """int64 tensor of u32 values -> the same bits as int32 storage."""
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+def _path_ok(spec, digest: DeviceDigest, col_w, idx, uniq_sibs, inv, root_w) -> torch.Tensor:
+    """Hash the opened columns (W/2, R, k) packed Montgomery words (their
+    canonical hash words in one mont_map launch) and walk their Merkle
+    paths: do they all reach the root?"""
+    words = mont_mul_map(spec, col_w, op="from_mont", in_form="words", out_form="hash")
+    digs = digest.merkle_walk(digest.hash_word_columns(words), uniq_sibs, inv, idx)
+    return (digs == root_w[:, None]).all()  # bit l of idx: right child
 
 
-def _path_ok(ops, digest: DeviceDigest, col_mat, idx, uniq_sibs, inv, root_w) -> torch.Tensor:
-    """Hash the opened columns (W, R, k) and walk their Merkle paths: do
-    they all reach the root?"""
-    digs = digest.hash_word_columns(pack_row_words(ops.from_mont(col_mat)))  # (8, k)
-    digs = digest.merkle_walk(digs, uniq_sibs, inv, idx)  # bit l of idx: right child
-    return (digs == root_w[:, None]).all()
-
-
-def _verify_core(ops, digest: DeviceDigest, enc_rows, ts, col_w, idx,
+def _verify_core(spec, digest: DeviceDigest, enc_rows, ts, col_w, idx,
                  uniq_sibs, inv, root_w) -> np.ndarray:
     """The batched verifier step, all on the device:
 
       enc_rows  (W, T, n_cols) Montgomery — encoded [p_random..., p_eval]
       ts        (W, T, R) Montgomery — [rand_tensors..., outer_tensor]
-      col_w     (W/2, R, k) — opened column values, packed Montgomery words
+      col_w     (W/2, R, k) int32 — opened column values, packed Montgomery words
       idx       (k,) — opened column indices
       uniq_sibs (8, U) — unique sibling digests
       inv       (L, k) — per-level map from column to unique digest
       root_w    (8,) — expected root digest words
     Returns (T+1,) bool flags: per-row dot checks [0..T), path check [T].
     """
-    col_mat = _unpack_words(col_w)                       # (W, R, k)
-    got = ops.collapse_canon(ts, col_mat)                # (W, T, k) canonical
-    want = ops.from_mont(enc_rows.index_select(2, idx))
+    got = mont_dot(spec, ts, col_w, x_form="limbs")       # (W/2, T, k) canonical
+    want = mont_mul_map(spec, enc_rows.index_select(2, idx), op="from_mont", out_form="words")
     ok_rows = (got == want).all(dim=2).all(dim=0)        # (T,)
-    ok_path = _path_ok(ops, digest, col_mat, idx, uniq_sibs, inv, root_w)
+    ok_path = _path_ok(spec, digest, col_w, idx, uniq_sibs, inv, root_w)
     return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
 
 
-def _verify_core_cols(ops, digest: DeviceDigest, want_w, ts, col_w, idx, uniq_sibs, inv,
+def _verify_core_cols(spec, digest: DeviceDigest, want_w, ts, col_w, idx, uniq_sibs, inv,
                       root_w) -> np.ndarray:
     """_verify_core with the encoded rows AT THE OPENED COLUMNS ONLY
     (lcpc_tpu/core/protocol.py:767, _verify_core_cols_fn): want_w (W/2, T,
@@ -559,9 +549,9 @@ def _verify_core_cols(ops, digest: DeviceDigest, want_w, ts, col_w, idx, uniq_si
     opened values are the row polynomial at w^bitrev(c), so the k needed
     entries come without the full-width encode.  The column check compares
     Montgomery forms: got and want are each the unique residue < p."""
-    got = mont_dot(ops.spec, ts, _words_i32(col_w), "mont", x_form="limbs")  # (W/2, T, k)
+    got = mont_dot(spec, ts, col_w, "mont", x_form="limbs")  # (W/2, T, k)
     ok_rows = ((got.to(torch.int64) & 0xFFFFFFFF) == want_w).all(dim=2).all(dim=0)
-    ok_path = _path_ok(ops, digest, _unpack_words(col_w), idx, uniq_sibs, inv, root_w)
+    ok_path = _path_ok(spec, digest, col_w, idx, uniq_sibs, inv, root_w)
     return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
 
 
@@ -669,7 +659,7 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
             + [np.ascontiguousarray(p_eval_rows).view("<u4")],
             axis=0,
         )  # (T, n_per_row, W/2) canonical repr words
-        rows_dev = torch.from_numpy(rows_w.astype(np.int64)).to(device)
+        rows_dev = torch.from_numpy(rows_w.view(np.int32)).to(device)  # u32 as int32
     # Reed-Solomon rows at the opened columns alone (lcpc_tpu's gate), else
     # the full-width encode
     use_cols = (not odd_rows and getattr(enc, "supports_direct_col_eval", False)
@@ -677,7 +667,9 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     if use_cols:
         ev = MxuColumnEval(enc)
         ev.set_columns(cols_to_open)
-        want_w = ev.eval_block(ops.to_mont(_unpack_words(rows_dev.permute(2, 0, 1))))
+        rows_m = mont_mul_map(spec, rows_dev.permute(2, 0, 1), op="to_mont", in_form="words",
+                              out_form="words")
+        want_w = ev.eval_block(rows_m, in_form="packed")
     elif not odd_rows:
         enc_rows = _rows_encode(enc, rows_dev)
 
@@ -709,12 +701,13 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     root_w = np.frombuffer(root, dtype="<u4").astype(np.int64)
 
     dev = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(device)
-    args = (limbs_to_device(ts, device), dev(batched.col_w, np.int64), dev(idx, np.int64),
+    col_w = np.asarray(batched.col_w).astype(np.uint32, copy=False).view(np.int32)
+    args = (limbs_to_device(ts, device), dev(col_w, np.int32), dev(idx, np.int64),
             dev(uniq_sibs, np.int64), dev(inv, np.int64), dev(root_w, np.int64))
     if use_cols:
-        flags = _verify_core_cols(ops, digest, want_w, *args)
+        flags = _verify_core_cols(spec, digest, want_w, *args)
     else:
-        flags = _verify_core(ops, digest, enc_rows, *args)
+        flags = _verify_core(spec, digest, enc_rows, *args)
     for i in range(n_degree_tests_):
         if not flags[i]:
             raise VerifierError("ColumnDegree")
@@ -724,10 +717,9 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
         raise VerifierError("ColumnPath")
 
     if fuse_eval:
-        inner_w = ops.encode_repr_words(inner_tensor)  # (npr, W/2)
-        ev = _eval_dot(ops, rows_dev, dev(inner_w, np.int64))
-        return int.from_bytes(
-            ev.cpu().numpy().astype("<u2").tobytes(), "little")
+        inner_w = ops.encode_repr_words(inner_tensor).view(np.int32)  # (npr, W/2)
+        ev = _eval_dot(spec, rows_dev, dev(inner_w, np.int32))
+        return int.from_bytes(ev.cpu().numpy().astype("<i4").tobytes(), "little")
     # host evaluation dot (odd-rows path / unreduced inner)
     acc = 0
     for t_v, e_v in zip(inner_tensor, _repr_rows_to_ints(p_eval_rows)):

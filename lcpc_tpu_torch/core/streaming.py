@@ -42,9 +42,8 @@ import torch
 from ..fs.merlin import Transcript
 from ..ops import blake3, sha256
 from ..ops.digest import BLAKE3, DeviceDigest
-from ..ops.limbs import get_ops
+from ..ops.mont_map import mont_mul_map
 from ..ops.mxu_prove import MxuCollapse, MxuColumnEval
-from ..ops.spmv import unpack_words
 from ..utils import hbm
 from . import coeffs as coeffs_mod
 from .encoding import LcEncoding
@@ -343,11 +342,12 @@ def commit_streaming(coeffs, enc: LcEncoding, row_block: "int | None" = None,
         words_host=words_host, packed=source.packed)
 
 
-def _canon_to_proof_words(ops, cols: torch.Tensor) -> torch.Tensor:
+def _canon_to_proof_words(spec, cols: torch.Tensor) -> torch.Tensor:
     """(R*W/2, k) canonical hash words -> (W/2, R, k) packed Montgomery
-    words (the proof's wire form, lib.rs:401-408)."""
-    canon = unpack_words(cols.reshape(-1, ops.w // 2, cols.shape[1]), 1)  # (R, W, k)
-    return _pack_pairs(ops.to_mont(canon.permute(1, 0, 2).contiguous()))
+    words, int64 u32 values (the proof's wire form, lib.rs:401-408): one
+    mont_map launch."""
+    words = mont_mul_map(spec, cols, op="to_mont", in_form="hash", out_form="words")
+    return words.to(torch.int64) & 0xFFFFFFFF
 
 
 def _systematic_columns(comm: LcCommitStreaming, idx: torch.Tensor) -> torch.Tensor:
@@ -428,7 +428,6 @@ def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
     """Evaluation proof for a streaming commitment; the same bytes as
     prove() on the in-memory commitment of the same coefficients."""
     spec = enc.spec
-    ops = get_ops(spec)
     device = enc.device
 
     def collapse_words_fn(ts: list[list[int]]) -> np.ndarray:
@@ -444,17 +443,17 @@ def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
             # tail keep: systematic columns from the coefficients, the rest
             # from the retained tail, merged by one where()
             off = comm.words_off
-            tail = _canon_to_proof_words(ops, comm.words_dev.index_select(
+            tail = _canon_to_proof_words(spec, comm.words_dev.index_select(
                 1, torch.as_tensor(np.maximum(idx_np - off, 0), device=device)))
             sys_w = _systematic_columns(
                 comm, torch.as_tensor(np.minimum(idx_np, off - 1), device=device))
             is_sys = torch.as_tensor(idx_np < off, device=device)
             col_w = torch.where(is_sys[None, None, :], sys_w, tail)
         elif comm.words_dev is not None:
-            col_w = _canon_to_proof_words(ops, comm.words_dev.index_select(1, idx))
+            col_w = _canon_to_proof_words(spec, comm.words_dev.index_select(1, idx))
         elif comm.words_host is not None:
             host = np.ascontiguousarray(comm.words_host[:, idx_np]).view(np.int32)
-            col_w = _canon_to_proof_words(ops, torch.from_numpy(host).to(device))
+            col_w = _canon_to_proof_words(spec, torch.from_numpy(host).to(device))
         elif getattr(enc, "supports_direct_col_eval", False):
             col_w = _open_by_eval(comm, cols)
         else:

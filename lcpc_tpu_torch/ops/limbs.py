@@ -1,4 +1,4 @@
-"""Prime-field limb arithmetic on torch tensors (plain PyTorch, any device).
+"""Prime-field limb arithmetic on torch tensors.
 
 Field elements are **limb-major** tensors of shape (W, ...batch) holding
 16-bit limbs (little-endian, limb index first) in Montgomery form with
@@ -16,6 +16,12 @@ any exact algorithm matches the reference bit for bit.
 Internally an op works on (L, B) int64 stacks: L limbs (or unnormalized
 column sums) over a flat batch B.  Large batches are processed in slices of
 _CHUNK elements to bound the (2W+1, B) int64 temporaries.
+
+The elementwise ops (add, sub, neg, mul, mul_const, to_mont, from_mont,
+canon_words) launch the mont_map kernels on CUDA tensors (ops/mont_map.py,
+csrc/mont_map.cu) and run these int64 graphs on CPU tensors; their *_plain
+twins, mul_sum_mont (the SpMV's plain version) and collapse_canon_plain (the
+mont_dot kernel's) run the graphs on any device.
 """
 
 from __future__ import annotations
@@ -148,69 +154,93 @@ class FieldOps:
         s[: 2 * w - 1] += _conv_const(m, self.p_limbs, 2 * w - 1)
         return _norm(s, s.shape[0] + 1)[w:]
 
-    # ---- add / sub ---------------------------------------------------------------
+    # ---- elementwise maps: the mont_map kernels on the card ------------------------
+    # Each op runs csrc/mont_map.cu on a CUDA tensor (or raises) and its plain
+    # version (ops/mont_map.py) on a CPU tensor; the *_plain methods run the
+    # plain version on any device: the other kernels' plain versions call
+    # only those, so none of them launches a kernel.
 
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        batch = a.shape[1:]
-        f = lambda x, y: self._cond_sub_p(_norm(x + y, self.w + 1))
-        return self._out(_chunked(f, self._flat(a), self._flat(b)), batch)
+        from .mont_map import mont_addsub_map
+
+        return mont_addsub_map(self.spec, a, b, op="add")
 
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        batch = a.shape[1:]
+        from .mont_map import mont_addsub_map
 
-        def f(x, y):
-            d = torch.empty_like(x)
-            borrow = torch.zeros_like(x[0])
-            for i in range(self.w):
-                di = x[i] - y[i] - borrow
-                d[i] = di & MASK16
-                borrow = (di < 0).to(x.dtype)
-            plus_p = _norm(d + torch.tensor(self.p_limbs, dtype=d.dtype,
-                                            device=d.device)[:, None], self.w)
-            return torch.where(borrow.bool(), plus_p, d)
-
-        return self._out(_chunked(f, self._flat(a), self._flat(b)), batch)
+        return mont_addsub_map(self.spec, a, b, op="sub")
 
     def neg(self, a: torch.Tensor) -> torch.Tensor:
-        return self.sub(torch.zeros_like(a), a)
+        from .mont_map import mont_addsub_map
 
-    # ---- multiply ------------------------------------------------------------------
-
-    def _mul_stack(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        t = _norm(_conv(x, y), 2 * self.w)
-        return self._cond_sub_p(self._redc(t))  # (T + m p)/R < 2p
+        return mont_addsub_map(self.spec, a, op="neg")
 
     def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Montgomery product a*b*R^{-1} mod p (inputs/outputs Montgomery form)."""
-        a, b = torch.broadcast_tensors(a, b)
-        batch = a.shape[1:]
-        return self._out(_chunked(self._mul_stack, self._flat(a), self._flat(b)),
-                         batch)
+        from .mont_map import mont_mul_map
+
+        return mont_mul_map(self.spec, a, b, op="mul")
 
     def mul_const(self, a: torch.Tensor, c_limbs: np.ndarray) -> torch.Tensor:
         """Multiply by a host-constant element (already in Montgomery form)."""
-        c = torch.as_tensor(np.asarray(c_limbs, dtype=np.int32), device=a.device)
-        return self.mul(a, c.reshape(self.w, *([1] * (a.dim() - 1))))
+        return self.mul(a, self._const(a, c_limbs))
 
     def to_mont(self, x: torch.Tensor) -> torch.Tensor:
         """Canonical (or any value < 2^(16W)) -> Montgomery form, reduced."""
-        batch = x.shape[1:]
+        from .mont_map import mont_mul_map
 
-        def f(v):
-            t = _norm(_conv_const(v, self.r2_limbs, 2 * self.w - 1), 2 * self.w)
-            return self._cond_sub_p(self._redc(t))
-
-        return self._out(_chunked(f, self._flat(x)), batch)
+        return mont_mul_map(self.spec, x, op="to_mont")
 
     def from_mont(self, x: torch.Tensor) -> torch.Tensor:
-        """Montgomery form -> canonical value limbs (x*1*R^-1: one REDC)."""
-        batch = x.shape[1:]
+        """Montgomery form (any value < 2^(16W)) -> canonical value limbs."""
+        from .mont_map import mont_mul_map
 
-        def f(v):
-            wide = torch.cat([v, torch.zeros_like(v)], dim=0)
-            return self._cond_sub_p(self._redc(wide))  # (x + m p)/R <= p
+        return mont_mul_map(self.spec, x, op="from_mont")
 
-        return self._out(_chunked(f, self._flat(x)), batch)
+    def canon_words(self, x: torch.Tensor) -> torch.Tensor:
+        """(W, R, C) Montgomery limbs -> (R*W/2, C) canonical hash words:
+        pack_row_words(from_mont(x)), one launch on the card."""
+        from .mont_map import mont_mul_map
+
+        return mont_mul_map(self.spec, x, op="from_mont", out_form="hash")
+
+    def add_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_addsub_map_plain
+
+        return mont_addsub_map_plain(self.spec, a, b, op="add")
+
+    def sub_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_addsub_map_plain
+
+        return mont_addsub_map_plain(self.spec, a, b, op="sub")
+
+    def neg_plain(self, a: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_addsub_map_plain
+
+        return mont_addsub_map_plain(self.spec, a, op="neg")
+
+    def mul_plain(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_mul_map_plain
+
+        return mont_mul_map_plain(self.spec, a, b, op="mul")
+
+    def mul_const_plain(self, a: torch.Tensor, c_limbs: np.ndarray) -> torch.Tensor:
+        return self.mul_plain(a, self._const(a, c_limbs))
+
+    def to_mont_plain(self, x: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_mul_map_plain
+
+        return mont_mul_map_plain(self.spec, x, op="to_mont")
+
+    def from_mont_plain(self, x: torch.Tensor) -> torch.Tensor:
+        from .mont_map import mont_mul_map_plain
+
+        return mont_mul_map_plain(self.spec, x, op="from_mont")
+
+    def _const(self, a: torch.Tensor, c_limbs: np.ndarray) -> torch.Tensor:
+        """A host constant's limbs as a (W, 1, ...) tensor broadcasting over a."""
+        c = torch.as_tensor(np.asarray(c_limbs, dtype=np.int32), device=a.device)
+        return c.reshape(self.w, *([1] * (a.dim() - 1)))
 
     # ---- reductions --------------------------------------------------------------
 

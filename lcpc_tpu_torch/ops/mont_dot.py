@@ -152,7 +152,7 @@ def mont_dot_plain(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor,
     yl = y if y_form == "limbs" else unpack_words(y, 0)
     canon = ops.collapse_canon_plain(xl, yl)  # (W, A, B)
     if out_form == "mont":
-        canon = ops.to_mont(canon)
+        canon = ops.to_mont_plain(canon)
     return pack_words(canon, 0)
 
 
@@ -497,13 +497,14 @@ def power_table_plain(spec: FieldSpec, g: torch.Tensor, K: int,
     def ladder(step, count):  # [1, s, .., s^(count-1)] (W, count, k), and s^count
         seq = one[:, None, :]
         while seq.shape[1] < count:
-            seq = torch.cat([seq, ops.mul(seq, step[:, None, :])], dim=1)
-            step = ops.mul(step, step)
+            seq = torch.cat([seq, ops.mul_plain(seq, step[:, None, :])], dim=1)
+            step = ops.mul_plain(step, step)
         return seq[:, :count], step
 
     lo, ga = ladder(gl, POWER_A)
     hi, _ = ladder(ga, -(-K // POWER_A))
-    table = pack_words(ops.mul(hi[:, :, None, :], lo[:, None, :, :]).flatten(1, 2)[:, :K], 0)
+    table = pack_words(ops.mul_plain(hi[:, :, None, :], lo[:, None, :, :]).flatten(1, 2)[:, :K],
+                       0)
     return to_planes(spec, table) if form == "planes" else table
 
 

@@ -23,11 +23,14 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
   CPU tensors it runs `ntt_forward_plain` (then from_mont and the pack for
   the words).  `ntt_forward.launches` counts kernel launches.
 - `ntt_forward_plain` is the plain PyTorch twin: the Gentleman-Sande ladder
-  of `_ntt_forward` with FieldOps.add/sub/mul, on any device.  Both return
+  of `_ntt_forward` with FieldOps.add_plain/sub_plain/mul_plain (no
+  kernel), on any device.  Both return
   the unique residues < p, so they agree limb for limb.
   `ntt_forward_passes_plain` runs the same ladder pass by pass with the
   kernel's tile and butterfly index arithmetic (for the tests).
-- `InttPlan` / `intt_inverse` (fffft's ifft_oi) are plain PyTorch only.
+- `InttPlan` / `intt_inverse` (fffft's ifft_oi): the ladder over FieldOps'
+  elementwise ops, which run the mont_map kernels on the card (no NTT
+  kernel of its own yet).
 - `ntt_host`, `intt_host`, `ntt_reference_host` are the Python-int twins.
 """
 
@@ -216,8 +219,8 @@ def ntt_forward_plain(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
         m = 1 << s
         xr = x.reshape(w, r, n // (2 * m), 2, m)
         a, b = xr[:, :, :, 0], xr[:, :, :, 1]
-        hi = ops.add(a, b)
-        lo = ops.mul(ops.sub(a, b), tw[:, None, None, :])
+        hi = ops.add_plain(a, b)
+        lo = ops.mul_plain(ops.sub_plain(a, b), tw[:, None, None, :])
         x = torch.stack([hi, lo], dim=3).reshape(w, r, n)
     return x
 
@@ -248,8 +251,8 @@ def ntt_forward_passes_plain(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
             j = torch.from_numpy((jg << ps.lo) + (rg << ps.log_t) + t).to(x.device)
             tw = stage_tw[plan.log_n - 1 - s][:, j]          # (W, tiles, tile/2)
             a, b = xt[..., e0], xt[..., e1]
-            xt[..., e0] = ops.add(a, b)
-            xt[..., e1] = ops.mul(ops.sub(a, b), tw[:, None])
+            xt[..., e0] = ops.add_plain(a, b)
+            xt[..., e1] = ops.mul_plain(ops.sub_plain(a, b), tw[:, None])
         x = torch.empty_like(x)
         x[:, :, torch.from_numpy(idx).to(x.device)] = xt
     return x
@@ -292,7 +295,7 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
         y = ntt_forward_plain(plan, x)
         if output == "limbs":
             return y
-        words = pack_row_words(plan.ops.from_mont(y))
+        words = pack_row_words(plan.ops.from_mont_plain(y))
         return (y, words) if output == "both" else words
     if x.device.type != "cuda":
         raise ValueError(f"ntt_forward: unsupported device {x.device}")
@@ -332,7 +335,7 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
 ntt_forward.launches = 0
 
 
-# ---- inverse (plain PyTorch) ---------------------------------------------------------
+# ---- inverse (FieldOps' elementwise ops) ---------------------------------------------
 
 
 class InttPlan:

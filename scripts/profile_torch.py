@@ -6,7 +6,8 @@ ft255, BLAKE3 at N = 2^23 (the chip_smoke.py size): Brakedown CODE3
 (sdig, the default) or Ligero rho = 1/4 (ligero).
 After one warm-up commit -> prove -> verify it reports:
   - stage times (host clock around synchronized work, median of 3) for the
-    pieces of commit (sdig: encode, from_mont, pack; ligero: the encode
+    pieces of commit (sdig: encode, then from_mont and the pack in one
+    mont_mul_map launch; ligero: the encode
     with its hash words from the NTT; then the column hash and the Merkle
     tree, each a CUDA kernel launch or two),
     prove (device collapse, everything else) and verify (row encode, the
@@ -39,7 +40,7 @@ import torch  # noqa: E402
 import lcpc_tpu_torch as P  # noqa: E402
 from lcpc_tpu_torch.core import protocol  # noqa: E402
 from lcpc_tpu_torch.ops import blake3  # noqa: E402
-from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words  # noqa: E402
+from lcpc_tpu_torch.ops.limbs import get_ops  # noqa: E402
 
 LOG_N = 23
 
@@ -132,11 +133,10 @@ def main() -> int:
     # commit stages
     stages = {}
     mat = comm.coeffs
-    if path == "sdig":  # encode_rows_words' default: encode, from_mont, pack
+    if path == "sdig":  # encode_rows_words' default: the encode, then one mont_map
         cw, stages["commit.encode_rows"] = timed(lambda: enc.encode_rows(mat))
-        canon_cw, stages["commit.from_mont"] = timed(lambda: ops.from_mont(cw))
-        words, stages["commit.pack_words"] = timed(lambda: pack_row_words(canon_cw))
-        del canon_cw
+        words, stages["commit.from_mont_pack(mont_mul_map)"] = timed(
+            lambda: ops.canon_words(cw))
     else:  # the NTT's last pass writes the hash words
         (cw, words), stages["commit.encode_rows_words"] = timed(
             lambda: enc.encode_rows_words(mat))
@@ -155,15 +155,15 @@ def main() -> int:
 
     # verify stages
     rows_w = torch.randint(0, 1 << 16, (2, enc.n_per_row, spec.w16 // 2),
-                           generator=gen, device="cuda", dtype=torch.int64)
+                           generator=gen, device="cuda", dtype=torch.int32)
     _, stages["verify.rows_encode(T=2)"] = timed(lambda: protocol._rows_encode(enc, rows_w))
     k = enc.get_n_col_opens()
     col_words = torch.randint(0, 1 << 32, (comm.n_rows * spec.w16 // 2, k), generator=gen,
                               device="cuda", dtype=torch.int64)
     _, stages[f"verify.hash_opened_columns(k={k})"] = timed(
         lambda: blake3.hash_word_columns(col_words))
-    inner_w = torch.from_numpy(ops.encode_repr_words(inner).astype("int64")).cuda()
-    _, stages["verify.eval_dot"] = timed(lambda: protocol._eval_dot(ops, rows_w, inner_w))
+    inner_w = torch.from_numpy(ops.encode_repr_words(inner).view("int32")).cuda()
+    _, stages["verify.eval_dot"] = timed(lambda: protocol._eval_dot(spec, rows_w, inner_w))
     _, stages["verify.total"] = timed(
         lambda: proof.verify(root, outer, inner, enc, transcript(root)))
 

@@ -17,8 +17,8 @@ from lcpc_tpu_torch import convert
 from lcpc_tpu_torch.encodings import brakedown as bd
 from lcpc_tpu_torch.fields import FT63, FT255
 from lcpc_tpu_torch.fs.chacha import ChaCha20Rng
-from lcpc_tpu_torch.ops import spmv
-from lcpc_tpu_torch.ops.limbs import limbs_to_device
+from lcpc_tpu_torch.ops import mont_dot, mont_map, ntt, spmv
+from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
 from lcpc_tpu_torch.utils import native
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -173,3 +173,26 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bd.SdigEncoding(FT63, 50, seed=0)
     assert bd.SdigEncoding(FT63, 50, seed=0, device="cpu").device.type == "cpu"
+    # the field-op wrappers raise on a device that is neither a card nor the CPU
+    meta = torch.empty((FT63.w16, 3), dtype=torch.int32, device="meta")
+    for fn, op in ((mont_map.mont_mul_map, "to_mont"), (mont_map.mont_addsub_map, "neg")):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(FT63, meta, op=op)
+
+    # the other kernels' plain versions launch no kernel: with every kernel
+    # wrapper raising they still run
+    def kernel(*args, **kwargs):
+        raise AssertionError("a plain version reached a kernel wrapper")
+
+    for mod, name in ((mont_map, "mont_mul_map"), (mont_map, "mont_addsub_map"),
+                      (spmv, "spmv_mont"), (ntt, "ntt_forward"), (mont_dot, "mont_dot"),
+                      (mont_dot, "power_table")):
+        monkeypatch.setattr(mod, name, kernel)
+    ops, rng = get_ops(FT63), np.random.default_rng(3)
+    x = limbs_to_device(ops.encode_host([int(v) for v in rng.integers(0, 1 << 62, 2 * 8)]),
+                        "cpu").reshape(FT63.w16, 2, 8)
+    y = ntt.ntt_forward_plain(ntt.get_ntt(FT63, 8), x)
+    ops.from_mont_plain(y)
+    mont_dot.mont_dot_plain(FT63, x, y.permute(0, 2, 1), "mont", x_form="limbs", y_form="limbs")
+    mont_dot.power_table_plain(FT63, spmv.pack_words(x[:, 0], 0), 5)
+    ops.mul_sum_mont(x.permute(1, 0, 2), y[:, :, :8].permute(1, 0, 2))

@@ -11,10 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from lcpc_tpu.core import protocol as jproto
 from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63
-from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
+from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device, pack_row_words
+from lcpc_tpu_torch.ops.mont_map import mont_addsub_map_plain, mont_mul_map_plain
+from lcpc_tpu_torch.ops.spmv import pack_words
 
 torch.set_num_threads(1)  # the xdist workers share the cores
 
@@ -44,6 +47,12 @@ def _raw(ops, t):
     return ops.decode_host(t, from_mont=False)
 
 
+def _words_ints(t, w32):
+    """(W/2, ...) int32 words -> ints, element by element."""
+    u = t.reshape(w32, -1).numpy().astype(np.uint32).astype(object)
+    return [sum(int(u[i, j]) << (32 * i) for i in range(w32)) for j in range(u.shape[1])]
+
+
 def test_elementwise_ops_match_field(field):
     spec, ops, va, vb = field
     p, rinv = spec.p, spec.Rinv
@@ -53,10 +62,52 @@ def test_elementwise_ops_match_field(field):
     assert _raw(ops, ops.neg(a)) == [(-x) % p for x in va]
     assert _raw(ops, ops.mul(a, b)) == [x * y * rinv % p for x, y in zip(va, vb)]
     assert _raw(ops, ops.from_mont(a)) == [x * rinv % p for x in va]
-    # to_mont takes any value < 2^(16W): include the all-0xFFFF pattern
-    big = [(1 << (16 * spec.w16)) - 1] + va
-    got = ops.to_mont(_t(ops.encode_host(big, to_mont=False)))
-    assert _raw(ops, got) == [x * spec.R % p for x in big]
+    # to_mont and from_mont take any value < 2^(16W): all-0xFFFF limbs, p,
+    # 2p and p - 1
+    big = [(1 << (16 * spec.w16)) - 1, p, 2 * p, p - 1] + va
+    bt = _t(ops.encode_host(big, to_mont=False))
+    assert _raw(ops, ops.to_mont(bt)) == [x * spec.R % p for x in big]
+    assert _raw(ops, ops.from_mont(bt)) == [x * rinv % p for x in big]
+    # the mont_map plain versions in every form: limbs / words / hash words
+    # in and out, broadcast and non-contiguous operands
+    w32 = spec.w16 // 2
+    bw = pack_words(bt, 0)                                    # (W/2, 28) words
+    grid = bt.reshape(spec.w16, 4, 7)                         # (W, R, C)
+    hw = pack_row_words(grid)                                 # (R*W/2, C) hash words
+    want_to = [x * spec.R % p for x in big]
+    want_from = [x * rinv % p for x in big]
+    for x, form in ((bt, "limbs"), (bw, "words")):
+        for op, want in (("to_mont", want_to), ("from_mont", want_from)):
+            assert _words_ints(mont_mul_map_plain(spec, x, op=op, in_form=form,
+                                                  out_form="words"), w32) == want, (op, form)
+    assert _words_ints(mont_mul_map_plain(spec, hw, op="to_mont", in_form="hash",
+                                          out_form="words"), w32) == want_to
+    got = mont_mul_map_plain(spec, grid, op="from_mont", out_form="hash")  # canon_words
+    assert torch.equal(got, ops.canon_words(grid))
+    assert torch.equal(got, pack_row_words(_t(ops.encode_host(want_from, to_mont=False))
+                                           .reshape(spec.w16, 4, 7)))
+    assert torch.equal(mont_mul_map_plain(spec, hw, op="from_mont", in_form="hash",
+                                          out_form="limbs"), ops.from_mont(grid))
+    aw, bw2 = pack_words(a, 0), pack_words(b, 0).T.contiguous().T  # b words column-major
+    assert _words_ints(mont_mul_map_plain(spec, aw, bw2, op="mul",
+                                          in_form="words", out_form="words"),
+                       w32) == [x * y * rinv % p for x, y in zip(va, vb)]
+    for op, want in (("add", [(x + y) % p for x, y in zip(va, vb)]),
+                     ("sub", [(x - y) % p for x, y in zip(va, vb)])):
+        assert _words_ints(mont_addsub_map_plain(spec, aw, bw2, op=op, in_form="words",
+                                                 out_form="words"), w32) == want, op
+    c = ops.encode_host([vb[5]])[:, 0]  # a broadcast constant, Montgomery form
+    a3 = a.reshape(spec.w16, 4, 6)[:, :, 1::2]               # non-contiguous
+    want = [x * spec.to_mont(vb[5]) * rinv % p
+            for x in np.array(va, dtype=object).reshape(4, 6)[:, 1::2].ravel()]
+    assert _raw(ops, ops.mul_const(a3, c)) == want
+    assert torch.equal(ops.mul_const_plain(a3, c), ops.mul_const(a3, c))
+    for name in ("add", "sub", "mul"):
+        assert torch.equal(getattr(ops, name + "_plain")(a, b), getattr(ops, name)(a, b)), name
+    for name in ("neg", "to_mont", "from_mont"):
+        assert torch.equal(getattr(ops, name + "_plain")(bt), getattr(ops, name)(bt)), name
+    empty = a[:, :0]
+    assert mont_mul_map_plain(spec, empty, empty).shape == (spec.w16, 0)
 
 
 def test_reductions_match_field(field):
@@ -93,6 +144,14 @@ def test_ops_match_reference_ft63():
     for name in ("neg", "to_mont", "from_mont"):
         want = np.asarray(getattr(jops, name)(a))
         assert np.array_equal(getattr(ops, name)(_t(a)).numpy(), want), name
+    # the fused from_mont + pack (lcpc_tpu's _canon_pack_fn) and to_mont of
+    # packed words, through the mont_map plain versions
+    g = a.reshape(spec.w16, 4, 6)
+    want = np.asarray(jproto._canon_pack_fn(jops)(g)).astype(np.uint32)
+    assert np.array_equal(ops.canon_words(_t(g)).numpy().astype(np.uint32), want)
+    words = pack_words(_t(a), 0)
+    assert np.array_equal(mont_mul_map_plain(spec, words, op="to_mont", in_form="words").numpy(),
+                          np.asarray(jops.to_mont(a)))
     a3, b3 = a.reshape(spec.w16, 4, 6), b.reshape(spec.w16, 4, 6)
     assert np.array_equal(ops.dot_mont(_t(a3), _t(b3), axis=1).numpy(),
                           np.asarray(jops.dot_mont(a3, b3, axis=1)))
