@@ -5,15 +5,15 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the seven CUDA kernel sources from the checkout, one nvcc each,
+  2. build the eight CUDA kernel sources from the checkout, one nvcc each,
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
-     csrc/power_table.cu, csrc/mont_map.cu); print ptxas's registers and
-     spills per template (fatal if the SpMV's, the NTT's, the generator's,
-     the power table's or either field map's W32 = 8 spills, any of
-     mont_dot's tensor-core templates (tile and
-     thin_tc) spills, or ptxas serializes its wgmmas; every BLAKE3 kernel
-     reported, the
+     csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu); print
+     ptxas's registers and spills per template (fatal if the SpMV's, the
+     NTT's, the generator's, the power table's or either field map's W32 =
+     8 spills, any of mont_dot's tensor-core templates (tile and thin_tc)
+     spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills;
+     every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
      SASS of the probe scripts/threefry_chain.cu, held to the plain
@@ -21,7 +21,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      beside), the SASS instruction count of the SpMV's W32 = 8 k loop per
      wide product and one BLAKE3 compression's instructions by pipe
      (cuobjdump; the compression latency probe scripts/blake3_chain.cu is
-     built beside the kernels), from which every BLAKE3 bound is counted;
+     built beside the kernels), from which every BLAKE3 bound is counted,
+     and one SHA-256 compression's and one Merkle parent's (the probes of
+     scripts/sha256_chain.cu), from which every SHA-256 bound is counted;
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
      Brakedown encoding at r = 36 (the commit's row count), on every level at
@@ -60,7 +62,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      dot on the thin kernel; verify's 4 conversions through mont_mul_map,
      none in commit), traced by stage as in phase 4, with the
      evaluation and tamper checks; reproduce its golden fixture
-     (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256;
+     (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256 (the
+     SHA-256 kernels);
   7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
      and merkle_walk, one launch each) against their plain versions, word
      for word: the 2^23 Ligero commit's columns (2,048 words x 131,072), the
@@ -140,7 +143,34 @@ Phases, each fatal on failure (each prints the seconds it took):
      plain version; edges in every field (unreduced inputs up to R - 1, 1,
      7 and 41 elements, every form in and out, broadcast and
      non-contiguous operands, no elements);
-  13. print the kernel table line, then the result line.
+  13. hold the SHA-256 kernels (csrc/sha256_cols.cu: sha256_cols, the
+     Merkle tree and the walk, one launch each) against their plain
+     versions, word for word: path (a)'s columns (2,048 words x 131,072),
+     the 2^28 column length (16,384 words) over 4,096 columns, path (b)'s
+     (288 words x 357,699), the first 189 and 6,593 columns of those alone,
+     int32 and int64 words, edge lengths (1, 5, 7, 8, 56, 600 words; a few
+     columns also against hashlib), words with every bit set, streaming
+     updates from carries of 0, 8 and 15 words with blocks of 1, 7, 8, 9
+     and 1,792 words state by state, finalizes at rem 12, 13 and 14 (one
+     final block, then two), Merkle trees of 2^17 and 2^19 leaves and of
+     357,699 padded to 2^19 (and 1, 2, 300 and 513 leaves), walks of 189 x
+     17 and 6,593 x 19 (and 5 x 0, 40 x 3); time each against its bound
+     (its bytes, or its compressions or parents by the probes' SASS) and
+     the plain version, the trees and walks also against their dependency
+     floor (depth x one parent's latency from the probe);
+  14. the slice's paths with digest=SHA256 through the public entry points:
+     (a) Ligero 2^23 and (b) Brakedown 2^23 as phases 6 and 4 run them
+     (cold with the launches counted, 3 warm, traced by stage: commit one
+     sha256_cols and one tree, verify one sha256_cols and one walk, no
+     BLAKE3 kernel, each stage's CUDA kernels fewer than one plain
+     compression launches, its BLAKE3 run's beside), (c) the
+     2^28 streaming path of phase 9 (an update a row block and one
+     finalize; the kept words hashed in memory equal to the streamed
+     leaves; sha256_cols timed over them and at one block's update; traced
+     by stage; up to 2 warm runs); each with the evaluation and the tamper
+     kinds; the plain compression every plain SHA-256 version calls is
+     watched throughout, and a call on the card is fatal;
+  15. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -195,6 +225,26 @@ WALKS = ((189, 17), (6_593, 19))
 CHAIN = 4096                # phase 7: compressions of the latency probe
 TREES = ("chunk_tree", "merkle_tree", "merkle_walk")  # the BLAKE3 tree kernels
 DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot's three
+# the kernels a 2^23 path launches besides its hash kernels: Brakedown's
+# SpMV, its collapses on mont_dot's CUDA-core thin kernel and its
+# conversions; Ligero's NTT, mont_dot's three kernels, the power table of
+# verify at the columns and its conversions
+SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map"}
+LIGERO_KERNELS = {"ntt_mont", "mont_dot", "power_table", "mont_mul_map"} | DOT_KERNELS
+SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
+SHA_COMPRESSION_S = None  # set in phase 2 from the probes' SASS: one scheduled compression
+SHA_PARENT_S = None       # and one Merkle parent (a scheduled and a constant-block one)
+SHA_SDIG = (288, 357_699)   # phase 13: the 2^23 Brakedown commit's columns (36 rows x 8 words)
+SHA_EDGES = (1, 5, 7, 8, 56, 600)  # phase 13: column lengths, and (8 + L) % 16 = 9, 13, 15, 0
+# phase 13: streaming updates; the carries before each are 8, 0, 0, 7, 15, 8
+# words (the kernel reads a carry's block apart from the others), then one
+# more block leaves rem 12, 13 or 14 for the finalize (one final block, then
+# two: the pad word and the 64-bit length need 3)
+SHA_STREAM = (8, 1792, 7, 8, 9, 1)
+SHA_STREAM_TAILS = ((3, 12), (4, 13), (5, 14))
+SHA_STREAM_COLS = 1000
+SHA_BIG_WARM = 2            # warm runs of phase 14's 2^28 path (fewer when the time limit nears)
+SHA_BIG_WARM_DEADLINE_S = 800
 B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
               "merkle_tree_kernel", "merkle_walk_kernel")
 LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
@@ -475,30 +525,32 @@ def ntt_edges(torch, kb, nttm, spec, gen):
         f"k = n and n/4, limbs and words: equal")
 
 
-def drive(torch, P, enc, coeffs_mont, outer, inner):
-    """commit -> prove -> verify through the public entry points; returns
-    (comm, proof, value, (commit, prove, verify) ms, the transcript maker)."""
+def drive(torch, P, enc, coeffs_mont, outer, inner, digest):
+    """commit -> prove -> verify through the public entry points with
+    `digest`; returns (comm, proof, value, (commit, prove, verify) ms, the
+    transcript maker)."""
     transcript = transcript_for(P, enc)
-    comm, c_ms = time_host(torch, lambda: P.commit(coeffs_mont, enc))
+    comm, c_ms = time_host(torch, lambda: P.commit(coeffs_mont, enc, digest=digest))
     root = comm.get_root()
     proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
-    value, v_ms = time_host(
-        torch, lambda: proof.verify(root, outer, inner, enc, transcript(root)))
+    value, v_ms = time_host(torch, lambda: proof.verify(root, outer, inner, enc,
+                                                        transcript(root), digest=digest))
     return comm, proof, value, (c_ms, p_ms, v_ms), transcript
 
 
-def stage_launches(torch, P, counters, enc, coeffs_mont, outer, inner):
-    """One warm commit, prove and verify, each under torch.profiler with
-    every launch count set to 0 just before: per stage, the port's kernel
-    launches by counter and every CUDA kernel the trace saw (torch's own
-    included; scripts/time_paths.py counts the same way)."""
+def stage_launches(torch, P, counters, enc, commit, outer, inner, digest):
+    """One warm commit (`commit()`), prove and verify, each under
+    torch.profiler with every launch count set to 0 just before: per
+    stage, the port's kernel launches by counter and every CUDA kernel the
+    trace saw (torch's own included; scripts/time_paths.py counts the same
+    way)."""
     transcript = transcript_for(P, enc)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     st, out = {}, {}
-    stages = (("commit", lambda: P.commit(coeffs_mont, enc)),
+    stages = (("commit", commit),
               ("prove", lambda: st["commit"].prove(outer, transcript(st["root"]))),
               ("verify", lambda: st["prove"].verify(st["root"], outer, inner, enc,
-                                                    transcript(st["root"]))))
+                                                    transcript(st["root"]), digest=digest)))
     for name, fn in stages:
         for c in counters.values():
             c.launches = 0
@@ -514,27 +566,30 @@ def stage_launches(torch, P, counters, enc, coeffs_mont, outer, inner):
     return out
 
 
-def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_kernels):
-    """The main path of one encoding at 2^23: once cold with every launch
-    count set to 0 just before and read just after (the kernels in
-    `path_kernels` must have launched, the others not), then REPS warm runs
-    and one traced run (stage_launches).  Checks the evaluation and the
-    tamper kinds; returns (launches, cold ms, warm ms, median ms, peak GiB,
-    proof bytes, root, the proof, the traced run's launches by stage)."""
+def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_kernels,
+              digest, hash_launches):
+    """The main path of one encoding at 2^23 with `digest`: once cold with
+    every launch count set to 0 just before and read just after (the
+    kernels in `path_kernels` must have launched, the others not; the hash
+    kernels as often as `hash_launches` says), then REPS warm runs and one
+    traced run (stage_launches).  Checks the evaluation and the tamper
+    kinds; returns (launches, cold ms, warm ms, median ms, peak GiB, proof
+    bytes, root, the proof, the traced run's launches by stage)."""
     spec = enc.spec
     n_rows = -(-N_COEFFS // enc.n_per_row)
     outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    comm, proof, value, cold, transcript = drive(torch, P, enc, coeffs_mont, outer, inner)
+    comm, proof, value, cold, transcript = drive(torch, P, enc, coeffs_mont, outer, inner,
+                                                 digest)
     launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"{tag} main path cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, "
-        f"verify {cold[2]:.1f} ms; launches {launches}")
+    log(f"{tag} main path cold ({digest.name}): commit {cold[0]:.1f} ms, prove {cold[1]:.1f} "
+        f"ms, verify {cold[2]:.1f} ms; launches {launches}")
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"{tag}: {name} launched {n} times")
-    check_tree_launches(launches, TREE_LAUNCHES_PATH, tag)
+    check_hash_launches(launches, hash_launches, tag)
     if value != want:
         raise AssertionError(f"{tag}: verify returned the wrong evaluation")
     log(f"  verify returned univariate_eval of the {N_COEFFS} coefficients: ok")
@@ -543,19 +598,22 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  n_rows {comm.n_rows}, n_per_row {comm.n_per_row}, n_cols {comm.n_cols}, "
         f"proof {len(data)} bytes, peak device memory {peak:.2f} GiB")
-    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag)
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag, digest)
     del comm, proof
-    warm = [drive(torch, P, enc, coeffs_mont, outer, inner)[3] for _ in range(REPS)]
+    warm = [drive(torch, P, enc, coeffs_mont, outer, inner, digest)[3] for _ in range(REPS)]
     med = [statistics.median(t[i] for t in warm) for i in range(3)]
     size = f"2^{N_COEFFS.bit_length() - 1}"
     for i, name in enumerate(("commit", "prove", "verify")):
         log(f"{tag}_{name}_ms_median_{size}_ft255: {med[i]:.1f} "
             f"(warm runs {[round(t[i], 1) for t in warm]}; {card})")
-    stages = stage_launches(torch, P, counters, enc, coeffs_mont, outer, inner)
-    parent = PARENT_LAUNCHES[tag]
+    stages = stage_launches(torch, P, counters, enc,
+                            lambda: P.commit(coeffs_mont, enc, digest=digest), outer, inner,
+                            digest)
+    parent = PARENT_LAUNCHES.get(tag)
     for i, (name, rec) in enumerate(stages.items()):
-        log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA kernel launches (before the field "
-            f"maps were kernels: {parent[i]}); the port's kernels {rec['counters']}")
+        log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA kernel launches"
+            + (f" (before the field maps were kernels: {parent[i]})" if parent else "")
+            + f"; the port's kernels {rec['counters']}")
     return launches, cold, warm, med, peak, len(data), root, data, stages
 
 
@@ -565,6 +623,12 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
 TREE_LAUNCHES_PATH = {"chunk_tree": 2, "merkle_tree": 1, "merkle_walk": 1}
 # of commit_streaming -> prove: the column digests' chunk tree and the Merkle tree
 TREE_LAUNCHES_STREAM = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 0}
+# SHA-256 launches of commit -> prove -> verify in memory: the column hash in
+# commit and in verify (the opened columns), the tree in commit, the walk in
+# verify; by stage
+SHA_LAUNCHES_PATH = {"sha256_cols": 2, "sha256_merkle_tree": 1, "sha256_merkle_walk": 1}
+SHA_LAUNCHES_STAGES = {"commit": {"sha256_cols": 1, "sha256_merkle_tree": 1},
+                       "prove": {}, "verify": {"sha256_cols": 1, "sha256_merkle_walk": 1}}
 
 
 def check_map_launches(stages, tag, want):
@@ -576,12 +640,12 @@ def check_map_launches(stages, tag, want):
     log(f"  {tag}: mont_mul_map launches by stage {got}; mont_addsub_map none")
 
 
-def check_tree_launches(launches, want, tag):
-    got = {name: launches[name] for name in TREES}
+def check_hash_launches(launches, want, tag):
+    """The hash kernels named in `want` launched exactly as often."""
+    got = {name: launches[name] for name in want}
     if got != want:
-        raise AssertionError(f"{tag}: BLAKE3 tree launches {got} != {want}")
-    log(f"  {tag}: BLAKE3 tree launches {sum(got.values())} ({got}); the per-level "
-        f"kernel is gone")
+        raise AssertionError(f"{tag}: hash kernel launches {got} != {want}")
+    log(f"  {tag}: hash kernel launches {sum(got.values())} ({got})")
 
 
 def golden_run(torch, P, enc, spec, golden, digest):
@@ -600,9 +664,9 @@ def golden_run(torch, P, enc, spec, golden, digest):
     return root, P.wire.serialize_proof(spec, comm.prove(outer, tr))
 
 
-def tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag):
+def tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag, digest):
     """A flipped column limb fails with ColumnDegree, a zeroed path node
-    with ColumnPath."""
+    with ColumnPath (verify with `digest`)."""
     for what, kind_want in (("column", "ColumnDegree"), ("path", "ColumnPath")):
         bad = P.wire.deserialize_proof(spec, data)
         if what == "column":
@@ -610,7 +674,7 @@ def tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag):
         else:
             bad.columns[5].path[2] = bytes(32)
         try:
-            bad.verify(root, outer, inner, enc, transcript(root))
+            bad.verify(root, outer, inner, enc, transcript(root), digest=digest)
         except P.VerifierError as e:
             if e.kind != kind_want:
                 raise AssertionError(f"{tag} tampered {what}: {e.kind} != {kind_want}")
@@ -920,7 +984,7 @@ def streaming_2_26(torch, P, counters, gen):
         for name, n in launches.items():
             if (n > 0) != (name in path_kernels):
                 raise AssertionError(f"stream 2^26 {tag}: {name} launched {n} times")
-        check_tree_launches(launches, TREE_LAUNCHES_STREAM, f"stream 2^26 {tag[0]}")
+        check_hash_launches(launches, TREE_LAUNCHES_STREAM, f"stream 2^26 {tag[0]}")
         got = P.wire.serialize_proof(spec, pf)
         if got != data:
             raise AssertionError(f"stream 2^26 {tag}: proof bytes differ")
@@ -985,7 +1049,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
     if launches["power_table"] != 1:
         raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times")
-    check_tree_launches(launches, TREE_LAUNCHES_PATH, "path 2^28")
+    check_hash_launches(launches, TREE_LAUNCHES_PATH, "path 2^28")
     if comm.words_dev is None:
         raise AssertionError("path 2^28: the words were not kept on the card")
     if value != want:
@@ -994,7 +1058,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     root = comm.get_root()
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
-    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28")
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28", P.BLAKE3)
 
     # the retained words hashed in memory: equal to the streamed leaves; the
     # kernels timed at the 2^28 commit's shape
@@ -1433,7 +1497,7 @@ def path_2_29(torch, kb, P, counters, md, card):
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"path 2^29: {name} launched {n} times")
-    check_tree_launches(launches, TREE_LAUNCHES_PATH, "path 2^29")
+    check_hash_launches(launches, TREE_LAUNCHES_PATH, "path 2^29")
     if comm.words_dev is not None or comm.words_host is not None:
         raise AssertionError("path 2^29: hash words were kept")
     log("  no hash words kept (words_dev and words_host None): prove evaluated the opened "
@@ -1445,7 +1509,7 @@ def path_2_29(torch, kb, P, counters, md, card):
     root = comm.get_root()
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
-    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29")
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29", P.BLAKE3)
     del proof
 
     # the opening both ways at this shape, and the prove's pieces timed
@@ -1866,6 +1930,486 @@ def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
     ]
 
 
+def sha256_mix(kb, sha_so, lib_so):
+    """Phase 2: SHA-256's instructions by pipe, from the SASS of the probes'
+    loop bodies (scripts/sha256_chain.cu: one scheduled compression, one
+    Merkle parent); they set SHA_COMPRESSION_S and SHA_PARENT_S, the
+    bounds' time of each on the integer pipes.  The column kernel's block
+    loop (a compression with its 16 word loads) is reported beside."""
+    global SHA_COMPRESSION_S, SHA_PARENT_S
+    mix = kb.sha256_sass_mix(sha_so, lib_so)
+    if mix is None:
+        raise RuntimeError("cuobjdump not found: the SHA-256 bound cannot be counted")
+    (c_alu, c_fma, c_all), c_ops = mix["compress"]
+    (p_alu, p_fma, p_all), p_ops = mix["parent"]
+    SHA_COMPRESSION_S, SHA_PARENT_S = compression_s(c_alu, c_fma), compression_s(p_alu, p_fma)
+    l_alu, l_fma, l_all = mix["cols_loop"]
+    log(f"  SASS sha256 compression (probe): {c_alu:g} ALU-pipe + {c_fma:g} FMA-pipe of "
+        f"{c_all:g} instructions ({SHA_COMPRESSION_S * 1e12:.2f} ps at the card's integer "
+        f"rate); opcodes {c_ops}")
+    log(f"  SASS sha256 Merkle parent (probe): {p_alu:g} ALU + {p_fma:g} FMA of {p_all:g} "
+        f"({SHA_PARENT_S * 1e12:.2f} ps); the column kernel's block loop: {l_alu} ALU + "
+        f"{l_fma} FMA of {l_all} ({compression_s(l_alu, l_fma) * 1e12:.2f} ps)")
+    if c_alu < 800:
+        raise AssertionError(f"the probe's compression is not on the vector ALU: {mix}")
+    return {"compress_alu_fma_all": (c_alu, c_fma, c_all), "compress_opcodes": c_ops,
+            "parent_alu_fma_all": (p_alu, p_fma, p_all), "parent_opcodes": p_ops,
+            "cols_loop_alu_fma_all": (l_alu, l_fma, l_all),
+            "compression_ps": SHA_COMPRESSION_S * 1e12, "parent_ps": SHA_PARENT_S * 1e12}
+
+
+def sha_bound_ms(nbytes, steps, step_s):
+    """(bound ms, what bounds it): the bytes over the card's memory rate or
+    `steps` compressions (or parents) of step_s seconds each."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = steps * step_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sha_cols_cost(n_words, n_cols, carry_len=8, finish=True):
+    """(bytes, compressions) of sha256_cols over n_cols columns of n_words
+    words: each word read once, an update's state (8 + 16 int32 words a
+    column) read and written, a finish's carry read and its (8, C) int64
+    digests written; one compression per 64-byte block of the stream (a
+    finish's padding included)."""
+    stream = carry_len + n_words
+    blocks = (stream + 3 + 15) // 16 if finish else stream // 16
+    state = 4 * (carry_len if finish else 2 * (8 + 16)) * n_cols
+    out = 64 * n_cols if finish else 0
+    return 4 * n_words * n_cols + state + out, blocks * n_cols
+
+
+def plain_launches(torch, sha, digests):
+    """CUDA kernels one plain compression launches on the card (torch's
+    elementwise ops, by torch.profiler): what a plain SHA-256 op would add
+    to a stage's count."""
+    x = digests(64)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sha._compress(x, torch.cat([x, x]))
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def sha256_phase(torch, kb, sha, gen, sha_so):
+    """Phase 13: the SHA-256 kernels against their plain versions, word for
+    word, each timed against its bound; the trees and the walk also against
+    their dependency floor (depth x one parent's latency, from the probe
+    library sha_so).  Returns the records."""
+    import numpy as np
+    from lcpc_tpu_torch.core.streaming import StreamingSha256Hasher
+    from lcpc_tpu_torch.ops.blake3 import digests_to_bytes
+
+    def words(n, c):
+        w = torch.randint(-2**31, 2**31, (n, c), generator=gen, device=DEV, dtype=torch.int32)
+        w[0] = -1  # every bit set, the top one too
+        return w
+
+    def digests(n):
+        return torch.randint(0, 2**32, (8, n), generator=gen, device=DEV, dtype=torch.int64)
+
+    recs, errs = {}, [0]
+
+    def check(tag, got, want):
+        err = max_err(torch, got, want)
+        errs[0] = max(errs[0], err)
+        if err or not torch.equal(got.to(torch.int64) & 0xFFFFFFFF,
+                                  want.to(torch.int64) & 0xFFFFFFFF):
+            raise AssertionError(f"sha256 {tag}: kernel != plain (max err {err})")
+
+    log("sha256 kernels vs plain: tolerance 0 — every digest word equal")
+    # the latencies of one compression and one parent: a thread running
+    # CHAIN dependent ones, held to the plain steps first
+    h0 = digests(1)[:, 0].contiguous()
+    ref_c = ref_p = h0[:, None]
+    for _ in range(2 * kb.SHA_CHAIN_PER_TRIP):
+        ref_c = sha._compress(ref_c, torch.cat([ref_c, ref_c]))
+        ref_p = sha.merkle_parent_plain(ref_p, ref_p)
+    n_ref = 2 * kb.SHA_CHAIN_PER_TRIP
+    check("compress chain", kb.sha256_chain(sha_so, h0, n_ref, False), ref_c[:, 0])
+    check("parent chain", kb.sha256_chain(sha_so, h0, n_ref, True), ref_p[:, 0])
+    lat_c = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, False), reps=3) / CHAIN
+    lat_p = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, True), reps=3) / CHAIN
+    recs.update(compression_latency_ms=lat_c, parent_latency_ms=lat_p,
+                plain_compression_launches=plain_launches(torch, sha, digests))
+    log(f"  latency (a chain of {CHAIN} in one thread): a compression {lat_c * 1e3:.4f} us, a "
+        f"Merkle parent {lat_p * 1e3:.4f} us; one plain compression is "
+        f"{recs['plain_compression_launches']} CUDA kernel launches")
+
+    def columns(tag, w, host_cols=0, timed=False, sub=()):
+        n_words, n_cols = w.shape
+        got = sha.hash_word_columns(w)
+        want, plain_ms = time_host(torch, lambda: sha.hash_word_columns_plain(w))
+        check(f"{tag}", got, want)
+        check(f"{tag} (int64 words)", sha.hash_word_columns(w.to(torch.int64) & 0xFFFFFFFF), want)
+        rec = {"n_words": n_words, "n_cols": n_cols, "plain_ms": plain_ms, "launches": 1,
+               "compressions_a_column": (8 + n_words + 3 + 15) // 16}
+        for k in sub:  # the leading columns alone, read at the full row stride
+            check(f"{tag} first {k} columns", sha.hash_word_columns(w[:, :k]), want[:, :k])
+        if host_cols:
+            u = w[:, :host_cols].cpu().numpy().view(np.uint32)
+            b = digests_to_bytes(got[:, :host_cols])
+            for c in range(host_cols):
+                if bytes(b[c]) != hashlib.sha256(bytes(32) + u[:, c].astype("<u4").tobytes()
+                                                  ).digest():
+                    raise AssertionError(f"sha256 {tag}: column {c} != hashlib")
+        if timed:
+            nbytes, comps = sha_cols_cost(n_words, n_cols)
+            rec["ms"] = kb.time_kernel(lambda: sha.hash_word_columns(w))
+            rec["bound_ms"], rec["bound_by"] = sha_bound_ms(nbytes, comps, SHA_COMPRESSION_S)
+            rec.update(bytes=nbytes, compressions=comps)
+            for k in sub:
+                nb, cp = sha_cols_cost(n_words, k)
+                rec[f"ms_{k}_columns"] = kb.time_kernel(lambda: sha.hash_word_columns(w[:, :k]))
+                rec[f"bound_ms_{k}_columns"] = sha_bound_ms(nb, cp, SHA_COMPRESSION_S)[0]
+            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words "
+                f"({rec['compressions_a_column']} compressions each): equal (int32 and int64 "
+                f"words{', ' + str(host_cols) + ' columns to hashlib' if host_cols else ''}); "
+                f"sha256_cols {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']}; {comps} compressions, {nbytes} bytes), plain "
+                f"{plain_ms:.1f} ms"
+                + "".join(f"; first {k} columns {rec[f'ms_{k}_columns']:.4f} ms (bound "
+                          f"{rec[f'bound_ms_{k}_columns']:.4f})" for k in sub))
+        else:
+            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words: equal"
+                f"{f', {host_cols} columns to hashlib' if host_cols else ''}")
+        recs[tag] = rec
+
+    columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True, sub=(B3_OPENED,))
+    columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True, sub=(B3_OPENED,))
+    columns("brakedown 2^23 commit", words(*SHA_SDIG), timed=True, sub=(6_593, B3_OPENED))
+    for n_words in SHA_EDGES:
+        columns(f"edge {n_words}", words(n_words, 300), host_cols=2)
+
+    # streaming: the kernel's updates state by state against the plain
+    # update, then the finalize at rem 12, 13 and 14 against the plain
+    # finalize and the kernel's one-shot hash; the hasher class end to end
+    # (the plain one-shot hash of these 1,8xx-word columns would add ~4 s
+    # each: ~4,300 torch launches a compression)
+    n_cols = SHA_STREAM_COLS
+    w_all = words(sum(SHA_STREAM) + max(t for t, _ in SHA_STREAM_TAILS), n_cols)
+    cv = sha.h0_state(n_cols, DEV)
+    carry = torch.zeros((16, n_cols), dtype=torch.int32, device=DEV)
+    pcv, pcarry, n, r0, carries = sha.h0_state(n_cols, DEV), None, 8, 0, []
+    for length in SHA_STREAM:
+        carries.append(n)
+        blk = w_all[r0 : r0 + length]
+        got_n = sha.sha256_cols(blk, cv=cv, carry=carry, carry_len=n)
+        pcv, pcarry, n = sha.sha256_update_plain(pcv, pcarry, n, blk)
+        if got_n != n:
+            raise AssertionError(f"sha256 stream update of {length}: rem {got_n} != {n}")
+        check(f"stream update of {length} words (carry {carries[-1]}) chaining value", cv, pcv)
+        check(f"stream update of {length} words carry", carry[:n], pcarry[:n])
+        r0 += length
+    if carries != [8, 0, 0, 7, 15, 8]:
+        raise AssertionError(f"sha256 stream: carries {carries}")
+    for tail, rem_want in SHA_STREAM_TAILS:
+        cv_t, carry_t, blk = cv.clone(), carry.clone(), w_all[r0 : r0 + tail]
+        got_n = sha.sha256_cols(blk, cv=cv_t, carry=carry_t, carry_len=n)
+        tcv, tcarry, tn = sha.sha256_update_plain(pcv, pcarry, n, blk)
+        if not got_n == tn == rem_want:
+            raise AssertionError(f"sha256 stream: rem {got_n}, plain {tn}, want {rem_want}")
+        total = 8 + r0 + tail
+        got = sha.sha256_cols(blk[:0], cv=cv_t, carry=carry_t, carry_len=got_n, total_words=total)
+        check(f"stream finalize at rem {rem_want}", got,
+              sha.sha256_finalize_plain(tcv, tcarry, tn, total))
+        check(f"stream finalize at rem {rem_want} vs the one-shot hash", got,
+              sha.hash_word_columns(w_all[: r0 + tail]))
+    lens = SHA_STREAM + (SHA_STREAM_TAILS[-1][0],)
+    hasher = StreamingSha256Hasher(n_cols, 8 + sum(lens), DEV)
+    r0 = 0
+    for length in lens:
+        hasher.update(w_all[r0 : r0 + length])
+        r0 += length
+    check("StreamingSha256Hasher", hasher.finalize(), got)  # the last tail's digests
+    log(f"  sha256 streaming, {n_cols} columns: updates of {list(SHA_STREAM)} words (carries "
+        f"{carries}) equal to the plain update state by state; finalizes at rem "
+        f"{[r for _, r in SHA_STREAM_TAILS]} equal to the plain finalize and the one-shot "
+        f"hash; StreamingSha256Hasher end to end equal")
+
+    lat_floor = {}
+    for n_leaves, np2 in MERKLE_TREES + ((1, 1), (2, 2), (300, 512), (513, 1024)):
+        leaves = digests(n_leaves)
+        got = sha.merkle_tree(leaves, np2)
+        want, plain_ms = time_host(torch, lambda: sha.merkle_tree_plain(leaves, np2))
+        check(f"merkle tree {n_leaves} -> {np2}", got, want)
+        if (n_leaves, np2) not in MERKLE_TREES:
+            continue
+        ms = kb.time_kernel(lambda: sha.merkle_tree(leaves, np2))
+        wall = host_ms(torch, lambda: sha.merkle_tree(leaves, np2))
+        bound, by = sha_bound_ms(64 * n_leaves + 64 * (2 * np2 - 1), np2 - 1, SHA_PARENT_S)
+        depth = np2.bit_length() - 1
+        lat_floor[depth] = depth * lat_p
+        recs[f"merkle {n_leaves}"] = {
+            "leaves": n_leaves, "np2": np2, "launches": 1, "ms": ms, "host_ms": wall,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "floor_ms": depth * lat_p,
+            "depth": depth}
+        log(f"  sha256 merkle tree of {n_leaves} leaves (padded to 2^{depth}): equal; 1 launch, "
+            f"device {ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
+            f"{depth} x a parent's latency = {depth * lat_p:.4f} ms, plain {plain_ms:.1f} ms")
+    log("  sha256 merkle trees of 1, 2, 300 -> 512 and 513 -> 1,024 leaves: equal")
+
+    for k, levels in WALKS + ((5, 0), (40, 3)):
+        n_sibs = max(1, k * levels // 2)
+        digs, sibs = digests(k), digests(n_sibs)
+        inv = torch.randint(0, n_sibs, (levels, k), generator=gen, device=DEV)
+        idx = torch.randint(0, 1 << levels, (k,), generator=gen, device=DEV)
+        idx[:2] = idx[2]  # opened columns repeat
+        got = sha.merkle_walk(digs, sibs, inv, idx)
+        want, plain_ms = time_host(torch, lambda: sha.merkle_walk_plain(digs, sibs, inv, idx))
+        check(f"merkle walk {k} x {levels}", got, want)
+        if (k, levels) not in WALKS:
+            continue
+        ms = kb.time_kernel(lambda: sha.merkle_walk(digs, sibs, inv, idx))
+        wall = host_ms(torch, lambda: sha.merkle_walk(digs, sibs, inv, idx))
+        read = int(torch.unique(inv).numel())
+        bound, by = sha_bound_ms(64 * k + 64 * read + 8 * levels * k + 8 * k + 64 * k,
+                                 k * levels, SHA_PARENT_S)
+        recs[f"walk {k}"] = {"columns": k, "levels": levels, "launches": 1, "ms": ms,
+                             "host_ms": wall, "plain_ms": plain_ms, "bound_ms": bound,
+                             "bound_by": by, "floor_ms": levels * lat_p}
+        log(f"  sha256 merkle walk of {k} columns x {levels} levels: equal; 1 launch, device "
+            f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
+            f"{levels * lat_p:.4f} ms, plain {plain_ms:.1f} ms")
+    log("  sha256 merkle walks of 5 x 0 and 40 x 3: equal")
+    recs["max_abs_err"] = errs[0]
+    return recs
+
+
+def check_sha_stages(stages, tag, want, plain_per_compression, b3_stages=None):
+    """A traced SHA-256 run's launches by stage: the SHA-256 kernels as
+    `want` says, no BLAKE3 kernel, and every stage's CUDA kernels (the
+    trace's count: torch's own kernels, so any plain op) fewer than one
+    plain compression launches — no plain SHA-256 op ran on the card.  The
+    trace has been seen to miss a session's kernels, so the limit is never
+    under 1,000 (a stage launches at most ~150 and a plain compression
+    ~4,300).  The same path's BLAKE3 counts are logged beside."""
+    limit = max(plain_per_compression, 1000)
+    for name, rec in stages.items():
+        got = {k: v for k, v in rec["counters"].items() if k in SHA_KERNELS}
+        if got != want[name] or any(k in rec["counters"] for k in ("blake3_chunks", *TREES)):
+            raise AssertionError(f"{tag} {name}: launches {rec['counters']}, want {want[name]}")
+        if rec["cuda_kernels"] >= limit:
+            raise AssertionError(f"{tag} {name}: {rec['cuda_kernels']} CUDA kernel launches, "
+                                 f"a plain SHA-256 op ran on the card")
+    log(f"  {tag}: SHA-256 launches by stage "
+        f"{ {n: r['counters'] for n, r in stages.items()} }; CUDA kernels by stage "
+        f"{ {n: r['cuda_kernels'] for n, r in stages.items()} }"
+        + (f" (BLAKE3: { {n: r['cuda_kernels'] for n, r in b3_stages.items()} })"
+           if b3_stages else "")
+        + f", each under {limit} (one plain compression: {plain_per_compression})")
+
+
+def sha256_path_2_28(torch, kb, P, counters, sha, gen, card, plain_per_compression):
+    """Phase 14 (c): the 2^28 streaming path of phase 9 with digest=SHA256:
+    commit_streaming (spill="auto") -> prove -> verify once cold with the
+    launches counted, the evaluation against one on the card in the other
+    order, tampered proofs, the kept words hashed in memory equal to the
+    streamed leaves (sha256_cols timed there and at a row block's update),
+    one traced run by stage, then warm runs."""
+    from lcpc_tpu_torch.ops.limbs import get_ops
+
+    spec, digest = P.FT255, P.SHA256
+    enc = P.LigeroEncoding.new(spec, N_BIG, *LIGERO_RHO, device=DEV)
+    n_rows, n_cols = -(-N_BIG // enc.n_per_row), enc.n_cols
+    coeffs = random_packed_coeffs(torch, spec, N_BIG, gen)
+    outer, inner = P.univariate_tensors(spec, 0x5EED5EED5EED, enc.n_per_row, n_rows)
+    want = device_eval(torch, get_ops(spec), coeffs.reshape(coeffs.shape[0], n_rows,
+                                                            enc.n_per_row), outer, inner, 256)
+    transcript = transcript_for(P, enc)
+
+    def run():
+        comm, c_ms = time_host(torch, lambda: P.commit_streaming(coeffs, enc, digest=digest))
+        root = comm.get_root()
+        proof, p_ms = time_host(torch, lambda: comm.prove(outer, transcript(root)))
+        value, v_ms = time_host(torch, lambda: proof.verify(root, outer, inner, enc,
+                                                            transcript(root), digest=digest))
+        return comm, proof, value, (c_ms, p_ms, v_ms)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    comm, proof, value, cold = run()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_blocks = -(-n_rows // comm.row_block)
+    log(f"sha path 2^28 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
+        f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block} ({n_blocks} "
+        f"blocks), words kept on the card: {comm.words_dev is not None}; peak device memory "
+        f"{peak:.2f} GiB")
+    for name, n in launches.items():
+        if (n > 0) != (name in LIGERO_KERNELS | set(SHA_KERNELS)):
+            raise AssertionError(f"sha path 2^28: {name} launched {n} times")
+    # commit: an update a row block and the finalize, the tree; verify: the
+    # opened columns' hash and the walk
+    check_hash_launches(launches, {"sha256_cols": n_blocks + 2, "sha256_merkle_tree": 1,
+                                   "sha256_merkle_walk": 1}, "sha path 2^28")
+    if comm.words_dev is None:
+        raise AssertionError("sha path 2^28: the words were not kept on the card")
+    if value != want:
+        raise AssertionError("sha path 2^28: verify's evaluation != the evaluation on the card")
+    log("  verify returned the evaluation computed on the card in the other order: ok")
+    root = comm.get_root()
+    data = P.wire.serialize_proof(spec, proof)
+    tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "sha path 2^28", digest)
+
+    words = comm.words_dev
+    leaves = sha.hash_word_columns(words)
+    if not torch.equal(leaves, comm.hashes_dev[:, :n_cols]):
+        raise AssertionError("sha path 2^28: in-memory hash of the kept words != streamed leaves")
+    rec = {"launches": launches, "cold": cold, "peak_gib": peak, "proof_bytes": len(data),
+           "row_block": comm.row_block, "blocks": n_blocks}
+    nbytes, comps = sha_cols_cost(words.shape[0], n_cols)
+    rec["cols_ms"] = kb.time_kernel(lambda: sha.hash_word_columns(words), reps=3)
+    rec["cols_bound_ms"], rec["cols_bound_by"] = sha_bound_ms(nbytes, comps, SHA_COMPRESSION_S)
+    blk = words[: comm.row_block * spec.w16 // 2]
+    cv = sha.h0_state(n_cols, DEV)
+    carry = torch.zeros((16, n_cols), dtype=torch.int32, device=DEV)
+    nb_u, cp_u = sha_cols_cost(blk.shape[0], n_cols, finish=False)
+    rec["update_ms"] = kb.time_kernel(lambda: sha.sha256_cols(blk, cv=cv, carry=carry), reps=3)
+    rec["update_bound_ms"], rec["update_bound_by"] = sha_bound_ms(nb_u, cp_u, SHA_COMPRESSION_S)
+    log(f"  the kept words hashed in memory: equal to the streamed leaves; sha256_cols "
+        f"{rec['cols_ms']:.4f} ms ({n_cols} columns x {words.shape[0]} words, bound "
+        f"{rec['cols_bound_ms']:.4f} ms, {rec['cols_bound_by']}); one {comm.row_block}-row "
+        f"block's update ({blk.shape[0]} words): {rec['update_ms']:.4f} ms (bound "
+        f"{rec['update_bound_ms']:.4f} ms, {rec['update_bound_by']})")
+    del comm, proof, words, leaves, blk, cv, carry
+    torch.cuda.empty_cache()
+
+    rec["stages"] = stage_launches(torch, P, counters, enc,
+                                   lambda: P.commit_streaming(coeffs, enc, digest=digest), outer,
+                                   inner, digest)
+    check_sha_stages(rec["stages"], "sha path 2^28",
+                     dict(SHA_LAUNCHES_STAGES, commit={"sha256_cols": n_blocks + 1,
+                                                       "sha256_merkle_tree": 1}),
+                     plain_per_compression)
+    torch.cuda.empty_cache()
+    warm = []
+    for _ in range(SHA_BIG_WARM):
+        if time.perf_counter() - T_START > SHA_BIG_WARM_DEADLINE_S:
+            log(f"  sha path 2^28: {len(warm)} warm runs, not {SHA_BIG_WARM}: the run is at "
+                f"{time.perf_counter() - T_START:.0f} s")
+            break
+        comm, proof, value, t = run()
+        if value != want:
+            raise AssertionError("sha path 2^28: warm run's evaluation differs")
+        warm.append(t)
+        del comm, proof
+        torch.cuda.empty_cache()
+    med = [statistics.median(t[i] for t in warm) if warm else None for i in range(3)]
+    for i, name in enumerate(("commit", "prove", "verify")):
+        log(f"sha256_streaming_ligero_{name}_ms_median_2^28_ft255: "
+            f"{med[i] if med[i] is None else round(med[i], 1)} "
+            f"(warm runs {[round(t[i], 1) for t in warm]}; cold {cold[i]:.1f}; {card})")
+    del coeffs
+    torch.cuda.empty_cache()
+    rec.update(warm=warm, median=med)
+    return rec
+
+
+def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen, b3_stages,
+                 plain_per_compression):
+    """Phase 14: the slice's paths with digest=SHA256, through the public
+    entry points: (a) Ligero 2^23 and (b) Brakedown 2^23 as phases 6 and 4
+    run them (main_path: cold with the launches counted, warm, traced by
+    stage, the evaluation and the tamper kinds), (c) the 2^28 streaming
+    path.  Every plain SHA-256 version goes through sha._compress: it is
+    watched for the whole phase, and a call on a CUDA tensor is fatal.
+    Returns the records."""
+    spec = P.FT255
+    out, on_card, compress = {}, [], sha._compress
+
+    def watched(h, m):
+        on_card.append(h.is_cuda or m.is_cuda)
+        return compress(h, m)
+
+    sha._compress = watched
+    lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "sha_ligero",
+                    LIGERO_KERNELS | set(SHA_KERNELS), P.SHA256, SHA_LAUNCHES_PATH)
+    check_sha_stages(lig[8], "sha_ligero", SHA_LAUNCHES_STAGES, plain_per_compression,
+                     b3_stages["ligero"])
+    check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0, "verify": 4})
+    del lenc
+    t0 = time.perf_counter()
+    enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
+    log(f"brakedown 2^23 encoding rebuilt in {time.perf_counter() - t0:.2f} s")
+    sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sha_sdig",
+                     SDIG_KERNELS | set(SHA_KERNELS), P.SHA256, SHA_LAUNCHES_PATH)
+    check_sha_stages(sdig[8], "sha_sdig", SHA_LAUNCHES_STAGES, plain_per_compression,
+                     b3_stages["sdig"])
+    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0, "verify": 5})
+    del enc
+    torch.cuda.empty_cache()
+    for tag, r in (("ligero_2_23", lig), ("sdig_2_23", sdig)):
+        out[tag] = {"launches": r[0], "cold": r[1], "warm": r[2], "median": r[3],
+                    "peak_gib": r[4], "proof_bytes": r[5], "stages": r[8]}
+    out["ligero_2_28"] = sha256_path_2_28(torch, kb, P, counters, sha, gen, card,
+                                          plain_per_compression)
+    sha._compress = compress
+    if any(on_card):
+        raise AssertionError(f"phase 14: {sum(on_card)} plain SHA-256 compressions on the card")
+    log(f"  phase 14: no plain SHA-256 compression ran on the card ({len(on_card)} ran in "
+        f"all, on the host)")
+    out["plain_compressions_on_card"] = 0
+    return out
+
+
+def sha_rows(shas, paths, sha_ptxas, sha_mix):
+    """The kernel table rows of the three SHA-256 kernels, each timed at
+    path (a)'s shape (the Ligero 2^23 commit's columns and tree, its verify's
+    walk), with its launches on each path, the other shapes, the host wall,
+    the dependency floor and ptxas's report beside."""
+    c23, w189 = shas["2^23 commit"], shas[f"walk {WALKS[0][0]}"]
+    m17 = shas[f"merkle {MERKLE_TREES[0][0]}"]
+    big = paths["ligero_2_28"]
+
+    def ptx(name):
+        return {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                for k, v in sorted(sha_ptxas.items()) if name in k}
+
+    def row(name, replaces, rec, shape, **extra):
+        return {"name": name, "route": "cuda", "source": "lcpc_tpu_torch/csrc/sha256_cols.cu",
+                "replaces": replaces, "launches": paths["ligero_2_23"]["launches"][name],
+                "max_abs_err": shas["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None, "equal_to_plain": True,
+                "tolerance": 0, "shape": shape,
+                "launches_paths": {tag: paths[tag]["launches"][name]
+                                   for tag in ("ligero_2_23", "sdig_2_23", "ligero_2_28")},
+                "ptxas": ptx(name.replace("sha256_merkle", "merkle") + "_kernel"),
+                "sass_compression_alu_fma_all": sha_mix["compress_alu_fma_all"],
+                "sass_parent_alu_fma_all": sha_mix["parent_alu_fma_all"], **extra}
+
+    return [
+        row("sha256_cols",
+            "lcpc_tpu/ops/sha256_jax.py:53,90 (_compress, hash_word_columns) and "
+            "lcpc_tpu/core/streaming.py:408,428,448 (_sha_update_fn, _sha_finalize_fn, "
+            "StreamingSha256Hasher); XLA-fused, not Pallas", c23,
+            f"path (a)'s commit columns: {c23['n_cols']} x {c23['n_words']} words, "
+            f"{c23['compressions_a_column']} compressions each, one launch",
+            other_shapes={k: shas[k] for k in ("2^28 column length", "brakedown 2^23 commit")},
+            ms_2_28_commit=big["cols_ms"], bound_ms_2_28_commit=big["cols_bound_ms"],
+            ms_2_28_block_update=big["update_ms"],
+            bound_ms_2_28_block_update=big["update_bound_ms"],
+            compression_latency_ms=shas["compression_latency_ms"]),
+        row("sha256_merkle_tree",
+            "lcpc_tpu/ops/sha256_jax.py:127,144 (merkle_parent, merkle_layer) over the layer "
+            "loops of lcpc_tpu/core/protocol.py:326-333, :376-383 and core/streaming.py:719-725; "
+            "XLA-fused, not Pallas", m17, "path (a)'s tree: 2^17 leaves",
+            host_ms=m17["host_ms"], floor_ms=m17["floor_ms"],
+            other_shapes={k: v for k, v in shas.items() if k.startswith("merkle ")},
+            parent_latency_ms=shas["parent_latency_ms"]),
+        row("sha256_merkle_walk",
+            "lcpc_tpu/core/protocol.py:787-793 (_verify_core_fn's parent loop); XLA-fused, "
+            "not Pallas", w189, "path (a)'s verify walk: 189 columns x 17 levels",
+            host_ms=w189["host_ms"], floor_ms=w189["floor_ms"],
+            brakedown_2_23=shas[f"walk {WALKS[1][0]}"],
+            parent_latency_ms=shas["parent_latency_ms"]),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -1879,6 +2423,7 @@ def main() -> int:
     from lcpc_tpu_torch.ops import mont_dot as md
     from lcpc_tpu_torch.ops import mont_map as mm
     from lcpc_tpu_torch.ops import ntt as nttm
+    from lcpc_tpu_torch.ops import sha256 as sha
     from lcpc_tpu_torch.ops import spmv
     from lcpc_tpu_torch.ops import threefry as tf
     from lcpc_tpu_torch.ops.limbs import get_ops
@@ -1894,7 +2439,8 @@ def main() -> int:
                 "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
                 **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
                 "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
-                "mont_addsub_map": mm.mont_addsub_map}
+                "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
+                "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk}
     hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
@@ -1903,20 +2449,24 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # 2. build the seven kernel sources, one nvcc each, at once
+    # 2. build the eight kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:  # the probes beside the kernels
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # the probes beside the kernels
         chain_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR)
         tf_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
                            kb.TF_CHAIN_SRC)
+        sha_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
+                            kb.SHA_CHAIN_SRC)
         secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
-                                     "mont_dot", "power_table", "mont_map"], force=True)
+                                     "mont_dot", "power_table", "mont_map", "sha256_cols"],
+                                    force=True)
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
+        sha_so, sha_chain_log = sha_f.result()
     log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} and "
-        f"scripts/blake3_chain.cu, scripts/threefry_chain.cu ({time.perf_counter() - t0:.2f} s "
-        f"wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
+        f"scripts/blake3_chain.cu, scripts/threefry_chain.cu, scripts/sha256_chain.cu "
+        f"({time.perf_counter() - t0:.2f} s wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     ptxas = kb.ptxas_report(spmv.build_log)
     for w32, (regs, st, ld) in sorted(ptxas.items()):
         log(f"  ptxas spmv_mont W32={w32}: {regs} registers, {st} bytes spill stores, "
@@ -1942,6 +2492,19 @@ def main() -> int:
         log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
+    sha_ptxas = {k: v for name in ("sha256_cols_kernel", "merkle_tree_kernel",
+                                   "merkle_walk_kernel")
+                 for k, v in kb.ptxas_entries(cuda_build.build_logs["sha256_cols"], name).items()}
+    if len(sha_ptxas) != 6:  # the column hash 2 word types x 2 modes, the tree, the walk
+        raise AssertionError(f"sha256 kernels not reported by ptxas: {sha_ptxas}")
+    for name, (regs, st, ld) in sorted(sha_ptxas.items()):
+        log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        if st or ld:
+            raise AssertionError(f"{name} spills: {st} / {ld} bytes")
+    for name, (regs, st, ld) in kb.ptxas_entries(sha_chain_log, "chain_kernel").items():
+        log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
+    sha_mix = sha256_mix(kb, sha_so, cuda_build.so_path("sha256_cols"))
     prove_ptxas = {}
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
                             ("power_table", "power_"), ("mont_map", "map_kernel")):
@@ -2029,8 +2592,7 @@ def main() -> int:
     # encoded rows at the opened columns and the opened columns to canonical
     # words, the evaluation's two operands to Montgomery form
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
-                     path_kernels={"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map"}
-                     | hashing)
+                     SDIG_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
     check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": 5})
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
@@ -2048,7 +2610,7 @@ def main() -> int:
         raise AssertionError("sdig streaming proof bytes != the in-memory proof")
     if s_launches["spmv_mont"] != n_levels * -(-scomm.n_rows // scomm.row_block):
         raise AssertionError(f"sdig streaming: spmv launches {s_launches}")
-    check_tree_launches(s_launches, TREE_LAUNCHES_STREAM, "sdig commit_streaming")
+    check_hash_launches(s_launches, TREE_LAUNCHES_STREAM, "sdig commit_streaming")
     log(f"  sdig commit_streaming {s_ms:.1f} ms ({scomm.row_block}-row blocks, words kept "
         f"{'on the card' if scomm.words_dev is not None else 'nowhere'}): root and proof bytes "
         f"equal to the in-memory commit's; launches {s_launches}")
@@ -2104,8 +2666,7 @@ def main() -> int:
     # verify converts the proof rows, the opened columns and the
     # evaluation's two operands (four mont_mul_map launches)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    path_kernels={"ntt_mont", "mont_dot", "power_table", "mont_mul_map"}
-                    | DOT_KERNELS | hashing)
+                    LIGERO_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
     check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0, "verify": 4})
     per_encode = plan.launches_per_call
     if lig[0]["ntt_mont"] != per_encode or lig[0]["power_table"] != 1:
@@ -2123,6 +2684,9 @@ def main() -> int:
             raise AssertionError(f"ligero {name} golden fixture not reproduced on the GPU")
         log(f"ligero golden fixture ({name}): root {groot.hex()[:16]}.. and proof "
             f"sha256 reproduced")
+    # the coefficients wait in host memory for phase 14, so that phases 7-12
+    # see the card as before
+    coeffs_host = coeffs_mont.cpu()
     del coeffs_mont, lenc, genc
     torch.cuda.empty_cache()
     phase.done()
@@ -2155,7 +2719,21 @@ def main() -> int:
         maps = mont_map_phase(torch, kb, P, mm, gen)
         torch.cuda.empty_cache()
 
-    # 13. kernel table
+    # 13. the SHA-256 kernels against their plain versions
+    with Phase("13 sha256 vs plain"):
+        shas = sha256_phase(torch, kb, sha, gen, sha_so)
+        torch.cuda.empty_cache()
+
+    # 14. the slice's paths with SHA-256: Ligero and Brakedown 2^23, Ligero
+    # 2^28 streaming
+    with Phase("14 sha256 paths"):
+        sha_paths = sha256_paths(torch, kb, P, counters, sha, coeffs_host.cuda(), x_pt, want,
+                                 card, gen, {"ligero": lig[8], "sdig": sdig[8]},
+                                 shas["plain_compression_launches"])
+        del coeffs_host
+        torch.cuda.empty_cache()
+
+    # 15. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -2237,7 +2815,8 @@ def main() -> int:
             b3_mix["least"]][:3],
     }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
-        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"])]
+        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"]),
+        *sha_rows(shas, sha_paths, sha_ptxas, sha_mix)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -2249,6 +2828,7 @@ def main() -> int:
                        for name, r in (("sdig", sdig), ("ligero", lig))},
                    "blake3": hashes, "streaming_2_26": stream26, "path_2_28": big,
                    "prove_kernels": prv, "path_2_29": s29, "mont_map": maps,
+                   "sha256": shas, "sha256_paths": sha_paths, "sha256_sass": sha_mix,
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")

@@ -26,8 +26,9 @@ blocks, a Reed-Solomon code's columns being its rows at w^bitrev(c)) or by
 re-encoding every block (`_open_by_reencode`, the other codes).  Its proof is an ordinary LcEvalProof: `verify` checks it,
 and its bytes equal the in-memory prove's.
 
-Column hashing is BLAKE3 (the kernels) or SHA-256 (StreamingSha256Hasher,
-plain PyTorch over ops/sha256.py).
+Column hashing is BLAKE3 (StreamingColumnHasher) or SHA-256
+(StreamingSha256Hasher, over the kernel of csrc/sha256_cols.cu), each
+update one launch.
 """
 
 from __future__ import annotations
@@ -78,6 +79,14 @@ class StreamingColumnHasher:
         self.words_done = 0
         self.chunks_done = 0
 
+    @staticmethod
+    def resident_bytes(n_cols: int, total_words: int) -> int:
+        """Device bytes the hasher holds for the whole commit: the chunk CVs
+        (and the merge's first two levels) and the carry."""
+        n_chunks = -(-total_words // blake3.CHUNK_WORDS)
+        return ((n_chunks + (n_chunks + 1) // 2 + (n_chunks + 3) // 4) * 8 * n_cols * 4
+                + blake3.CHUNK_WORDS * n_cols * 4)
+
     def update(self, words: torch.Tensor) -> None:
         """words: (L, n_cols) u32 words (int32 storage) appended to every
         column's stream."""
@@ -117,52 +126,47 @@ class StreamingColumnHasher:
 
 
 class StreamingSha256Hasher:
-    """Per-column SHA-256 over row blocks (Merkle-Damgard carry buffer), in
-    plain PyTorch over ops/sha256.py (lcpc_tpu/core/streaming.py:448).
+    """Per-column SHA-256 over row blocks (lcpc_tpu/core/streaming.py:448),
+    over the kernel of csrc/sha256_cols.cu (ops/sha256.py: sha256_cols).
 
     Same update/finalize interface as StreamingColumnHasher and equal to
     sha256.hash_word_columns over the concatenated stream; SHA-256 has no
-    chunk tree, so the carry state is the chaining value and fewer than 16
-    buffered words."""
+    chunk tree, so the state is the chaining value (8, C) and a carry of
+    fewer than 16 words (16, C), both int32 on the encoding's device.
+    update() is one launch: the carry and the block's words through their
+    whole 64-byte blocks, the rest kept as the next carry (a block shorter
+    than the carry's free space only appends); finalize() is one launch:
+    the carry, the padding and the 64-bit length."""
 
     def __init__(self, n_cols: int, total_words: int, device):
-        self.n_cols = n_cols
         self.total_words = total_words  # includes the 8-word zero prefix
-        self.h = sha256._h0(n_cols, device).clone()
-        self.buf = torch.zeros((16, n_cols), dtype=torch.int64, device=device)
-        self.buf_len = blake3.PREFIX_WORDS  # the zero prefix
+        self.h = sha256.h0_state(n_cols, device)
+        self.buf = torch.zeros((sha256.BLOCK_WORDS, n_cols), dtype=torch.int32, device=device)
+        self.buf_len = sha256.PREFIX_WORDS  # the zero prefix
         self.words_done = 0
+
+    @staticmethod
+    def resident_bytes(n_cols: int, total_words: int) -> int:
+        """Device bytes the hasher holds for the whole commit: the chaining
+        value and the carry, 24 int32 words a column."""
+        return (8 + sha256.BLOCK_WORDS) * 4 * n_cols
 
     def update(self, words: torch.Tensor) -> None:
         """words: (L, n_cols) u32 words (int32 storage) appended to every
         column's stream."""
-        data = torch.cat([self.buf[: self.buf_len], words.to(torch.int64) & 0xFFFFFFFF])
-        n_full = data.shape[0] // 16
-        be = sha256._bswap32(data[: 16 * n_full])
-        for b in range(n_full):
-            self.h = sha256._compress(self.h, be[16 * b : 16 * b + 16])
-        self.buf_len = data.shape[0] - 16 * n_full
-        self.buf[: self.buf_len] = data[16 * n_full :]
+        self.buf_len = sha256.sha256_cols(words, cv=self.h, carry=self.buf,
+                                          carry_len=self.buf_len)
         self.words_done += words.shape[0]
 
     def finalize(self) -> torch.Tensor:
         """The final block(s), padding and the 64-bit length: (8, n_cols)
         int64 digests (LE words)."""
-        assert self.words_done + blake3.PREFIX_WORDS == self.total_words, (
+        assert self.words_done + sha256.PREFIX_WORDS == self.total_words, (
             self.words_done, self.total_words)
-        rem = self.buf_len
-        n_blocks = 1 if rem + 3 <= 16 else 2  # the pad word and 2 length words
-        be = self.buf.new_zeros((16 * n_blocks, self.n_cols))
-        be[:rem] = sha256._bswap32(self.buf[:rem])
-        be[rem] = 0x80000000
-        bits = self.total_words * 32
-        be[-2] = bits >> 32
-        be[-1] = bits & 0xFFFFFFFF
-        h = self.h
-        for b in range(n_blocks):
-            h = sha256._compress(h, be[16 * b : 16 * b + 16])
+        out = sha256.sha256_cols(self.buf[:0], cv=self.h, carry=self.buf,
+                                 carry_len=self.buf_len, total_words=self.total_words)
         self.h = self.buf = None
-        return sha256._bswap32(h)
+        return out
 
 
 # streaming hashers by digest name (the digest= plug point of the streaming
@@ -302,12 +306,9 @@ def commit_streaming(coeffs, enc: LcEncoding, row_block: "int | None" = None,
             keep, words_off, keep_bytes = True, sys_pref, tail_bytes
 
     # arrays resident for the whole commit, which the block transients fit
-    # beside: coefficients, the retained words, the hasher's chunk CVs (and
-    # the merge's first two levels), its carry
-    n_chunks = -(-total_words // blake3.CHUNK_WORDS)
+    # beside: coefficients, the retained words, the hasher's state
     resident = (source.resident_bytes + (keep_bytes if keep else 0)
-                + (n_chunks + (n_chunks + 1) // 2 + (n_chunks + 3) // 4) * 8 * n_cols * 4
-                + blake3.CHUNK_WORDS * n_cols * 4)
+                + hasher_cls.resident_bytes(n_cols, total_words))
     rb = _row_block_for(enc, n_rows, row_block, resident)
     hasher = hasher_cls(n_cols, total_words, device)
 

@@ -1,0 +1,236 @@
+// The Merkle tree and the verifier's path walk over any digest's parent
+// function: the kernels behind blake3_cols.cu's and sha256_cols.cu's
+// merkle_tree and merkle_walk entry points.
+//
+// A digest is 8 u32 words (LE words of the digest bytes), and Hash::parent(cv,
+// l, r) writes the parent node of l || r into cv (cv may alias neither input
+// it has not read).  Leaves and nodes in device memory are int64 holding u32.
+//
+//   merkle_tree_kernel  the whole Merkle array.  A block of 256 threads builds
+//                       the subtree of 1,024 leaves, level 1 from the leaves
+//                       and the rest in shared memory, writing every node to
+//                       its flat offset; the last block to finish (an atomic
+//                       counter) builds the levels above the subtree roots.
+//                       Zero digests pad the leaves to a power of two.
+//   merkle_walk_kernel  one thread per opened column walks its path to the
+//                       root, the sibling picked by the deduplicated index map
+//                       and its side by the column's index bits.
+//
+// What bounds them is their depth, not their work: a parent's dependency
+// chain times the tree's levels (a 2^17-leaf tree is 17 parents deep).
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace merkle {
+
+constexpr int kTreeThreads = 256;
+constexpr int kTreeNodes = 2 * kTreeThreads;  // a level in shared memory
+constexpr int kTreeLeaves = 2 * kTreeNodes;   // a block's subtree
+constexpr int kWalkThreads = 128;
+
+// the first node of level lvl in the flat leaves-first array
+__device__ __forceinline__ long long level_offset(long long np2, int lvl) {
+  return 2 * np2 - 2 * (np2 >> lvl);
+}
+
+// Merge the n nodes s[.][0, n) (a power of two <= kTreeNodes; nodes first
+// .. first + n - 1 of level lvl) level by level in shared memory down to
+// one, writing every new node to its place in out.
+template <class Hash>
+__device__ void merge_in_smem(uint32_t (*s)[kTreeNodes], int n, int lvl, long long first,
+                              long long np2, long long* __restrict__ out) {
+  const long long total = 2 * np2 - 1;
+  const int t = threadIdx.x;
+  for (; n > 1; n >>= 1) {
+    const int half = n >> 1;
+    uint32_t cv[8];
+    if (t < half) {
+      uint32_t l[8], r[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        l[w] = s[w][2 * t];
+        r[w] = s[w][2 * t + 1];
+      }
+      Hash::parent(cv, l, r);
+    }
+    __syncthreads();
+    ++lvl;
+    first >>= 1;
+    if (t < half) {
+      const long long at = level_offset(np2, lvl) + first + t;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        s[w][t] = cv[w];
+        out[w * total + at] = cv[w];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Block b builds the subtree over leaves [b sub, (b + 1) sub), zero digests
+// past n_cols: level 1 straight from the leaves (two parents a thread,
+// copying the leaves into out on the way; at most 512 blocks for a 2^19 tree,
+// so all of them are resident at once and their leaf loads overlap), the
+// levels above it in shared memory.  The last block to finish (a counter in
+// device memory, which that block resets) builds the levels above the
+// subtree roots, reading them through L2.
+template <class Hash>
+__global__ void __launch_bounds__(kTreeThreads)
+merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_cols,
+                   long long np2, int log_sub, long long* __restrict__ out,
+                   unsigned* __restrict__ counter) {
+  __shared__ uint32_t s[8][kTreeNodes];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  const long long total = 2 * np2 - 1;
+  if (np2 == 1) {  // the leaf is the root
+    if (t < 8) out[t] = (uint32_t)leaves[t * ld];
+    return;
+  }
+  const int pairs = 1 << (log_sub - 1);
+  const long long first = (long long)blockIdx.x * pairs;  // of level 1
+  for (int i = t; i < pairs; i += kTreeThreads) {
+    const long long leaf = 2 * (first + i);
+    uint32_t l[8], r[8], cv[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      l[w] = leaf < n_cols ? (uint32_t)leaves[w * ld + leaf] : 0u;
+      r[w] = leaf + 1 < n_cols ? (uint32_t)leaves[w * ld + leaf + 1] : 0u;
+      out[w * total + leaf] = l[w];
+      out[w * total + leaf + 1] = r[w];
+    }
+    Hash::parent(cv, l, r);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      s[w][i] = cv[w];
+      out[w * total + np2 + first + i] = cv[w];  // level 1 starts at np2
+    }
+  }
+  __syncthreads();
+  merge_in_smem<Hash>(s, pairs, 1, first, np2, out);
+  if (gridDim.x == 1) return;
+  __threadfence();  // this block's nodes are visible before its count is
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int lvl = log_sub;
+  long long n = gridDim.x;  // the subtree roots
+  for (; n > kTreeNodes; n >>= 1, ++lvl) {  // levels wider than s
+    const long long src = level_offset(np2, lvl), dst = level_offset(np2, lvl + 1);
+    for (long long i = t; i < n / 2; i += kTreeThreads) {
+      uint32_t l[8], r[8], cv[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {
+        l[w] = (uint32_t)__ldcg(out + w * total + src + 2 * i);
+        r[w] = (uint32_t)__ldcg(out + w * total + src + 2 * i + 1);
+      }
+      Hash::parent(cv, l, r);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) out[w * total + dst + i] = cv[w];
+    }
+    __syncthreads();
+  }
+  const long long src = level_offset(np2, lvl);
+  for (int i = t; i < n; i += kTreeThreads) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[w][i] = (uint32_t)__ldcg(out + w * total + src + i);
+  }
+  __syncthreads();
+  merge_in_smem<Hash>(s, (int)n, lvl, 0, np2, out);
+  if (t == 0) *counter = 0u;  // ready for the next launch on this stream
+}
+
+// Column j starts from its digest and walks `levels` levels: the sibling is
+// sibs[:, inv[l, j]], on the left when bit l of idx[j] is set.  The walk is
+// a chain of dependent parents, but its gathers are not: the next level's
+// sibling and the index after it are loaded while this level's parent
+// runs, so the loop waits on the parent alone.
+template <class Hash>
+__global__ void __launch_bounds__(kWalkThreads)
+merkle_walk_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
+                   const long long* __restrict__ sibs, long long s_w, long long s_c,
+                   const long long* __restrict__ inv, const long long* __restrict__ idx,
+                   int k, int levels, long long* __restrict__ out) {
+  const int j = blockIdx.x * kWalkThreads + threadIdx.x;
+  if (j >= k) return;
+  uint32_t cv[8], sib[8], next[8] = {};
+#pragma unroll
+  for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)digs[w * d_w + j * d_c];
+  const long long col = idx[j];
+  long long at_next = levels > 1 ? inv[(long long)k + j] * s_c : 0;
+  if (levels > 0) {
+    const long long at = inv[j] * s_c;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at];
+  }
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    if (lvl + 1 < levels) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) next[w] = (uint32_t)sibs[w * s_w + at_next];
+      if (lvl + 2 < levels) at_next = inv[(long long)(lvl + 2) * k + j] * s_c;
+    }
+    // the side by selects, not a branch: the columns of a warp take both
+    // sides, and a branch would run the parent once for each
+    const bool right = (col >> lvl) & 1;
+    uint32_t l[8], r[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      l[w] = right ? sib[w] : cv[w];
+      r[w] = right ? cv[w] : sib[w];
+      sib[w] = next[w];
+    }
+    Hash::parent(cv, l, r);
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) out[(size_t)w * k + j] = cv[w];
+}
+
+// The whole Merkle tree over leaves (8, n_cols) int64 (word stride ld,
+// column stride 1), zero digests padding them to np2 (a power of two >=
+// n_cols): out (8, 2 np2 - 1) int64, contiguous, leaves first, then each
+// level.  counter: one unsigned in device memory, 0 before the launch and
+// again after it; launches that may overlap need their own.  Returns the
+// launch's cudaError_t.
+template <class Hash>
+int launch_tree(const long long* leaves, long long ld, int n_cols, long long np2,
+                long long* out, unsigned* counter, int device, void* stream) {
+  if (leaves == nullptr || out == nullptr || counter == nullptr || n_cols < 1 ||
+      np2 < n_cols || (np2 & (np2 - 1)) != 0 || np2 > (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  int log_sub = 0;
+  while ((1LL << log_sub) < np2 && (1 << log_sub) < kTreeLeaves) ++log_sub;
+  const long long blocks = np2 >> log_sub;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  merkle_tree_kernel<Hash><<<(unsigned)blocks, kTreeThreads, 0, (cudaStream_t)stream>>>(
+      leaves, ld, n_cols, np2, log_sub, out, counter);
+  return (int)cudaGetLastError();
+}
+
+// The Merkle path walk of k opened columns over `levels` levels: digs (8, k)
+// and sibs (8, U) int64 at strides (d_w, d_c) and (s_w, s_c); inv (levels,
+// k) and idx (k,) int64, contiguous, every inv < U; out (8, k) int64,
+// contiguous.  Returns the launch's cudaError_t.
+template <class Hash>
+int launch_walk(const long long* digs, long long d_w, long long d_c, const long long* sibs,
+                long long s_w, long long s_c, const long long* inv, const long long* idx, int k,
+                int levels, long long* out, int device, void* stream) {
+  if (digs == nullptr || idx == nullptr || out == nullptr || k < 1 || levels < 0 ||
+      levels > 63 || (levels > 0 && (sibs == nullptr || inv == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  merkle_walk_kernel<Hash>
+      <<<(k + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0, (cudaStream_t)stream>>>(
+          digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace merkle

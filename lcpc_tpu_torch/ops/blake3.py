@@ -558,7 +558,18 @@ def merkle_tree_plain(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     return merkle.tree_by_layers(leaves, n_cols_np2, merkle_layer_plain)
 
 
-_tree_counters: dict = {}  # (device, stream) -> the tree kernel's self-resetting counter
+_tree_counters: dict = {}  # (device, stream) -> the tree kernels' self-resetting counter
+
+
+def _tree_counter(device: torch.device, dev: int, stream: int) -> torch.Tensor:
+    """The counter a Merkle tree launch on (dev, stream) takes: one int32 on
+    the card, 0 before each launch and again after it, so every tree kernel
+    (BLAKE3's and SHA-256's, merkle.cuh) on that stream can share it."""
+    counter = _tree_counters.get((dev, stream))
+    if counter is None:
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        _tree_counters[(dev, stream)] = counter
+    return counter
 
 
 def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
@@ -581,13 +592,9 @@ def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     out = torch.empty((8, 2 * n_cols_np2 - 1), dtype=torch.int64, device=leaves.device)
     lib = cuda_build.load(_NAME, _bind)
     dev, stream = _launch_args(leaves)
-    counter = _tree_counters.get((dev, stream))
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32, device=leaves.device)
-        _tree_counters[(dev, stream)] = counter
     _check_launch("merkle_tree", lib.lcpc_blake3_merkle_tree(
         leaves.data_ptr(), leaves.stride(0), leaves.shape[1], n_cols_np2, out.data_ptr(),
-        counter.data_ptr(), dev, stream))
+        _tree_counter(leaves.device, dev, stream).data_ptr(), dev, stream))
     merkle_tree.launches += 1
     return out
 

@@ -6,9 +6,10 @@ digest-word tensors (int64 storage): column leaf hashes (of (L, C) u32 words,
 int32 storage or int64), the whole Merkle array and the verifier's path
 walk; `host` is the byte-level twin.  BLAKE3
 is the default, its entries the wrappers of the CUDA kernels in
-csrc/blake3_cols.cu (ops/blake3.py), each tree one launch; SHA256 is the
-second construction behind the same plug point, plain PyTorch, its tree and
-walk the layer and parent loops of ops/merkle.py.
+csrc/blake3_cols.cu (ops/blake3.py); SHA256 is the second construction
+behind the same plug point, its entries the wrappers of csrc/sha256_cols.cu
+(ops/sha256.py).  Each tree and each walk is one launch, the column hash one
+launch for SHA-256 and two for BLAKE3 (chunks, then the chunk tree).
 Protocol entry points accept a `digest=` parameter; proofs do not record the
 digest (as in the reference, prover and verifier agree out of band).
 """

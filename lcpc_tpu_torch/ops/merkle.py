@@ -2,10 +2,10 @@
 at a time over any digest's layer and parent functions (the construction of
 lcpc-2d/src/lib.rs:665-704, 955-982).
 
-These loops are the plain versions of BLAKE3's one-launch kernels
-(ops/blake3.py: `merkle_tree_plain`, `merkle_walk_plain`) and SHA-256's
-tree and walk (ops/sha256.py), which are plain torch.  Digests are (8, n)
-int64 tensors holding u32 words.
+These loops are the plain versions of the one-launch tree and walk kernels
+of both digests (csrc/merkle.cuh; ops/blake3.py and ops/sha256.py:
+`merkle_tree_plain`, `merkle_walk_plain`).  Digests are (8, n) int64
+tensors holding u32 words.
 """
 
 from __future__ import annotations

@@ -3,6 +3,7 @@
 and power limit, device time per kernel call, ptxas's register and spill
 report, the SASS of the SpMV kernel's k loop, the BLAKE3 compression's
 latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, the
+SHA-256 compression's and Merkle parent's (scripts/sha256_chain.cu), the
 generator's threefry probe (scripts/threefry_chain.cu) and its mix, and
 random packed operands.
 
@@ -217,6 +218,8 @@ def blake3_sass_mix(chain_so, lib_so, kernels):
 CHAIN_PER_TRIP = 4  # compressions (threefry steps) in a probe's loop body (kPerTrip)
 CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blake3_chain.cu")
 TF_CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "threefry_chain.cu")
+SHA_CHAIN_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sha256_chain.cu")
+SHA_CHAIN_PER_TRIP = 2  # SHA-256 steps in its probes' loop bodies (kPerTrip)
 _chain_libs = {}
 
 
@@ -274,18 +277,60 @@ def threefry_chain(so, key, x, n):
     return int(out.item())
 
 
+def _probe_mix(funcs, kernel, per_trip=CHAIN_PER_TRIP):
+    """((ALU, FMA, all) a step, the body's opcodes) of a chain probe's loop
+    body over its per_trip steps (the loop's own instructions shared out
+    among them), `kernel` naming the probe's function."""
+    probe = next(v for k, v in funcs.items() if kernel in k)
+    body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
+    return (tuple(x / per_trip for x in pipe_mix(body)),
+            dict(collections.Counter(t.split()[0] for t in body).most_common()))
+
+
 def threefry_sass_mix(chain_so):
     """One generator digit's instruction mix by pipe, from the SASS of the
-    threefry probe's loop body over its CHAIN_PER_TRIP steps (the loop's own
-    instructions shared out among them): ((ALU, FMA, all), the body's
-    opcodes), or None without cuobjdump."""
+    threefry probe's loop body: ((ALU, FMA, all), the body's opcodes), or
+    None without cuobjdump."""
     funcs = sass_functions(chain_so)
-    if funcs is None:
+    return None if funcs is None else _probe_mix(funcs, "threefry_chain_kernel")
+
+
+def sha256_chain(so, h, n, parent):
+    """n (a multiple of SHA_CHAIN_PER_TRIP) dependent SHA-256 steps of an (8,)
+    int64 state on the card, in one thread of the probe `so`
+    (scripts/sha256_chain.cu): compressions h <- compress(h, h || h), or
+    with `parent` Merkle parents h <- parent(h, h); returns the last h."""
+    lib = _chain_libs.get(so)
+    if lib is None:
+        lib = _chain_libs[so] = ctypes.CDLL(so)
+        lib.lcpc_sha256_chain.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p, ctypes.c_void_p]
+        lib.lcpc_sha256_chain.restype = ctypes.c_int
+    h = h.contiguous()
+    out = torch.empty(8, dtype=torch.int64, device=h.device)
+    err = lib.lcpc_sha256_chain(h.data_ptr(), n, int(parent), out.data_ptr(),
+                                torch.cuda.current_stream(h.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sha256_chain launch failed: cudaError_t {err}")
+    return out
+
+
+def sha256_sass_mix(chain_so, lib_so):
+    """SHA-256's instruction mix by pipe from the SASS: `compress`, one
+    scheduled compression, and `parent`, one Merkle parent (a scheduled
+    compression and one over the constant padding block), each from its
+    probe's loop body as ((ALU, FMA, all), opcodes); `cols_loop`, the
+    column hash kernel's block loop (an update's: one compression, its 16
+    word loads and the loop's own instructions) as (ALU, FMA, all).  None
+    without cuobjdump."""
+    chain_funcs, lib_funcs = sass_functions(chain_so), sass_functions(lib_so)
+    if chain_funcs is None or lib_funcs is None:
         return None
-    probe = next(v for k, v in funcs.items() if "threefry_chain_kernel" in k)
-    body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
-    return (tuple(x / CHAIN_PER_TRIP for x in pipe_mix(body)),
-            dict(collections.Counter(t.split()[0] for t in body).most_common()))
+    cols = next(v for k, v in lib_funcs.items() if "sha256_cols_kernelIiLb0E" in k)
+    return {"compress": _probe_mix(chain_funcs, "sha256_compress_chain_kernel",
+                                   SHA_CHAIN_PER_TRIP),
+            "parent": _probe_mix(chain_funcs, "sha256_parent_chain_kernel", SHA_CHAIN_PER_TRIP),
+            "cols_loop": pipe_mix(max(_loops(cols), key=lambda lp: pipe_mix(lp)[0]))}
 
 
 def sass_mix(so_path, kernel):

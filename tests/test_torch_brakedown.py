@@ -17,7 +17,7 @@ from lcpc_tpu_torch import convert
 from lcpc_tpu_torch.encodings import brakedown as bd
 from lcpc_tpu_torch.fields import FT63, FT255
 from lcpc_tpu_torch.fs.chacha import ChaCha20Rng
-from lcpc_tpu_torch.ops import mont_dot, mont_map, ntt, spmv
+from lcpc_tpu_torch.ops import blake3, mont_dot, mont_map, ntt, sha256, spmv
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
 from lcpc_tpu_torch.utils import native
 
@@ -186,7 +186,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
     for mod, name in ((mont_map, "mont_mul_map"), (mont_map, "mont_addsub_map"),
                       (spmv, "spmv_mont"), (ntt, "ntt_forward"), (mont_dot, "mont_dot"),
-                      (mont_dot, "power_table")):
+                      (mont_dot, "power_table"), (sha256, "sha256_cols"),
+                      (sha256, "hash_word_columns"), (sha256, "merkle_tree"),
+                      (sha256, "merkle_walk"), (blake3, "blake3_chunks"),
+                      (blake3, "merge_chunk_cvs"), (blake3, "merkle_tree"),
+                      (blake3, "merkle_walk")):
         monkeypatch.setattr(mod, name, kernel)
     ops, rng = get_ops(FT63), np.random.default_rng(3)
     x = limbs_to_device(ops.encode_host([int(v) for v in rng.integers(0, 1 << 62, 2 * 8)]),
@@ -196,3 +200,13 @@ def test_entry_points_default_to_cuda(monkeypatch):
     mont_dot.mont_dot_plain(FT63, x, y.permute(0, 2, 1), "mont", x_form="limbs", y_form="limbs")
     mont_dot.power_table_plain(FT63, spmv.pack_words(x[:, 0], 0), 5)
     ops.mul_sum_mont(x.permute(1, 0, 2), y[:, :, :8].permute(1, 0, 2))
+    words = spmv.pack_words(x.reshape(FT63.w16, 16), 0)  # (2, 16) int32 words
+    digs = sha256.hash_word_columns_plain(words)
+    cv, carry, rem = sha256.sha256_update_plain(sha256.h0_state(16, "cpu"), None, 8, words)
+    assert torch.equal(sha256.sha256_finalize_plain(cv, carry, rem, 10), digs)
+    for mod in (sha256, blake3):
+        flat = mod.merkle_tree_plain(mod.hash_word_columns_plain(words), 16)
+        walked = mod.merkle_walk_plain(flat[:, :2], flat[:, 2:3].expand(8, 2).contiguous(),
+                                       torch.zeros((1, 2), dtype=torch.int64),
+                                       torch.tensor([0, 1]))
+        assert walked.shape == (8, 2) and flat.shape == (8, 31)

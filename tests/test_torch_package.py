@@ -18,15 +18,18 @@ def _port_sources():
     pkg = os.path.join(_REPO, "lcpc_tpu_torch")
     for root, _, files in os.walk(pkg):
         for name in files:
-            if name.endswith((".py", ".cu")):
+            if name.endswith((".py", ".cu", ".cuh")):
                 yield os.path.join(root, name)
     yield os.path.join(_REPO, "chip_smoke.py")
     yield os.path.join(_REPO, "scripts", "kernel_bench.py")
 
 
 def test_sources_import_neither_jax_nor_reference():
+    sources = set(_port_sources())
+    for rel in ("csrc/sha256_cols.cu", "csrc/merkle.cuh", "ops/merkle.py"):
+        assert os.path.join(_REPO, "lcpc_tpu_torch", rel) in sources
     offenders = []
-    for path in _port_sources():
+    for path in sources:
         with open(path) as f:
             text = f.read()
         offenders += [(path, m.group(0).strip()) for m in _FORBIDDEN.finditer(text)]

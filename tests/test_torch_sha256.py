@@ -1,9 +1,13 @@
-"""The port's SHA-256 (ops/sha256.py): the vectorized torch column hash and
-Merkle layer against hashlib and against lcpc_tpu's device hash
-(ops/sha256_jax.py), on ragged column counts and several block counts, and
-the digest registry."""
+"""The port's SHA-256 (ops/sha256.py): the plain versions of the kernels of
+csrc/sha256_cols.cu (the column hash, one-shot and as streaming updates and
+finalizes; the Merkle parent, tree and walk) against hashlib and against
+lcpc_tpu's device hash (ops/sha256_jax.py), on ragged column counts and
+several block counts, the kernels' constant tables, the wrappers' refusals,
+and the digest registry."""
 
 import hashlib
+import os
+import re
 
 import numpy as np
 import pytest
@@ -30,35 +34,82 @@ def _words(n_words, n_cols, seed):
 @pytest.mark.parametrize("n_words,n_cols", [(1, 3), (7, 5), (5, 2), (8, 4), (56, 130),
                                             (120, 7), (600, 3)])
 def test_columns_vs_hashlib(n_words, n_cols):
+    # hash_word_columns (the one-shot plain version on the CPU) and the
+    # kernel wrapper sha256_cols's plain path (update, then finalize: int32
+    # storage, the words also fed as two updates split at every offset of a
+    # block and one more) give hashlib's digests
     words = _words(n_words, n_cols, seed=n_words)
     got = digests_to_bytes(sha256.hash_word_columns(torch.from_numpy(words.astype(np.int64))))
     for c in range(n_cols):
         want = hashlib.sha256(bytes(32) + words[:, c].astype("<u4").tobytes()).digest()
         assert bytes(got[c]) == want, (n_words, c)
+    w32 = torch.from_numpy(words.view(np.int32))
+    total = sha256.PREFIX_WORDS + n_words
+    assert np.array_equal(digests_to_bytes(sha256.sha256_cols(w32, total_words=total)), got)
+    for cut in sorted({0, 1, 7, 8, 9, n_words // 2, n_words} & set(range(n_words + 1))):
+        cv = sha256.h0_state(n_cols, "cpu")
+        carry = torch.zeros((16, n_cols), dtype=torch.int32)
+        rem = sha256.sha256_cols(w32[:cut], cv=cv, carry=carry)
+        assert rem == (sha256.PREFIX_WORDS + cut) % 16
+        out = sha256.sha256_cols(w32[cut:], cv=cv, carry=carry, carry_len=rem,
+                                 total_words=total)
+        assert np.array_equal(digests_to_bytes(out), got), (n_words, cut)
 
 
 @pytest.mark.parametrize("n_words,n_cols", [(56, 130), (120, 7)])
 def test_columns_match_reference(n_words, n_cols):
     words = _words(n_words, n_cols, seed=7 * n_words)
-    ours = sha256.hash_word_columns(torch.from_numpy(words.astype(np.int64))).numpy()
+    ours = sha256.hash_word_columns_plain(torch.from_numpy(words.astype(np.int64))).numpy()
     assert np.array_equal(ours, np.asarray(sha256_jax.hash_word_columns(words)))
+    # the streamed message's end at every rem, the padding's block boundary
+    # (rem + 3 = 16) on each side: sha256_finalize_plain from the chaining
+    # value of the whole blocks against the one-shot plain hash
+    for rem in range(16):
+        n = 16 + rem - sha256.PREFIX_WORDS
+        w = torch.from_numpy(words[:n].astype(np.int64))
+        cv, carry, got_rem = sha256.sha256_update_plain(sha256.h0_state(n_cols, "cpu"), None,
+                                                        sha256.PREFIX_WORDS, w)
+        assert got_rem == rem
+        assert torch.equal(sha256.sha256_finalize_plain(cv, carry, rem, 16 + rem),
+                           sha256.hash_word_columns_plain(w)), rem
 
 
 def test_merkle_layer_vs_hashlib_and_reference():
     digs = _words(8, 6, seed=43)
-    out = sha256.merkle_layer(torch.from_numpy(digs.astype(np.int64)))
+    out = sha256.merkle_layer_plain(torch.from_numpy(digs.astype(np.int64)))
     assert np.array_equal(out.numpy(), np.asarray(sha256_jax.merkle_layer(digs)))
     lb, ob = digests_to_bytes(digs), digests_to_bytes(out)
     for i in range(3):
         assert bytes(ob[i]) == hashlib.sha256(bytes(lb[2 * i]) + bytes(lb[2 * i + 1])).digest()
 
 
+def _cu_table(src, name):
+    body = re.search(rf"{name}\[\d+\] = \{{(.*?)\}};", src, re.S).group(1)
+    return [int(v, 16) for v in re.findall(r"0x([0-9a-f]+)u", body)]
+
+
 def test_merkle_parent_of_one_pair():
     left, right = _words(8, 1, seed=1), _words(8, 1, seed=2)
-    got = sha256.merkle_parent(torch.from_numpy(left.astype(np.int64)),
-                               torch.from_numpy(right.astype(np.int64)))
+    got = sha256.merkle_parent_plain(torch.from_numpy(left.astype(np.int64)),
+                                     torch.from_numpy(right.astype(np.int64)))
     want = hashlib.sha256(left.astype("<u4").tobytes() + right.astype("<u4").tobytes())
     assert bytes(digests_to_bytes(got)[0]) == want.digest()
+    # the kernels' constant tables (csrc/sha256_cols.cu, which only the card
+    # runs): the initial hash value, K, and W + K of a parent's padding block
+    # (0x80000000, zeros, the bit length 512), its schedule run here
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "lcpc_tpu_torch", "csrc", "sha256_cols.cu")
+    with open(path) as f:
+        src = f.read()
+    assert _cu_table(src, "kH0") == list(sha256._H0)
+    assert _cu_table(src, "kK") == list(sha256._K)
+    rot = lambda x, n: ((x >> n) | (x << (32 - n))) & 0xFFFFFFFF  # noqa: E731
+    w = [0x80000000] + [0] * 14 + [512]
+    for t in range(16, 64):
+        s0 = rot(w[t - 15], 7) ^ rot(w[t - 15], 18) ^ (w[t - 15] >> 3)
+        s1 = rot(w[t - 2], 17) ^ rot(w[t - 2], 19) ^ (w[t - 2] >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & 0xFFFFFFFF)
+    assert _cu_table(src, "kPadWK") == [(a + b) & 0xFFFFFFFF for a, b in zip(w, sha256._K)]
 
 
 def test_merkle_tree_and_walk():
@@ -75,6 +126,41 @@ def test_merkle_tree_and_walk():
     inv = torch.tensor([[0, 1], [2, 3]], dtype=torch.int64)
     got = digest.SHA256.merkle_walk(flat[:, [2, 1]], sibs, inv, idx)
     assert torch.equal(got, flat[:, [6, 6]])
+    # one leaf is its own root; the plain walk of 0 levels returns the leaves
+    one = torch.from_numpy(digs[:, :1].astype(np.int64))
+    assert torch.equal(sha256.merkle_tree_plain(one, 1), one)
+    assert torch.equal(sha256.merkle_walk_plain(flat[:, :2], sibs, inv[:0], idx), flat[:, :2])
+
+    # the wrappers' refusals: another device (meta), mixed devices, wrong
+    # dtypes and shapes
+    meta = torch.empty((8, 4), dtype=torch.int64, device="meta")
+    w = torch.zeros((5, 4), dtype=torch.int32)
+    cv, carry = sha256.h0_state(4, "cpu"), torch.zeros((16, 4), dtype=torch.int32)
+    for call in (lambda: sha256.hash_word_columns(meta),
+                 lambda: sha256.merkle_tree(meta, 4),
+                 lambda: sha256.merkle_walk(meta[:, :2], meta, inv.to("meta"), idx.to("meta")),
+                 lambda: sha256.sha256_cols(w.to("meta"), total_words=13)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    for call in (lambda: sha256.sha256_cols(w, cv=cv.to("meta"), carry=carry),
+                 lambda: sha256.merkle_walk(flat[:, [2, 1]], sibs.to("meta"), inv, idx)):
+        with pytest.raises(ValueError, match="different devices"):
+            call()
+    for call in (lambda: sha256.hash_word_columns(w.to(torch.int16)),
+                 lambda: sha256.sha256_cols(w, cv=cv.long(), carry=carry),
+                 lambda: sha256.merkle_tree(flat[:, :3].to(torch.int32), 4),
+                 lambda: sha256.merkle_walk(flat[:, [2, 1]], sibs, inv.int(), idx)):
+        with pytest.raises(TypeError):
+            call()
+    for call in (lambda: sha256.hash_word_columns(w[0]),
+                 lambda: sha256.sha256_cols(w, cv=cv),  # an update needs the carry
+                 lambda: sha256.sha256_cols(w, cv=cv[:, :3].contiguous(), carry=carry),
+                 lambda: sha256.sha256_cols(w, carry_len=17, total_words=30),
+                 lambda: sha256.sha256_cols(w, total_words=12),  # shorter than its stream
+                 lambda: sha256.merkle_tree(flat[:, :3], 3),
+                 lambda: sha256.merkle_walk(flat[:, [2, 1]], sibs, inv[:, :1], idx)):
+        with pytest.raises(ValueError):
+            call()
 
 
 def test_digest_registry():
@@ -82,6 +168,7 @@ def test_digest_registry():
     assert digest.DIGESTS_BY_NAME["sha256"] is digest.SHA256
     assert digest.SHA256.host(b"abc") == hashlib.sha256(b"abc").digest()
     assert digest.BLAKE3.host(b"abc") != digest.SHA256.host(b"abc")
+    assert digest.SHA256.hash_word_columns is sha256.hash_word_columns
     assert digest.SHA256.merkle_tree is sha256.merkle_tree
     assert digest.SHA256.merkle_walk is sha256.merkle_walk
     assert digest.BLAKE3.merkle_tree is b3.merkle_tree

@@ -183,11 +183,39 @@ def test_sha256_has_no_streaming_hasher(ligero):
     """SHA-256 streams now (StreamingSha256Hasher; the name is the test's
     history): a SHA-256 commit_streaming and its proof equal lcpc_tpu's
     bytes at ft63 and the port's in-memory SHA-256 commit, each package
-    verifies the other's proof; a bad `spill` is still refused."""
+    verifies the other's proof; a bad `spill` is still refused.  The
+    hasher's plain update and finalize (sha256_cols on CPU tensors) equal
+    lcpc_tpu's StreamingSha256Hasher state by state, with carries of 0, 8
+    and 15 words, blocks of 1, 7, 8, 9 and 1,792 words, and finalizes at
+    rem 12, 13 and 14 (one final block, then two); its resident bytes are
+    its 24 state words a column, not BLAKE3's chunk CVs."""
+    import jax.numpy as jnp
+
     import lcpc_tpu as J
     from lcpc_tpu.core import streaming as jstreaming
     from lcpc_tpu.core import wire as jwire
     from lcpc_tpu.ops.digest import SHA256 as JSHA256
+
+    rng = np.random.default_rng(11)
+    lens = [8, 1792, 7, 8, 9, 1]  # carries before each: 8, 0, 0, 7, 15, 8
+    for tail, rem_want in ((3, 12), (4, 13), (5, 14)):
+        total = 8 + sum(lens) + tail
+        w = rng.integers(0, 1 << 32, (total - 8, 3), dtype=np.uint64).astype(np.uint32)
+        w[0] = 0xFFFFFFFF  # top bits set
+        jh = jstreaming.StreamingSha256Hasher(3, total)
+        ph = streaming.StreamingSha256Hasher(3, total, "cpu")
+        r0, carries = 0, []
+        for n in lens + [tail]:
+            carries.append(ph.buf_len)
+            jh.update(jnp.asarray(w[r0 : r0 + n]))
+            ph.update(torch.from_numpy(w[r0 : r0 + n].view(np.int32)))
+            r0 += n
+            assert np.array_equal(np.asarray(jh.h), ph.h.numpy().view(np.uint32)), n
+        assert carries == [8, 0, 0, 7, 15, 8, 9] and ph.buf_len == rem_want
+        got = ph.finalize()
+        assert np.array_equal(got.numpy(), np.asarray(jh.finalize()))
+        assert torch.equal(got, P.SHA256.hash_word_columns(torch.from_numpy(w.view(np.int32))))
+    assert streaming.StreamingSha256Hasher.resident_bytes(1 << 19, 16_392) == 96 << 19
 
     jenc = J.LigeroEncoding.new_from_dims(J.FT63, 16, 64, 1, 4)
     jcs = jstreaming.commit_streaming(ligero.coeffs, jenc, row_block=128, digest=JSHA256)
