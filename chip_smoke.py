@@ -170,7 +170,26 @@ Phases, each fatal on failure (each prints the seconds it took):
      by stage; up to 2 warm runs); each with the evaluation and the tamper
      kinds; the plain compression every plain SHA-256 version calls is
      watched throughout, and a call on the card is fatal;
-  15. print the kernel table line, then the result line.
+  15. the sharded paths (lcpc_tpu_torch/parallel) at 2^23 ft255, seed 0:
+     the NTT plan's twiddle table at n = 2^20 built on the card (mont_powers,
+     19 mont_mul_map launches) against the host's Python-int powers; then
+     (a) world 1 on NCCL in this process: Ligero rho = 1/4 by rows under
+     BLAKE3 and SHA-256, Brakedown CODE3 by rows, Ligero wide (the DistNtt,
+     A = 512, B = 256), and the mesh streaming commit of Ligero (64-row
+     blocks) and Brakedown (8-row blocks); each run's root and proof bytes
+     equal to the single-device commit (or commit_streaming) and prove on
+     the same coefficients, its proof verifying with the evaluation, commit
+     and prove counted by stage (each stage's kernels launched), commit and
+     prove ms (medians of 3) beside the single device's; the pieces at world
+     1 beside their bounds (the all_to_all of the 2^23 Ligero words, a device
+     copy: 2 x bytes over 3.35 TB/s; the sharded collapse; the opened
+     columns; one mesh streaming block); (b) two ranks on the one card
+     (this script with --sharded-rank, a gloo group: NCCL refuses two ranks
+     on one device), Ligero by rows and wide and Brakedown by rows, every
+     rank's root and proof bytes equal to (a)'s single device's and
+     mont_addsub_map launched in each rank's prove (the modular sum of the
+     partials); its times pass through host memory, a correctness run;
+  16. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -1815,14 +1834,21 @@ def mont_map_phase(torch, kb, P, mm, gen):
     return recs
 
 
-def map_rows(maps, s29, big, sdig, lig, map_ptxas):
+def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
     """The kernel table rows of the field maps: mont_mul_map timed at the
     2^23 Brakedown commit's conversion (its launches from that path), the
-    other shapes beside; mont_addsub_map at the same codeword (no path
-    launches it)."""
+    other shapes beside; mont_addsub_map at the same codeword (its launches
+    from its one caller, the sharded collapse of phase 15 (b): rank 0's
+    Ligero prove)."""
+    ranked = {tag: rec["launches"][0] for tag, rec in shard["ranks"].items()}
+
     def row(name, replaces, rec, shape, **extra):
+        launches = (ranked["ligero rows"]["prove"].get(name, 0) if name == "mont_addsub_map"
+                    else sdig[0][name])
         return {"name": name, "route": "cuda", "source": "lcpc_tpu_torch/csrc/mont_map.cu",
-                "replaces": replaces, "launches": sdig[0][name],
+                "replaces": replaces, "launches": launches,
+                "launches_sharded_rank0": {tag: {k: v.get(name, 0) for k, v in l.items()}
+                                           for tag, l in ranked.items()},
                 "max_abs_err": maps["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                 "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
                 "equal_to_plain": True, "tolerance": 0, "shape": shape,
@@ -1850,8 +1876,8 @@ def map_rows(maps, s29, big, sdig, lig, map_ptxas):
             "lcpc_tpu/ops/limbs.py:121,131,149 (add, sub, neg); XLA-fused, not Pallas",
             maps["add at the brakedown 2^23 codeword: (16, 36, 357,699) limbs"],
             "add over the 2^23 ft255 Brakedown codeword's shape: 2 x (16, 36, 357,699) limbs; "
-            "no path of the slice launches it (FieldOps.add, sub, neg, sum, dot_mont on the "
-            "card, intt_inverse)"),
+            "its caller on the paths: the sharded collapse's modular sum of the ranks' "
+            "partials (FieldOps.sum)"),
     ]
 
 
@@ -2410,6 +2436,382 @@ def sha_rows(shas, paths, sha_ptxas, sha_mix):
     ]
 
 
+# phase 15: the sharded paths (lcpc_tpu_torch/parallel)
+SHARD_STREAM_RB = {"ligero": 64, "sdig": 8}  # mesh streaming row blocks: 4 and 5 blocks at 2^23
+RANK_WORLD = 2       # phase 15 (b): ranks on the one card
+# NCCL refuses two ranks on one device ("Duplicate GPU detected", NCCL 2.28.9,
+# torch 2.11.0+cu128: PERF.md §6), so (b)'s group is gloo, its
+# collectives staged through pinned host memory (parallel/comm.py)
+RANK_BACKEND = "gloo"
+RANK_TIMEOUT_S = 400
+TWIDDLE_LOG_N = 20   # phase 15: the NTT plan's table built on the card, against the host's
+# kernels each sharded stage must launch (besides the hash kernels of commit)
+SHARD_COMMIT = {"ligero": {"ntt_mont"}, "wide": {"ntt_mont", "mont_mul_map"},
+                "sdig": {"spmv_mont", "mont_mul_map"}}
+SHARD_PROVE = {"mont_dot", "mont_mul_map"}  # the collapse; the opened columns' conversion
+HASH_COMMIT = {"blake3": {"blake3_chunks", "chunk_tree", "merkle_tree"},
+               "sha256": {"sha256_cols", "sha256_merkle_tree"}}
+
+
+def main_coeffs(torch, spec, ops, gen):
+    """The 2^23 coefficients both main paths commit to, drawn from `gen`:
+    (canonical limbs, Montgomery limbs), (W, 2^23) int32 on the card."""
+    top = spec.p >> (16 * (spec.w16 - 1))
+    canon = torch.randint(0, 1 << 16, (spec.w16, N_COEFFS), generator=gen,
+                          device=gen.device, dtype=torch.int32)
+    canon[-1] = torch.randint(0, top, (N_COEFFS,), generator=gen, device=gen.device,
+                              dtype=torch.int32)
+    return canon, ops.to_mont(canon)
+
+
+def kernel_counters(b3, md, mm, nttm, sha, spmv, tf):
+    """Every kernel wrapper of the port by its counter's name."""
+    return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
+            "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
+            "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
+            "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
+            **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
+            "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
+            "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
+            "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk}
+
+
+def counted(torch, counters, fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (result, host ms, launches by kernel)."""
+    for c in counters.values():
+        c.launches = 0
+    out, ms = time_host(torch, fn)
+    return out, ms, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def check_launched(launches, want, tag):
+    """Each kernel in `want` launched (as often as `want` says, if a dict)."""
+    bad = sorted(k for k in want if not launches.get(k)
+                 or (isinstance(want, dict) and launches[k] != want[k]))
+    if bad:
+        raise AssertionError(f"{tag}: {bad} launched {[launches.get(k, 0) for k in bad]} "
+                             f"times ({launches})")
+
+
+def sharded_stages(torch, P, counters, commit_fn, enc, outer, inner, digest, want, tag,
+                   commit_kernels, prove_kernels):
+    """commit_fn() -> prove -> verify, each stage counted; commit's and
+    prove's kernels checked (commit's hash kernels too), verify's value
+    against `want`.  Returns (root, proof bytes, {stage: ms}, {stage:
+    launches})."""
+    transcript = transcript_for(P, enc)
+    comm, c_ms, c_l = counted(torch, counters, commit_fn)
+    root = comm.get_root()
+    proof, p_ms, p_l = counted(torch, counters, lambda: comm.prove(outer, transcript(root)))
+    value, v_ms, v_l = counted(torch, counters, lambda: proof.verify(
+        root, outer, inner, enc, transcript(root), digest=digest))
+    if value != want:
+        raise AssertionError(f"{tag}: verify returned the wrong evaluation")
+    check_launched(c_l, commit_kernels | HASH_COMMIT[digest.name], f"{tag} commit")
+    check_launched(p_l, prove_kernels, f"{tag} prove")
+    return (root, P.wire.serialize_proof(enc.spec, proof),
+            {"commit": c_ms, "prove": p_ms, "verify": v_ms},
+            {"commit": c_l, "prove": p_l, "verify": v_l})
+
+
+def median_ms(torch, fn, reps=REPS):
+    return statistics.median(time_host(torch, fn)[1] for _ in range(reps))
+
+
+def twiddle_check(torch, P, nttm, counters):
+    """The NTT plan's kernel table at n = 2^TWIDDLE_LOG_N built on the card
+    (mont_powers: a mont_mul_map launch a doubling) against the host's
+    Python-int powers, word for word; both timed cold."""
+    import numpy as np
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    plan = nttm.NttPlan(P.FT255, 1 << TWIDDLE_LOG_N)  # a fresh plan: no table cached
+    (tw, _), dev_ms, launches = counted(torch, counters, lambda: plan.kernel_table(DEV))
+    t0 = time.perf_counter()
+    host = np.concatenate(plan.stage_twiddles[::-1], axis=1)
+    want = pack_words(torch.from_numpy(host.astype(np.int32)), 0).T
+    host_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(tw.cpu(), want):
+        raise AssertionError("the card's NTT twiddle table differs from the host's")
+    check_launched(launches, {"mont_mul_map": TWIDDLE_LOG_N - 1}, "the twiddle table")
+    log(f"  twiddles n = 2^{TWIDDLE_LOG_N}: built on the card in {dev_ms:.1f} ms "
+        f"({launches.get('mont_mul_map')} mont_mul_map launches), the host's powers "
+        f"{host_ms:.1f} ms; equal word for word")
+    return {"n": 1 << TWIDDLE_LOG_N, "card_ms": dev_ms, "host_ms": host_ms,
+            "launches": launches}
+
+
+def sharded_phase(torch, kb, P, counters, coeffs_mont, x_pt, want, card):
+    """Phase 15 (a): the sharded paths at world 1 on NCCL in this process,
+    at 2^23 ft255 against the single-device paths on the same coefficients;
+    (b): RANK_WORLD ranks on the one card (sharded_ranks)."""
+    import numpy as np
+    import torch.distributed as dist
+    from lcpc_tpu_torch.core import protocol
+    from lcpc_tpu_torch.ops import ntt as nttm
+    from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words
+    from lcpc_tpu_torch.ops.mxu_prove import MxuCollapse
+    from lcpc_tpu_torch.parallel import mesh_protocol as mp, mesh_streaming as ms, multihost
+    from lcpc_tpu_torch.parallel.comm import Comm
+
+    spec = P.FT255
+    ops = get_ops(spec)
+    out = {"twiddles": twiddle_check(torch, P, nttm, counters)}
+
+    multihost.initialize(device=f"{DEV}:0")  # a group of one: NCCL on the card
+    mesh = mp.make_mesh()
+    c = Comm(mesh)
+    log(f"  world {c.world}, backend {c.backend}, mesh {mesh}")
+    lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    senc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
+    paths = (
+        ("ligero rows blake3", lenc, P.BLAKE3, "ligero",
+         lambda: mp.sharded_commit(coeffs_mont, lenc, mesh, strategy="rows"),
+         lambda: P.commit(coeffs_mont, lenc)),
+        ("ligero rows sha256", lenc, P.SHA256, "ligero",
+         lambda: mp.sharded_commit(coeffs_mont, lenc, mesh, digest=P.SHA256, strategy="rows"),
+         lambda: P.commit(coeffs_mont, lenc, digest=P.SHA256)),
+        ("sdig rows blake3", senc, P.BLAKE3, "sdig",
+         lambda: mp.sharded_commit(coeffs_mont, senc, mesh),
+         lambda: P.commit(coeffs_mont, senc)),
+        ("ligero wide blake3", lenc, P.BLAKE3, "wide",
+         lambda: mp.sharded_commit(coeffs_mont, lenc, mesh, strategy="wide"),
+         lambda: P.commit(coeffs_mont, lenc)),
+        ("ligero mesh streaming", lenc, P.BLAKE3, "ligero",
+         lambda: ms.sharded_commit_streaming(coeffs_mont, lenc, mesh,
+                                             row_block=SHARD_STREAM_RB["ligero"]),
+         lambda: P.commit_streaming(coeffs_mont, lenc, row_block=SHARD_STREAM_RB["ligero"])),
+        ("sdig mesh streaming", senc, P.BLAKE3, "sdig",
+         lambda: ms.sharded_commit_streaming(coeffs_mont, senc, mesh,
+                                             row_block=SHARD_STREAM_RB["sdig"]),
+         lambda: P.commit_streaming(coeffs_mont, senc, row_block=SHARD_STREAM_RB["sdig"])),
+    )
+    runs, refs = [], {}
+    for tag, enc, digest, kind, sharded, single in paths:
+        n_rows = -(-N_COEFFS // enc.n_per_row)
+        outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
+        transcript = transcript_for(P, enc)
+        ref_root, ref_proof, ref_ms, _ = sharded_stages(
+            torch, P, counters, single, enc, outer, inner, digest, want, f"{tag} (single)",
+            set(), {"mont_dot"})
+        root, proof, st_ms, launches = sharded_stages(
+            torch, P, counters, sharded, enc, outer, inner, digest, want, tag,
+            SHARD_COMMIT[kind], SHARD_PROVE)
+        if root != ref_root or proof != ref_proof:
+            raise AssertionError(f"{tag}: root or proof bytes differ from the single device's")
+        comm = sharded()
+        if "streaming" in tag and comm.row_block >= comm.n_rows:
+            raise AssertionError(f"{tag}: one row block ({comm.row_block} of {comm.n_rows} rows)")
+        if kind == "wide" and comm.strategy != "wide":
+            raise AssertionError(f"{tag}: strategy {comm.strategy}")
+        scomm = single()
+        ms_ = {"commit": median_ms(torch, sharded), "single_commit": median_ms(torch, single),
+               "prove": median_ms(torch, lambda: comm.prove(outer, transcript(root))),
+               "single_prove": median_ms(torch, lambda: scomm.prove(outer, transcript(root)))}
+        log(f"  {tag}: root and {len(proof)} proof bytes equal the single device's, verify ok; "
+            f"world-1 commit {ms_['commit']:.1f} ms (single device {ms_['single_commit']:.1f}), "
+            f"prove {ms_['prove']:.1f} ms ({ms_['single_prove']:.1f}); medians of {REPS}; "
+            f"{card}")
+        for stage, l in launches.items():
+            log(f"    {stage} launches: {l}")
+        runs.append({"path": tag, "strategy": getattr(comm, "strategy", None),
+                     "row_block": getattr(comm, "row_block", None), "ms": ms_,
+                     "first_run_ms": st_ms, "launches": launches, "proof_bytes": len(proof)})
+        refs[tag] = (root, proof)
+        del comm, scomm
+        torch.cuda.empty_cache()
+    out["world1"] = runs
+
+    # the pieces at world 1, each beside its bound: the reshard (a device
+    # copy at world 1: 2 x bytes over the card's memory rate), the
+    # collapse, the opened columns, one mesh-streaming block
+    n_rows = -(-N_COEFFS // lenc.n_per_row)
+    mat = coeffs_mont.reshape(spec.w16, n_rows, lenc.n_per_row)
+    words = lenc.encode_rows_lowmem(mat, post=pack_row_words, canonical=True)
+    chunks = words[None]
+    a2a_bytes = chunks.numel() * 4
+    a2a_ms = kb.time_kernel(lambda: c.exchange(chunks))
+    a2a_bound = 2 * a2a_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  all_to_all ({c.backend}, world {c.world}) of the 2^{N_COEFFS.bit_length() - 1} "
+        f"Ligero commit's words, {a2a_bytes} bytes: "
+        f"{a2a_ms:.4f} ms against {a2a_bound:.4f} ms (2 x bytes / 3.35 TB/s), "
+        f"{100 * a2a_bound / a2a_ms:.1f}%; {card}")
+    del words, chunks
+    nb, prod, _ = ntt_cost(spec, n_rows, lenc.n_per_row, lenc.n_cols, True)
+    (k1b, k1c), (k2b, k2c) = hash_cost(n_rows * spec.w16 // 2, lenc.n_cols)
+    rows_bound = (bound_ms(nb, prod)[0] + a2a_bound + hash_bound_ms(k1b, k1c)[0]
+                  + hash_bound_ms(k2b, k2c)[0])
+    a, b = mp.wide_split(lenc.n_cols)
+    na, pa, _ = ntt_cost(spec, n_rows * b, a, a, False)
+    nbb, pb, _ = ntt_cost(spec, n_rows * a, b, b, True)
+    tw_b, tw_p = map_cost(spec, n_rows * lenc.n_cols, spec.w16, spec.w16, 2 * 64 + 8)
+    limb_bytes = 4 * spec.w16 * n_rows * lenc.n_cols
+    wide_bound = (bound_ms(na, pa)[0] + bound_ms(nbb, pb)[0] + bound_ms(tw_b, tw_p)[0]
+                  + 2 * limb_bytes / HBM_BYTES_PER_S * 1e3 + hash_bound_ms(k1b, k1c)[0]
+                  + hash_bound_ms(k2b, k2c)[0])
+    comm = mp.sharded_commit(coeffs_mont, lenc, mesh, strategy="rows")
+    scomm = P.commit(coeffs_mont, lenc)
+    ts = [[(x_pt + i) % spec.p for i in range(n_rows)], [(3 * x_pt + i) % spec.p
+                                                          for i in range(n_rows)]]
+    coll_ms = median_ms(torch, lambda: mp.sharded_collapse(comm, ts))
+    single_coll_ms = median_ms(torch, lambda: MxuCollapse(spec, n_rows)(ts, scomm.coeffs).cpu())
+    ts_l = torch.from_numpy(np.stack([ops.encode_host(t) for t in ts], axis=1)
+                            .astype(np.int32)).to(DEV)
+    coll_dev = kb.time_kernel(lambda: ops.collapse_canon(ts_l, comm.coeffs))
+    coll_bound = dot_bound(spec, ts_l, comm.coeffs, 2, n_rows, lenc.n_per_row)
+    cols = list(range(0, lenc.n_cols, lenc.n_cols // lenc.get_n_col_opens()))[
+        :lenc.get_n_col_opens()]
+    gather_ms = median_ms(torch, lambda: mp.sharded_open_columns(comm, cols))
+    single_gather_ms = median_ms(torch, lambda: protocol._open_columns(scomm, cols))
+    if not (mp.sharded_open_columns(comm, cols).col_w
+            == protocol._open_columns(scomm, cols).col_w).all():
+        raise AssertionError("sharded opened columns differ from the single device's")
+    # the opened columns' words read once and written once
+    gather_bound = 2 * 4 * len(cols) * (n_rows * spec.w16 // 2) / HBM_BYTES_PER_S * 1e3
+    rb = SHARD_STREAM_RB["ligero"]
+    block = mat[:, :rb]
+    blk_ms = kb.time_kernel(lambda: mp.encode_reshard(lenc, c, block, rb))
+    one_ms = kb.time_kernel(lambda: lenc.encode_rows_words_only(block))
+    nb1, prod1, _ = ntt_cost(spec, rb, lenc.n_per_row, lenc.n_cols, True)
+    blk_bound = bound_ms(nb1 - 4 * spec.w16 * rb * lenc.n_cols, prod1)[0] + \
+        2 * (4 * rb * spec.w16 // 2 * lenc.n_cols) / HBM_BYTES_PER_S * 1e3
+    rows_run = next(r for r in runs if r["path"] == "ligero rows blake3")
+    wide_run = next(r for r in runs if r["path"] == "ligero wide blake3")
+    out["functions"] = {
+        "rows_commit": {"ms": rows_run["ms"]["commit"], "single_ms": rows_run["ms"]["single_commit"],
+                        "bound_ms": rows_bound},
+        "wide_commit": {"ms": wide_run["ms"]["commit"], "single_ms": wide_run["ms"]["single_commit"],
+                        "bound_ms": wide_bound},
+        "collapse": {"ms": coll_ms, "single_ms": single_coll_ms, "device_ms": coll_dev,
+                     "bound_ms": coll_bound[0], "bound_by": coll_bound[1]},
+        "gather": {"ms": gather_ms, "single_ms": single_gather_ms, "bound_ms": gather_bound,
+                   "columns": len(cols)},
+        "block_words": {"ms": blk_ms, "encode_only_ms": one_ms, "bound_ms": blk_bound, "rows": rb},
+        "all_to_all": {"ms": a2a_ms, "bytes": a2a_bytes, "bound_ms": a2a_bound},
+    }
+    for name, rec in out["functions"].items():
+        log(f"  {name} (world 1): {json.dumps(rec)}; {card}")
+    del comm, scomm, mat, block
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    out["ranks"] = sharded_ranks(torch, P, x_pt, refs)
+    return out
+
+
+def sharded_ranks(torch, P, x_pt, refs):
+    """Phase 15 (b): RANK_WORLD processes on the one card (this script with
+    --sharded-rank), a RANK_BACKEND group: Ligero by rows and wide, Brakedown
+    by rows, each rank's root and proof bytes against the single device's
+    (`refs`), mont_addsub_map launched in prove (the modular sum of the
+    partials).  A correctness run: its times pass through host memory."""
+    import pickle
+    import subprocess
+    import tempfile
+
+    from lcpc_tpu_torch.parallel.multihost import free_port
+
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        outs = [os.path.join(d, f"rank{r}.pkl") for r in range(RANK_WORLD)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sharded-rank",
+                                   str(r), str(port), outs[r], str(x_pt)])
+                 for r in range(RANK_WORLD)]
+        try:
+            codes = [p.wait(timeout=RANK_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            raise AssertionError(f"sharded ranks exited with {codes}")
+        got = []
+        for path in outs:
+            with open(path, "rb") as f:
+                got.append(pickle.load(f))
+    res = {}
+    for tag, want_tag in (("ligero rows", "ligero rows blake3"),
+                          ("ligero wide", "ligero rows blake3"),
+                          ("sdig rows", "sdig rows blake3")):
+        for r, g in enumerate(got):
+            rec = g[tag]
+            if (rec["root"], rec["proof"]) != refs[want_tag]:
+                raise AssertionError(f"{RANK_WORLD} ranks, {tag}: rank {r}'s root or proof bytes "
+                                     "differ from the single device's")
+            check_launched(rec["launches"]["prove"], {"mont_addsub_map"},
+                           f"{tag}: rank {r}'s prove")
+            check_launched(rec["launches"]["commit"], SHARD_COMMIT[
+                "sdig" if "sdig" in tag else "wide" if "wide" in tag else "ligero"]
+                | HASH_COMMIT["blake3"], f"{tag}: rank {r}'s commit")
+            want_s = "wide" if "wide" in tag else "rows"
+            if rec["strategy"] != want_s:
+                raise AssertionError(f"{tag}: rank {r} took {rec['strategy']}")
+        res[tag] = {"commit_ms": [g[tag]["commit_ms"] for g in got],
+                    "prove_ms": [g[tag]["prove_ms"] for g in got],
+                    "launches": [g[tag]["launches"] for g in got], "backend": got[0]["backend"]}
+        log(f"  {RANK_WORLD} ranks on the one card ({got[0]['backend']}; its collectives "
+            f"through host memory: a correctness run, its times no performance figure), "
+            f"{tag}: every rank's root and proof bytes equal the single device's; "
+            f"commit {res[tag]['commit_ms']} ms, prove {res[tag]['prove_ms']} ms by rank")
+        for r, g in enumerate(got):
+            log(f"    rank {r} launches: {g[tag]['launches']}")
+    return res
+
+
+def sharded_rank(rank, port, out, x_pt) -> int:
+    """One rank of phase 15 (b): joins a RANK_BACKEND group of RANK_WORLD on
+    cuda:0, makes the 2^23 coefficients from SEED as main() does, commits
+    and proves Ligero by rows and wide and Brakedown by rows, and pickles
+    each path's root, proof bytes, launches by stage and times to `out`."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path[:0] = [ROOT]
+    import lcpc_tpu_torch as P
+    from lcpc_tpu_torch.ops import blake3 as b3, mont_dot as md, mont_map as mm
+    from lcpc_tpu_torch.ops import ntt as nttm, sha256 as sha, spmv, threefry as tf
+    from lcpc_tpu_torch.ops.limbs import get_ops
+    from lcpc_tpu_torch.parallel import mesh_protocol as mp, multihost
+    from lcpc_tpu_torch.parallel.comm import Comm
+
+    rank, port, x_pt = int(rank), int(port), int(x_pt)
+    multihost.initialize(f"tcp://localhost:{port}", RANK_WORLD, rank, device=f"{DEV}:0",
+                         backend=RANK_BACKEND)
+    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf)
+    spec = P.FT255
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    _, coeffs_mont = main_coeffs(torch, spec, get_ops(spec), gen)
+    mesh = mp.make_mesh()
+    lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    senc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
+    res = {"backend": Comm(mesh).backend}
+    for tag, enc, strategy in (("ligero rows", lenc, "rows"), ("ligero wide", lenc, "wide"),
+                               ("sdig rows", senc, "rows")):
+        n_rows = -(-N_COEFFS // enc.n_per_row)
+        outer, _ = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
+        transcript = transcript_for(P, enc)
+        dist.barrier()
+        comm, c_ms, c_l = counted(torch, counters,
+                                  lambda: mp.sharded_commit(coeffs_mont, enc, mesh,
+                                                            strategy=strategy))
+        root = comm.get_root()
+        proof, p_ms, p_l = counted(torch, counters, lambda: comm.prove(outer, transcript(root)))
+        res[tag] = {"root": root, "proof": P.wire.serialize_proof(spec, proof),
+                    "strategy": comm.strategy, "commit_ms": round(c_ms, 1),
+                    "prove_ms": round(p_ms, 1), "launches": {"commit": c_l, "prove": p_l}}
+        del comm, proof
+        torch.cuda.empty_cache()
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2433,14 +2835,7 @@ def main() -> int:
         raise RuntimeError("the port pulled in JAX or the JAX package")
     if hasattr(b3, "blake3_parents"):
         raise AssertionError("the per-level blake3_parents kernel is still in the port")
-    counters = {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
-                "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
-                "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
-                "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
-                **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
-                "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
-                "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
-                "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk}
+    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf)
     hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
@@ -2546,12 +2941,7 @@ def main() -> int:
     size = f"2^{N_COEFFS.bit_length() - 1}"
 
     # the 2^23 coefficients both main paths commit to, and their evaluation
-    top = spec.p >> (16 * (spec.w16 - 1))
-    canon = torch.randint(0, 1 << 16, (spec.w16, N_COEFFS), generator=gen,
-                          device="cuda", dtype=torch.int32)
-    canon[-1] = torch.randint(0, top, (N_COEFFS,), generator=gen, device="cuda",
-                              dtype=torch.int32)
-    coeffs_mont = ops.to_mont(canon)
+    canon, coeffs_mont = main_coeffs(torch, spec, ops, gen)
     raw = canon.cpu().numpy().astype("<u2").T.copy().tobytes()
     coeffs = [int.from_bytes(raw[32 * i : 32 * i + 32], "little")
               for i in range(N_COEFFS)]
@@ -2726,14 +3116,21 @@ def main() -> int:
 
     # 14. the slice's paths with SHA-256: Ligero and Brakedown 2^23, Ligero
     # 2^28 streaming
+    coeffs_mont = coeffs_host.cuda()
+    del coeffs_host
     with Phase("14 sha256 paths"):
-        sha_paths = sha256_paths(torch, kb, P, counters, sha, coeffs_host.cuda(), x_pt, want,
+        sha_paths = sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want,
                                  card, gen, {"ligero": lig[8], "sdig": sdig[8]},
                                  shas["plain_compression_launches"])
-        del coeffs_host
         torch.cuda.empty_cache()
 
-    # 15. kernel table
+    # 15. the sharded paths: world 1 on NCCL here, then two ranks on the card
+    with Phase("15 sharded paths"):
+        shard = sharded_phase(torch, kb, P, counters, coeffs_mont, x_pt, want, card)
+        del coeffs_mont
+        torch.cuda.empty_cache()
+
+    # 16. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -2815,7 +3212,7 @@ def main() -> int:
             b3_mix["least"]][:3],
     }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
-        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"]),
+        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"], shard),
         *sha_rows(shas, sha_paths, sha_ptxas, sha_mix)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -2830,6 +3227,7 @@ def main() -> int:
                    "prove_kernels": prv, "path_2_29": s29, "mont_map": maps,
                    "sha256": shas, "sha256_paths": sha_paths, "sha256_sass": sha_mix,
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
+                   "sharded": shard,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -2841,6 +3239,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of phase 15 (b)
+            sys.exit(sharded_rank(*sys.argv[2:6]))
         sys.exit(main())
     except Exception:  # every phase is fatal: report and exit non-zero
         traceback.print_exc()

@@ -19,7 +19,7 @@ import abc
 import torch
 
 from ..fields.spec import FieldSpec
-from ..ops.limbs import get_ops
+from ..ops.limbs import get_ops, pack_row_words
 
 LABEL_DT = b"$l//DT"
 LABEL_PR = b"$l//PR"
@@ -77,6 +77,24 @@ class LcEncoding(abc.ABC):
         lcpc_tpu's encode_rows_lowmem(post=_pack_words, canonical=True)).
         An encoding whose kernel can skip the limbs overrides it."""
         return self.encode_rows_words(rows)[1]
+
+    def encode_rows_lowmem(self, rows: torch.Tensor, post=None,
+                           canonical: bool = False) -> torch.Tensor:
+        """encode_rows for a consumer that wants another form (lcpc_tpu's
+        encode_rows_lowmem, core/encoding.py:62 and encodings/ligero.py:258),
+        bit-identical to it: `canonical=True` gives canonical limbs instead
+        of Montgomery, and `post` maps the encoded (W, R, n_cols) limbs to
+        the consumer's form.  The sharded and streaming commits' form,
+        `canonical=True, post=pack_row_words`, comes straight from
+        encode_rows_words_only (Ligero: the NTT's last pass writes the
+        words, no limbs stored; otherwise one mont_map launch); any other
+        is encode_rows, then from_mont (a mont_map launch) and `post`."""
+        if canonical and post is pack_row_words:
+            return self.encode_rows_words_only(rows)
+        out = self.encode_rows(rows)
+        if canonical:
+            out = get_ops(self.spec).from_mont(out)
+        return post(out) if post is not None else out
 
     def stream_bytes_per_row(self) -> int:
         """Device bytes one row of encode_rows_words_only holds while it

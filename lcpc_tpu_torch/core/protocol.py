@@ -286,6 +286,23 @@ class VerifierError(Exception):
 # ---------------------------------------------------------------------------
 
 
+def coeff_limbs(coeffs: "list[int] | np.ndarray | torch.Tensor",
+                enc: LcEncoding) -> torch.Tensor:
+    """commit's coefficients as (W, N) int32 Montgomery limbs on the
+    encoding's device: a list of canonical ints, or a (W, N) limb array or
+    tensor already in Montgomery form."""
+    w = enc.spec.w16
+    if isinstance(coeffs, list):
+        arr = limbs_to_device(get_ops(enc.spec).encode_host(coeffs), enc.device)
+    elif isinstance(coeffs, np.ndarray):
+        arr = limbs_to_device(coeffs, enc.device)
+    else:
+        arr = coeffs.to(device=enc.device, dtype=torch.int32)
+    if arr.dim() != 2 or arr.shape[0] != w:
+        raise ValueError(f"coeffs must be ({w}, N) limbs, got {tuple(arr.shape)}")
+    return arr
+
+
 def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
            digest: DeviceDigest = BLAKE3) -> LcCommit:
     """Commit to a polynomial (lib.rs:622-671) on the encoding's device.
@@ -294,14 +311,7 @@ def commit(coeffs: "list[int] | np.ndarray | torch.Tensor", enc: LcEncoding,
     array/tensor already in Montgomery form.  `digest` selects the hash.
     """
     ops = get_ops(enc.spec)
-    if isinstance(coeffs, list):
-        arr = limbs_to_device(ops.encode_host(coeffs), enc.device)  # (W, N)
-    elif isinstance(coeffs, np.ndarray):
-        arr = limbs_to_device(coeffs, enc.device)
-    else:
-        arr = coeffs.to(device=enc.device, dtype=torch.int32)
-    if arr.dim() != 2 or arr.shape[0] != ops.w:
-        raise ValueError(f"coeffs must be ({ops.w}, N) limbs, got {tuple(arr.shape)}")
+    arr = coeff_limbs(coeffs, enc)
     length = arr.shape[1]
 
     n_rows, n_per_row, n_cols = enc.get_dims(length)

@@ -12,8 +12,10 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
   at stride 2^lo x T = 2^log_t consecutive residues, shared memory per
   block).  Plain data: the wrapper launches it, the tests check it.
 - `NttPlan` holds the stage twiddles as (W, m) Montgomery limbs, exactly
-  lcpc_tpu's `NttPlan.stage_twiddles` (half-sizes m = n/2 .. 1), the passes,
-  and one packed twiddle table per device for the kernel.
+  lcpc_tpu's `NttPlan.stage_twiddles` (half-sizes m = n/2 .. 1; built on
+  the host when first read), the passes, and one packed twiddle table per
+  device for the kernel, built there by `mont_powers` (powers by doubling
+  through mont_mul_map).
 - `ntt_forward(plan, x, output="limbs")` is the wrapper.  On CUDA
   tensors it launches the hand-written ladder in `csrc/ntt_mont.cu`, one
   launch per pass: the first reads the (W, R, k) limbs, the last writes the
@@ -73,6 +75,36 @@ def _powers(w: int, m: int, p: int) -> list[int]:
     for _ in range(m):
         out.append(acc)
         acc = (acc * w) % p
+    return out
+
+
+def mont_powers(spec: FieldSpec, bases: "list[int]", m: int, device, *,
+                offset: int = 0) -> torch.Tensor:
+    """(W/2, len(bases), m) int32 packed Montgomery words of
+    bases[i]^(offset + j) for j < m, built on `device` by doubling: columns
+    [s, 2s) are columns [0, s) times b^s, one mont_mul_map launch a
+    doubling (ceil(log2 m) launches on the card, the plain version on the
+    CPU).  The host computes only the len(bases) multipliers of each step.
+    The NTT plans' and DistNtt's twiddle tables; `_powers` and
+    FieldOps.encode_host are its plain version."""
+    from .mont_map import mont_mul_map
+
+    p, w32 = spec.p, spec.w16 // 2
+
+    def words(vals):  # Montgomery forms of host ints -> (W/2, len(vals), 1) int32 words
+        host = get_ops(spec).encode_host(vals)
+        return pack_words(torch.from_numpy(host.astype(np.int32)), 0)[:, :, None].to(device)
+
+    out = torch.empty((w32, len(bases), m), dtype=torch.int32, device=device)
+    out[:, :, :1] = words([pow(b, offset, p) for b in bases])
+    step_pow = [b % p for b in bases]  # b^s for the current step s
+    s = 1
+    while s < m:
+        k = min(s, m - s)
+        out[:, :, s : s + k] = mont_mul_map(spec, out[:, :, :k], words(step_pow),
+                                            in_form="words", out_form="words")
+        step_pow = [v * v % p for v in step_pow]
+        s *= 2
     return out
 
 
@@ -159,13 +191,18 @@ class NttPlan:
             raise ValueError(f"n = 2^{self.log_n} exceeds {spec.name}'s 2-adicity {spec.s}")
         self.ops = get_ops(spec)
         self.passes = plan_passes(self.log_n, spec.w16 // 2, **pass_kw)
-        w_n = spec.root_for_log_len(self.log_n)
-        # stage half-sizes m = n/2 .. 1; stage twiddle base w_{2m} = w_n^(n/2m)
-        self.stage_twiddles: list[np.ndarray] = [
-            self.ops.encode_host(_powers(pow(w_n, n // (2 * m), spec.p), m, spec.p))
-            for m in (1 << s for s in range(self.log_n - 1, -1, -1))
-        ]
         self._tables: dict = {}
+
+    @functools.cached_property
+    def stage_twiddles(self) -> list[np.ndarray]:
+        """The stage twiddles on the host, (W, m) Montgomery limbs for
+        half-sizes m = n/2 .. 1 (stage twiddle base w_{2m} = w_n^(n/2m)):
+        Python ints, the plain version's table (stage_tensors) and the
+        yardstick of the kernel's (kernel_table)."""
+        spec, n = self.spec, self.n
+        w_n = spec.root_for_log_len(self.log_n)
+        return [self.ops.encode_host(_powers(pow(w_n, n // (2 * m), spec.p), m, spec.p))
+                for m in (1 << s for s in range(self.log_n - 1, -1, -1))]
 
     @property
     def launches_per_call(self) -> int:
@@ -182,18 +219,23 @@ class NttPlan:
 
     def kernel_table(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(tw, consts) for the kernel on `device`: tw (n-1, W32) packed
-        words with half-size m's twiddles at rows m-1 .. 2m-2, and the
+        words with half-size m's twiddles at rows m-1 .. 2m-2 (equal to
+        stage_twiddles, built on the device by mont_powers), and the
         constant block p words | -p^-1 mod 2^32."""
         key = ("kernel", torch.device(device))
         if key not in self._tables:
-            limbs = np.concatenate(self.stage_twiddles[::-1], axis=1)  # m = 1, 2, .., n/2
-            tw = pack_words(torch.from_numpy(limbs.astype(np.int32)), 0).T.contiguous()
+            # half-size m's twiddles w_n^(j n/2m) are every (n/2m)-th of
+            # the n/2 powers of w_n, which mont_powers builds on the device
+            half = self.n // 2
+            pw = mont_powers(self.spec, [self.spec.root_for_log_len(self.log_n)], half,
+                             device)[:, 0]  # (W32, n/2) words
+            tw = torch.cat([pw[:, :: half // m] for m in (1 << s for s in range(self.log_n))],
+                           dim=1).T.contiguous()
             w32 = self.spec.w16 // 2
             p = self.spec.p
             words = [(p >> (32 * i)) & 0xFFFFFFFF for i in range(w32)]
             consts = np.array(words + [(-pow(p, -1, 1 << 32)) % (1 << 32)], dtype=np.uint32)
-            self._tables[key] = (tw.to(device),
-                                 torch.from_numpy(consts.view(np.int32)).to(device))
+            self._tables[key] = (tw, torch.from_numpy(consts.view(np.int32)).to(device))
         return self._tables[key]
 
 
