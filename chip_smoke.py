@@ -55,13 +55,16 @@ Phases, each fatal on failure (each prints the seconds it took):
      plain version against the bound of the non-trivial butterflies, the hash
      words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
-     phase 4 (one cold run with the launches counted, 3 warm: one encode,
-     the commit's; prove's collapse and verify's column check through
-     mont_dot's thin tensor-core kernel; verify's rows evaluated at the
-     opened columns, one power table and the tile kernel; the evaluation's
-     dot on the thin kernel; verify's 4 conversions through mont_mul_map,
-     none in commit), traced by stage as in phase 4, with the
-     evaluation and tamper checks; reproduce its golden fixture
+     phase 4 (one cold run with the launches counted, 3 warm: prove's
+     collapse and verify's column check through mont_dot's thin
+     tensor-core kernel; verify's rows by the route protocol.VERIFY_COLS_MIN
+     picks at 2^17 columns: the encode (a second encode, 5 conversions
+     through mont_mul_map) or at the opened columns (one power table and
+     the tile kernel, 4 conversions); the evaluation's dot on the thin
+     kernel; no conversion in commit), traced by stage as in phase 4, with
+     the evaluation and tamper checks; verify by both routes on the same
+     proof (verify_routes: equal values, the same error kind for a flipped
+     opened value, both timed); reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256 (the
      SHA-256 kernels);
   7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
@@ -89,12 +92,13 @@ Phases, each fatal on failure (each prints the seconds it took):
   9. the streaming path at 2^28: Ligero ft255 rho = 1/4 BLAKE3, 2,048 rows x
      131,072 coefficients (packed on the card, made from the seed), 524,288
      columns: commit_streaming (spill="auto") -> prove -> verify once cold
-     with the launches counted (verify at the columns: one power table, no
-     NTT), then warm runs (median ms, peak memory, proof
+     with the launches counted (verify by the route the gate picks at 2^19
+     columns: the power table or the NTT), then warm runs (median ms, peak
+     memory, proof
      bytes); the evaluation against one computed on the card in the other
      association order (rows against the inner tensor first, plain
      FieldOps, collapse_canon_plain); the BLAKE3 trees launched 4 times;
-     tampered proofs; the
+     tampered proofs; verify by both routes (verify_routes); the
      retained words hashed in memory equal to the streamed leaves, the
      chunk tree of 524,288 x 65 CVs equal to its plain version (and both
      kernels timed at that shape); one row
@@ -116,19 +120,21 @@ Phases, each fatal on failure (each prints the seconds it took):
      189), on edge shapes in every field (y as words and as planes; ragged
      rows, k and points; unreduced operands; all-0xFF operands at K = 2^15
      - 1, 2^15, 2^15 + 1, the s32 accumulators' limit); the power table
-     (digit planes) at 32,768 x 189 and 262,144 x 189 and edges; each
+     (digit planes) at 32,768, 131,072 and 262,144 x 189 and at K = 1, 127,
+     128, 129, 4,097 x k = 1, 189, 6,593 in every field; each
      mont_dot shape timed beside the card's bound (its bytes or its byte
      products on the u8 tensor cores, whichever kernel runs it) with the
      CUDA cores' wide products beside;
   11. the slice's path: SeededCoeffSource(FT255, 2^29, seed=0), 2,048 rows
      x 262,144 coefficients, 2^20 columns, the 68.7 GB of hash words not
      kept: commit_streaming -> prove (MxuCollapse and MxuColumnEval over
-     regenerated blocks) -> verify (at the columns) once cold with the
+     regenerated blocks) -> verify (the gate's route) once cold with the
      launches counted (the generator, the NTT, both BLAKE3 kernels, the
      trees 4 times, mont_dot, the power table), then warm runs (median ms
      beside the Rust reference's 64-core numbers, peak memory); the
      evaluation against one over regenerated blocks with the plain collapse
-     in the other order; tampered proofs; the columns opened by direct
+     in the other order; tampered proofs; verify by both routes
+     (verify_routes); the columns opened by direct
      evaluation equal to the re-encode's, both timed, and prove's pieces
      (generator, the collapse over all 2,048 rows beside its bound, column
      evaluation, power table) and verify's two rows at the columns (the
@@ -250,6 +256,31 @@ DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot
 # verify at the columns and its conversions
 SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map"}
 LIGERO_KERNELS = {"ntt_mont", "mont_dot", "power_table", "mont_mul_map"} | DOT_KERNELS
+
+
+def verify_at_columns(n_cols):
+    """Does a Ligero ft255 verify at n_cols columns evaluate the proof rows
+    at the opened columns (the power table, mont_dot's tile kernel) rather
+    than encode them (the NTT)?  protocol.VERIFY_COLS_MIN decides."""
+    from lcpc_tpu_torch.core import protocol
+    return n_cols >= protocol.VERIFY_COLS_MIN
+
+
+def ligero_kernels(n_cols):
+    """LIGERO_KERNELS as verify's route at n_cols uses them: through the
+    encode, no power table and no tile kernel (nothing else on a path with
+    the words kept launches them)."""
+    if verify_at_columns(n_cols):
+        return set(LIGERO_KERNELS)
+    return LIGERO_KERNELS - {"power_table", "mont_dot_tile"}
+
+
+def ligero_verify_maps(n_cols):
+    """mont_mul_map launches of a Ligero verify: the proof rows to
+    Montgomery, the opened columns to hash words and the evaluation's two
+    operands; the encode route also converts the rows at the opened
+    columns back (from_mont)."""
+    return 4 if verify_at_columns(n_cols) else 5
 SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
 SHA_COMPRESSION_S = None  # set in phase 2 from the probes' SASS: one scheduled compression
 SHA_PARENT_S = None       # and one Merkle parent (a scheduled and a constant-block one)
@@ -273,6 +304,8 @@ BIG_WARM = 3         # warm runs of phase 9 (fewer when the time limit nears)
 BIG_WARM_DEADLINE_S = 700  # no warm run of phase 9 starts after this
 GEN_CHECK = 1 << 22  # phase 10: seeded coefficients held to the plain generator
 EVAL_ROWS = 64       # phase 10: rows of the 2^29 column evaluation block
+TABLE_EDGE_K = (1, 127, 128, 129, 4_097)  # phase 10: power_table edges in every field
+TABLE_EDGE_k = (1, 189, 6_593)
 N_SEEDED = 1 << 29   # phase 11: the seeded path
 SEEDED_WARM = 2      # warm runs of phase 11 (fewer when the time limit nears)
 SEEDED_WARM_DEADLINE_S = 900  # no warm run of phase 11 starts after this
@@ -702,6 +735,53 @@ def tamper_checks(P, spec, data, root, outer, inner, enc, transcript, tag, diges
             raise AssertionError(f"{tag} tampered {what} verified")
 
 
+def verify_routes(torch, P, enc, data, root, outer, inner, transcript, tag, reps=3):
+    """Verify's two routes on one proof, forced through
+    protocol.VERIFY_COLS_MIN (0: the rows at the opened columns, the power
+    table; past every width: the encode): both must accept with the same
+    value and reject a proof with one opened value flipped with the same
+    error kind (their flags agree); each timed, host wall, in turns.
+    Returns the record."""
+    from lcpc_tpu_torch.core import protocol
+    gate = protocol.VERIFY_COLS_MIN
+
+    def run(route, mutate=None):
+        protocol.VERIFY_COLS_MIN = 0 if route == "cols" else 1 << 62
+        try:
+            pf = P.wire.deserialize_proof(enc.spec, data)
+            if mutate is not None:
+                mutate(pf)
+            return time_host(torch, lambda: pf.verify(root, outer, inner, enc, transcript(root)))
+        except P.VerifierError as e:
+            return e.kind, None
+        finally:
+            protocol.VERIFY_COLS_MIN = gate
+
+    def flip(pf):
+        pf.columns[0].col_mont[0, 0] ^= 1
+
+    times = {"cols": [], "encode": []}
+    values = set()
+    for i in range(reps):
+        for route in (("cols", "encode") if i % 2 == 0 else ("encode", "cols")):
+            value, ms = run(route)
+            if ms is None:
+                raise AssertionError(f"{tag}: verify by the {route} route rejected: {value}")
+            values.add(value)
+            times[route].append(ms)
+    kinds = {route: run(route, flip)[0] for route in times}
+    if len(values) != 1 or len(set(kinds.values())) != 1 or kinds["cols"] != "ColumnDegree":
+        raise AssertionError(f"{tag}: the verify routes disagree: values {len(values)}, "
+                             f"a flipped opened value {kinds}")
+    med = {route: statistics.median(t) for route, t in times.items()}
+    log(f"  {tag} verify by both routes ({enc.n_cols} columns; the gate, "
+        f"{gate} columns, takes the {'columns' if enc.n_cols >= gate else 'encode'} route): "
+        f"the same value, a flipped opened value {kinds['cols']} by both; median host wall "
+        f"columns {med['cols']:.1f} ms, encode {med['encode']:.1f} ms (runs {times})")
+    return {"n_cols": enc.n_cols, "gate": gate, "ms": times, "median_ms": med,
+            "flipped": kinds}
+
+
 def transcript_for(P, enc):
     def transcript(root):
         tr = P.Transcript(b"chip smoke")
@@ -1059,15 +1139,16 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     log(f"path 2^28 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}, words kept on "
         f"the card: {comm.words_dev is not None}; peak device memory {peak:.2f} GiB")
-    # prove collapses through mont_dot; verify (2^19 columns, lcpc_tpu's
-    # gate 2^17) evaluates the proof rows at the opened columns: the power
-    # table and mont_dot, no NTT
+    # prove collapses through mont_dot; verify (2^19 columns) takes the
+    # route protocol.VERIFY_COLS_MIN picks: at the opened columns (the power
+    # table, mont_dot's tile kernel) or through the encode (the NTT)
     for name, n in launches.items():
-        if (n > 0) != (name in ("ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
-                                *DOT_KERNELS, "mont_mul_map")):
+        if (n > 0) != (name in ligero_kernels(enc.n_cols) | {"blake3_chunks", *TREES}):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
-    if launches["power_table"] != 1:
-        raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times")
+    tables = 1 if verify_at_columns(enc.n_cols) else 0
+    if launches["power_table"] != tables:
+        raise AssertionError(f"path 2^28: power_table launched {launches['power_table']} times, "
+                             f"not {tables}")
     check_hash_launches(launches, TREE_LAUNCHES_PATH, "path 2^28")
     if comm.words_dev is None:
         raise AssertionError("path 2^28: the words were not kept on the card")
@@ -1078,6 +1159,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28", P.BLAKE3)
+    routes = verify_routes(torch, P, enc, data, root, outer, inner, transcript, "path 2^28")
 
     # the retained words hashed in memory: equal to the streamed leaves; the
     # kernels timed at the 2^28 commit's shape
@@ -1155,7 +1237,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     torch.cuda.empty_cache()
     return {"launches": launches, "cold": cold, "warm": warm, "median": med, "peak_gib": peak,
             "proof_bytes": len(data), "row_block": rb, "hashes": hashes,
-            "block_words_only_ms": blk_ms}
+            "block_words_only_ms": blk_ms, "verify_routes": routes}
 
 
 def gen_pack_ops(w32, w7, form):
@@ -1356,7 +1438,8 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
     g = pack_words(kb.random_mont(spec, (1, spec.w16, 189), gen, device=DEV)[0], 0)
     # the table as digit planes at the verify's and the prover's shapes,
     # each with the tile kernel's product there
-    for tag, big_k in (("2^23 verify", n23), ("2^29 prove", N_SEEDED // 2048)):
+    for tag, big_k in (("2^23 verify", n23), ("2^28 verify", N_BIG // 2048),
+                       ("2^29 prove", N_SEEDED // 2048)):
         table = md.power_table(spec, g, big_k)
         want, plain_ms = time_host(torch, lambda: md.power_table_plain(spec, g, big_k))
         check(f"power_table {tag}", table, want)
@@ -1370,7 +1453,7 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
         if tag.startswith("2^23"):
             dot("2^23 verify rows at the columns", rand(spec, 2, big_k), table, "mont", "limbs",
                 "planes")
-        else:
+        elif tag.startswith("2^29"):
             dot(f"2^29 column evaluation, a {EVAL_ROWS}-row block", rand(spec, EVAL_ROWS, big_k,
                                                                           "packed"),
                 table, "mont", "packed", "planes", reps=3)
@@ -1419,10 +1502,13 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
                 for out_form in md.OUT_FORMS:
                     dot(f"all-0xFF {field.name} 2x{k}x300 {y_form}", x, y, out_form, "packed",
                         y_form, timed=False, field=field, kernel="thin_tc")
-        for big_k, k in ((1, 3), (70, 33), (5_000, 1), (133, 7)):
+        # the table's edges: K around a k-tile and past a 32-tile run, k
+        # from one point to Brakedown's opening count
+        for k in TABLE_EDGE_k:
             gg = pack_words(kb.random_mont(field, (1, field.w16, k), gen, device=DEV)[0], 0)
-            check(f"power_table {field.name} {big_k} x {k}", md.power_table(field, gg, big_k),
-                  md.power_table_plain(field, gg, big_k))
+            for big_k in TABLE_EDGE_K:
+                check(f"power_table {field.name} {big_k} x {k}", md.power_table(field, gg, big_k),
+                      md.power_table_plain(field, gg, big_k))
     # the s32 accumulators' limit: all-0xFF bytes (every value R - 1) over
     # K = 2^15 - 1, 2^15, 2^15 + 1 at a shape whose grid needs no further
     # split, so a block's range is the fold limit itself
@@ -1442,8 +1528,8 @@ def prove_kernels_phase(torch, kb, P, tf, md, gen, gen_mix):
     log("  mont_dot edges (3x1x5, 37x70x45, 1x5000x1, 33x33x33, 2x3000x189, 37x300x189, "
         "5x300x190, both outputs, y as words and as planes; all-0xFFFF operands), both thin "
         "kernels on ragged shapes (y words and limbs, by TMA and word by word) and all-0xFF "
-        "across the thin tensor-core kernel's range limit, and power_table edges equal in "
-        "every field")
+        f"across the thin tensor-core kernel's range limit, and power_table edges (K "
+        f"{TABLE_EDGE_K} x k {TABLE_EDGE_k}) equal in every field")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -1529,6 +1615,7 @@ def path_2_29(torch, kb, P, counters, md, card):
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29", P.BLAKE3)
+    routes = verify_routes(torch, P, enc, data, root, outer, inner, transcript, "path 2^29")
     del proof
 
     # the opening both ways at this shape, and the prove's pieces timed
@@ -1616,7 +1703,7 @@ def path_2_29(torch, kb, P, counters, md, card):
             f"{RUST_2_29[i]:g} ms, BASELINE.md; {card})")
     return {"launches": launches, "cold": cold, "warm": warm, "median": med, "peak_gib": peak,
             "proof_bytes": len(data), "row_block": rb, "pieces": pieces,
-            "plain_eval_ms": want_ms}
+            "plain_eval_ms": want_ms, "verify_routes": routes}
 
 
 
@@ -1830,6 +1917,11 @@ def mont_map_phase(torch, kb, P, mm, gen):
     log("  edges in every field (unreduced inputs 0, 1, p-1, p, 2p-1, 2p, R-1 and random "
         "below R; n = 1, 7, 41; limbs, words and hash words in and out; broadcast and "
         "non-contiguous operands; no elements): equal")
+    # an empty launch's device time (a kernel that spins 0 cycles), the floor
+    # of the verify shapes' microsecond launches
+    recs["empty_launch_ms"] = kb.time_kernel(lambda: torch.cuda._sleep(0), reps=50)
+    log(f"  an empty launch (torch.cuda._sleep(0)): {recs['empty_launch_ms']:.4f} ms of device "
+        f"time each, back to back")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -1951,7 +2043,7 @@ def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
             "lcpc_tpu/ops/mxu_prove.py:319 (_kernel_build_fns); XLA-fused, not Pallas",
             prv["table 2^29 prove"], "the 2^29 prove's table: 262,144 x 189 entries as digit "
             "planes",
-            verify_2_23=prv["table 2^23 verify"],
+            verify_2_23=prv["table 2^23 verify"], verify_2_28=prv["table 2^28 verify"],
             set_columns_2_29_host_ms=s29["pieces"]["set_columns_host_ms"]),
     ]
 
@@ -2087,7 +2179,10 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
             for k in sub:
                 nb, cp = sha_cols_cost(n_words, k)
                 rec[f"ms_{k}_columns"] = kb.time_kernel(lambda: sha.hash_word_columns(w[:, :k]))
-                rec[f"bound_ms_{k}_columns"] = sha_bound_ms(nb, cp, SHA_COMPRESSION_S)[0]
+                rec[f"bound_ms_{k}_columns"], rec[f"bound_by_{k}_columns"] = sha_bound_ms(
+                    nb, cp, SHA_COMPRESSION_S)
+                # a column's compressions run one after another in its thread
+                rec[f"floor_ms_{k}_columns"] = rec["compressions_a_column"] * lat_c
             log(f"  sha256 {tag}: {n_cols} columns of {n_words} words "
                 f"({rec['compressions_a_column']} compressions each): equal (int32 and int64 "
                 f"words{', ' + str(host_cols) + ' columns to hashlib' if host_cols else ''}); "
@@ -2095,7 +2190,10 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
                 f"({rec['bound_by']}; {comps} compressions, {nbytes} bytes), plain "
                 f"{plain_ms:.1f} ms"
                 + "".join(f"; first {k} columns {rec[f'ms_{k}_columns']:.4f} ms (bound "
-                          f"{rec[f'bound_ms_{k}_columns']:.4f})" for k in sub))
+                          f"{rec[f'bound_ms_{k}_columns']:.4f}, "
+                          f"{rec[f'bound_by_{k}_columns']}; floor "
+                          f"{rec['compressions_a_column']} x a compression's latency = "
+                          f"{rec[f'floor_ms_{k}_columns']:.4f})" for k in sub))
         else:
             log(f"  sha256 {tag}: {n_cols} columns of {n_words} words: equal"
                 f"{f', {host_cols} columns to hashlib' if host_cols else ''}")
@@ -2265,7 +2363,7 @@ def sha256_path_2_28(torch, kb, P, counters, sha, gen, card, plain_per_compressi
         f"blocks), words kept on the card: {comm.words_dev is not None}; peak device memory "
         f"{peak:.2f} GiB")
     for name, n in launches.items():
-        if (n > 0) != (name in LIGERO_KERNELS | set(SHA_KERNELS)):
+        if (n > 0) != (name in ligero_kernels(enc.n_cols) | set(SHA_KERNELS)):
             raise AssertionError(f"sha path 2^28: {name} launched {n} times")
     # commit: an update a row block and the finalize, the tree; verify: the
     # opened columns' hash and the walk
@@ -2353,10 +2451,12 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
     sha._compress = watched
     lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "sha_ligero",
-                    LIGERO_KERNELS | set(SHA_KERNELS), P.SHA256, SHA_LAUNCHES_PATH)
+                    ligero_kernels(lenc.n_cols) | set(SHA_KERNELS), P.SHA256,
+                    SHA_LAUNCHES_PATH)
     check_sha_stages(lig[8], "sha_ligero", SHA_LAUNCHES_STAGES, plain_per_compression,
                      b3_stages["ligero"])
-    check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0, "verify": 4})
+    check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0,
+                                              "verify": ligero_verify_maps(lenc.n_cols)})
     del lenc
     t0 = time.perf_counter()
     enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
@@ -2667,8 +2767,11 @@ def sharded_phase(torch, kb, P, counters, coeffs_mont, x_pt, want, card):
     if not (mp.sharded_open_columns(comm, cols).col_w
             == protocol._open_columns(scomm, cols).col_w).all():
         raise AssertionError("sharded opened columns differ from the single device's")
-    # the opened columns' words read once and written once
+    # the opened columns' words read once and written once; index_select of
+    # the rank's columns alone (the one PyTorch call of the gather) beside
     gather_bound = 2 * 4 * len(cols) * (n_rows * spec.w16 // 2) / HBM_BYTES_PER_S * 1e3
+    pick = torch.as_tensor(cols, device=comm.words.device) % comm.words.shape[1]
+    isel_ms = kb.time_kernel(lambda: comm.words.index_select(1, pick))
     rb = SHARD_STREAM_RB["ligero"]
     block = mat[:, :rb]
     blk_ms = kb.time_kernel(lambda: mp.encode_reshard(lenc, c, block, rb))
@@ -2686,7 +2789,7 @@ def sharded_phase(torch, kb, P, counters, coeffs_mont, x_pt, want, card):
         "collapse": {"ms": coll_ms, "single_ms": single_coll_ms, "device_ms": coll_dev,
                      "bound_ms": coll_bound[0], "bound_by": coll_bound[1]},
         "gather": {"ms": gather_ms, "single_ms": single_gather_ms, "bound_ms": gather_bound,
-                   "columns": len(cols)},
+                   "columns": len(cols), "index_select_ms": isel_ms},
         "block_words": {"ms": blk_ms, "encode_only_ms": one_ms, "bound_ms": blk_bound, "rows": rb},
         "all_to_all": {"ms": a2a_ms, "bytes": a2a_bytes, "bound_ms": a2a_bound},
     }
@@ -3048,22 +3151,33 @@ def main() -> int:
     # 6. the Ligero path at 2^23 and its golden fixture under both digests
     phase = Phase("6 ligero 2^23")
     # prove collapses through mont_dot (the thin tensor-core kernel);
-    # verify (2^17 columns, its gate) evaluates the proof rows at the opened
-    # columns: one power table, mont_dot's tile kernel (and a thin launch
-    # summing its K splits), the column check on the thin tensor-core
-    # kernel, the evaluation's dot on the thin kernel, and no encode
-    # the commit's hash words come from the NTT's last pass: no conversion;
+    # verify at 2^17 columns takes the route protocol.VERIFY_COLS_MIN
+    # picks: at the opened columns (one power table, mont_dot's tile kernel
+    # and a thin launch summing its K splits, no encode) or through the
+    # encode (the NTT); either way the column check runs on the thin
+    # tensor-core kernel and the evaluation's dot on the thin kernel.
+    # The commit's hash words come from the NTT's last pass: no conversion;
     # verify converts the proof rows, the opened columns and the
-    # evaluation's two operands (four mont_mul_map launches)
+    # evaluation's two operands (four mont_mul_map launches; the encode
+    # route one more, the encoded rows at the opened columns)
+    cols_route = verify_at_columns(lenc.n_cols)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
-                    LIGERO_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0, "verify": 4})
+                    ligero_kernels(lenc.n_cols) | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
+    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0,
+                                          "verify": ligero_verify_maps(lenc.n_cols)})
     per_encode = plan.launches_per_call
-    if lig[0]["ntt_mont"] != per_encode or lig[0]["power_table"] != 1:
-        raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != 1 encode x {per_encode}, "
-                             f"or power_table {lig[0]['power_table']} != 1")
-    log(f"  ntt launches {lig[0]['ntt_mont']} (= the commit's encode, {per_encode} passes; "
-        f"verify evaluates at the columns), power_table 1, mont_dot {lig[0]['mont_dot']}")
+    encodes, tables = (1, 1) if cols_route else (2, 0)
+    if lig[0]["ntt_mont"] != encodes * per_encode or lig[0]["power_table"] != tables:
+        raise AssertionError(f"ntt launches {lig[0]['ntt_mont']} != {encodes} encode(s) x "
+                             f"{per_encode}, or power_table {lig[0]['power_table']} != {tables}")
+    n_rows = -(-N_COEFFS // lenc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, x_pt, lenc.n_per_row, n_rows)
+    lig_routes = verify_routes(torch, P, lenc, lig[7], lig[6], outer, inner,
+                               transcript_for(P, lenc), "ligero 2^23")
+    log(f"  ntt launches {lig[0]['ntt_mont']} ({encodes} encode(s), {per_encode} passes each; "
+        f"verify {'evaluates at the columns' if cols_route else 'encodes the rows'} at "
+        f"{lenc.n_cols} columns), power_table {tables}, "
+        f"mont_dot {lig[0]['mont_dot']}")
     with open(os.path.join(ROOT, "tests", "data", "torch_golden_ligero.json")) as f:
         golden = json.load(f)
     genc = P.LigeroEncoding.new(spec, golden["length"], *golden["rho"])
@@ -3227,6 +3341,7 @@ def main() -> int:
                    "prove_kernels": prv, "path_2_29": s29, "mont_map": maps,
                    "sha256": shas, "sha256_paths": sha_paths, "sha256_sass": sha_mix,
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
+                   "verify_routes_2_23": lig_routes,
                    "sharded": shard,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")

@@ -11,8 +11,8 @@ Port of lcpc_tpu/core/protocol.py (itself lcpc-2d/src/lib.rs:622-1123):
 - verify: re-derive the challenges, re-encode the proof rows on the device,
   and check every opened column's Merkle path and degree-test/eval dot
   products in one batched step (lib.rs:832-1000).  A Reed-Solomon code from
-  2^17 columns (lcpc_tpu's gate) evaluates the proof rows at the opened
-  columns alone instead (`_verify_core_cols`).
+  VERIFY_COLS_MIN columns evaluates the proof rows at the opened columns
+  alone instead (`_verify_core_cols`).
 
 The collapses go through the mont_dot kernel on the GPU (prove's through
 ops/mxu_prove.py's MxuCollapse, verify's through FieldOps).
@@ -42,10 +42,20 @@ from ..ops.mont_map import mont_mul_map
 from ..ops.mxu_prove import MxuCollapse, MxuColumnEval, mxu_prove_enabled
 from .encoding import LcEncoding
 
-# lcpc_tpu's verify gate (lcpc_tpu/core/protocol.py:1014-1047): verify
-# evaluates the rows at the opened columns from this many columns.  Tests
-# lower it to take the route at small sizes.
-VERIFY_COLS_MIN = 1 << 17
+# Verify evaluates the proof rows at the opened columns (MxuColumnEval: the
+# host's points, the power table, mont_dot's tile kernel) from this many
+# columns, and encodes them (the NTT) below; the bytes and the answer are
+# the same either way.  lcpc_tpu gates at 2^17 on the TPU
+# (lcpc_tpu/core/protocol.py:1014-1047).  On an H100 (700 W), Ligero ft255
+# rho = 1/4 at 2^15 to 2^20 columns (scripts/time_verify_routes.py): the
+# encode's verify was faster to 2^18; at 2^19 and 2^20 the two routes'
+# median walls swapped places from run to run (a 5-run and a 9-run median
+# disagree; the runs spread by 70-150 ms), while the part that differs
+# told them apart at every width: the columns route's own work took
+# 2.5-5.9 ms of host wall against the encode's 0.16-0.79.  No width
+# measured has the columns route no slower, so the gate sits past the
+# widest.  Tests lower it to take the route at small sizes.
+VERIFY_COLS_MIN = 1 << 21
 
 
 def _next_pow2(x: int) -> int:
@@ -670,8 +680,8 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
             axis=0,
         )  # (T, n_per_row, W/2) canonical repr words
         rows_dev = torch.from_numpy(rows_w.view(np.int32)).to(device)  # u32 as int32
-    # Reed-Solomon rows at the opened columns alone (lcpc_tpu's gate), else
-    # the full-width encode
+    # Reed-Solomon rows at the opened columns alone (from VERIFY_COLS_MIN
+    # columns), else the full-width encode
     use_cols = (not odd_rows and getattr(enc, "supports_direct_col_eval", False)
                 and mxu_prove_enabled(spec) and n_cols >= VERIFY_COLS_MIN)
     if use_cols:

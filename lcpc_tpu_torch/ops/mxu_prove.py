@@ -30,6 +30,7 @@ import torch
 from ..fields.spec import FieldSpec
 from .limbs import get_ops, limbs_to_device
 from .mont_dot import field_consts, mont_dot, power_table
+from .ntt import bit_reverse
 from .spmv import pack_words
 
 _IN_FORMS = ("limbs", "packed")
@@ -99,6 +100,14 @@ def _sum_partials(spec: FieldSpec, parts: torch.Tensor) -> torch.Tensor:
     return mont_dot(spec, x, parts.reshape(w32, S, T * C)).reshape(w32, T, C)
 
 
+def column_points(spec: FieldSpec, n_cols: int, cols: "list[int]") -> "list[int]":
+    """The points g_j = w^bitrev(c_j) of the opened columns c_j of an
+    n_cols-column Reed-Solomon codeword (w a primitive n_cols-th root of
+    unity), as plain ints: only the opened indices are bit-reversed."""
+    w_nc = spec.root_for_log_len(n_cols.bit_length() - 1)
+    return [pow(w_nc, int(r), spec.p) for r in bit_reverse(cols, n_cols)]
+
+
 class MxuColumnEval:
     """Direct evaluation of opened Reed-Solomon codeword columns.
 
@@ -119,15 +128,9 @@ class MxuColumnEval:
         self._table = None
 
     def set_columns(self, cols: "list[int]") -> None:
-        from .ntt import bit_reverse_indices
-
-        spec, p = self.spec, self.spec.p
-        n_cols = self.enc.n_cols
-        w_nc = spec.root_for_log_len(n_cols.bit_length() - 1)
-        rev = bit_reverse_indices(n_cols)
-        gs = [pow(w_nc, int(rev[c]), p) for c in cols]  # g_j = w^bitrev(c_j)
+        gs = column_points(self.spec, self.enc.n_cols, cols)
         g = pack_words(limbs_to_device(self.ops.encode_host(gs), self.enc.device), 0)
-        self._table = power_table(spec, g, self.enc.n_per_row)
+        self._table = power_table(self.spec, g, self.enc.n_per_row)
 
     @property
     def table_bytes(self) -> int:

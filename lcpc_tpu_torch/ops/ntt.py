@@ -59,15 +59,20 @@ MAX_THREADS = 256       # csrc/ntt_mont.cu kMaxThreads
 SMALL_GRID = 1024       # fewer tiles than this: two butterflies a thread per stage
 
 
-def bit_reverse_indices(n: int) -> np.ndarray:
-    """Index array r with r[i] = bit-reversal of i in log2(n) bits."""
+def bit_reverse(idx, n: int) -> np.ndarray:
+    """The bit-reversals of the indices `idx` (< n) in log2(n) bits, int64."""
     assert n & (n - 1) == 0
     bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
+    idx = np.asarray(idx, dtype=np.int64)
     rev = np.zeros_like(idx)
     for b in range(bits):
         rev |= ((idx >> b) & 1) << (bits - 1 - b)
     return rev
+
+
+def bit_reverse_indices(n: int) -> np.ndarray:
+    """Index array r with r[i] = bit-reversal of i in log2(n) bits."""
+    return bit_reverse(np.arange(n, dtype=np.int64), n)
 
 
 def _powers(w: int, m: int, p: int) -> list[int]:
