@@ -12,7 +12,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      ptxas's registers and spills per template (fatal if the SpMV's, the
      NTT's, the generator's, the power table's or either field map's W32 =
      8 spills, any of mont_dot's tensor-core templates (tile and thin_tc)
-     spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills;
+     spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills,
+     the few-column column hash included;
      every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
@@ -23,7 +24,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      (cuobjdump; the compression latency probe scripts/blake3_chain.cu is
      built beside the kernels), from which every BLAKE3 bound is counted,
      and one SHA-256 compression's and one Merkle parent's (the probes of
-     scripts/sha256_chain.cu), from which every SHA-256 bound is counted;
+     scripts/sha256_chain.cu), from which every SHA-256 bound is counted,
+     and the few-column kernel's round loop (its ALU instructions a round);
   3. hold the SpMV kernel against its plain PyTorch version
      (apply_mat_plain), bit for bit, on every level of the 2^23 ft255
      Brakedown encoding at r = 36 (the commit's row count), on every level at
@@ -149,25 +151,38 @@ Phases, each fatal on failure (each prints the seconds it took):
      plain version; edges in every field (unreduced inputs up to R - 1, 1,
      7 and 41 elements, every form in and out, broadcast and
      non-contiguous operands, no elements);
-  13. hold the SHA-256 kernels (csrc/sha256_cols.cu: sha256_cols, the
-     Merkle tree and the walk, one launch each) against their plain
-     versions, word for word: path (a)'s columns (2,048 words x 131,072),
-     the 2^28 column length (16,384 words) over 4,096 columns, path (b)'s
-     (288 words x 357,699), the first 189 and 6,593 columns of those alone,
-     int32 and int64 words, edge lengths (1, 5, 7, 8, 56, 600 words; a few
-     columns also against hashlib), words with every bit set, streaming
-     updates from carries of 0, 8 and 15 words with blocks of 1, 7, 8, 9
-     and 1,792 words state by state, finalizes at rem 12, 13 and 14 (one
-     final block, then two), Merkle trees of 2^17 and 2^19 leaves and of
-     357,699 padded to 2^19 (and 1, 2, 300 and 513 leaves), walks of 189 x
-     17 and 6,593 x 19 (and 5 x 0, 40 x 3); time each against its bound
-     (its bytes, or its compressions or parents by the probes' SASS) and
-     the plain version, the trees and walks also against their dependency
-     floor (depth x one parent's latency from the probe);
+  13. hold the SHA-256 kernels (csrc/sha256_cols.cu: sha256_cols by its
+     two kernels, the few-column one and the wide one, each forced and as
+     ops/sha256.cols_route picks, the paths' full widths by the kernel it
+     picks; the Merkle tree and the walk, one launch each) against their
+     plain versions, word for word: path (a)'s columns
+     (2,048 words x 131,072), the 2^28 column length (16,384 words) over
+     4,096 columns, path (b)'s (288 words x 357,699), the first 1, 31, 32,
+     33, 189 and 6,593 columns of those alone and the route's crossover
+     (FEW_COLS_MAX and one more column), int32 and int64 words, edge
+     lengths (1, 5, 7, 8, 56, 600 words over 300 columns and their first 1,
+     31, 32, 33 and 189; a few columns also against hashlib), words with
+     every bit set, streaming updates by each kernel from carries of 0, 8
+     and 15 words with blocks of 1, 7, 8, 9 and 1,792 words state by state,
+     finalizes at rem 12, 13 and 14 (one final block, then two), Merkle
+     trees of 2^17 and 2^19 leaves and of 357,699 padded to 2^19 (and 1, 2,
+     300 and 513 leaves), walks of 189 x 17 and 6,593 x 19 (and 5 x 0, 40 x
+     3); time each against its bound (its bytes, or its compressions or
+     parents by the probes' SASS) and the plain version, verify's column
+     shapes by both kernels also against their floor (a column's
+     compressions x one compression's latency), their critical path (the
+     round loop's longest dependent chain in the SASS, each instruction at
+     its latency from the probe's op chains: the card's, not the code's)
+     and one warp's issue (the measured clocks an ALU instruction of the
+     round loop), every tree (the odd ones too) and walk against its
+     dependency floor (depth x the fastest parent's latency; the walk's
+     parent for the walk) and critical path (depth x a parent's SASS
+     chain);
   14. the slice's paths with digest=SHA256 through the public entry points:
      (a) Ligero 2^23 and (b) Brakedown 2^23 as phases 6 and 4 run them
      (cold with the launches counted, 3 warm, traced by stage: commit one
-     sha256_cols and one tree, verify one sha256_cols and one walk, no
+     sha256_cols (the wide kernel) and one tree, verify one sha256_cols (the
+     kernel cols_route picks for the opened columns) and one walk, no
      BLAKE3 kernel, each stage's CUDA kernels fewer than one plain
      compression launches, its BLAKE3 run's beside), (c) the
      2^28 streaming path of phase 9 (an update a row block and one
@@ -282,6 +297,8 @@ def ligero_verify_maps(n_cols):
     columns back (from_mont)."""
     return 4 if verify_at_columns(n_cols) else 5
 SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
+SHA_COLS_KERNELS = ("sha256_cols_few", "sha256_cols_wide")  # sha256_cols's two, by their counters
+SHA_NARROW = (1, 31, 32, 33)  # phase 13: few-column kernel column counts beside 189 and 6,593
 SHA_COMPRESSION_S = None  # set in phase 2 from the probes' SASS: one scheduled compression
 SHA_PARENT_S = None       # and one Merkle parent (a scheduled and a constant-block one)
 SHA_SDIG = (288, 357_699)   # phase 13: the 2^23 Brakedown commit's columns (36 rows x 8 words)
@@ -293,6 +310,7 @@ SHA_EDGES = (1, 5, 7, 8, 56, 600)  # phase 13: column lengths, and (8 + L) % 16 
 SHA_STREAM = (8, 1792, 7, 8, 9, 1)
 SHA_STREAM_TAILS = ((3, 12), (4, 13), (5, 14))
 SHA_STREAM_COLS = 1000
+SHA_TREE_EDGES = ((1, 1), (2, 2), (300, 512), (513, 1024))  # phase 13: odd trees, also timed
 SHA_BIG_WARM = 2            # warm runs of phase 14's 2^28 path (fewer when the time limit nears)
 SHA_BIG_WARM_DEADLINE_S = 800
 B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
@@ -677,10 +695,41 @@ TREE_LAUNCHES_PATH = {"chunk_tree": 2, "merkle_tree": 1, "merkle_walk": 1}
 TREE_LAUNCHES_STREAM = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 0}
 # SHA-256 launches of commit -> prove -> verify in memory: the column hash in
 # commit and in verify (the opened columns), the tree in commit, the walk in
-# verify; by stage
-SHA_LAUNCHES_PATH = {"sha256_cols": 2, "sha256_merkle_tree": 1, "sha256_merkle_walk": 1}
-SHA_LAUNCHES_STAGES = {"commit": {"sha256_cols": 1, "sha256_merkle_tree": 1},
-                       "prove": {}, "verify": {"sha256_cols": 1, "sha256_merkle_walk": 1}}
+# verify; by stage.  The column hash launches the kernel ops/sha256.cols_route
+# picks for its columns.
+
+
+def sha_cols_launches(*n_cols):
+    """{counter of sha256_cols's kernel: launches} of one sha256_cols call
+    over each of these column counts (ops/sha256.cols_route)."""
+    from lcpc_tpu_torch.ops import sha256 as sha
+    out = {}
+    for n in n_cols:
+        name = f"sha256_cols_{sha.cols_route(n)}"
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def sha_launches_stages(commit_cols, verify_cols, commit_calls=1):
+    """SHA-256 launches by stage of a path committing to commit_cols columns
+    in commit_calls sha256_cols calls (a streaming commit's updates and its
+    finalize) and verifying verify_cols opened columns."""
+    commit = {"sha256_cols": commit_calls, "sha256_merkle_tree": 1}
+    for name, n in sha_cols_launches(commit_cols).items():
+        commit[name] = n * commit_calls
+    return {"commit": commit, "prove": {},
+            "verify": {"sha256_cols": 1, "sha256_merkle_walk": 1,
+                       **sha_cols_launches(verify_cols)}}
+
+
+def sha_launches_path(commit_cols, verify_cols, commit_calls=1):
+    """sha_launches_stages summed over the stages: what one cold run of the
+    path launches."""
+    out = {}
+    for stage in sha_launches_stages(commit_cols, verify_cols, commit_calls).values():
+        for name, n in stage.items():
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def check_map_launches(stages, tag, want):
@@ -2062,17 +2111,21 @@ def sha256_mix(kb, sha_so, lib_so):
     (p_alu, p_fma, p_all), p_ops = mix["parent"]
     SHA_COMPRESSION_S, SHA_PARENT_S = compression_s(c_alu, c_fma), compression_s(p_alu, p_fma)
     l_alu, l_fma, l_all = mix["cols_loop"]
+    f_alu, f_fma, f_all = mix["few_rounds"]
     log(f"  SASS sha256 compression (probe): {c_alu:g} ALU-pipe + {c_fma:g} FMA-pipe of "
         f"{c_all:g} instructions ({SHA_COMPRESSION_S * 1e12:.2f} ps at the card's integer "
         f"rate); opcodes {c_ops}")
     log(f"  SASS sha256 Merkle parent (probe): {p_alu:g} ALU + {p_fma:g} FMA of {p_all:g} "
-        f"({SHA_PARENT_S * 1e12:.2f} ps); the column kernel's block loop: {l_alu} ALU + "
-        f"{l_fma} FMA of {l_all} ({compression_s(l_alu, l_fma) * 1e12:.2f} ps)")
+        f"({SHA_PARENT_S * 1e12:.2f} ps); the wide column kernel's block loop: {l_alu} ALU + "
+        f"{l_fma} FMA of {l_all} ({compression_s(l_alu, l_fma) * 1e12:.2f} ps); the few-column "
+        f"kernel's round-warp loop: {f_alu} ALU + {f_fma} FMA of {f_all} ({f_alu / 64:.2f} "
+        f"ALU a round)")
     if c_alu < 800:
         raise AssertionError(f"the probe's compression is not on the vector ALU: {mix}")
     return {"compress_alu_fma_all": (c_alu, c_fma, c_all), "compress_opcodes": c_ops,
             "parent_alu_fma_all": (p_alu, p_fma, p_all), "parent_opcodes": p_ops,
             "cols_loop_alu_fma_all": (l_alu, l_fma, l_all),
+            "few_rounds_alu_fma_all": (f_alu, f_fma, f_all),
             "compression_ps": SHA_COMPRESSION_S * 1e12, "parent_ps": SHA_PARENT_S * 1e12}
 
 
@@ -2109,11 +2162,19 @@ def plain_launches(torch, sha, digests):
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def sha256_phase(torch, kb, sha, gen, sha_so):
+def sha256_phase(torch, kb, sha, gen, sha_so, lib_so, sha_mix):
     """Phase 13: the SHA-256 kernels against their plain versions, word for
-    word, each timed against its bound; the trees and the walk also against
-    their dependency floor (depth x one parent's latency, from the probe
-    library sha_so).  Returns the records."""
+    word, each timed against its bound; the column hash by both of its
+    kernels (the few-column and the wide one, forced by _route, and by the
+    route sha256_cols picks), verify's shapes also against their floor (a
+    column's compressions x one compression's latency, from the probe
+    library sha_so), their critical path (the longest dependent chain of
+    the few-column kernel's round loop in the SASS of lib_so, each
+    instruction at its latency from the probe's op chains) and one warp's
+    issue (the measured clocks an ALU instruction of that loop); the trees
+    and the walk against their dependency floor (depth x one parent's
+    latency) and critical path (depth x a parent's SASS chain).  Returns the
+    records."""
     import numpy as np
     from lcpc_tpu_torch.core.streaming import StreamingSha256Hasher
     from lcpc_tpu_torch.ops.blake3 import digests_to_bytes
@@ -2144,26 +2205,80 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
         ref_c = sha._compress(ref_c, torch.cat([ref_c, ref_c]))
         ref_p = sha.merkle_parent_plain(ref_p, ref_p)
     n_ref = 2 * kb.SHA_CHAIN_PER_TRIP
-    check("compress chain", kb.sha256_chain(sha_so, h0, n_ref, False), ref_c[:, 0])
-    check("parent chain", kb.sha256_chain(sha_so, h0, n_ref, True), ref_p[:, 0])
-    lat_c = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, False), reps=3) / CHAIN
-    lat_p = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, True), reps=3) / CHAIN
+    check("compress chain", kb.sha256_chain(sha_so, h0, n_ref, 0), ref_c[:, 0])
+    check("parent chain", kb.sha256_chain(sha_so, h0, n_ref, 1), ref_p[:, 0])
+    check("tree parent chain", kb.sha256_chain(sha_so, h0, n_ref, 2), ref_p[:, 0])
+    lat_c = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, 0), reps=3) / CHAIN
+    lat_p = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, 1), reps=3) / CHAIN
+    lat_t = kb.time_kernel(lambda: kb.sha256_chain(sha_so, h0, CHAIN, 2), reps=3) / CHAIN
     recs.update(compression_latency_ms=lat_c, parent_latency_ms=lat_p,
+                tree_parent_latency_ms=lat_t,
                 plain_compression_launches=plain_launches(torch, sha, digests))
     log(f"  latency (a chain of {CHAIN} in one thread): a compression {lat_c * 1e3:.4f} us, a "
-        f"Merkle parent {lat_p * 1e3:.4f} us; one plain compression is "
-        f"{recs['plain_compression_launches']} CUDA kernel launches")
+        f"Merkle parent {lat_p * 1e3:.4f} us (the walk's, unrolled), {lat_t * 1e3:.4f} us (the "
+        f"tree's, compact); one plain compression is {recs['plain_compression_launches']} CUDA "
+        f"kernel launches")
+    # the card's yardsticks: dependent IADD3, LOP3, SHF and IMAD (the probe's
+    # op chains), and one warp's issue of each (eight independent chains);
+    # the critical paths as ptxas emitted them (kb.sha256_sass_chains: the
+    # longest dependent chain through a loop body's SASS at those
+    # latencies): a round of the few-column kernel, a parent (the walk's
+    # unrolled one; the tree's compact one, 128 rounds of its 16-round
+    # trips); one warp's issue the few-column kernel's round loop's ALU
+    # instructions at the measured clocks an instruction
+    ops, issue = kb.op_latencies(sha_so), kb.op_latencies(sha_so, wide=True)
+    if ops is None or issue is None:
+        raise RuntimeError("the probe's op chains or cuobjdump are missing")
+    chains = kb.sha256_sass_chains(sha_so, lib_so, ops)
+    if chains is None or set(chains) != {"few_round", "parent", "compress", "compact_round"}:
+        raise RuntimeError(f"the SHA-256 loops were not found in the SASS: {chains}")
+    ghz = ops["IADD3"][0] / ops["IADD3"][1]
+    crit_round = chains["few_round"][0]
+    crit_walk = chains["parent"][0]  # cycles a parent
+    crit_tree = min(crit_walk, 128 * chains["compact_round"][0])  # the fastest parent's
+    issue_round = issue["IADD3"][0] * sha_mix["few_rounds_alu_fma_all"][0] / 64
+    crit_c, issue_c = 64 * crit_round / ghz / 1e6, 64 * issue_round / ghz / 1e6  # ms
+    crit_pw, crit_pt = crit_walk / ghz / 1e6, crit_tree / ghz / 1e6  # ms a parent
+    recs.update(op_latency_cycles_ns=ops, op_issue_cycles_ns=issue, clock_ghz=ghz,
+                sass_chains_cycles_opcodes=chains, critical_path_round_cycles=crit_round,
+                issue_round_cycles=issue_round, critical_path_compression_ms=crit_c,
+                critical_path_parent_ms=crit_pw, critical_path_tree_parent_ms=crit_pt,
+                issue_compression_ms=issue_c)
+    log(f"  dependent instructions (op chains, cycles / ns): "
+        + ", ".join(f"{k} {c:.2f} / {t:.3f}" for k, (c, t) in ops.items())
+        + "; one warp's issue, eight chains: "
+        + ", ".join(f"{k} {c:.2f} / {t:.3f}" for k, (c, t) in issue.items())
+        + f" at {ghz:.3f} GHz")
+    log("  critical paths in the SASS (cycles; the chain's opcodes): "
+        + "; ".join(f"{k} {c:.2f} ({', '.join(f'{o} {n:g}' for o, n in ops_.items())})"
+                    for k, (c, ops_) in chains.items())
+        + f"; a compression of the few-column kernel {crit_c * 1e3:.4f} us, a parent "
+        f"{crit_pw * 1e3:.4f} us (the walk's), {crit_pt * 1e3:.4f} us (the fastest); one warp's "
+        f"issue {issue_round:.2f} cycles a round ({issue_c * 1e3:.4f} us a compression)")
 
-    def columns(tag, w, host_cols=0, timed=False, sub=()):
+    def by_route(w, route, n_words):
+        return sha.sha256_cols(w, total_words=8 + n_words, _route=route)
+
+    def columns(tag, w, host_cols=0, timed=False, sub=(), checked=(), plain_sub=True,
+                forced=True):
+        # forced: both kernels at the full width too (small shapes); a path's
+        # width runs the kernel cols_route picks, both kernels its leading
+        # columns (sub, checked)
         n_words, n_cols = w.shape
         got = sha.hash_word_columns(w)
         want, plain_ms = time_host(torch, lambda: sha.hash_word_columns_plain(w))
         check(f"{tag}", got, want)
         check(f"{tag} (int64 words)", sha.hash_word_columns(w.to(torch.int64) & 0xFFFFFFFF), want)
         rec = {"n_words": n_words, "n_cols": n_cols, "plain_ms": plain_ms, "launches": 1,
+               "route": sha.cols_route(n_cols),
                "compressions_a_column": (8 + n_words + 3 + 15) // 16}
-        for k in sub:  # the leading columns alone, read at the full row stride
+        for route in sha.COLS_KERNELS if forced else ():
+            check(f"{tag} ({route})", by_route(w, route, n_words), want)
+        for k in sub + checked:  # the leading columns alone, read at the full row stride
             check(f"{tag} first {k} columns", sha.hash_word_columns(w[:, :k]), want[:, :k])
+            for route in sha.COLS_KERNELS:
+                check(f"{tag} first {k} columns ({route})", by_route(w[:, :k], route, n_words),
+                      want[:, :k])
         if host_cols:
             u = w[:, :host_cols].cpu().numpy().view(np.uint32)
             b = digests_to_bytes(got[:, :host_cols])
@@ -2171,74 +2286,103 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
                 if bytes(b[c]) != hashlib.sha256(bytes(32) + u[:, c].astype("<u4").tobytes()
                                                   ).digest():
                     raise AssertionError(f"sha256 {tag}: column {c} != hashlib")
+        narrow = f"; first {', '.join(map(str, checked))} columns by both kernels" if checked else ""
         if timed:
             nbytes, comps = sha_cols_cost(n_words, n_cols)
             rec["ms"] = kb.time_kernel(lambda: sha.hash_word_columns(w))
             rec["bound_ms"], rec["bound_by"] = sha_bound_ms(nbytes, comps, SHA_COMPRESSION_S)
             rec.update(bytes=nbytes, compressions=comps)
+            per = rec["compressions_a_column"]
             for k in sub:
                 nb, cp = sha_cols_cost(n_words, k)
+                rec[f"route_{k}_columns"] = sha.cols_route(k)
                 rec[f"ms_{k}_columns"] = kb.time_kernel(lambda: sha.hash_word_columns(w[:, :k]))
+                if plain_sub:  # the plain version at this shape (a second each 100 blocks)
+                    rec[f"plain_ms_{k}_columns"] = time_host(
+                        torch, lambda: sha.hash_word_columns_plain(w[:, :k]))[1]
+                for route in sha.COLS_KERNELS:
+                    rec[f"ms_{k}_columns_{route}"] = kb.time_kernel(
+                        lambda: by_route(w[:, :k], route, n_words))
                 rec[f"bound_ms_{k}_columns"], rec[f"bound_by_{k}_columns"] = sha_bound_ms(
                     nb, cp, SHA_COMPRESSION_S)
-                # a column's compressions run one after another in its thread
-                rec[f"floor_ms_{k}_columns"] = rec["compressions_a_column"] * lat_c
-            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words "
-                f"({rec['compressions_a_column']} compressions each): equal (int32 and int64 "
-                f"words{', ' + str(host_cols) + ' columns to hashlib' if host_cols else ''}); "
-                f"sha256_cols {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                # a column's compressions run one after another in its lane
+                rec[f"floor_ms_{k}_columns"] = per * lat_c
+                rec[f"critical_path_ms_{k}_columns"] = per * crit_c
+                rec[f"issue_ms_{k}_columns"] = per * issue_c
+            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words ({per} compressions "
+                f"each): equal (int32 and int64 words, {'both kernels' if forced else rec['route']}"
+                f"{', ' + str(host_cols) + ' columns to hashlib' if host_cols else ''}{narrow}); "
+                f"sha256_cols ({rec['route']}) {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
                 f"({rec['bound_by']}; {comps} compressions, {nbytes} bytes), plain "
                 f"{plain_ms:.1f} ms"
-                + "".join(f"; first {k} columns {rec[f'ms_{k}_columns']:.4f} ms (bound "
-                          f"{rec[f'bound_ms_{k}_columns']:.4f}, "
-                          f"{rec[f'bound_by_{k}_columns']}; floor "
-                          f"{rec['compressions_a_column']} x a compression's latency = "
-                          f"{rec[f'floor_ms_{k}_columns']:.4f})" for k in sub))
+                + "".join(f"; first {k} columns ({rec[f'route_{k}_columns']}) "
+                          f"{rec[f'ms_{k}_columns']:.4f} ms (few {rec[f'ms_{k}_columns_few']:.4f}, "
+                          f"wide {rec[f'ms_{k}_columns_wide']:.4f}; bound "
+                          f"{rec[f'bound_ms_{k}_columns']:.4f}, {rec[f'bound_by_{k}_columns']}; "
+                          f"floor {per} x a compression's latency = "
+                          f"{rec[f'floor_ms_{k}_columns']:.4f}; critical path "
+                          f"{rec[f'critical_path_ms_{k}_columns']:.4f}; one warp's issue "
+                          f"{rec[f'issue_ms_{k}_columns']:.4f})" for k in sub))
         else:
-            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words: equal"
-                f"{f', {host_cols} columns to hashlib' if host_cols else ''}")
+            log(f"  sha256 {tag}: {n_cols} columns of {n_words} words: equal "
+                f"({'both kernels' if forced else rec['route']}"
+                f"{', ' + str(host_cols) + ' columns to hashlib' if host_cols else ''}{narrow})")
         recs[tag] = rec
 
-    columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True, sub=(B3_OPENED,))
-    columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True, sub=(B3_OPENED,))
-    columns("brakedown 2^23 commit", words(*SHA_SDIG), timed=True, sub=(6_593, B3_OPENED))
+    cross = (sha.FEW_COLS_MAX, sha.FEW_COLS_MAX + 1)  # the route's crossover, both sides
+    columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True, sub=(B3_OPENED,),
+            checked=SHA_NARROW + cross, forced=False)
+    columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True, sub=(B3_OPENED,),
+            checked=SHA_NARROW, plain_sub=False, forced=False)
+    columns("brakedown 2^23 commit", words(*SHA_SDIG), timed=True, sub=(6_593, B3_OPENED),
+            checked=SHA_NARROW + cross, forced=False)
     for n_words in SHA_EDGES:
-        columns(f"edge {n_words}", words(n_words, 300), host_cols=2)
+        columns(f"edge {n_words}", words(n_words, 300), host_cols=2,
+                checked=SHA_NARROW + (B3_OPENED,))
 
-    # streaming: the kernel's updates state by state against the plain
+    # streaming, by each kernel: the updates state by state against the plain
     # update, then the finalize at rem 12, 13 and 14 against the plain
     # finalize and the kernel's one-shot hash; the hasher class end to end
     # (the plain one-shot hash of these 1,8xx-word columns would add ~4 s
     # each: ~4,300 torch launches a compression)
     n_cols = SHA_STREAM_COLS
     w_all = words(sum(SHA_STREAM) + max(t for t, _ in SHA_STREAM_TAILS), n_cols)
-    cv = sha.h0_state(n_cols, DEV)
-    carry = torch.zeros((16, n_cols), dtype=torch.int32, device=DEV)
-    pcv, pcarry, n, r0, carries = sha.h0_state(n_cols, DEV), None, 8, 0, []
+    pcv, pcarry, n, r0, carries, plain = sha.h0_state(n_cols, DEV), None, 8, 0, [], []
     for length in SHA_STREAM:
         carries.append(n)
-        blk = w_all[r0 : r0 + length]
-        got_n = sha.sha256_cols(blk, cv=cv, carry=carry, carry_len=n)
-        pcv, pcarry, n = sha.sha256_update_plain(pcv, pcarry, n, blk)
-        if got_n != n:
-            raise AssertionError(f"sha256 stream update of {length}: rem {got_n} != {n}")
-        check(f"stream update of {length} words (carry {carries[-1]}) chaining value", cv, pcv)
-        check(f"stream update of {length} words carry", carry[:n], pcarry[:n])
+        pcv, pcarry, n = sha.sha256_update_plain(pcv, pcarry, n, w_all[r0 : r0 + length])
+        plain.append((pcv, pcarry, n))
         r0 += length
     if carries != [8, 0, 0, 7, 15, 8]:
         raise AssertionError(f"sha256 stream: carries {carries}")
-    for tail, rem_want in SHA_STREAM_TAILS:
-        cv_t, carry_t, blk = cv.clone(), carry.clone(), w_all[r0 : r0 + tail]
-        got_n = sha.sha256_cols(blk, cv=cv_t, carry=carry_t, carry_len=n)
-        tcv, tcarry, tn = sha.sha256_update_plain(pcv, pcarry, n, blk)
-        if not got_n == tn == rem_want:
-            raise AssertionError(f"sha256 stream: rem {got_n}, plain {tn}, want {rem_want}")
-        total = 8 + r0 + tail
-        got = sha.sha256_cols(blk[:0], cv=cv_t, carry=carry_t, carry_len=got_n, total_words=total)
-        check(f"stream finalize at rem {rem_want}", got,
-              sha.sha256_finalize_plain(tcv, tcarry, tn, total))
-        check(f"stream finalize at rem {rem_want} vs the one-shot hash", got,
-              sha.hash_word_columns(w_all[: r0 + tail]))
+    for route in sha.COLS_KERNELS:
+        cv = sha.h0_state(n_cols, DEV)
+        carry = torch.zeros((16, n_cols), dtype=torch.int32, device=DEV)
+        n, r0 = 8, 0
+        for length, carried, (scv, scarry, sn) in zip(SHA_STREAM, carries, plain):
+            got_n = sha.sha256_cols(w_all[r0 : r0 + length], cv=cv, carry=carry, carry_len=n,
+                                    _route=route)
+            if got_n != sn:
+                raise AssertionError(f"sha256 stream ({route}) update of {length}: rem {got_n} "
+                                     f"!= {sn}")
+            check(f"stream ({route}) update of {length} words (carry {carried}) chaining value",
+                  cv, scv)
+            check(f"stream ({route}) update of {length} words carry", carry[:sn], scarry[:sn])
+            n, r0 = got_n, r0 + length
+        for tail, rem_want in SHA_STREAM_TAILS:
+            cv_t, carry_t, blk = cv.clone(), carry.clone(), w_all[r0 : r0 + tail]
+            got_n = sha.sha256_cols(blk, cv=cv_t, carry=carry_t, carry_len=n, _route=route)
+            tcv, tcarry, tn = sha.sha256_update_plain(pcv, pcarry, n, blk)
+            if not got_n == tn == rem_want:
+                raise AssertionError(f"sha256 stream ({route}): rem {got_n}, plain {tn}, want "
+                                     f"{rem_want}")
+            total = 8 + r0 + tail
+            got = sha.sha256_cols(blk[:0], cv=cv_t, carry=carry_t, carry_len=got_n,
+                                  total_words=total, _route=route)
+            check(f"stream ({route}) finalize at rem {rem_want}", got,
+                  sha.sha256_finalize_plain(tcv, tcarry, tn, total))
+            check(f"stream ({route}) finalize at rem {rem_want} vs the one-shot hash", got,
+                  sha.hash_word_columns(w_all[: r0 + tail]))
     lens = SHA_STREAM + (SHA_STREAM_TAILS[-1][0],)
     hasher = StreamingSha256Hasher(n_cols, 8 + sum(lens), DEV)
     r0 = 0
@@ -2246,32 +2390,33 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
         hasher.update(w_all[r0 : r0 + length])
         r0 += length
     check("StreamingSha256Hasher", hasher.finalize(), got)  # the last tail's digests
-    log(f"  sha256 streaming, {n_cols} columns: updates of {list(SHA_STREAM)} words (carries "
-        f"{carries}) equal to the plain update state by state; finalizes at rem "
+    log(f"  sha256 streaming, {n_cols} columns, by each kernel: updates of {list(SHA_STREAM)} "
+        f"words (carries {carries}) equal to the plain update state by state; finalizes at rem "
         f"{[r for _, r in SHA_STREAM_TAILS]} equal to the plain finalize and the one-shot "
         f"hash; StreamingSha256Hasher end to end equal")
 
-    lat_floor = {}
-    for n_leaves, np2 in MERKLE_TREES + ((1, 1), (2, 2), (300, 512), (513, 1024)):
+    for n_leaves, np2 in MERKLE_TREES + SHA_TREE_EDGES:
         leaves = digests(n_leaves)
         got = sha.merkle_tree(leaves, np2)
         want, plain_ms = time_host(torch, lambda: sha.merkle_tree_plain(leaves, np2))
         check(f"merkle tree {n_leaves} -> {np2}", got, want)
-        if (n_leaves, np2) not in MERKLE_TREES:
-            continue
         ms = kb.time_kernel(lambda: sha.merkle_tree(leaves, np2))
         wall = host_ms(torch, lambda: sha.merkle_tree(leaves, np2))
         bound, by = sha_bound_ms(64 * n_leaves + 64 * (2 * np2 - 1), np2 - 1, SHA_PARENT_S)
         depth = np2.bit_length() - 1
-        lat_floor[depth] = depth * lat_p
+        # the floor: depth x the fastest parent the port has (a level may be
+        # built by either); the compact parent's own beside it
+        floor = depth * min(lat_p, lat_t)
         recs[f"merkle {n_leaves}"] = {
             "leaves": n_leaves, "np2": np2, "launches": 1, "ms": ms, "host_ms": wall,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "floor_ms": depth * lat_p,
-            "depth": depth}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "floor_ms": floor,
+            "floor_ms_compact_parent": depth * lat_t,
+            "critical_path_ms": depth * crit_pt, "depth": depth}
         log(f"  sha256 merkle tree of {n_leaves} leaves (padded to 2^{depth}): equal; 1 launch, "
             f"device {ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
-            f"{depth} x a parent's latency = {depth * lat_p:.4f} ms, plain {plain_ms:.1f} ms")
-    log("  sha256 merkle trees of 1, 2, 300 -> 512 and 513 -> 1,024 leaves: equal")
+            f"{depth} x the fastest parent's latency = {floor:.4f} ms (the compact parent's "
+            f"{depth * lat_t:.4f}), critical path {depth * crit_pt:.4f} ms, plain "
+            f"{plain_ms:.1f} ms")
 
     for k, levels in WALKS + ((5, 0), (40, 3)):
         n_sibs = max(1, k * levels // 2)
@@ -2291,10 +2436,12 @@ def sha256_phase(torch, kb, sha, gen, sha_so):
                                  k * levels, SHA_PARENT_S)
         recs[f"walk {k}"] = {"columns": k, "levels": levels, "launches": 1, "ms": ms,
                              "host_ms": wall, "plain_ms": plain_ms, "bound_ms": bound,
-                             "bound_by": by, "floor_ms": levels * lat_p}
+                             "bound_by": by, "floor_ms": levels * lat_p,
+                             "critical_path_ms": levels * crit_pw}
         log(f"  sha256 merkle walk of {k} columns x {levels} levels: equal; 1 launch, device "
             f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
-            f"{levels * lat_p:.4f} ms, plain {plain_ms:.1f} ms")
+            f"{levels * lat_p:.4f} ms, critical path {levels * crit_pw:.4f} ms, plain "
+            f"{plain_ms:.1f} ms")
     log("  sha256 merkle walks of 5 x 0 and 40 x 3: equal")
     recs["max_abs_err"] = errs[0]
     return recs
@@ -2310,7 +2457,7 @@ def check_sha_stages(stages, tag, want, plain_per_compression, b3_stages=None):
     ~4,300).  The same path's BLAKE3 counts are logged beside."""
     limit = max(plain_per_compression, 1000)
     for name, rec in stages.items():
-        got = {k: v for k, v in rec["counters"].items() if k in SHA_KERNELS}
+        got = {k: v for k, v in rec["counters"].items() if k in SHA_KERNELS + SHA_COLS_KERNELS}
         if got != want[name] or any(k in rec["counters"] for k in ("blake3_chunks", *TREES)):
             raise AssertionError(f"{tag} {name}: launches {rec['counters']}, want {want[name]}")
         if rec["cuda_kernels"] >= limit:
@@ -2362,13 +2509,13 @@ def sha256_path_2_28(torch, kb, P, counters, sha, gen, card, plain_per_compressi
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block} ({n_blocks} "
         f"blocks), words kept on the card: {comm.words_dev is not None}; peak device memory "
         f"{peak:.2f} GiB")
-    for name, n in launches.items():
-        if (n > 0) != (name in ligero_kernels(enc.n_cols) | set(SHA_KERNELS)):
-            raise AssertionError(f"sha path 2^28: {name} launched {n} times")
     # commit: an update a row block and the finalize, the tree; verify: the
     # opened columns' hash and the walk
-    check_hash_launches(launches, {"sha256_cols": n_blocks + 2, "sha256_merkle_tree": 1,
-                                   "sha256_merkle_walk": 1}, "sha path 2^28")
+    want_sha = sha_launches_path(n_cols, enc.get_n_col_opens(), n_blocks + 1)
+    for name, n in launches.items():
+        if (n > 0) != (name in ligero_kernels(enc.n_cols) | set(want_sha)):
+            raise AssertionError(f"sha path 2^28: {name} launched {n} times")
+    check_hash_launches(launches, want_sha, "sha path 2^28")
     if comm.words_dev is None:
         raise AssertionError("sha path 2^28: the words were not kept on the card")
     if value != want:
@@ -2405,8 +2552,7 @@ def sha256_path_2_28(torch, kb, P, counters, sha, gen, card, plain_per_compressi
                                    lambda: P.commit_streaming(coeffs, enc, digest=digest), outer,
                                    inner, digest)
     check_sha_stages(rec["stages"], "sha path 2^28",
-                     dict(SHA_LAUNCHES_STAGES, commit={"sha256_cols": n_blocks + 1,
-                                                       "sha256_merkle_tree": 1}),
+                     sha_launches_stages(n_cols, enc.get_n_col_opens(), n_blocks + 1),
                      plain_per_compression)
     torch.cuda.empty_cache()
     warm = []
@@ -2450,10 +2596,11 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
 
     sha._compress = watched
     lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    shape = (lenc.n_cols, lenc.get_n_col_opens())
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "sha_ligero",
-                    ligero_kernels(lenc.n_cols) | set(SHA_KERNELS), P.SHA256,
-                    SHA_LAUNCHES_PATH)
-    check_sha_stages(lig[8], "sha_ligero", SHA_LAUNCHES_STAGES, plain_per_compression,
+                    ligero_kernels(lenc.n_cols) | set(sha_launches_path(*shape)), P.SHA256,
+                    sha_launches_path(*shape))
+    check_sha_stages(lig[8], "sha_ligero", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["ligero"])
     check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0,
                                               "verify": ligero_verify_maps(lenc.n_cols)})
@@ -2461,9 +2608,11 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
     t0 = time.perf_counter()
     enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
     log(f"brakedown 2^23 encoding rebuilt in {time.perf_counter() - t0:.2f} s")
+    shape = (enc.n_cols, enc.get_n_col_opens())
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sha_sdig",
-                     SDIG_KERNELS | set(SHA_KERNELS), P.SHA256, SHA_LAUNCHES_PATH)
-    check_sha_stages(sdig[8], "sha_sdig", SHA_LAUNCHES_STAGES, plain_per_compression,
+                     SDIG_KERNELS | set(sha_launches_path(*shape)), P.SHA256,
+                     sha_launches_path(*shape))
+    check_sha_stages(sdig[8], "sha_sdig", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["sdig"])
     check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0, "verify": 5})
     del enc
@@ -2483,54 +2632,85 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
 
 
 def sha_rows(shas, paths, sha_ptxas, sha_mix):
-    """The kernel table rows of the three SHA-256 kernels, each timed at
-    path (a)'s shape (the Ligero 2^23 commit's columns and tree, its verify's
-    walk), with its launches on each path, the other shapes, the host wall,
-    the dependency floor and ptxas's report beside."""
+    """The kernel table rows of the SHA-256 kernels, each timed at path (a)'s
+    shape (the Ligero 2^23 commit's columns and tree, its verify's opened
+    columns and walk), with its launches on each path, the other shapes, the
+    host wall, the dependency floor and ptxas's report beside.  sha256_cols
+    is two kernels, a row each: the wide one (the commits, the streaming
+    updates) and the few-column one (verify's opened columns)."""
     c23, w189 = shas["2^23 commit"], shas[f"walk {WALKS[0][0]}"]
     m17 = shas[f"merkle {MERKLE_TREES[0][0]}"]
     big = paths["ligero_2_28"]
+    k = B3_OPENED
 
-    def ptx(name):
-        return {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
-                for k, v in sorted(sha_ptxas.items()) if name in k}
+    def ptx(*names):
+        return {n: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                for n, v in sorted(sha_ptxas.items()) if any(k in n for k in names)}
 
-    def row(name, replaces, rec, shape, **extra):
+    def row(name, replaces, rec, shape, kernel, counter=None, **extra):
+        counter = counter or name
         return {"name": name, "route": "cuda", "source": "lcpc_tpu_torch/csrc/sha256_cols.cu",
-                "replaces": replaces, "launches": paths["ligero_2_23"]["launches"][name],
+                "replaces": replaces, "launches": paths["ligero_2_23"]["launches"][counter],
                 "max_abs_err": shas["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None, "equal_to_plain": True,
                 "tolerance": 0, "shape": shape,
-                "launches_paths": {tag: paths[tag]["launches"][name]
+                "launches_paths": {tag: paths[tag]["launches"][counter]
                                    for tag in ("ligero_2_23", "sdig_2_23", "ligero_2_28")},
-                "ptxas": ptx(name.replace("sha256_merkle", "merkle") + "_kernel"),
+                "ptxas": ptx(*kernel),
                 "sass_compression_alu_fma_all": sha_mix["compress_alu_fma_all"],
                 "sass_parent_alu_fma_all": sha_mix["parent_alu_fma_all"], **extra}
 
+    cols_replaces = ("lcpc_tpu/ops/sha256_jax.py:53,90 (_compress, hash_word_columns) and "
+                     "lcpc_tpu/core/streaming.py:408,428,448 (_sha_update_fn, _sha_finalize_fn, "
+                     "StreamingSha256Hasher); XLA-fused, not Pallas")
+    opened = {"ms": c23[f"ms_{k}_columns_few"], "plain_ms": c23[f"plain_ms_{k}_columns"],
+              "bound_ms": c23[f"bound_ms_{k}_columns"], "bound_by": c23[f"bound_by_{k}_columns"]}
     return [
-        row("sha256_cols",
-            "lcpc_tpu/ops/sha256_jax.py:53,90 (_compress, hash_word_columns) and "
-            "lcpc_tpu/core/streaming.py:408,428,448 (_sha_update_fn, _sha_finalize_fn, "
-            "StreamingSha256Hasher); XLA-fused, not Pallas", c23,
+        row("sha256_cols", cols_replaces, c23,
             f"path (a)'s commit columns: {c23['n_cols']} x {c23['n_words']} words, "
-            f"{c23['compressions_a_column']} compressions each, one launch",
-            other_shapes={k: shas[k] for k in ("2^28 column length", "brakedown 2^23 commit")},
+            f"{c23['compressions_a_column']} compressions each, one launch (the wide kernel)",
+            ("sha256_cols_kernel",), counter="sha256_cols_wide",
+            other_shapes={n: shas[n] for n in ("2^28 column length", "brakedown 2^23 commit")},
             ms_2_28_commit=big["cols_ms"], bound_ms_2_28_commit=big["cols_bound_ms"],
             ms_2_28_block_update=big["update_ms"],
             bound_ms_2_28_block_update=big["update_bound_ms"],
-            compression_latency_ms=shas["compression_latency_ms"]),
+            compression_latency_ms=shas["compression_latency_ms"],
+            sass_block_loop_alu_fma_all=sha_mix["cols_loop_alu_fma_all"]),
+        row("sha256_cols_few", cols_replaces, opened,
+                 f"path (a)'s verify columns: {k} x {c23['n_words']} words, "
+                 f"{c23['compressions_a_column']} compressions each, one launch (the "
+                 f"few-column kernel; routed to it up to FEW_COLS_MAX columns)",
+                 ("sha256_few_kernel",),
+                 opened_2_28={
+                     f"{n}{r}": shas["2^28 column length"][f"{n}_{k}_columns{r}"]
+                     for n, r in (("ms", "_few"), ("ms", "_wide"), ("bound_ms", ""),
+                                  ("floor_ms", ""), ("critical_path_ms", ""), ("issue_ms", ""))},
+                 opened_brakedown={
+                     f"{n}{r}": shas["brakedown 2^23 commit"][f"{n}_6593_columns{r}"]
+                     for n, r in (("ms", "_few"), ("ms", "_wide"), ("ms", ""), ("route", ""),
+                                  ("bound_ms", ""), ("floor_ms", ""), ("plain_ms", ""),
+                                  ("critical_path_ms", ""), ("issue_ms", ""))},
+                 wide_kernel_ms=c23[f"ms_{k}_columns_wide"],
+                 floor_ms=c23[f"floor_ms_{k}_columns"],
+                 critical_path_ms=c23[f"critical_path_ms_{k}_columns"],
+                 issue_ms=c23[f"issue_ms_{k}_columns"],
+                 op_latency_cycles_ns=shas["op_latency_cycles_ns"],
+                 sass_round_loop_alu_fma_all=sha_mix["few_rounds_alu_fma_all"]),
         row("sha256_merkle_tree",
             "lcpc_tpu/ops/sha256_jax.py:127,144 (merkle_parent, merkle_layer) over the layer "
             "loops of lcpc_tpu/core/protocol.py:326-333, :376-383 and core/streaming.py:719-725; "
             "XLA-fused, not Pallas", m17, "path (a)'s tree: 2^17 leaves",
+            ("merkle_tree_kernel",),
             host_ms=m17["host_ms"], floor_ms=m17["floor_ms"],
-            other_shapes={k: v for k, v in shas.items() if k.startswith("merkle ")},
-            parent_latency_ms=shas["parent_latency_ms"]),
+            critical_path_ms=m17["critical_path_ms"],
+            other_shapes={n: v for n, v in shas.items() if n.startswith("merkle ")},
+            parent_latency_ms=shas["tree_parent_latency_ms"]),
         row("sha256_merkle_walk",
             "lcpc_tpu/core/protocol.py:787-793 (_verify_core_fn's parent loop); XLA-fused, "
             "not Pallas", w189, "path (a)'s verify walk: 189 columns x 17 levels",
-            host_ms=w189["host_ms"], floor_ms=w189["floor_ms"],
+            ("merkle_walk_kernel",), host_ms=w189["host_ms"], floor_ms=w189["floor_ms"],
+            critical_path_ms=w189["critical_path_ms"],
             brakedown_2_23=shas[f"walk {WALKS[1][0]}"],
             parent_latency_ms=shas["parent_latency_ms"]),
     ]
@@ -2573,6 +2753,7 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf):
             **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
             "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
             "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
+            **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
             "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk}
 
 
@@ -2990,10 +3171,11 @@ def main() -> int:
         log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
-    sha_ptxas = {k: v for name in ("sha256_cols_kernel", "merkle_tree_kernel",
+    sha_ptxas = {k: v for name in ("sha256_cols_kernel", "sha256_few_kernel", "merkle_tree_kernel",
                                    "merkle_walk_kernel")
                  for k, v in kb.ptxas_entries(cuda_build.build_logs["sha256_cols"], name).items()}
-    if len(sha_ptxas) != 6:  # the column hash 2 word types x 2 modes, the tree, the walk
+    # the column hash's two kernels, 2 word types x 2 modes each, the tree, the walk
+    if len(sha_ptxas) != 10:
         raise AssertionError(f"sha256 kernels not reported by ptxas: {sha_ptxas}")
     for name, (regs, st, ld) in sorted(sha_ptxas.items()):
         log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
@@ -3225,7 +3407,8 @@ def main() -> int:
 
     # 13. the SHA-256 kernels against their plain versions
     with Phase("13 sha256 vs plain"):
-        shas = sha256_phase(torch, kb, sha, gen, sha_so)
+        shas = sha256_phase(torch, kb, sha, gen, sha_so, cuda_build.so_path("sha256_cols"),
+                            sha_mix)
         torch.cuda.empty_cache()
 
     # 14. the slice's paths with SHA-256: Ligero and Brakedown 2^23, Ligero

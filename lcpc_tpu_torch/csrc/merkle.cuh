@@ -4,7 +4,9 @@
 //
 // A digest is 8 u32 words (LE words of the digest bytes), and Hash::parent(cv,
 // l, r) writes the parent node of l || r into cv (cv may alias neither input
-// it has not read).  Leaves and nodes in device memory are int64 holding u32.
+// it has not read); a digest may give the tree and the walk parents of
+// different code (sha256_cols.cu: Sha256TreeMerkle, Sha256Merkle).  Leaves
+// and nodes in device memory are int64 holding u32.
 //
 //   merkle_tree_kernel  the whole Merkle array.  A block of 256 threads builds
 //                       the subtree of 1,024 leaves, level 1 from the leaves
@@ -16,8 +18,10 @@
 //                       root, the sibling picked by the deduplicated index map
 //                       and its side by the column's index bits.
 //
-// What bounds them is their depth, not their work: a parent's dependency
-// chain times the tree's levels (a 2^17-leaf tree is 17 parents deep).
+// What bounds them: the walk by its depth, a parent's latency a level; the
+// tree by its depth too above the subtree roots (the last block's levels,
+// one parent's latency each), and in the subtrees by the parents'
+// instructions over the warps a level keeps busy, fewer at each level up.
 
 #pragma once
 

@@ -13,45 +13,85 @@
 //     core/streaming.py:719-725) and the verifier's parent loop
 //     (core/protocol.py:787-793).
 //
-//   sha256_cols       one thread per column, its chaining value in registers
+//   sha256_cols       two kernels behind one entry, the caller picking one by
+//                     the column count (ops/sha256.py: cols_route):
+//     wide            one thread per column, its chaining value in registers
 //                     and the message schedule a rolling 16-word window (a
-//                     64-word array would spill to local memory).  Stream
-//                     word i of a column comes from the carry when i <
-//                     carry_len (zeros when no carry is given: the in-memory
-//                     hash's 8-word prefix), else from the words;
-//                     consecutive threads take consecutive columns, so each
-//                     word load is one coalesced row read across the warp.
-//                     The LE words are byte-swapped at load, SHA-256 reading
-//                     big-endian words.  An update hashes the stream's whole
-//                     64-byte blocks and writes the chaining value and the
-//                     rest (< 16 words) back; a finish appends the 0x80000000
-//                     word, zeros and the 64-bit bit length (one final block
-//                     when rem + 3 <= 16, else two) and writes the digest as
-//                     LE words of its big-endian bytes.
+//                     64-word array would spill to local memory), consecutive
+//                     threads on consecutive columns, so each word load is
+//                     one coalesced row read across the warp: the commit's
+//                     and the streaming updates' 10^5 - 10^6 columns, where
+//                     the card's ALU pipes are the limit;
+//     few             32 columns a block of three warps: the round warp runs
+//                     the compressions, one lane a column, and two schedule
+//                     warps, one for the even 64-byte blocks and one for the
+//                     odd, load their blocks' words, byte-swap them and write
+//                     W[t] + K[t] for t = 0 .. 63 into a two-block ring in
+//                     shared memory, the warps handing blocks over by named
+//                     barriers: verify's opened columns (189, 6,593),
+//                     where one column's chain of compressions is the
+//                     limit and the schedule would lengthen each link.
+//                     Both take the same stream: word i of a column comes
+//                     from the carry when i < carry_len (zeros when no carry
+//                     is given: the in-memory hash's 8-word prefix), else
+//                     from the words; the LE words are byte-swapped at load,
+//                     SHA-256 reading big-endian words.  An update hashes
+//                     the stream's whole 64-byte blocks and writes the
+//                     chaining value and the rest (< 16 words) back; a finish
+//                     appends the 0x80000000 word, zeros and the 64-bit bit
+//                     length (one final block when rem + 3 <= 16, else two)
+//                     and writes the digest as LE words of its big-endian
+//                     bytes.
 //   merkle_tree,      merkle.cuh's kernels over SHA-256's parent node,
 //   merkle_walk       sha256(left digest || right digest): two compressions,
 //                     the second over the constant padding block (0x80000000,
 //                     zeros, length 512), whose schedule plus K is the
-//                     constant table kPadWK: 64 rounds and no schedule.
+//                     constant table kPadWK: 64 rounds and no schedule.  The
+//                     tree takes the parent in 16-round trips
+//                     (Sha256TreeMerkle), the walk unrolled (Sha256Merkle).
 //
-// What bounds them on an H100 (SXM, 700 W): sha256_cols, the ALU pipe.  A
-// compression is 48 schedule steps of ~10 instructions (two funnel-shift
-// rotates and a shift per sigma, a three-input xor, two three-input adds)
-// and 64 rounds of ~14 (six rotates, two three-input xors, the choose and
-// the majority as one LOP3 each, four adds): ptxas leaves 1,237 on the ALU
-// pipe and 118 on the FMA pipe, twice a BLAKE3 compression, 74 ps at
-// 16.75e12 a second against 19 ps to read its 64 bytes at 3.35 TB/s.  The
-// trees do little work and are bound by their depth: a parent is two
-// compressions in a chain.
+// Three round bodies, each kept for the caller it was measured faster for
+// (on an H100, 700 W):
+//   rounds             the column kernels (wide and few): its sums a round
+//                      ahead as IMADs take the adds off the ALU pipe, the
+//                      wide kernel's limit, and leave a round chain three
+//                      instructions deep in the SASS (SHF, LOP3, IADD3);
+//   parent_compress    the parents, whose schedule is the ALU form
+//     <kCompact=false> (schedule_step<false>: with IMADs the walks were 2-3%
+//                      slower), unrolled: the walk, one warp a column chain;
+//     <kCompact=true>  in 16-round trips: the tree, whose many warps would
+//                      otherwise wait on instruction fetch (2^17 leaves
+//                      0.0596 against 0.0743 ms unrolled).
+//
+// What bounds them on an H100 (SXM, 700 W).  The wide kernel: the ALU pipe.
+// A compression is 48 schedule steps (two funnel-shift rotates and a shift
+// per sigma, a three-input xor each, the adds as IMADs) and 64 rounds of 12
+// ALU instructions (six funnel shifts, four LOP3, two IADD3) and two IMADs:
+// ~1,130 on the ALU pipe and ~350 on the FMA pipe, 67 ps at 16.75e12 a
+// second against 19 ps to read its 64 bytes at 3.35 TB/s.  The few-column
+// kernel and the trees' narrow levels: one warp's issue and the round's
+// dependency chain.  The ALU pipe takes 16 lanes of an SM's quarter a
+// clock, so a warp issues an ALU instruction about every 2.2 clocks (eight
+// independent chains in scripts/sha256_chain.cu), and a round of one column
+// costs that times its ALU instructions however short its chain (three
+// dependent instructions in the SASS, ~12.5 clocks): the round warp, freed
+// of the schedule, runs at ~90% of that issue bound.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "merkle.cuh"
 
+
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;    // the wide kernel's block: a thread a column
+constexpr int kFewCols = 32;     // the few-column kernel's block: 32 columns, a lane each,
+constexpr int kRing = 2;         // in a round warp and kRing schedule warps, one a ring slot
+constexpr int kFewThreads = 32 * (1 + kRing);
+constexpr int kBarThreads = 64;  // a slot's barriers: the round warp and the slot's schedule warp
+constexpr int kBarFull = 1;      // named barriers kBarFull + slot, kBarEmpty + slot (0 is
+constexpr int kBarEmpty = 3;     // __syncthreads')
 
 __constant__ uint32_t kH0[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
                                 0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
@@ -84,38 +124,66 @@ __constant__ uint32_t kPadWK[64] = {
     0x6ed41a95u, 0x6d437890u, 0xc39c91f2u, 0x9eccabbdu, 0xb5c9a0e6u, 0x532fb63cu,
     0xd2c741c6u, 0x07237ea3u, 0xa4954b68u, 0x4c191d76u};
 
+// 1, in constant memory so that the compiler cannot fold it: x * kOne + y is
+// an add as IMAD, on the FMA pipe, where ptxas would put some of its adds on
+// the ALU pipe with the rotates and the logic
+__constant__ uint32_t kOne = 1;
+
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
 __device__ __forceinline__ uint32_t bswap(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
+__device__ __forceinline__ uint32_t add_fma(uint32_t x, uint32_t y) { return x * kOne + y; }
 
-// h <- compress(h, w), w the block's 16 big-endian message words (the
-// schedule overwrites them in place); without kSchedule the block is the
-// constant padding block and w is not read.
-template <bool kSchedule>
-__device__ __forceinline__ void compress(uint32_t (&h)[8], uint32_t (&w)[16]) {
+// W[t] from the rolling window w, where w[t & 15] holds W[t - 16] until it
+// is replaced by W[t] (t >= 16); with kFma its adds are IMADs
+template <bool kFma>
+__device__ __forceinline__ void schedule_step(uint32_t (&w)[16], int t) {
+  const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
+  const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+  const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+  if constexpr (kFma)
+    w[t & 15] = add_fma(add_fma(add_fma(w[t & 15], w[(t - 7) & 15]), s0), s1);
+  else
+    w[t & 15] += s0 + w[(t - 7) & 15] + s1;
+}
+
+// h <- h + the 64 rounds from h; wk(t) returns W[t] + K[t] and is called
+// once for each t, in order.  The column kernels' round, scheduled for their
+// limit, the ALU pipe's issue: h + W + K and d + h + W + K are summed a
+// round ahead (round t + 1's h is round t's g, its d round t's c) as IMADs
+// on the FMA pipe, so a round has 12 ALU instructions (six funnel shifts,
+// four LOP3, two IADD3: the next e is one add of them to Sigma1(e) and Ch(e,
+// f, g), the next a adds Sigma0(a) + Maj(a, b, c) - d to it, T1 + T2).  In
+// the SASS both the e and the a chain are three deep a round (a funnel
+// shift, a LOP3, an IADD3: ptxas folds the a add into one IADD3), against
+// four in parent_compress.  On an H100 the wide kernel 4% and the
+// few-column kernel 4% faster than the same round with ptxas's adds; a lone
+// warp's Merkle parent was faster with parent_compress (2.59 against 2.66
+// us), whose adds take three inputs.
+template <class WK>
+__device__ __forceinline__ void rounds(uint32_t (&h)[8], WK&& wk) {
   uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], k = h[7];
+  uint32_t hk = k + wk(0);
+  uint32_t dhk = d + hk;
 #pragma unroll
   for (int t = 0; t < 64; ++t) {
-    uint32_t wk;
-    if constexpr (kSchedule) {
-      if (t >= 16) {  // w[t & 15] holds W[t - 16] until it is replaced by W[t]
-        const uint32_t w15 = w[(t - 15) & 15], w2 = w[(t - 2) & 15];
-        w[t & 15] += (rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3)) + w[(t - 7) & 15] +
-                     (rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10));
-      }
-      wk = w[t & 15] + kK[t];
-    } else {
-      wk = kPadWK[t];
+    const uint32_t s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+    const uint32_t ch = (e & f) ^ (~e & g);
+    const uint32_t s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+    const uint32_t mj = (a & b) ^ (a & c) ^ (b & c);
+    const uint32_t e1 = dhk + s1 + ch;
+    const uint32_t a1 = e1 + (s0 + mj - d);
+    if (t < 63) {
+      hk = add_fma(g, wk(t + 1));
+      dhk = add_fma(c, hk);
     }
-    const uint32_t t1 = k + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g)) + wk;
-    const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c));
     k = g;
     g = f;
     f = e;
-    e = d + t1;
+    e = e1;
     d = c;
     c = b;
     b = a;
-    a = t1 + t2;
+    a = a1;
   }
   h[0] += a;
   h[1] += b;
@@ -127,9 +195,86 @@ __device__ __forceinline__ void compress(uint32_t (&h)[8], uint32_t (&w)[16]) {
   h[7] += k;
 }
 
-struct Sha256Merkle {  // a Merkle node: sha256(left digest bytes || right digest bytes)
-  static __device__ __forceinline__ void parent(uint32_t (&cv)[8], const uint32_t (&l)[8],
-                                                const uint32_t (&r)[8]) {
+// h <- compress(h, w), w the block's 16 big-endian message words (the
+// schedule overwrites them in place): the wide column kernel's.
+__device__ __forceinline__ void compress(uint32_t (&h)[8], uint32_t (&w)[16]) {
+  rounds(h, [&](int t) -> uint32_t {
+    if (t >= 16) schedule_step<true>(w, t);
+    return w[t & 15] + kK[t];
+  });
+}
+
+// h <- compress(h, w) for a Merkle parent: without kSchedule the block is
+// the constant padding block (kPadWK) and w is not read.  The round is
+// T1 = h + Sigma1(e) + Ch(e, f, g) + W + K, e = d + T1, a = T1 + Sigma0(a) +
+// Maj(a, b, c).  Unrolled (the walk's: one warp's chain) or, with kCompact,
+// as trips of 16 rounds (the state's roles come back to the same registers
+// every 8 rounds, the window's every 16; the schedule of W[t + 16] beside
+// round t): ~0.4 of the straight code, for the tree, whose many warps, each
+// at its own point of a ~40 KB unrolled parent, otherwise wait on
+// instruction fetch (on an H100 the tree 1-19% faster compact at 2^10 to
+// 2^19 leaves; the 6,593-column walk 12% faster compact, the 189-column
+// walk 14% slower).
+template <bool kSchedule, bool kCompact>
+__device__ __forceinline__ void parent_compress(uint32_t (&h)[8], uint32_t (&w)[16]) {
+  uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], k = h[7];
+  auto round = [&](uint32_t wk) {
+    const uint32_t t1 = k + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) + ((e & f) ^ (~e & g)) + wk;
+    const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) + ((a & b) ^ (a & c) ^ (b & c));
+    k = g;
+    g = f;
+    f = e;
+    e = d + t1;
+    d = c;
+    c = b;
+    b = a;
+    a = t1 + t2;
+  };
+  if constexpr (!kCompact) {
+#pragma unroll
+    for (int t = 0; t < 64; ++t) {
+      if constexpr (kSchedule) {
+        if (t >= 16) schedule_step<false>(w, t);
+        round(w[t & 15] + kK[t]);
+      } else {
+        round(kPadWK[t]);
+      }
+    }
+  } else if constexpr (kSchedule) {
+#pragma unroll 1
+    for (int i = 0; i < 48; i += 16) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        round(w[j] + kK[i + j]);
+        schedule_step<false>(w, j + 16);  // W[i + j + 16] into w[j]
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) round(w[j] + kK[48 + j]);
+  } else {
+#pragma unroll 1
+    for (int i = 0; i < 64; i += 16) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) round(kPadWK[i + j]);
+    }
+  }
+  h[0] += a;
+  h[1] += b;
+  h[2] += c;
+  h[3] += d;
+  h[4] += e;
+  h[5] += f;
+  h[6] += g;
+  h[7] += k;
+}
+
+// A Merkle node: sha256(left digest bytes || right digest bytes), a
+// scheduled compression and one over the padding block: merkle.cuh's walk
+// takes `parent`, unrolled.
+struct Sha256Merkle {
+  template <bool kCompact>
+  static __device__ __forceinline__ void node(uint32_t (&cv)[8], const uint32_t (&l)[8],
+                                              const uint32_t (&r)[8]) {
     uint32_t m[16], h[8];
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
@@ -137,10 +282,22 @@ struct Sha256Merkle {  // a Merkle node: sha256(left digest bytes || right diges
       m[8 + w] = bswap(r[w]);
       h[w] = kH0[w];
     }
-    compress<true>(h, m);
-    compress<false>(h, m);
+    parent_compress<true, kCompact>(h, m);
+    parent_compress<false, kCompact>(h, m);
 #pragma unroll
     for (int w = 0; w < 8; ++w) cv[w] = bswap(h[w]);
+  }
+  static __device__ __forceinline__ void parent(uint32_t (&cv)[8], const uint32_t (&l)[8],
+                                                const uint32_t (&r)[8]) {
+    node<false>(cv, l, r);
+  }
+};
+
+// The same node for merkle.cuh's tree, compact.
+struct Sha256TreeMerkle {
+  static __device__ __forceinline__ void parent(uint32_t (&cv)[8], const uint32_t (&l)[8],
+                                                const uint32_t (&r)[8]) {
+    Sha256Merkle::node<true>(cv, l, r);
   }
 };
 
@@ -172,7 +329,7 @@ sha256_cols_kernel(const Word* __restrict__ words, long long ld, long long n_wor
     uint32_t m[16];
 #pragma unroll
     for (int t = 0; t < 16; ++t) m[t] = bswap(word(t));
-    compress<true>(h, m);
+    compress(h, m);
     b = 1;
   }
   for (; b < n_full; ++b) {  // words only: a load and a byte swap a word
@@ -180,7 +337,7 @@ sha256_cols_kernel(const Word* __restrict__ words, long long ld, long long n_wor
     uint32_t m[16];
 #pragma unroll
     for (int t = 0; t < 16; ++t) m[t] = bswap((uint32_t)p[t * ld]);
-    compress<true>(h, m);
+    compress(h, m);
   }
   const int rem = (int)(total - 16 * n_full);
   const long long at = 16 * n_full;
@@ -200,7 +357,7 @@ sha256_cols_kernel(const Word* __restrict__ words, long long ld, long long n_wor
         m[14] = (uint32_t)(bits >> 32);
         m[15] = (uint32_t)bits;
       }
-      compress<true>(h, m);
+      compress(h, m);
     }
 #pragma unroll
     for (int w = 0; w < 8; ++w) digest[(size_t)w * n_cols + c] = (long long)bswap(h[w]);
@@ -214,12 +371,140 @@ sha256_cols_kernel(const Word* __restrict__ words, long long ld, long long n_wor
   }
 }
 
+// a named barrier of the few-column kernel's round warp and one schedule
+// warp: wait for the other warp's arrival, or arrive without waiting
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kBarThreads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kBarThreads) : "memory");
+}
+
+// sha256_cols_kernel's function over 32 columns a block, the message
+// schedule off the round chain.  Schedule warp s builds the blocks b = s
+// (mod 2): their 16 big-endian words (loaded one of its blocks ahead, so a
+// load has two blocks' rounds to arrive), the schedule, and W[t] + K[t]
+// into ring slot s, four rounds a 16-byte word, lane-minor (a warp's
+// 16-byte loads and stores touch every bank once a quarter-warp); it waits
+// for the slot's previous block to be consumed (kBarEmpty + s) and signals
+// the block (kBarFull + s).  One schedule warp alone was the limit (its
+// loads, one block ahead, stalled its register copies).  The round warp
+// takes its block's 64 words with 16 loads and runs `rounds` alone: about
+// 12 ALU instructions a round, against ~20 with the schedule inline.  Lanes
+// past n_cols hash a copy of the last column and store nothing: every lane
+// takes part in the barriers.
+template <typename Word, bool kFinish>
+__global__ void __launch_bounds__(kFewThreads)
+sha256_few_kernel(const Word* __restrict__ words, long long ld, long long n_words, int n_cols,
+                  int32_t* carry, int carry_len, int32_t* cv, unsigned long long bits,
+                  long long* __restrict__ digest) {
+  __shared__ uint4 ring[kRing][16][kFewCols];
+  const int lane = threadIdx.x % kFewCols;
+  const int c_at = blockIdx.x * kFewCols + lane;
+  const bool live = c_at < n_cols;
+  const int c = live ? c_at : n_cols - 1;
+  const long long total = carry_len + n_words;
+  const long long n_full = total >> 4;
+  const int rem = (int)(total - 16 * n_full);
+  const long long n_blocks = n_full + (kFinish ? (rem + 3 <= 16 ? 1 : 2) : 0);
+  if (threadIdx.x < kFewCols) {  // the round warp
+    uint32_t h[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w)
+      h[w] = cv != nullptr ? (uint32_t)cv[(size_t)w * n_cols + c] : kH0[w];
+    for (long long b = 0; b < n_blocks; ++b) {
+      const int s = (int)(b % kRing);
+      bar_sync(kBarFull + s);
+      uint4 q[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) q[i] = ring[s][i][lane];
+      rounds(h, [&](int t) -> uint32_t {
+        const uint4& v = q[t >> 2];
+        return (t & 3) == 0 ? v.x : (t & 3) == 1 ? v.y : (t & 3) == 2 ? v.z : v.w;
+      });
+      if (b + kRing < n_blocks) bar_arrive(kBarEmpty + s);
+    }
+    if (!live) return;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      if constexpr (kFinish)
+        digest[(size_t)w * n_cols + c] = (long long)bswap(h[w]);
+      else
+        cv[(size_t)w * n_cols + c] = (int32_t)h[w];
+    }
+    return;
+  }
+  // schedule warp s, blocks s, s + 2, ...
+  const int s = threadIdx.x / kFewCols - 1;
+  auto word = [&](long long i) -> uint32_t {  // stream word i, LE as stored
+    if (i < carry_len) return carry != nullptr ? (uint32_t)carry[i * n_cols + c] : 0u;
+    return (uint32_t)words[(i - carry_len) * ld + c];
+  };
+  const long long at = 16 * n_full;
+  auto block = [&](long long b, uint32_t (&m)[16]) {  // block b's big-endian words
+    if (b < n_full && (b > 0 || carry_len == 0)) {  // words only
+      const Word* p = words + (16 * b - carry_len) * ld + c;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) m[t] = bswap((uint32_t)p[t * ld]);
+    } else if (b < n_full) {  // the one block that holds carry words
+#pragma unroll
+      for (int t = 0; t < 16; ++t) m[t] = bswap(word(t));
+    } else {  // a finish's padding: the rest, 0x80000000, zeros, the bit length
+      const int p0 = 16 * (int)(b - n_full);
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {
+        const int p = p0 + t;
+        m[t] = p < rem ? bswap(word(at + p)) : (p == rem ? 0x80000000u : 0u);
+      }
+      if (b == n_blocks - 1) {
+        m[14] = (uint32_t)(bits >> 32);
+        m[15] = (uint32_t)bits;
+      }
+    }
+  };
+  uint32_t next[16];
+  if (s < n_blocks) block(s, next);
+  for (long long b = s; b < n_blocks; b += kRing) {
+    uint32_t w[16];
+#pragma unroll
+    for (int t = 0; t < 16; ++t) w[t] = next[t];
+    if (b + kRing < n_blocks) block(b + kRing, next);
+    if (b >= kRing) bar_sync(kBarEmpty + s);
+    uint32_t v[4];
+#pragma unroll
+    for (int t = 0; t < 64; ++t) {
+      if (t >= 16) schedule_step<true>(w, t);
+      v[t & 3] = w[t & 15] + kK[t];
+      if ((t & 3) == 3) ring[s][t >> 2][lane] = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    bar_arrive(kBarFull + s);
+  }
+  if constexpr (!kFinish) {
+    if (live && s == 0) {
+#pragma unroll
+      for (int t = 0; t < 15; ++t) {
+        if (t < rem) carry[(size_t)t * n_cols + c] = (int32_t)word(at + t);
+      }
+    }
+  }
+}
+
 template <typename Word>
 void launch_cols(const void* words, long long ld, long long n_words, int n_cols, int32_t* carry,
                  int carry_len, int32_t* cv, int finish, unsigned long long bits,
-                 long long* digest, cudaStream_t s) {
-  const unsigned blocks = (n_cols + kThreads - 1) / kThreads;
+                 long long* digest, int few, cudaStream_t s) {
   const Word* w = static_cast<const Word*>(words);
+  if (few) {
+    const unsigned blocks = (n_cols + kFewCols - 1) / kFewCols;
+    if (finish)
+      sha256_few_kernel<Word, true><<<blocks, kFewThreads, 0, s>>>(w, ld, n_words, n_cols, carry,
+                                                                   carry_len, cv, bits, digest);
+    else
+      sha256_few_kernel<Word, false><<<blocks, kFewThreads, 0, s>>>(
+          w, ld, n_words, n_cols, carry, carry_len, cv, bits, digest);
+    return;
+  }
+  const unsigned blocks = (n_cols + kThreads - 1) / kThreads;
   if (finish)
     sha256_cols_kernel<Word, true><<<blocks, kThreads, 0, s>>>(w, ld, n_words, n_cols, carry,
                                                                carry_len, cv, bits, digest);
@@ -241,11 +526,12 @@ void launch_cols(const void* words, long long ld, long long n_words, int n_cols,
 //   finish = 1: end the message of total_words words (all of it, earlier
 //     updates' words and the prefix included) with its padding and write the
 //     (8, n_cols) int64 digests, LE words of the big-endian digest bytes.
+// few = 1 launches the few-column kernel, 0 the wide one (the same result).
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int lcpc_sha256_cols(const void* words, int words_i64, long long ld,
                                 long long n_words, int n_cols, int32_t* carry, int carry_len,
                                 int32_t* cv, int finish, long long total_words,
-                                long long* digest, int device, void* stream) {
+                                long long* digest, int few, int device, void* stream) {
   if (n_cols < 1 || n_words < 0 || carry_len < 0 || carry_len > 16 ||
       (n_words > 0 && (words == nullptr || (n_words > 1 && ld < n_cols))) ||
       (!finish && (cv == nullptr || carry == nullptr)) ||
@@ -258,20 +544,20 @@ extern "C" int lcpc_sha256_cols(const void* words, int words_i64, long long ld,
   cudaStream_t s = (cudaStream_t)stream;
   if (words_i64)
     launch_cols<long long>(words, ld, n_words, n_cols, carry, carry_len, cv, finish, bits,
-                           digest, s);
+                           digest, few, s);
   else
     launch_cols<int32_t>(words, ld, n_words, n_cols, carry, carry_len, cv, finish, bits, digest,
-                         s);
+                         few, s);
   return (int)cudaGetLastError();
 }
 
 // The whole Merkle tree over leaves (8, n_cols) int64 (word stride ld,
-// column stride 1): merkle.cuh's launch_tree with SHA-256's parent.
+// column stride 1): merkle.cuh's launch_tree with SHA-256's compact parent.
 extern "C" int lcpc_sha256_merkle_tree(const long long* leaves, long long ld, int n_cols,
                                        long long np2, long long* out, unsigned* counter,
                                        int device, void* stream) {
-  return merkle::launch_tree<Sha256Merkle>(leaves, ld, n_cols, np2, out, counter, device,
-                                           stream);
+  return merkle::launch_tree<Sha256TreeMerkle>(leaves, ld, n_cols, np2, out, counter, device,
+                                               stream);
 }
 
 // The Merkle path walk of k opened columns over `levels` levels:

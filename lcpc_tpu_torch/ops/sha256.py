@@ -9,9 +9,11 @@ update and finalize.
   its `.launches`: `sha256_cols` hashes every column's stream (an optional
   carry of fewer than 16 words, then the words) from a chaining value, and
   either keeps the state (a streaming update) or ends the message (the
-  digests); `merkle_tree` builds the whole Merkle array over the column
-  digests; `merkle_walk` walks the verifier's opened columns up to the
-  root.  `hash_word_columns` is the digest entry built on `sha256_cols`.
+  digests), by one of two kernels that `cols_route` picks by the column
+  count (each launch also counted in COLS_KERNELS[its name].launches);
+  `merkle_tree` builds the whole Merkle array over the column digests;
+  `merkle_walk` walks the verifier's opened columns up to the root.
+  `hash_word_columns` is the digest entry built on `sha256_cols`.
   On CUDA tensors they launch the kernel or raise; on CPU tensors they run
   the plain PyTorch versions `sha256_update_plain` / `sha256_finalize_plain`,
   `hash_word_columns_plain`, `merkle_tree_plain` and `merkle_walk_plain`.
@@ -34,6 +36,7 @@ import torch
 
 from ..utils import cuda_build
 from . import merkle
+from .mont_dot import LaunchCount
 from .blake3 import (_check_launch, _check_words, _launch_args, _plain_here, _tree_counter,
                      _u32)
 
@@ -60,6 +63,12 @@ PREFIX_WORDS = 8  # the column hash's 32 zero bytes
 BLOCK_WORDS = 16
 _MASK = 0xFFFFFFFF
 _NAME = "sha256_cols"
+# sha256_cols's kernels: "few" (32 columns a block, the message schedule in
+# warps of their own) up to FEW_COLS_MAX columns, "wide" (a thread a column,
+# the schedule inline) past it: the crossover measured on an H100
+# (scripts/time_sha256.py's sweep of both kernels: "few" ahead at 8,192
+# columns of 288 and of 2,048 words, behind at 10,240 of 288)
+FEW_COLS_MAX = 8_192
 
 
 def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -211,9 +220,20 @@ def merkle_walk_plain(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Te
 # ---------------------------------------------------------------------------
 
 
+COLS_KERNELS = {"few": LaunchCount(), "wide": LaunchCount()}
+
+
+def cols_route(n_cols: int) -> str:
+    """The kernel sha256_cols launches over n_cols columns: "few" (a
+    column's chain of compressions is the limit; the round warp runs them
+    with the schedule done beside it) up to FEW_COLS_MAX, else "wide" (the
+    card's integer pipes are the limit)."""
+    return "few" if n_cols <= FEW_COLS_MAX else "wide"
+
+
 def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lcpc_sha256_cols.argtypes = [p, i, ll, ll, i, p, i, p, i, ll, p, i, p]
+    lib.lcpc_sha256_cols.argtypes = [p, i, ll, ll, i, p, i, p, i, ll, p, i, i, p]
     lib.lcpc_sha256_merkle_tree.argtypes = [p, ll, i, ll, p, p, i, p]
     lib.lcpc_sha256_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, i, p]
     for fn in (lib.lcpc_sha256_cols, lib.lcpc_sha256_merkle_tree, lib.lcpc_sha256_merkle_walk):
@@ -221,7 +241,7 @@ def _bind(lib) -> None:
 
 
 def sha256_cols(words: torch.Tensor, *, cv=None, carry=None, carry_len: int = PREFIX_WORDS,
-                total_words: "int | None" = None):
+                total_words: "int | None" = None, _route: "str | None" = None):
     """SHA-256 over every column's stream: carry[:carry_len] ((16, C) int32,
     zeros when carry is None: the 8-word prefix), then words (L, C), u32
     values as int32 storage or int64; the state is cv ((8, C) int32, the
@@ -234,9 +254,11 @@ def sha256_cols(words: torch.Tensor, *, cv=None, carry=None, carry_len: int = PR
     total_words words (the prefix and every earlier update's words
     included) with its padding and returns the (8, C) int64 digests.
 
-    CUDA tensors launch csrc/sha256_cols.cu's sha256_cols once (counted in
-    sha256_cols.launches) or raise; CPU tensors run sha256_update_plain and
-    sha256_finalize_plain."""
+    CUDA tensors launch one of csrc/sha256_cols.cu's two kernels once, the
+    one `cols_route` picks (`_route` forces one, for tests and
+    chip_smoke.py; counted in sha256_cols.launches and in
+    COLS_KERNELS[kernel].launches), or raise; CPU tensors run
+    sha256_update_plain and sha256_finalize_plain."""
     finish = total_words is not None
     _check_words("sha256_cols words", words, (torch.int32, torch.int64))
     if words.dim() != 2:
@@ -249,10 +271,12 @@ def sha256_cols(words: torch.Tensor, *, cv=None, carry=None, carry_len: int = PR
                 raise ValueError(f"sha256_cols: {name} must be contiguous ({rows}, {n_cols}), "
                                  f"got {tuple(t.shape)}")
     if (not 0 <= carry_len <= BLOCK_WORDS or (not finish and (cv is None or carry is None))
-            or (finish and total_words < carry_len + words.shape[0])):
+            or (finish and total_words < carry_len + words.shape[0])
+            or _route not in (None, *COLS_KERNELS)):
         raise ValueError(f"sha256_cols: carry_len 0 .. 16, an update needs cv and carry, a "
-                         f"finish total_words >= carry_len + L; got words {tuple(words.shape)}, "
-                         f"carry_len {carry_len}, total_words {total_words}")
+                         f"finish total_words >= carry_len + L, a kernel of {list(COLS_KERNELS)}; "
+                         f"got words {tuple(words.shape)}, carry_len {carry_len}, total_words "
+                         f"{total_words}, _route {_route}")
     if _plain_here("sha256_cols", words, cv, carry):
         h, new_carry, rem = sha256_update_plain(
             _h0(n_cols, words.device) if cv is None else cv, carry, carry_len, words)
@@ -267,14 +291,16 @@ def sha256_cols(words: torch.Tensor, *, cv=None, carry=None, carry_len: int = PR
         return out if finish else rem
     if words.stride(1) != 1 or (words.shape[0] > 1 and words.stride(0) < n_cols):
         words = words.contiguous()
+    kernel = cols_route(n_cols) if _route is None else _route
     lib = cuda_build.load(_NAME, _bind)
     dev, stream = _launch_args(words)
     _check_launch("sha256_cols", lib.lcpc_sha256_cols(
         words.data_ptr() if words.numel() else None, int(words.dtype == torch.int64),
         words.stride(0), words.shape[0], n_cols, None if carry is None else carry.data_ptr(),
         carry_len, None if cv is None else cv.data_ptr(), int(finish), total_words or 0,
-        None if out is None else out.data_ptr(), dev, stream))
+        None if out is None else out.data_ptr(), int(kernel == "few"), dev, stream))
     sha256_cols.launches += 1
+    COLS_KERNELS[kernel].launches += 1
     return out if finish else rem
 
 

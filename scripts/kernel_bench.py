@@ -3,9 +3,11 @@
 and power limit, device time per kernel call, ptxas's register and spill
 report, the SASS of the SpMV kernel's k loop, the BLAKE3 compression's
 latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, the
-SHA-256 compression's and Merkle parent's (scripts/sha256_chain.cu), the
-generator's threefry probe (scripts/threefry_chain.cu) and its mix, and
-random packed operands.
+SHA-256 compression's and Merkle parent's (scripts/sha256_chain.cu), with
+that probe's op chains (a dependent IADD3, LOP3, SHF, IMAD: latency and one
+warp's issue), the generator's threefry probe (scripts/threefry_chain.cu)
+and its mix, the hottest loop or block of a built kernel, and random packed
+operands.
 
 Imports torch and nothing of the port, so a script can time any checkout's
 lcpc_tpu_torch with it.  Everything here needs a CUDA device except
@@ -299,7 +301,8 @@ def sha256_chain(so, h, n, parent):
     """n (a multiple of SHA_CHAIN_PER_TRIP) dependent SHA-256 steps of an (8,)
     int64 state on the card, in one thread of the probe `so`
     (scripts/sha256_chain.cu): compressions h <- compress(h, h || h), or
-    with `parent` Merkle parents h <- parent(h, h); returns the last h."""
+    with `parent` Merkle parents h <- parent(h, h) (parent = 2: the tree's
+    compact parent, where the probe has it); returns the last h."""
     lib = _chain_libs.get(so)
     if lib is None:
         lib = _chain_libs[so] = ctypes.CDLL(so)
@@ -315,22 +318,229 @@ def sha256_chain(so, h, n, parent):
     return out
 
 
+# the SHA-256 column kernels' templates by mangled name: the wide kernel's
+# update over int32 words, the few-column kernel's finish over int32 words
+# (verify's opened columns)
+SHA_WIDE_UPDATE = "sha256_cols_kernelIiLb0E"
+# the probe's unrolled parent chain (the walk's parent; the tree's compact one
+# runs the same rounds in loops), whose loop body is a parent's instructions;
+# an older probe has one parent chain, untemplated
+SHA_PARENT_CHAIN = ("sha256_parent_chain_kernelILb0E", "sha256_parent_chain_kernel")
+SHA_FEW_FINISH = "sha256_few_kernelIiLb1E"
+
+
 def sha256_sass_mix(chain_so, lib_so):
     """SHA-256's instruction mix by pipe from the SASS: `compress`, one
     scheduled compression, and `parent`, one Merkle parent (a scheduled
     compression and one over the constant padding block), each from its
-    probe's loop body as ((ALU, FMA, all), opcodes); `cols_loop`, the
-    column hash kernel's block loop (an update's: one compression, its 16
-    word loads and the loop's own instructions) as (ALU, FMA, all).  None
-    without cuobjdump."""
+    probe's loop body as ((ALU, FMA, all), opcodes); `cols_loop`, the wide
+    column kernel's block loop (an update's: one compression, its 16 word
+    loads and the loop's own instructions) as (ALU, FMA, all); `few_rounds`,
+    the few-column kernel's round-warp block loop (64 rounds from the ring,
+    its 16 loads from the ring and the barriers: the loop that reads shared
+    memory) as (ALU, FMA, all), or None in a library without that kernel.
+    None without cuobjdump."""
     chain_funcs, lib_funcs = sass_functions(chain_so), sass_functions(lib_so)
     if chain_funcs is None or lib_funcs is None:
         return None
-    cols = next(v for k, v in lib_funcs.items() if "sha256_cols_kernelIiLb0E" in k)
+
+    def loop_mix(name, reads_smem=False):
+        instrs = next((v for k, v in lib_funcs.items() if name in k), None)
+        loops = [] if instrs is None else [
+            lp for lp in _loops(instrs) if not reads_smem or any(t.startswith("LDS") for t in lp)]
+        return pipe_mix(max(loops, key=lambda lp: pipe_mix(lp)[0])) if loops else None
+
     return {"compress": _probe_mix(chain_funcs, "sha256_compress_chain_kernel",
                                    SHA_CHAIN_PER_TRIP),
-            "parent": _probe_mix(chain_funcs, "sha256_parent_chain_kernel", SHA_CHAIN_PER_TRIP),
-            "cols_loop": pipe_mix(max(_loops(cols), key=lambda lp: pipe_mix(lp)[0]))}
+            "parent": _probe_mix(chain_funcs, next(n for n in SHA_PARENT_CHAIN
+                                                   if any(n in k for k in chain_funcs)),
+                                 SHA_CHAIN_PER_TRIP),
+            "cols_loop": loop_mix(SHA_WIDE_UPDATE),
+            "few_rounds": loop_mix(SHA_FEW_FINISH, reads_smem=True)}
+
+
+def hot_code(so_path, name, loop=True):
+    """((ALU, FMA, all), opcodes) of the first function of a built library
+    whose name holds `name`: its loop with the most ALU instructions, or
+    with loop=False its basic block with the most; None without cuobjdump
+    or the function."""
+    funcs = sass_functions(so_path)
+    instrs = None if funcs is None else next((v for k, v in funcs.items() if name in k), None)
+    if instrs is None:
+        return None
+    parts = list(_loops(instrs)) if loop else list(_blocks(instrs))
+    best = max(parts, key=lambda b: pipe_mix(b)[0], default=[])
+    return pipe_mix(best), dict(collections.Counter(t.split()[0] for t in best).most_common())
+
+
+# SASS opcodes with no register result (their first operand is read)
+_NO_DEST = ("ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "EXIT", "RET", "BSSY", "BSYNC",
+            "WARPSYNC", "CALL", "NOP", "DEPBAR", "MEMBAR", "ERRBAR", "CCTL", "YIELD")
+_LOADS = ("LD", "LDS", "LDG", "LDL", "LDC", "ULDC", "S2R", "S2UR", "CS2R", "LDSM")
+
+
+def _regs(operand, width=1):
+    """The registers an operand names (R5, [R2+0x10], R4.64: a pair)."""
+    out = []
+    for m in re.finditer(r"\bR(\d+)(\.64)?\b", operand):
+        n = int(m.group(1))
+        out += [n + i for i in range(2 if m.group(2) else width)]
+    return out
+
+
+def sass_chain(instrs, latency, trips=3):
+    """The longest read-after-write chain through a loop body's SASS
+    (instruction strings, straight-line) run `trips` times in a row, so that
+    the registers the body carries over link one trip to the next.  Each
+    instruction with a register result waits for its register operands and
+    takes latency(opcode) cycles; loads, constants and the first trip's
+    inputs are ready at the start (the chain is the ALU / FMA work on the
+    critical path).  Returns (cycles, {opcode: count}) of the last trip's
+    part of the chain: the body's steady-state critical path a trip."""
+    parsed = []  # the instructions with a register result
+    for ins in instrs:
+        op, _, rest = ins.partition(" ")
+        base = op.split(".")[0]
+        parts = [p.strip() for p in rest.split(",")] if rest else []
+        if base in _NO_DEST or not parts or not re.fullmatch(r"R\d+", parts[0]):
+            continue
+        width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+        parsed.append((op, base, _regs(parts[0], width), [r for p in parts[1:] for r in _regs(p)]))
+    ready = {}  # register -> (cycles, index, predecessor node)
+    best = (0.0, -1, None)
+    n = len(parsed)
+    for i in range(trips * n):
+        op, base, dest, srcs = parsed[i % n]
+        if base in _LOADS:
+            for r in dest:
+                ready[r] = (0.0, -1, None)
+            continue
+        prev = max((ready[r] for r in srcs if r in ready), key=lambda x: x[0],
+                   default=(0.0, -1, None))
+        node = (prev[0] + latency(op), i, prev)
+        for r in dest:
+            ready[r] = node
+        if node[0] > best[0]:
+            best = node
+    ops, node, cycles = collections.Counter(), best, 0.0
+    last = (trips - 1) * n
+    while node is not None and node[1] >= last:
+        op = parsed[node[1] % n][0]
+        ops[op] += 1
+        cycles += node[0] - (node[2][0] if node[2] is not None else 0.0)
+        node = node[2]
+    return cycles, dict(ops.most_common())
+
+
+def sha256_sass_chains(chain_so, lib_so, op_lat):
+    """SHA-256's critical paths as ptxas emitted them (sass_chain): for the
+    few-column kernel's round loop a round, for the probe's unrolled parent
+    (the walk's) and compression a step, for the compact parent (the
+    tree's) a round of its 16-round trips.  op_lat: op_latencies' {kind:
+    (cycles, ns)}; an opcode of no measured kind takes IADD3's latency.
+    Each entry is (cycles, {opcode: count}); None without cuobjdump."""
+    chain_funcs, lib_funcs = sass_functions(chain_so), sass_functions(lib_so)
+    if chain_funcs is None or lib_funcs is None:
+        return None
+
+    def latency(op):
+        base = op.split(".")[0]
+        return op_lat.get(base, op_lat["IADD3"])[0]
+
+    def per(cycles_ops, k):
+        cycles, ops = cycles_ops
+        return cycles / k, {o: c / k for o, c in ops.items()}
+
+    def body(funcs, name, pick):
+        instrs = next((v for k, v in funcs.items() if name in k), None)
+        loops = [] if instrs is None else [lp for lp in _loops(instrs) if pick(lp)]
+        return max(loops, key=lambda lp: pipe_mix(lp)[0]) if loops else None
+
+    out = {}
+    few = body(lib_funcs, SHA_FEW_FINISH, lambda lp: any(t.startswith("LDS") for t in lp))
+    if few is not None:
+        out["few_round"] = per(sass_chain(few, latency), 64)
+    for key, name, k in (("parent", SHA_PARENT_CHAIN[0], SHA_CHAIN_PER_TRIP),
+                         ("compress", "sha256_compress_chain_kernel", SHA_CHAIN_PER_TRIP)):
+        lp = body(chain_funcs, name, lambda lp: True)
+        if lp is not None:
+            out[key] = per(sass_chain(lp, latency), k)
+    # the compact parent's 16-round trips: its inner loops, the probe's
+    # outer loop holding them excluded (it has backward branches inside)
+    lp = body(chain_funcs, "sha256_parent_chain_kernelILb1E",
+              lambda lp: not any(t.startswith("BRA") for t in lp[:-1]))
+    if lp is not None:
+        out["compact_round"] = per(sass_chain(lp, latency), 16)
+    return out
+
+
+OP_CHAINS = ("IADD3", "LOP3", "SHF", "IMAD")  # lcpc_op_chain's kinds, in its order
+
+
+def op_chain(so, op, n, wide=False):
+    """n (a multiple of 64) instructions of kind OP_CHAINS[op] in one thread
+    of the probe `so` (scripts/sha256_chain.cu), in one dependent chain or,
+    with `wide`, eight independent ones: the loop's clock64() cycles.
+    Returns (cycles, the launch's device ms), or None without the probe's
+    op chains."""
+    lib = _chain_libs.get(so)
+    if lib is None:
+        lib = _chain_libs[so] = ctypes.CDLL(so)
+    if not hasattr(lib, "lcpc_op_chain"):
+        return None
+    lib.lcpc_op_chain.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p]
+    lib.lcpc_op_chain.restype = ctypes.c_int
+    v0 = torch.arange(3, 3 + 16, dtype=torch.int64, device="cuda") * 0x9E3779B1
+    out = torch.empty(2, dtype=torch.int64, device="cuda")
+
+    def run():
+        err = lib.lcpc_op_chain(op, int(wide), v0.data_ptr(), n, out.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"op_chain launch failed: cudaError_t {err}")
+
+    ms = time_kernel(run, reps=3)
+    return int(out[1].item()), ms
+
+
+def op_chain_counts(chain_so, wide=False):
+    """{kind: the chains' instructions of that kind in its probe loop's SASS}
+    (an IADD3 with an immediate operand is the loop's counter, not a chain),
+    or None without cuobjdump."""
+    funcs = sass_functions(chain_so)
+    if funcs is None:
+        return None
+    out = {}
+    for i, kind in enumerate(OP_CHAINS):
+        name = f"op_chain_kernelILi{i}ELi{8 if wide else 1}E"
+        instrs = next((v for k, v in funcs.items() if name in k), None)
+        if instrs is None:
+            return None
+        body = max(_loops(instrs), key=len)
+        out[kind] = sum(1 for t in body if t.split()[0].split(".")[0] == kind
+                        and not (kind == "IADD3" and "0x" in t))
+    return out
+
+
+def op_latencies(chain_so, n=1 << 20, wide=False):
+    """{kind: (cycles, ns) an instruction} from the probe's op chains: a
+    dependent instruction's latency, or with `wide` one warp's issue of one
+    of eight independent ones; None where the probe or cuobjdump lacks them.
+    Each loop body holds 64 steps (kOpPerTrip)."""
+    counts = op_chain_counts(chain_so, wide)
+    if counts is None:
+        return None
+    out = {}
+    for i, kind in enumerate(OP_CHAINS):
+        got = op_chain(chain_so, i, n, wide)
+        if got is None or not counts[kind]:
+            return None
+        cycles, ms = got
+        per_trip = counts[kind]  # the chain's instructions in 64 steps
+        steps = n // 64 * per_trip
+        out[kind] = (cycles / steps, ms * 1e6 / steps)
+    return out
 
 
 def sass_mix(so_path, kernel):

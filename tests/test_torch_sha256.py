@@ -8,6 +8,7 @@ and the digest registry."""
 import hashlib
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -72,6 +73,133 @@ def test_columns_match_reference(n_words, n_cols):
         assert got_rem == rem
         assert torch.equal(sha256.sha256_finalize_plain(cv, carry, rem, 16 + rem),
                            sha256.hash_word_columns_plain(w)), rem
+
+
+# the few-column kernel's route: verify's opened columns (189 Ligero, 6,593
+# Brakedown) and the edges of its 32-column blocks go to "few", the commits'
+# 131,072 and 357,699 columns to "wide", the crossover on both sides
+@pytest.mark.parametrize("n_cols,route", [
+    (1, "few"), (31, "few"), (32, "few"), (33, "few"), (189, "few"), (6_593, "few"),
+    (sha256.FEW_COLS_MAX, "few"), (sha256.FEW_COLS_MAX + 1, "wide"), (131_072, "wide"),
+    (357_699, "wide")])
+def test_cols_route(n_cols, route):
+    assert sha256.cols_route(n_cols) == route
+    # on CPU tensors both kernels' wrappers run the plain version: the route
+    # forced either way gives the same digests and refuses an unknown kernel
+    w = torch.from_numpy(_words(3, min(n_cols, 40), seed=n_cols % 97).view(np.int32))
+    want = sha256.hash_word_columns_plain(w)
+    for forced in sha256.COLS_KERNELS:
+        assert torch.equal(sha256.sha256_cols(w, total_words=11, _route=forced), want)
+    with pytest.raises(ValueError):
+        sha256.sha256_cols(w, total_words=11, _route="narrow")
+
+
+# few-column shapes as verify hashes them (the 8-word prefix, then the
+# column): the last block ends where the padding just fits (8 + L = 13 mod
+# 16: 0x80000000 and the length fill it) or just does not (14: a second
+# final block), at 1, 31, 32, 33 and 189 columns
+@pytest.mark.parametrize("n_cols,n_words", [(1, 5), (31, 6), (32, 21), (33, 22), (189, 37),
+                                            (189, 120)])
+def test_few_column_shapes_vs_hashlib_and_reference(n_cols, n_words):
+    words = _words(n_words, n_cols, seed=1000 + n_words)
+    got = sha256.hash_word_columns_plain(torch.from_numpy(words.astype(np.int64)))
+    b = digests_to_bytes(got)
+    for c in range(n_cols):
+        want = hashlib.sha256(bytes(32) + words[:, c].astype("<u4").tobytes()).digest()
+        assert bytes(b[c]) == want, (n_words, c)
+    assert np.array_equal(got.numpy(), np.asarray(sha256_jax.hash_word_columns(words)))
+
+
+def _csrc(name):
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "lcpc_tpu_torch", "csrc", name)
+    with open(path) as f:
+        return f.read()
+
+
+def _cuh_const(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# csrc/merkle.cuh's tree (which only the card runs), modelled from its
+# source: launch_tree's blocks, each building the subtree of kTreeLeaves
+# leaves (all of them in a smaller tree), level 1 from the leaves and the
+# levels above it in a shared-memory level of kTreeNodes nodes, then the
+# last block's levels above the subtree roots, through L2 while a level is
+# wider than shared memory.  Every node of the flat leaves-first array is
+# written once, after both of its children, and every level a block holds
+# fits its shared memory.
+@pytest.mark.parametrize("log_lo,log_hi", [(0, 8), (8, 14), (14, 22)])
+def test_merkle_tree_split_model(log_lo, log_hi):
+    cuh = _csrc("merkle.cuh")
+    assert "constexpr int kTreeNodes = 2 * kTreeThreads;" in cuh
+    assert "constexpr int kTreeLeaves = 2 * kTreeNodes;" in cuh
+    nodes = 2 * _cuh_const(cuh, "kTreeThreads")
+    log_leaves = (2 * nodes).bit_length() - 1
+    for log_np2 in range(log_lo, log_hi):
+        np2 = 1 << log_np2
+        offset = lambda lvl: 2 * np2 - 2 * (np2 >> lvl)  # noqa: E731
+        done = np.zeros(2 * np2 - 1, dtype=np.int64)
+
+        def build(lvl, idx):  # level lvl's nodes idx from their children
+            assert (done[offset(lvl - 1) + 2 * idx] == 1).all()
+            assert (done[offset(lvl - 1) + 2 * idx + 1] == 1).all()
+            done[offset(lvl) + idx] += 1
+
+        def merge(n, lvl, first):  # merge_in_smem: n nodes of level lvl to one
+            assert n <= nodes
+            while n > 1:
+                n, lvl, first = n // 2, lvl + 1, first // 2
+                build(lvl, first + np.arange(n))
+
+        if np2 == 1:  # the leaf is the root
+            done[0] += 1
+        log_sub = min(log_np2, log_leaves)
+        blocks = np2 >> log_sub
+        pairs = 1 << max(log_sub - 1, 0)
+        for b in range(blocks if np2 > 1 else 0):
+            first = b * pairs
+            leaf = 2 * (first + np.arange(pairs))
+            assert not done[leaf].any() and not done[leaf + 1].any()
+            done[leaf] += 1  # the leaves, copied on the way
+            done[leaf + 1] += 1
+            build(1, first + np.arange(pairs))
+            merge(pairs, 1, first)
+        if blocks > 1:  # the last block, after every subtree
+            lvl, n = log_sub, blocks
+            while n > nodes:
+                build(lvl + 1, np.arange(n // 2))
+                n, lvl = n // 2, lvl + 1
+            merge(n, lvl, 0)
+        assert (done == 1).all(), log_np2
+
+
+def _kernel_bench():
+    scripts = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import kernel_bench
+    return kernel_bench
+
+
+_ROUND = ["SHF.R.W.U32 R5, R4, 0x6, R4", "SHF.R.W.U32 R6, R4, 0xb, R4",
+          "LOP3.LUT R7, R5, R6, R8, 0x96, !PT", "IADD3 R4, R7, R10, R11"]
+
+
+# scripts/kernel_bench.sass_chain, which reads the SHA-256 kernels' critical
+# paths off their SASS on the card: a loop body's longest read-after-write
+# chain, carried from one trip to the next, loads ready at the start,
+# stores and branches off it, the longer of two chains
+@pytest.mark.parametrize("body,cycles,ops", [
+    (_ROUND + ["BRA 0x0"], 12.0, {"SHF.R.W.U32": 1, "LOP3.LUT": 1, "IADD3": 1}),
+    (_ROUND[:3] + ["LDS.128 R12, [R3+0x10]", "IADD3 R9, R7, R10, R11",
+                   "IMAD.IADD R4, R9, 0x1, R12", "STS [R3], R4"],
+     16.0, {"SHF.R.W.U32": 1, "LOP3.LUT": 1, "IADD3": 1, "IMAD.IADD": 1}),
+    (_ROUND + ["LOP3.LUT R20, R20, R21, RZ, 0x3c, !PT"], 12.0,
+     {"SHF.R.W.U32": 1, "LOP3.LUT": 1, "IADD3": 1}),
+])
+def test_sass_chain(body, cycles, ops):
+    assert _kernel_bench().sass_chain(body, lambda op: 4.0) == (cycles, ops)
 
 
 def test_merkle_layer_vs_hashlib_and_reference():
