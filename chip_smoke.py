@@ -5,15 +5,17 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the eight CUDA kernel sources from the checkout, one nvcc each,
+  2. build the nine CUDA kernel sources from the checkout, one nvcc each,
      started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
-     csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu); print
+     csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu,
+     csrc/verify_core.cu); print
      ptxas's registers and spills per template (fatal if the SpMV's, the
-     NTT's, the generator's, the power table's or either field map's W32 =
+     NTT's, the generator's, the power table's, either field map's or
+     either verify_core kernel's W32 =
      8 spills, any of mont_dot's tensor-core templates (tile and thin_tc)
      spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills,
-     the few-column column hash included;
+     the few-column column hash and the walk included;
      every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
@@ -36,11 +38,14 @@ Phases, each fatal on failure (each prints the seconds it took):
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
      counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
-     path walk; the collapses through mont_dot's CUDA-core thin kernel;
-     mont_mul_map) and 3 times warm (median ms), then once traced by stage
-     (mont_mul_map launched once in commit, where the plain limb graph
-     converted the codeword to hash words, 5 times in verify; every CUDA
-     kernel launch of each stage beside the parent commit's); check the
+     path walk; the collapse through mont_dot's CUDA-core thin kernel;
+     mont_mul_map; verify_check; gather_open) and 3 times warm (median
+     ms), then once traced by stage (mont_mul_map launched once in commit,
+     where the plain limb graph converted the codeword to hash words, once
+     in verify, the proof rows to Montgomery form; verify's core after the
+     rows at most 4 launches, verify_check, the column hash and the walk,
+     prove's opening one gather_open; every CUDA event of each stage, its
+     host-device copies apart, beside commit a2037ab's); check the
      evaluation against the
      host polynomial and that tampered proofs fail with the reference's
      kinds; reproduce its golden fixture (tests/data/torch_golden_sdig.json);
@@ -58,12 +63,12 @@ Phases, each fatal on failure (each prints the seconds it took):
      words' reductions and the bytes;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
      phase 4 (one cold run with the launches counted, 3 warm: prove's
-     collapse and verify's column check through mont_dot's thin
-     tensor-core kernel; verify's rows by the route protocol.VERIFY_COLS_MIN
-     picks at 2^17 columns: the encode (a second encode, 5 conversions
-     through mont_mul_map) or at the opened columns (one power table and
-     the tile kernel, 4 conversions); the evaluation's dot on the thin
-     kernel; no conversion in commit), traced by stage as in phase 4, with
+     collapse through mont_dot's thin tensor-core kernel; verify's rows by
+     the route protocol.VERIFY_COLS_MIN picks at 2^17 columns: the encode
+     (a second encode) or at the opened columns (one power table and the
+     tile kernel), one conversion through mont_mul_map either way; the
+     column check and the evaluation in verify_check; no conversion in
+     commit), traced by stage as in phase 4, with
      the evaluation and tamper checks; verify by both routes on the same
      proof (verify_routes: equal values, the same error kind for a flipped
      opened value, both timed); reproduce its golden fixture
@@ -174,10 +179,12 @@ Phases, each fatal on failure (each prints the seconds it took):
      round loop's longest dependent chain in the SASS, each instruction at
      its latency from the probe's op chains: the card's, not the code's)
      and one warp's issue (the measured clocks an ALU instruction of the
-     round loop), every tree (the odd ones too) and walk against its
-     dependency floor (depth x the fastest parent's latency; the walk's
-     parent for the walk) and critical path (depth x a parent's SASS
-     chain);
+     round loop), every tree (the odd ones too) against its dependency
+     floor (depth x the fastest parent's latency) and critical path (depth
+     x a parent's SASS chain), the walks against their critical path and
+     one warp's issue (depth x 128 rounds of the few-column kernel's round:
+     its SASS chain, its ALU instructions at the measured clocks) and a
+     lone thread's parent latency x depth;
   14. the slice's paths with digest=SHA256 through the public entry points:
      (a) Ligero 2^23 and (b) Brakedown 2^23 as phases 6 and 4 run them
      (cold with the launches counted, 3 warm, traced by stage: commit one
@@ -210,7 +217,22 @@ Phases, each fatal on failure (each prints the seconds it took):
      rank's root and proof bytes equal to (a)'s single device's and
      mont_addsub_map launched in each rank's prove (the modular sum of the
      partials); its times pass through host memory, a correctness run;
-  16. print the kernel table line, then the result line.
+  16. hold verify_core.cu's kernels and the walks in their verifier form
+     against their plain versions, tolerance 0, at the Ligero 2^23,
+     Brakedown 2^23 and seeded 2^29 verify shapes (T = 2 rows of 256, 36,
+     2,048 against 189, 6,593, 189 opened columns, the evaluation over
+     32,768, 235,173, 262,144) with BLAKE3 (both verify routes: the encoded
+     rows at the opened columns, or the rows at the columns) and SHA-256,
+     on honest inputs and four tampers (a column word, an encoded row at
+     an opened column, a sibling digest, the root), which clear the same
+     flags; verify_check timed beside its bound (bytes over 3.35 TB/s or
+     wide products at 8.4 T/s) and its plain version, the walks in their
+     verifier form timed; gather_open at each path's opening (the
+     codeword's limbs at 2^23, the evaluated columns' int64 words at 2^29)
+     and at the 2^28 words-kept opening (2,048 rows x 189 columns of kept
+     canonical words, their columns cut to 2^16), timed beside its bound
+     (bytes), its plain version and the PyTorch index_select alone;
+  17. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -266,11 +288,15 @@ CHAIN = 4096                # phase 7: compressions of the latency probe
 TREES = ("chunk_tree", "merkle_tree", "merkle_walk")  # the BLAKE3 tree kernels
 DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot's three
 # the kernels a 2^23 path launches besides its hash kernels: Brakedown's
-# SpMV, its collapses on mont_dot's CUDA-core thin kernel and its
-# conversions; Ligero's NTT, mont_dot's three kernels, the power table of
-# verify at the columns and its conversions
-SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map"}
-LIGERO_KERNELS = {"ntt_mont", "mont_dot", "power_table", "mont_mul_map"} | DOT_KERNELS
+# SpMV, its collapse on mont_dot's CUDA-core thin kernel and its
+# conversions; Ligero's NTT, its collapse on mont_dot's thin tensor-core
+# kernel, the power table and mont_dot's tile kernel (a thin launch summing
+# its K splits) of verify at the columns, its conversion; both paths'
+# verify core and prove opening
+SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map", "verify_check",
+                "gather_open"}
+LIGERO_KERNELS = {"ntt_mont", "mont_dot", "power_table", "mont_mul_map", "verify_check",
+                  "gather_open"} | DOT_KERNELS
 
 
 def verify_at_columns(n_cols):
@@ -283,19 +309,17 @@ def verify_at_columns(n_cols):
 
 def ligero_kernels(n_cols):
     """LIGERO_KERNELS as verify's route at n_cols uses them: through the
-    encode, no power table and no tile kernel (nothing else on a path with
-    the words kept launches them)."""
+    encode, no power table, no tile kernel and no thin launch summing its
+    splits (nothing else on a path with the words kept launches them)."""
     if verify_at_columns(n_cols):
         return set(LIGERO_KERNELS)
-    return LIGERO_KERNELS - {"power_table", "mont_dot_tile"}
+    return LIGERO_KERNELS - {"power_table", "mont_dot_tile", "mont_dot_thin"}
 
 
-def ligero_verify_maps(n_cols):
-    """mont_mul_map launches of a Ligero verify: the proof rows to
-    Montgomery, the opened columns to hash words and the evaluation's two
-    operands; the encode route also converts the rows at the opened
-    columns back (from_mont)."""
-    return 4 if verify_at_columns(n_cols) else 5
+# mont_mul_map launches of a verify by either route: the proof rows to
+# Montgomery form (the column check, the opened columns' hash words and the
+# evaluation are verify_check's)
+VERIFY_MAPS = 1
 SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
 SHA_COLS_KERNELS = ("sha256_cols_few", "sha256_cols_wide")  # sha256_cols's two, by their counters
 SHA_NARROW = (1, 31, 32, 33)  # phase 13: few-column kernel column counts beside 189 and 6,593
@@ -339,11 +363,15 @@ MAP_CODEWORD = (36, 357_699)
 MAP_VERIFY_ROWS = (2, 32_768)
 MAP_OPENED = ((256, 189), (36, 6_593))
 MAP_STREAM_OPENED = (2_048, 189)
-# commit / prove / verify CUDA kernel launches (torch.profiler: every kernel,
-# torch's own included) of a warm run of each 2^23 path on commit 28b9104,
-# before the field maps were kernels (scripts/time_paths.py, two runs, on an
+# (CUDA events torch.profiler saw, a lower bound; the port's kernel launches,
+# exact) of a warm commit, prove and verify of each 2^23 path on the parent
+# commit a2037ab, before verify's core and prove's opening were kernels
+# (scripts/time_paths.py --repo archive/parent, two runs agreeing, on an
 # NVIDIA H100 80GB HBM3 at 700 W)
-PARENT_LAUNCHES = {"sdig": ("2,600", "16", "2,384"), "ligero": ("4-5", "15-16", "2,004-2,005")}
+PARENT_LAUNCHES = {"sdig blake3": ((26, 17), (16, 1), (48, 24)),
+                   "ligero blake3": ((5, 5), (16, 1), (30, 13)),
+                   "sha_sdig sha256": ((25, 16), (16, 1), (47, 23)),
+                   "sha_ligero sha256": ((4, 4), (16, 1), (29, 12))}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
@@ -630,10 +658,40 @@ def stage_launches(torch, P, counters, enc, commit, outer, inner, digest):
             torch.cuda.synchronize()
         if name == "commit":
             st["root"] = st[name].get_root()
+        cuda = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
         out[name] = {"counters": {k: c.launches for k, c in counters.items() if c.launches},
-                     "cuda_kernels": sum(1 for e in prof.events()
-                                         if e.device_type == torch.autograd.DeviceType.CUDA)}
+                     "cuda_kernels": len(cuda),
+                     "copies": {d: sum(1 for n in cuda if "Memcpy" in n and d in n)
+                                for d in ("HtoD", "DtoH")}}
     return out
+
+
+# kernels of verify's rows (the encode, or the rows at the opened columns)
+# and of prove's collapse: the rest of a stage is verify's core and prove's
+# opening
+ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mont_mul_map", "power_table", "mont_dot", *DOT_KERNELS}
+
+
+def check_core_launches(stages, tag, digest):
+    """Verify's core (everything after the rows: verify_check, the column
+    hash, the walk) at most 4 launches with BLAKE3 and 3 with SHA-256,
+    verify_check and the walk once each; prove's opening one gather_open;
+    the stages' copies (torch.profiler's Memcpy events) logged."""
+    verify, prove = stages["verify"]["counters"], stages["prove"]["counters"]
+    # sha256_cols's launches by kernel count them twice
+    core = {k: n for k, n in verify.items() if k not in ROWS_KERNELS | set(SHA_COLS_KERNELS)}
+    walk = "merkle_walk" if digest.name == "blake3" else "sha256_merkle_walk"
+    limit = 4 if digest.name == "blake3" else 3
+    opening = {k: n for k, n in prove.items() if k not in ROWS_KERNELS}
+    if (sum(core.values()) > limit or core.get("verify_check") != 1 or core.get(walk) != 1
+            or opening != {"gather_open": 1}):
+        raise AssertionError(f"{tag}: verify's core launches {core} (at most {limit}), prove's "
+                             f"opening {opening}")
+    log(f"  {tag}: verify's core {sum(core.values())} launches {core}, copies "
+        f"{stages['verify']['copies']}; prove's opening {opening}, prove's copies "
+        f"{stages['prove']['copies']}")
+    return core
 
 
 def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_kernels,
@@ -679,11 +737,14 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
     stages = stage_launches(torch, P, counters, enc,
                             lambda: P.commit(coeffs_mont, enc, digest=digest), outer, inner,
                             digest)
-    parent = PARENT_LAUNCHES.get(tag)
+    parent = PARENT_LAUNCHES.get(f"{tag} {digest.name}")
     for i, (name, rec) in enumerate(stages.items()):
-        log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA kernel launches"
-            + (f" (before the field maps were kernels: {parent[i]})" if parent else "")
-            + f"; the port's kernels {rec['counters']}")
+        port = sum(n for k, n in rec["counters"].items()
+                   if k not in DOT_KERNELS and k not in SHA_COLS_KERNELS)
+        log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA events, {port} launches of the "
+            f"port's kernels" + (f" (commit a2037ab's: {parent[i][0]}, {parent[i][1]})"
+                                 if parent else "") + f"; by kernel {rec['counters']}")
+    check_core_launches(stages, tag, digest)
     return launches, cold, warm, med, peak, len(data), root, data, stages
 
 
@@ -1113,15 +1174,14 @@ def streaming_2_26(torch, P, counters, gen):
     out = []
     for tag, src, kw in cases:
         # every route collapses through mont_dot (one block of 1,024 rows: the
-        # thin tensor-core kernel); with no words kept prove evaluates the
-        # columns directly (the power table, the tile kernel, a thin launch
-        # summing its K splits)
+        # thin tensor-core kernel) and opens in one gather_open launch (the
+        # kept words' columns converted to Montgomery words in it); with no
+        # words kept prove evaluates the columns directly (the power table,
+        # the tile kernel, a thin launch summing its K splits)
         path_kernels = {"ntt_mont", "blake3_chunks", "chunk_tree", "merkle_tree", "mont_dot",
-                        "mont_dot_thin_tc"}
+                        "mont_dot_thin_tc", "gather_open"}
         if kw["spill"] == "none":
             path_kernels |= {"power_table", "mont_dot_tile", "mont_dot_thin"}
-        else:  # the kept words' opened columns to the proof's Montgomery words
-            path_kernels |= {"mont_mul_map"}
         for fn in counters.values():
             fn.launches = 0
         cs, cs_ms = time_host(torch, lambda: P.commit_streaming(src, enc, **kw))
@@ -1647,7 +1707,8 @@ def path_2_29(torch, kb, P, counters, md, card):
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
         f"memory {peak:.2f} GiB")
     path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
-                    *DOT_KERNELS, "mont_mul_map"}  # verify's conversions
+                    *DOT_KERNELS, "mont_mul_map",  # verify's conversion
+                    "verify_check", "gather_open"}
     for name, n in launches.items():
         if (n > 0) != (name in path_kernels):
             raise AssertionError(f"path 2^29: {name} launched {n} times")
@@ -2434,14 +2495,20 @@ def sha256_phase(torch, kb, sha, gen, sha_so, lib_so, sha_mix):
         read = int(torch.unique(inv).numel())
         bound, by = sha_bound_ms(64 * k + 64 * read + 8 * levels * k + 8 * k + 64 * k,
                                  k * levels, SHA_PARENT_S)
+        # the walk's round warp runs two compressions of the few-column
+        # kernel's round a level, W + K fed by its schedule warp: its chain
+        # and one warp's issue of them; a lone thread's parent (the schedule
+        # inline) beside, the floor of the earlier walk of a thread a column
+        crit_w, issue_w = levels * 2 * crit_c, levels * 2 * issue_c
         recs[f"walk {k}"] = {"columns": k, "levels": levels, "launches": 1, "ms": ms,
                              "host_ms": wall, "plain_ms": plain_ms, "bound_ms": bound,
                              "bound_by": by, "floor_ms": levels * lat_p,
-                             "critical_path_ms": levels * crit_pw}
+                             "critical_path_ms": crit_w, "issue_ms": issue_w,
+                             "critical_path_unrolled_parent_ms": levels * crit_pw}
         log(f"  sha256 merkle walk of {k} columns x {levels} levels: equal; 1 launch, device "
-            f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
-            f"{levels * lat_p:.4f} ms, critical path {levels * crit_pw:.4f} ms, plain "
-            f"{plain_ms:.1f} ms")
+            f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), critical path "
+            f"{crit_w:.4f} ms (128 rounds a level), one warp's issue {issue_w:.4f} ms, depth x "
+            f"a lone thread's parent {levels * lat_p:.4f} ms, plain {plain_ms:.1f} ms")
     log("  sha256 merkle walks of 5 x 0 and 40 x 3: equal")
     recs["max_abs_err"] = errs[0]
     return recs
@@ -2603,7 +2670,7 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
     check_sha_stages(lig[8], "sha_ligero", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["ligero"])
     check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0,
-                                              "verify": ligero_verify_maps(lenc.n_cols)})
+                                              "verify": VERIFY_MAPS})
     del lenc
     t0 = time.perf_counter()
     enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
@@ -2614,7 +2681,7 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
                      sha_launches_path(*shape))
     check_sha_stages(sdig[8], "sha_sdig", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["sdig"])
-    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0, "verify": 5})
+    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0, "verify": VERIFY_MAPS})
     del enc
     torch.cuda.empty_cache()
     for tag, r in (("ligero_2_23", lig), ("sdig_2_23", sdig)):
@@ -2629,6 +2696,308 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
         f"all, on the host)")
     out["plain_compressions_on_card"] = 0
     return out
+
+
+# phase 16: the verifier's core and the prover's opening at the paths'
+# shapes (ft255, T = 2 rows): (tag, rows, opened columns, codeword columns,
+# the evaluation's length)
+VC_SHAPES = (("ligero 2^23", 256, 189, 1 << 17, 32_768),
+             ("sdig 2^23", 36, 6_593, 357_699, 235_173),
+             ("seeded 2^29", 2_048, 189, 1 << 20, 262_144))
+# the 2^28 words-kept opening: 2,048 rows of 189 opened columns out of kept
+# canonical words, their columns cut from 2^19 to 2^16 (the gather reads
+# the opened columns alone)
+VC_CANON = (2_048, 189, 1 << 16)
+VC_TAMPERS = ("column word", "encoded row", "sibling", "root")
+
+
+def vc_bound(spec, T, R, k, npr):
+    """(bound ms, bytes ms, products ms) of verify_check: ts, the columns,
+    the encoded rows' limbs at the opened columns, the indices and the
+    evaluation's two operands read once, the hash words written once; the
+    T column sums' and the evaluation's wide products and one from_mont a
+    column word and a wanted element (W/2 steps of W/2 products)."""
+    w32 = spec.w16 // 2
+    nbytes = 4 * w32 * (T * R + 2 * R * k + 2 * T * k + 2 * npr) + 8 * k
+    return bound_ms(nbytes, w32 * w32 * ((T + 1) * R * k + T * k + npr))
+
+
+def vc_inputs(torch, P, kb, spec, digest, R, k, n_cols, npr, gen):
+    """Random inputs of one verify core at a path's shape, all of whose
+    checks pass: ts and the opened columns (column 3 unreduced words
+    0xFFFFFFFF: a column word is any value below R), distinct columns idx,
+    encoded rows (W, T, n_cols) holding to_mont of each column's sums at the
+    opened columns (and the same as (W/2, T, k) int64 words, the columns
+    route's form), p_eval and inner, and a Merkle tree over random leaves
+    with the opened columns' digests at idx: its root and the path data
+    deduplicated by position, as verify makes them."""
+    import numpy as np
+    from lcpc_tpu_torch.core import protocol
+    from lcpc_tpu_torch.ops import mont_dot as md
+    from lcpc_tpu_torch.ops import mont_map as mm
+    from lcpc_tpu_torch.ops.spmv import pack_words, unpack_words
+
+    T, w = 2, spec.w16
+    ts = pack_words(kb.random_mont(spec, (T, w, R), gen).permute(1, 0, 2), 0).contiguous()
+    col = pack_words(kb.random_mont(spec, (R, w, k), gen).permute(1, 0, 2), 0).contiguous()
+    col[:, :, 3] = -1
+    idx = torch.randperm(n_cols, generator=gen, device=DEV)[:k]
+    got = md.mont_dot_plain(spec, ts, col)
+    want = mm.mont_mul_map_plain(spec, got, op="to_mont", in_form="words", out_form="words")
+    enc_rows = kb.random_mont(spec, (T, w, n_cols), gen).permute(1, 0, 2).contiguous()
+    enc_rows[:, :, idx] = unpack_words(want, 0)
+    pe = pack_words(kb.random_mont(spec, (npr, w), gen), 1).contiguous()
+    inner = pack_words(kb.random_mont(spec, (npr, w), gen), 1).contiguous()
+    words = mm.mont_mul_map_plain(spec, col, op="from_mont", in_form="words", out_form="hash")
+    leaves = torch.randint(0, 2**32, (8, n_cols), generator=gen, device=DEV, dtype=torch.int64)
+    leaves[:, idx] = digest.hash_word_columns(words)
+    tree = digest.merkle_tree(leaves, protocol._next_pow2(n_cols))
+    pos = protocol.path_node_indices(n_cols, idx.tolist())
+    uniq, inv = np.unique(pos.reshape(-1), return_inverse=True)
+    uniq_t = torch.as_tensor(uniq.astype(np.int64), device=DEV)
+    return {"ts": ts, "col": col, "idx": idx, "enc_rows": enc_rows,
+            "want_cols": want.to(torch.int64) & 0xFFFFFFFF, "pe": pe, "inner": inner,
+            "tree": tree, "root": tree[:, -1].clone(), "sibs": tree.index_select(1, uniq_t),
+            "inv": torch.as_tensor(inv.reshape(k, -1).T.copy(), device=DEV), "uniq": uniq_t}
+
+
+def vc_tamper(inp, what):
+    """The inputs with one of VC_TAMPERS applied: an opened column's word,
+    the encoded row 0 at an opened column (both forms), a sibling digest
+    (level 0 of column 2), the root; None for the honest inputs."""
+    out = dict(inp)
+    if what == "column word":
+        out["col"] = inp["col"].clone()
+        out["col"][0, 0, 0] ^= 1
+    elif what == "encoded row":
+        out["enc_rows"], out["want_cols"] = inp["enc_rows"].clone(), inp["want_cols"].clone()
+        out["enc_rows"][0, 0, inp["idx"][1]] ^= 1
+        out["want_cols"][0, 0, 1] ^= 1
+    elif what == "sibling":
+        out["sibs"] = inp["sibs"].clone()
+        out["sibs"][0, inp["inv"][0, 2]] ^= 1
+    elif what == "root":
+        out["root"] = inp["root"].clone()
+        out["root"][0] ^= 1
+    return out
+
+
+def vc_kernel(torch, vc, spec, digest, inp, want_cols, state0):
+    """verify_check, the digest's column hash and verify_walk on the card:
+    (the state after them, the hash words)."""
+    state = state0.clone()
+    want = inp["want_cols"] if want_cols else inp["enc_rows"]
+    words = vc.verify_check(spec, state, inp["ts"], inp["col"], want, inp["idx"],
+                            want_cols=want_cols, p_eval=inp["pe"], inner=inp["inner"])
+    digs = digest.hash_word_columns(words)
+    vc.verify_walk(digest, state, 2, digs, inp["sibs"], inp["inv"], inp["idx"], inp["root"])
+    return state, words
+
+
+def vc_plain(torch, vc, spec, digest, inp, want_cols, roots):
+    """The same through the plain versions: the expected state (T flags,
+    the path flag, the evaluation's words) and the hash words.  The walk
+    runs plain over the columns whose path the inputs changed (all of them
+    when `roots` is None; their roots replace the honest ones)."""
+    want = inp["want_cols"] if want_cols else inp["enc_rows"]
+    ok, ev, words = vc.verify_check_plain(spec, inp["ts"], inp["col"], want, inp["idx"],
+                                          want_cols=want_cols, p_eval=inp["pe"],
+                                          inner=inp["inner"])
+    digs = digest.hash_word_columns(words)
+    if roots is None:
+        cols = torch.arange(digs.shape[1], device=DEV)
+        roots = torch.empty_like(digs)
+    else:
+        changed = (digs != inp["digs_honest"]).any(dim=0)
+        if inp["sibs"] is not inp["sibs_honest"]:
+            bad = (inp["sibs"] != inp["sibs_honest"]).any(dim=0).nonzero().flatten()
+            changed |= torch.isin(inp["inv"], bad).any(dim=0)
+        cols = changed.nonzero().flatten()
+        roots = roots.clone()
+    if cols.numel():
+        roots[:, cols] = digest.merkle_walk_plain(digs[:, cols], inp["sibs"],
+                                                  inp["inv"][:, cols], inp["idx"][cols])
+    path = bool((roots == inp["root"][:, None]).all())
+    state = [int(v) for v in ok.tolist()] + [int(path)] + ev.tolist()
+    return state, words, digs, roots
+
+
+def verify_core_phase(torch, kb, P, vc, gen):
+    """Phase 16: verify_check, verify_walk (both digests) and gather_open
+    against their plain versions at the paths' shapes, tolerance 0, on
+    honest inputs and the four tampers (the same flags cleared), each timed
+    beside its bound and its plain version; gather_open also beside the
+    PyTorch index_select alone and at the 2^28 words-kept opening.
+    Returns the records."""
+    import numpy as np
+    from lcpc_tpu_torch.core import protocol
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    spec, T = P.FT255, 2
+    w32 = spec.w16 // 2
+    log("verify core kernels vs plain: tolerance 0 — every flag, evaluation word, hash word "
+        "and opened word equal")
+    recs = {}
+    for tag, R, k, n_cols, npr in VC_SHAPES:
+        for digest in (P.BLAKE3, P.SHA256):
+            inp = vc_inputs(torch, P, kb, spec, digest, R, k, n_cols, npr, gen)
+            state0 = torch.from_numpy(vc.state_init(spec, T, k)).to(DEV)
+            routes = (False, True) if digest is P.BLAKE3 else (False,)
+            honest_roots = None
+            for want_cols in routes:
+                cases = {}
+                for what in (None, *VC_TAMPERS):
+                    cur = vc_tamper(inp, what)
+                    cur["digs_honest"] = inp.get("digs_honest")
+                    cur["sibs_honest"] = inp["sibs"]
+                    got, words = vc_kernel(torch, vc, spec, digest, cur, want_cols, state0)
+                    want, want_words, digs, roots = vc_plain(torch, vc, spec, digest, cur,
+                                                             want_cols, honest_roots)
+                    if what is None and honest_roots is None:
+                        honest_roots, inp["digs_honest"] = roots, digs
+                    got_l = got[: T + 1 + w32].tolist()
+                    if got_l != want or not torch.equal(words, want_words):
+                        raise AssertionError(f"verify core {tag} {digest.name} {what}: kernel "
+                                             f"state {got_l} != plain {want}")
+                    cases[what or "honest"] = got_l[: T + 1]
+                if cases["honest"] != [1] * (T + 1) or any(
+                        v == [1] * (T + 1) for name, v in cases.items() if name != "honest"):
+                    raise AssertionError(f"verify core {tag}: flags {cases}")
+                log(f"  {tag} {digest.name} ({'columns' if want_cols else 'encode'} route): "
+                    f"honest and tampered flags equal to plain {cases}; the evaluation and "
+                    f"hash words equal")
+            # timings: the check (encode route), the walk in its verifier form
+            state = state0.clone()
+            ms = kb.time_kernel(lambda: vc.verify_check(
+                spec, state, inp["ts"], inp["col"], inp["enc_rows"], inp["idx"],
+                p_eval=inp["pe"], inner=inp["inner"]))
+            digs = inp["digs_honest"]
+            walk_ms = kb.time_kernel(lambda: vc.verify_walk(
+                digest, state, T, digs, inp["sibs"], inp["inv"], inp["idx"], inp["root"]))
+            rec = recs.setdefault(tag, {"rows": R, "columns": k, "n_cols": n_cols, "npr": npr})
+            rec[f"walk_{digest.name}_ms"] = walk_ms
+            rec["levels"] = int(inp["inv"].shape[0])
+            if digest is P.SHA256:
+                continue
+            _, plain_ms = time_host(torch, lambda: vc.verify_check_plain(
+                spec, inp["ts"], inp["col"], inp["enc_rows"], inp["idx"], p_eval=inp["pe"],
+                inner=inp["inner"]))
+            bound, t_bytes, t_ops = vc_bound(spec, T, R, k, npr)
+            rec.update({"check_ms": ms, "check_plain_ms": plain_ms, "check_bound_ms": bound,
+                        "check_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "check_bytes_ms": t_bytes, "check_products_ms": t_ops})
+            log(f"  verify_check {tag} (T {T} x {R} rows x {k} columns, npr {npr}): device "
+                f"{ms:.4f} ms, bound {bound:.4f} ms ({rec['check_bound_by']}; bytes "
+                f"{t_bytes:.4f}, products {t_ops:.4f}), plain {plain_ms:.1f} ms")
+            # gather_open: the codeword's limbs read in place (2^23), the
+            # evaluated columns' int64 words (2^29's opening by evaluation)
+            uniq = inp["uniq"]
+            if n_cols <= 1 << 19:
+                comm = kb.random_mont(spec, (R, spec.w16, n_cols), gen).permute(1, 0, 2)
+                comm = comm.contiguous()
+                kw, read = dict(mont=comm, off=n_cols), inp["idx"]
+                lib = lambda: comm.index_select(2, read)  # noqa: E731
+                nbytes = 4 * spec.w16 * R * k
+            else:
+                comm = inp["want_cols"].new_empty((w32, R, k)).random_(0, 2**32, generator=gen)
+                kw, read = dict(mont=comm, mont_form="words", off=k), torch.arange(k, device=DEV)
+                lib = lambda: comm.index_select(2, read)  # noqa: E731
+                nbytes = 8 * w32 * R * k
+            grec = vc_gather(torch, kb, vc, spec, f"{tag} opening", read, R, inp["tree"], uniq,
+                             kw, lib, nbytes)
+            rec["gather"] = grec
+        del inp
+        torch.cuda.empty_cache()
+    # the 2^28 words-kept opening: canonical words converted in the gather
+    R, k, n_kept = VC_CANON
+    canon = pack_words(kb.random_mont(spec, (R, spec.w16, n_kept), gen).permute(1, 0, 2), 0)
+    canon = canon.permute(1, 0, 2).reshape(R * w32, n_kept).contiguous()  # hash-word layout
+    tree = torch.randint(0, 2**32, (8, 2 * n_kept - 1), generator=gen, device=DEV,
+                         dtype=torch.int64)
+    idx_l = torch.randperm(n_kept, generator=gen, device=DEV)[:k]
+    uniq = torch.as_tensor(np.unique(protocol.path_node_indices(n_kept, idx_l.tolist()))
+                           .astype(np.int64), device=DEV)
+    recs["2^28 words kept"] = {"rows": R, "columns": k, "kept_columns": n_kept, "gather": vc_gather(
+        torch, kb, vc, spec, "2^28 words-kept opening", idx_l, R, tree, uniq, dict(canon=canon),
+        lambda: canon.index_select(1, idx_l), 4 * w32 * R * k)}
+    del canon, tree
+    torch.cuda.empty_cache()
+    return recs
+
+
+def vc_gather(torch, kb, vc, spec, tag, idx, R, hashes, uniq, kw, lib, in_bytes):
+    """gather_open against gather_open_plain at one shape, both timed, its
+    bound (the opened words read once, the buffer written once, the path
+    nodes), the PyTorch index_select of the columns alone beside."""
+    got = vc.gather_open(spec, idx, R, hashes=hashes, uniq=uniq, **kw)
+    want, plain_ms = time_host(torch, lambda: vc.gather_open_plain(
+        spec, idx, R, hashes=hashes, uniq=uniq, **kw))
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_open {tag}: kernel != plain")
+    ms = kb.time_kernel(lambda: vc.gather_open(spec, idx, R, hashes=hashes, uniq=uniq, **kw))
+    lib_ms = kb.time_kernel(lib)
+    U, k = uniq.numel(), idx.numel()
+    nbytes = in_bytes + 4 * got.numel() + 64 * U + 8 * (k + U)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  gather_open {tag} ({R} rows x {k} columns, {U} path nodes): equal to plain; device "
+        f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), index_select alone {lib_ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms")
+    return {"ms": ms, "bound_ms": bound, "bound_by": "bytes", "plain_ms": plain_ms,
+            "library_ms": lib_ms, "path_nodes": U}
+
+
+def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
+    """The kernel table rows of verify_core.cu's two kernels, each timed at
+    the Ligero 2^23 shapes, the other paths' shapes and launches beside;
+    the walks in their verifier form (root compared in the kernel) as
+    phase 16 timed them, beside their output form (phases 7, 13)."""
+    main = vcore[VC_SHAPES[0][0]]
+
+    def ptx(name):
+        return {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                for k, v in sorted(vc_ptxas.items()) if name in k}
+
+    def launches(name):
+        return {"sdig_2_23": sdig[0][name], "ligero_2_28": big["launches"][name],
+                "seeded_2_29": s29["launches"][name]}
+
+    common = {"route": "cuda", "source": "lcpc_tpu_torch/csrc/verify_core.cu",
+              "max_abs_err": 0, "equal_to_plain": True, "tolerance": 0}
+    walks = {tag: {d: rec[f"walk_{d}_ms"] for d in ("blake3", "sha256")}
+             for tag, rec in vcore.items() if "walk_blake3_ms" in rec}
+    return [{
+        "name": "verify_check", **common,
+        "replaces": ("lcpc_tpu/core/protocol.py:807 (_verify_core_fn), :767 "
+                     "(_verify_core_cols_fn), :730 (_eval_dot_fn); XLA-fused, not Pallas"),
+        "launches": lig[0]["verify_check"], "ms": main["check_ms"],
+        "plain_ms": main["check_plain_ms"], "bound_ms": main["check_bound_ms"],
+        "bound_by": main["check_bound_by"], "library_ms": None,
+        "shape": (f"the ligero 2^23 verify: T 2 x {main['rows']} rows x {main['columns']} "
+                  f"opened columns, the evaluation over {main['npr']}"),
+        "launches_paths": launches("verify_check"),
+        "other_shapes": {tag: {k: v for k, v in rec.items() if k.startswith("check")}
+                         for tag, rec in vcore.items() if "check_ms" in rec},
+        "walks_verifier_form_ms": walks,
+        "walks_output_form_ms": {"blake3": {f"{k} x {lv}": hashes[f"walk {k}"]["ms"]
+                                            for k, lv in WALKS},
+                                 "sha256": {f"{k} x {lv}": shas[f"walk {k}"]["ms"]
+                                            for k, lv in WALKS}},
+        "ptxas": ptx("verify_check_kernel"),
+    }, {
+        "name": "gather_open", **common,
+        "replaces": ("lcpc_tpu/core/protocol.py:547 (_gather_open), :538 (_gather_packed), "
+                     "lcpc_tpu/core/streaming.py:332 (_gather_canon_fn); XLA-fused, not Pallas"),
+        "launches": lig[0]["gather_open"], "ms": main["gather"]["ms"],
+        "plain_ms": main["gather"]["plain_ms"], "bound_ms": main["gather"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": main["gather"]["library_ms"],
+        "library_call": "torch.index_select of the opened columns alone",
+        "shape": (f"the ligero 2^23 prove's opening: {main['columns']} columns of "
+                  f"{main['rows']} rows out of the codeword's limbs, "
+                  f"{main['gather']['path_nodes']} path nodes"),
+        "launches_paths": launches("gather_open"),
+        "other_shapes": {tag: rec["gather"] for tag, rec in vcore.items() if "gather" in rec},
+        "ptxas": ptx("gather_open_kernel"),
+    }]
 
 
 def sha_rows(shas, paths, sha_ptxas, sha_mix):
@@ -2709,10 +3078,11 @@ def sha_rows(shas, paths, sha_ptxas, sha_mix):
         row("sha256_merkle_walk",
             "lcpc_tpu/core/protocol.py:787-793 (_verify_core_fn's parent loop); XLA-fused, "
             "not Pallas", w189, "path (a)'s verify walk: 189 columns x 17 levels",
-            ("merkle_walk_kernel",), host_ms=w189["host_ms"], floor_ms=w189["floor_ms"],
-            critical_path_ms=w189["critical_path_ms"],
+            ("sha256_walk_kernel",), host_ms=w189["host_ms"], floor_ms=w189["floor_ms"],
+            critical_path_ms=w189["critical_path_ms"], issue_ms=w189["issue_ms"],
             brakedown_2_23=shas[f"walk {WALKS[1][0]}"],
-            parent_latency_ms=shas["parent_latency_ms"]),
+            parent_latency_ms=shas["parent_latency_ms"],
+            note="a round warp fed W + K by a schedule warp, 32 columns a block"),
     ]
 
 
@@ -2728,7 +3098,7 @@ TWIDDLE_LOG_N = 20   # phase 15: the NTT plan's table built on the card, against
 # kernels each sharded stage must launch (besides the hash kernels of commit)
 SHARD_COMMIT = {"ligero": {"ntt_mont"}, "wide": {"ntt_mont", "mont_mul_map"},
                 "sdig": {"spmv_mont", "mont_mul_map"}}
-SHARD_PROVE = {"mont_dot", "mont_mul_map"}  # the collapse; the opened columns' conversion
+SHARD_PROVE = {"mont_dot", "gather_open"}  # the collapse; the opened columns (one launch)
 HASH_COMMIT = {"blake3": {"blake3_chunks", "chunk_tree", "merkle_tree"},
                "sha256": {"sha256_cols", "sha256_merkle_tree"}}
 
@@ -2744,7 +3114,7 @@ def main_coeffs(torch, spec, ops, gen):
     return canon, ops.to_mont(canon)
 
 
-def kernel_counters(b3, md, mm, nttm, sha, spmv, tf):
+def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
     """Every kernel wrapper of the port by its counter's name."""
     return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
             "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
@@ -2754,7 +3124,8 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf):
             "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
             "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
             **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
-            "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk}
+            "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk,
+            "verify_check": vc.verify_check, "gather_open": vc.gather_open}
 
 
 def counted(torch, counters, fn):
@@ -3058,6 +3429,7 @@ def sharded_rank(rank, port, out, x_pt) -> int:
     import lcpc_tpu_torch as P
     from lcpc_tpu_torch.ops import blake3 as b3, mont_dot as md, mont_map as mm
     from lcpc_tpu_torch.ops import ntt as nttm, sha256 as sha, spmv, threefry as tf
+    from lcpc_tpu_torch.ops import verify_core as vc
     from lcpc_tpu_torch.ops.limbs import get_ops
     from lcpc_tpu_torch.parallel import mesh_protocol as mp, multihost
     from lcpc_tpu_torch.parallel.comm import Comm
@@ -3065,7 +3437,7 @@ def sharded_rank(rank, port, out, x_pt) -> int:
     rank, port, x_pt = int(rank), int(port), int(x_pt)
     multihost.initialize(f"tcp://localhost:{port}", RANK_WORLD, rank, device=f"{DEV}:0",
                          backend=RANK_BACKEND)
-    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf)
+    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc)
     spec = P.FT255
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
@@ -3112,6 +3484,7 @@ def main() -> int:
     from lcpc_tpu_torch.ops import sha256 as sha
     from lcpc_tpu_torch.ops import spmv
     from lcpc_tpu_torch.ops import threefry as tf
+    from lcpc_tpu_torch.ops import verify_core as vc
     from lcpc_tpu_torch.ops.limbs import get_ops
     from lcpc_tpu_torch.utils import cuda_build, native
 
@@ -3119,7 +3492,7 @@ def main() -> int:
         raise RuntimeError("the port pulled in JAX or the JAX package")
     if hasattr(b3, "blake3_parents"):
         raise AssertionError("the per-level blake3_parents kernel is still in the port")
-    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf)
+    counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc)
     hashing = {"blake3_chunks", *TREES}
 
     # 1. the card
@@ -3138,8 +3511,8 @@ def main() -> int:
         sha_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
                             kb.SHA_CHAIN_SRC)
         secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
-                                     "mont_dot", "power_table", "mont_map", "sha256_cols"],
-                                    force=True)
+                                     "mont_dot", "power_table", "mont_map", "sha256_cols",
+                                     "verify_core"], force=True)
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
         sha_so, sha_chain_log = sha_f.result()
@@ -3172,7 +3545,7 @@ def main() -> int:
             f"{ld} bytes spill loads")
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
     sha_ptxas = {k: v for name in ("sha256_cols_kernel", "sha256_few_kernel", "merkle_tree_kernel",
-                                   "merkle_walk_kernel")
+                                   "sha256_walk_kernel")
                  for k, v in kb.ptxas_entries(cuda_build.build_logs["sha256_cols"], name).items()}
     # the column hash's two kernels, 2 word types x 2 modes each, the tree, the walk
     if len(sha_ptxas) != 10:
@@ -3185,6 +3558,14 @@ def main() -> int:
         log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
             f"{ld} bytes spill loads")
     sha_mix = sha256_mix(kb, sha_so, cuda_build.so_path("sha256_cols"))
+    vc_ptxas = {k: v for name in ("verify_check_kernel", "gather_open_kernel")
+                for k, v in kb.ptxas_entries(cuda_build.build_logs["verify_core"], name).items()}
+    if len(vc_ptxas) != 8:  # both kernels at W32 = 2, 4, 6, 8
+        raise AssertionError(f"verify_core kernels not reported by ptxas: {vc_ptxas}")
+    for name, (regs, st, ld) in sorted(vc_ptxas.items()):
+        log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+        if "ILi8E" in name and (st or ld):
+            raise AssertionError(f"{name} spills: {st} / {ld} bytes")
     prove_ptxas = {}
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
                             ("power_table", "power_"), ("mont_map", "map_kernel")):
@@ -3268,7 +3649,7 @@ def main() -> int:
     # words, the evaluation's two operands to Montgomery form
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
                      SDIG_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": 5})
+    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": VERIFY_MAPS})
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -3345,8 +3726,7 @@ def main() -> int:
     cols_route = verify_at_columns(lenc.n_cols)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
                     ligero_kernels(lenc.n_cols) | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0,
-                                          "verify": ligero_verify_maps(lenc.n_cols)})
+    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0, "verify": VERIFY_MAPS})
     per_encode = plan.launches_per_call
     encodes, tables = (1, 1) if cols_route else (2, 0)
     if lig[0]["ntt_mont"] != encodes * per_encode or lig[0]["power_table"] != tables:
@@ -3427,7 +3807,13 @@ def main() -> int:
         del coeffs_mont
         torch.cuda.empty_cache()
 
-    # 16. kernel table
+    # 16. the verifier's core and the prover's opening against their plain
+    # versions at the paths' shapes
+    with Phase("16 verify core"):
+        vcore = verify_core_phase(torch, kb, P, vc, gen)
+        torch.cuda.empty_cache()
+
+    # 17. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -3510,7 +3896,8 @@ def main() -> int:
     }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
         *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"], shard),
-        *sha_rows(shas, sha_paths, sha_ptxas, sha_mix)]
+        *sha_rows(shas, sha_paths, sha_ptxas, sha_mix),
+        *vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -3525,7 +3912,7 @@ def main() -> int:
                    "sha256": shas, "sha256_paths": sha_paths, "sha256_sass": sha_mix,
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
                    "verify_routes_2_23": lig_routes,
-                   "sharded": shard,
+                   "sharded": shard, "verify_core": vcore,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

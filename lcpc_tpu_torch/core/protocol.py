@@ -37,9 +37,9 @@ from ..fs.sampling import field_random_vec, uniform_indices
 from ..ops import blake3
 from ..ops.digest import BLAKE3, DeviceDigest
 from ..ops.limbs import get_ops, limbs_to_device
-from ..ops.mont_dot import mont_dot
 from ..ops.mont_map import mont_mul_map
 from ..ops.mxu_prove import MxuCollapse, MxuColumnEval, mxu_prove_enabled
+from ..ops.verify_core import gather_open, read_state, state_init, verify_check, verify_walk
 from .encoding import LcEncoding
 
 # Verify evaluates the proof rows at the opened columns (MxuColumnEval: the
@@ -420,30 +420,51 @@ def _unpack_cols(words: np.ndarray) -> np.ndarray:
     return out
 
 
-def _column_paths(hashes_dev: torch.Tensor, n_cols: int, cols: list[int]) -> np.ndarray:
-    """(k, path_len, 32) sibling digests of each opened column; only the
-    UNIQUE path nodes (paths share most upper-tree nodes) leave the device."""
+def _push(arrays: "dict[str, np.ndarray]", device) -> "dict[str, torch.Tensor]":
+    """Host arrays on the device in one copy: packed into one byte buffer
+    (pinned for a CUDA device, the copy asynchronous) at 16-byte offsets,
+    then viewed there in their dtypes (int32, int64) and shapes."""
+    offs, end = {}, 0
+    for name, a in arrays.items():
+        offs[name] = end
+        end += -(-a.nbytes // 16) * 16
+    host = torch.empty(max(end, 16), dtype=torch.uint8,
+                       pin_memory=torch.device(device).type == "cuda")
+    hv = host.numpy()
+    for name, a in arrays.items():
+        hv[offs[name] : offs[name] + a.nbytes] = np.ascontiguousarray(a).view(np.uint8).ravel()
+    buf = host.to(device, non_blocking=True)
+    dtypes = {np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64}
+    return {name: buf[offs[name] : offs[name] + a.nbytes].view(dtypes[a.dtype]).view(a.shape)
+            for name, a in arrays.items()}
+
+
+def _open_batched(spec, hashes_dev: torch.Tensor, n_cols: int, n_rows: int, cols: list[int],
+                  read: "list[int] | None" = None, **sources) -> BatchedColumns:
+    """The proof's columns and Merkle paths (open_column, lib.rs:788-825):
+    the columns `read` (default `cols`) of the gather_open sources (mont,
+    mont_form, canon, off) as (W/2, R, k) packed Montgomery words, and the
+    paths of `cols` from the device Merkle array, only its UNIQUE nodes
+    (paths share most upper-tree nodes): one copy of the indices to the
+    device, one gather_open launch, one copy back."""
     path_idx = path_node_indices(n_cols, cols)  # (k, L)
     uniq, inv = np.unique(path_idx.reshape(-1), return_inverse=True)
-    digs = hashes_dev.index_select(
-        1, torch.as_tensor(uniq.astype(np.int64), device=hashes_dev.device))
-    uniq_bytes = blake3.digests_to_bytes(digs)  # (n_uniq, 32)
-    return uniq_bytes[inv.reshape(-1)].reshape(len(cols), path_idx.shape[1], 32)
-
-
-def _batched_columns(col_w: torch.Tensor, hashes_dev: torch.Tensor, n_cols: int,
-                     cols: list[int]) -> BatchedColumns:
-    """The proof's columns: packed Montgomery words (W/2, R, k) (int64 u32
-    values) and the Merkle paths of `cols`."""
-    return BatchedColumns(col_w=col_w.cpu().numpy().astype(np.uint32),
-                          paths=_column_paths(hashes_dev, n_cols, cols))
+    k = len(cols)
+    d = _push({"idx": np.asarray(cols if read is None else read, dtype=np.int64),
+               "uniq": uniq.astype(np.int64)}, hashes_dev.device)
+    out = gather_open(spec, d["idx"], n_rows, hashes=hashes_dev, uniq=d["uniq"],
+                      **sources).cpu().numpy().view(np.uint32)
+    n = spec.w16 // 2 * n_rows * k
+    paths = blake3.digests_to_bytes(out[n:].reshape(8, -1))[inv.reshape(-1)]
+    return BatchedColumns(col_w=out[:n].reshape(-1, n_rows, k),
+                          paths=paths.reshape(k, path_idx.shape[1], 32))
 
 
 def _open_columns(comm: LcCommit, cols: list[int]) -> BatchedColumns:
-    """Extract columns + Merkle paths (open_column, lib.rs:788-825)."""
-    col_idx = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=comm.comm.device)
-    packed = _pack_pairs(comm.comm.index_select(2, col_idx))
-    return _batched_columns(packed, comm.hashes_dev, comm.n_cols, cols)
+    """Extract columns + Merkle paths (open_column, lib.rs:788-825): the
+    codeword's limbs read in place."""
+    return _open_batched(comm.enc.spec, comm.hashes_dev, comm.n_cols, comm.n_rows, cols,
+                         mont=comm.comm, off=comm.n_cols)
 
 
 def prove_core(enc: LcEncoding, tr: Transcript, n_rows: int, n_cols: int,
@@ -521,58 +542,38 @@ def _rows_encode(enc: LcEncoding, rows_w: torch.Tensor) -> torch.Tensor:
     return enc.encode_rows(rows)
 
 
-def _eval_dot(spec, rows_w: torch.Tensor, inner_w: torch.Tensor) -> torch.Tensor:
-    """Σ inner_tensor[j] * p_eval[j] mod p on the device, (W/2,) canonical
-    int32 words.
+def _verify_core(spec, digest: DeviceDigest, enc_rows, ts, col_w, idx, uniq_sibs, inv,
+                 root_w, state, p_eval=None, inner=None, want_cols=False) -> np.ndarray:
+    """The batched verifier step, all on the device (lcpc_tpu/core/protocol.py:807
+    `_verify_core_fn`, with :730 `_eval_dot_fn`'s evaluation):
 
-    rows_w: (T, npr, W/2) canonical repr words, p_eval last; inner_w:
-    (npr, W/2) canonical words (lib.rs:947-951); both int32."""
-    pe = mont_mul_map(spec, rows_w[-1].T, op="to_mont", in_form="words", out_form="words")
-    inner = mont_mul_map(spec, inner_w.T, op="to_mont", in_form="words", out_form="words")
-    return mont_dot(spec, inner[:, None, :], pe[:, :, None]).reshape(-1)
-
-
-def _path_ok(spec, digest: DeviceDigest, col_w, idx, uniq_sibs, inv, root_w) -> torch.Tensor:
-    """Hash the opened columns (W/2, R, k) packed Montgomery words (their
-    canonical hash words in one mont_map launch) and walk their Merkle
-    paths: do they all reach the root?"""
-    words = mont_mul_map(spec, col_w, op="from_mont", in_form="words", out_form="hash")
-    digs = digest.merkle_walk(digest.hash_word_columns(words), uniq_sibs, inv, idx)
-    return (digs == root_w[:, None]).all()  # bit l of idx: right child
-
-
-def _verify_core(spec, digest: DeviceDigest, enc_rows, ts, col_w, idx,
-                 uniq_sibs, inv, root_w) -> np.ndarray:
-    """The batched verifier step, all on the device:
-
-      enc_rows  (W, T, n_cols) Montgomery — encoded [p_random..., p_eval]
-      ts        (W, T, R) Montgomery — [rand_tensors..., outer_tensor]
+      enc_rows  (W, T, n_cols) Montgomery limbs — encoded [p_random..., p_eval]
+      ts        (W/2, T, R) Montgomery words — [rand_tensors..., outer_tensor]
       col_w     (W/2, R, k) int32 — opened column values, packed Montgomery words
       idx       (k,) — opened column indices
       uniq_sibs (8, U) — unique sibling digests
       inv       (L, k) — per-level map from column to unique digest
       root_w    (8,) — expected root digest words
-    Returns (T+1,) bool flags: per-row dot checks [0..T), path check [T].
-    """
-    got = mont_dot(spec, ts, col_w, x_form="limbs")       # (W/2, T, k) canonical
-    want = mont_mul_map(spec, enc_rows.index_select(2, idx), op="from_mont", out_form="words")
-    ok_rows = (got == want).all(dim=2).all(dim=0)        # (T,)
-    ok_path = _path_ok(spec, digest, col_w, idx, uniq_sibs, inv, root_w)
-    return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
+      state     the verifier's state (ops/verify_core.state_init), on the device
+      p_eval, inner  (npr, W/2) canonical words, or None: no evaluation
+    verify_check (the column check, the columns' hash words and the
+    evaluation), the digest's column hash and verify_walk (the paths
+    against the root); returns the state on the host: the per-row dot
+    checks [0..T), the path check [T], the evaluation's words."""
+    words = verify_check(spec, state, ts, col_w, enc_rows, idx, want_cols=want_cols,
+                         p_eval=p_eval, inner=inner)
+    digs = digest.hash_word_columns(words)
+    verify_walk(digest, state, ts.shape[1], digs, uniq_sibs, inv, idx, root_w)
+    return state.cpu().numpy()
 
 
-def _verify_core_cols(spec, digest: DeviceDigest, want_w, ts, col_w, idx, uniq_sibs, inv,
-                      root_w) -> np.ndarray:
+def _verify_core_cols(spec, digest: DeviceDigest, want_w, *args) -> np.ndarray:
     """_verify_core with the encoded rows AT THE OPENED COLUMNS ONLY
     (lcpc_tpu/core/protocol.py:767, _verify_core_cols_fn): want_w (W/2, T,
     k) packed Montgomery words from MxuColumnEval.  A Reed-Solomon row's
     opened values are the row polynomial at w^bitrev(c), so the k needed
-    entries come without the full-width encode.  The column check compares
-    Montgomery forms: got and want are each the unique residue < p."""
-    got = mont_dot(spec, ts, col_w, "mont", x_form="limbs")  # (W/2, T, k)
-    ok_rows = ((got.to(torch.int64) & 0xFFFFFFFF) == want_w).all(dim=2).all(dim=0)
-    ok_path = _path_ok(spec, digest, col_w, idx, uniq_sibs, inv, root_w)
-    return torch.cat([ok_rows, ok_path[None]]).cpu().numpy()
+    entries come without the full-width encode."""
+    return _verify_core(spec, digest, want_w, *args, want_cols=True)
 
 
 def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
@@ -696,7 +697,7 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     ts = np.stack(
         [ops.encode_host(t) for t in rand_tensors] + [ops.encode_host(outer_tensor)],
         axis=1,
-    )  # (W, T, n_rows) Montgomery
+    )  # (W, T, n_rows) Montgomery limbs
     idx = np.asarray(cols_to_open, dtype=np.int64)
 
     # sibling digests dedup by VALUE (honest paths share most upper-tree
@@ -720,14 +721,23 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     inv = np.ascontiguousarray(inv.reshape(n_col_opens, path_len).T)  # (L, k)
     root_w = np.frombuffer(root, dtype="<u4").astype(np.int64)
 
-    dev = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(device)
+    # every input of the core in one copy to the device: the state, the
+    # tensors and columns as packed words, the path data, the inner tensor
     col_w = np.asarray(batched.col_w).astype(np.uint32, copy=False).view(np.int32)
-    args = (limbs_to_device(ts, device), dev(col_w, np.int32), dev(idx, np.int64),
-            dev(uniq_sibs, np.int64), dev(inv, np.int64), dev(root_w, np.int64))
+    ts_w = (ts[0::2] | (ts[1::2] << np.uint32(16))).astype(np.uint32).view(np.int32)
+    host = {"state": state_init(spec, T, n_col_opens), "ts": ts_w, "col_w": col_w, "idx": idx,
+            "sibs": uniq_sibs.astype(np.int64), "inv": inv.astype(np.int64), "root": root_w}
+    if fuse_eval:
+        host["inner"] = ops.encode_repr_words(inner_tensor).view(np.int32)  # (npr, W/2)
+    d = _push(host, device)
+    args = (d["ts"], d["col_w"], d["idx"], d["sibs"], d["inv"], d["root"], d["state"])
+    if fuse_eval:  # the evaluation rides the core: p_eval is the proof rows' last
+        args += (rows_dev[-1], d["inner"])
     if use_cols:
-        flags = _verify_core_cols(spec, digest, want_w, *args)
+        state = _verify_core_cols(spec, digest, want_w, *args)
     else:
-        flags = _verify_core(spec, digest, enc_rows, *args)
+        state = _verify_core(spec, digest, enc_rows, *args)
+    flags, value = read_state(spec, state, T)
     for i in range(n_degree_tests_):
         if not flags[i]:
             raise VerifierError("ColumnDegree")
@@ -737,9 +747,7 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
         raise VerifierError("ColumnPath")
 
     if fuse_eval:
-        inner_w = ops.encode_repr_words(inner_tensor).view(np.int32)  # (npr, W/2)
-        ev = _eval_dot(spec, rows_dev, dev(inner_w, np.int32))
-        return int.from_bytes(ev.cpu().numpy().astype("<i4").tobytes(), "little")
+        return value
     # host evaluation dot (odd-rows path / unreduced inner)
     acc = 0
     for t_v, e_v in zip(inner_tensor, _repr_rows_to_ints(p_eval_rows)):

@@ -34,6 +34,7 @@ update one launch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import warnings
 
@@ -51,8 +52,8 @@ from .encoding import LcEncoding
 from .protocol import (
     LcEvalProof,
     ProverError,
-    _batched_columns,
     _next_pow2,
+    _open_batched,
     _pack_pairs,
     prove_core,
 )
@@ -353,10 +354,8 @@ def _canon_to_proof_words(spec, cols: torch.Tensor) -> torch.Tensor:
 
 def _systematic_columns(comm: LcCommitStreaming, idx: torch.Tensor) -> torch.Tensor:
     """Codeword columns idx < systematic_prefix, which ARE the coefficient
-    columns in Montgomery form: (W/2, R, k) packed words."""
-    if comm.coeffs is not None:
-        cols = comm.coeffs.index_select(2, idx)
-        return cols.to(torch.int64) & 0xFFFFFFFF if comm.packed else _pack_pairs(cols)
+    columns in Montgomery form, out of the source's regenerated blocks:
+    (W/2, R, k) packed words."""
     return torch.cat([_pack_pairs(comm.source.block(r0, min(r0 + comm.row_block, comm.n_rows))
                                   .index_select(2, idx))
                       for r0 in range(0, comm.n_rows, comm.row_block)], dim=1)
@@ -438,11 +437,20 @@ def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
         return words.cpu().numpy().astype(np.uint32)
 
     def open_columns_fn(cols: list[int]):
+        # one gather_open launch reads the opened columns where they lie
+        # (the kept words, the resident coefficients) and the paths; columns
+        # made apart first (host words, regenerated blocks) are read as they are
         idx_np = np.asarray(cols, dtype=np.int64)
-        idx = torch.as_tensor(idx_np, device=device)
-        if comm.words_dev is not None and comm.words_off:
+        k = len(cols)
+        opened = functools.partial(_open_batched, spec, comm.hashes_dev, comm.n_cols,
+                                   comm.n_rows, cols)
+        if comm.words_dev is not None and comm.words_off and comm.coeffs is not None:
             # tail keep: systematic columns from the coefficients, the rest
-            # from the retained tail, merged by one where()
+            # from the retained tail
+            return opened(mont=comm.coeffs, mont_form="words" if comm.packed else "limbs",
+                          canon=comm.words_dev, off=comm.words_off)
+        if comm.words_dev is not None and comm.words_off:
+            # tail keep over a source: the systematic columns regenerated
             off = comm.words_off
             tail = _canon_to_proof_words(spec, comm.words_dev.index_select(
                 1, torch.as_tensor(np.maximum(idx_np - off, 0), device=device)))
@@ -451,15 +459,15 @@ def prove_streaming(comm: LcCommitStreaming, outer_tensor: list[int],
             is_sys = torch.as_tensor(idx_np < off, device=device)
             col_w = torch.where(is_sys[None, None, :], sys_w, tail)
         elif comm.words_dev is not None:
-            col_w = _canon_to_proof_words(spec, comm.words_dev.index_select(1, idx))
+            return opened(canon=comm.words_dev)
         elif comm.words_host is not None:
             host = np.ascontiguousarray(comm.words_host[:, idx_np]).view(np.int32)
-            col_w = _canon_to_proof_words(spec, torch.from_numpy(host).to(device))
+            return opened(range(k), canon=torch.from_numpy(host).to(device))
         elif getattr(enc, "supports_direct_col_eval", False):
             col_w = _open_by_eval(comm, cols)
         else:
             col_w = _open_by_reencode(comm, cols)
-        return _batched_columns(col_w, comm.hashes_dev, comm.n_cols, cols)
+        return opened(range(k), mont=col_w, mont_form="words", off=k)
 
     return prove_core(enc, tr, comm.n_rows, comm.n_cols, outer_tensor,
                       collapse_words_fn, open_columns_fn)

@@ -373,12 +373,14 @@ extern "C" int lcpc_blake3_merkle_tree(const long long* leaves, long long ld, in
                                            stream);
 }
 
-// The Merkle path walk of k opened columns over `levels` levels:
+// The Merkle path walk of k opened columns over `levels` levels, the roots
+// into out or compared with root (clearing *flag where one differs):
 // merkle.cuh's launch_walk with BLAKE3's parent.
 extern "C" int lcpc_blake3_merkle_walk(const long long* digs, long long d_w, long long d_c,
                                        const long long* sibs, long long s_w, long long s_c,
                                        const long long* inv, const long long* idx, int k,
-                                       int levels, long long* out, int device, void* stream) {
+                                       int levels, long long* out, const long long* root,
+                                       int32_t* flag, int device, void* stream) {
   return merkle::launch_walk<Blake3Merkle>(digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels,
-                                           out, device, stream);
+                                           out, root, flag, device, stream);
 }

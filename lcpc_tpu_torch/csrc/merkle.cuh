@@ -1,12 +1,11 @@
 // The Merkle tree and the verifier's path walk over any digest's parent
-// function: the kernels behind blake3_cols.cu's and sha256_cols.cu's
-// merkle_tree and merkle_walk entry points.
+// function: the kernels behind blake3_cols.cu's merkle_tree and merkle_walk
+// and sha256_cols.cu's merkle_tree entry points (SHA-256's walk is a kernel
+// of its own, sha256_walk_kernel, which takes walk_args_ok and walk_end).
 //
 // A digest is 8 u32 words (LE words of the digest bytes), and Hash::parent(cv,
 // l, r) writes the parent node of l || r into cv (cv may alias neither input
-// it has not read); a digest may give the tree and the walk parents of
-// different code (sha256_cols.cu: Sha256TreeMerkle, Sha256Merkle).  Leaves
-// and nodes in device memory are int64 holding u32.
+// it has not read).  Leaves and nodes in device memory are int64 holding u32.
 //
 //   merkle_tree_kernel  the whole Merkle array.  A block of 256 threads builds
 //                       the subtree of 1,024 leaves, level 1 from the leaves
@@ -16,7 +15,9 @@
 //                       Zero digests pad the leaves to a power of two.
 //   merkle_walk_kernel  one thread per opened column walks its path to the
 //                       root, the sibling picked by the deduplicated index map
-//                       and its side by the column's index bits.
+//                       and its side by the column's index bits; it writes
+//                       the roots the paths reach or, given the root, clears
+//                       a flag where one differs (the verifier's walk).
 //
 // What bounds them: the walk by its depth, a parent's latency a level; the
 // tree by its depth too above the subtree roots (the last block's levels,
@@ -150,6 +151,24 @@ merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_col
   if (t == 0) *counter = 0u;  // ready for the next launch on this stream
 }
 
+// The end of column j's walk: its node cv written to out[:, j] or, with
+// root given, compared with it, a difference clearing *flag (the verifier's
+// path check; every column that differs stores the same 0)
+__device__ __forceinline__ void walk_end(const uint32_t (&cv)[8], int j, int k,
+                                         long long* __restrict__ out,
+                                         const long long* __restrict__ root,
+                                         int32_t* __restrict__ flag) {
+  if (root != nullptr) {
+    bool eq = true;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) eq &= cv[w] == (uint32_t)root[w];
+    if (!eq) *flag = 0;
+    return;
+  }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) out[(size_t)w * k + j] = cv[w];
+}
+
 // Column j starts from its digest and walks `levels` levels: the sibling is
 // sibs[:, inv[l, j]], on the left when bit l of idx[j] is set.  The walk is
 // a chain of dependent parents, but its gathers are not: the next level's
@@ -160,7 +179,8 @@ __global__ void __launch_bounds__(kWalkThreads)
 merkle_walk_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
                    const long long* __restrict__ sibs, long long s_w, long long s_c,
                    const long long* __restrict__ inv, const long long* __restrict__ idx,
-                   int k, int levels, long long* __restrict__ out) {
+                   int k, int levels, long long* __restrict__ out,
+                   const long long* __restrict__ root, int32_t* __restrict__ flag) {
   const int j = blockIdx.x * kWalkThreads + threadIdx.x;
   if (j >= k) return;
   uint32_t cv[8], sib[8], next[8] = {};
@@ -191,8 +211,7 @@ merkle_walk_kernel(const long long* __restrict__ digs, long long d_w, long long 
     }
     Hash::parent(cv, l, r);
   }
-#pragma unroll
-  for (int w = 0; w < 8; ++w) out[(size_t)w * k + j] = cv[w];
+  walk_end(cv, j, k, out, root, flag);
 }
 
 // The whole Merkle tree over leaves (8, n_cols) int64 (word stride ld,
@@ -218,22 +237,33 @@ int launch_tree(const long long* leaves, long long ld, int n_cols, long long np2
   return (int)cudaGetLastError();
 }
 
-// The Merkle path walk of k opened columns over `levels` levels: digs (8, k)
-// and sibs (8, U) int64 at strides (d_w, d_c) and (s_w, s_c); inv (levels,
-// k) and idx (k,) int64, contiguous, every inv < U; out (8, k) int64,
-// contiguous.  Returns the launch's cudaError_t.
+// The arguments of a walk launch are valid: digs (8, k) and sibs (8, U)
+// int64 at strides (d_w, d_c) and (s_w, s_c); inv (levels, k) and idx (k,)
+// int64, contiguous, every inv < U; either out (8, k) int64, contiguous, or
+// root (8,) int64 and flag.
+inline bool walk_args_ok(const long long* digs, const long long* sibs, const long long* inv,
+                         const long long* idx, int k, int levels, const long long* out,
+                         const long long* root, const int32_t* flag) {
+  return digs != nullptr && idx != nullptr && k >= 1 && levels >= 0 && levels <= 63 &&
+         (levels == 0 || (sibs != nullptr && inv != nullptr)) &&
+         (root != nullptr ? flag != nullptr : out != nullptr);
+}
+
+// The Merkle path walk of k opened columns over `levels` levels (arguments
+// as walk_args_ok takes them): the roots the paths reach into out, or, given
+// root, *flag cleared where one differs.  Returns the launch's cudaError_t.
 template <class Hash>
 int launch_walk(const long long* digs, long long d_w, long long d_c, const long long* sibs,
                 long long s_w, long long s_c, const long long* inv, const long long* idx, int k,
-                int levels, long long* out, int device, void* stream) {
-  if (digs == nullptr || idx == nullptr || out == nullptr || k < 1 || levels < 0 ||
-      levels > 63 || (levels > 0 && (sibs == nullptr || inv == nullptr)))
+                int levels, long long* out, const long long* root, int32_t* flag, int device,
+                void* stream) {
+  if (!walk_args_ok(digs, sibs, inv, idx, k, levels, out, root, flag))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   merkle_walk_kernel<Hash>
       <<<(k + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0, (cudaStream_t)stream>>>(
-          digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out);
+          digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out, root, flag);
   return (int)cudaGetLastError();
 }
 

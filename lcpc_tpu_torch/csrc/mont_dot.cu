@@ -152,113 +152,6 @@ __device__ __forceinline__ void load_elem(uint32_t (&v)[W], const Operand& o, lo
   }
 }
 
-// the exact sum: word columns at positions 0 .. 2W-1 and the carries into
-// positions W .. 2W
-template <int W>
-struct Acc {
-  uint32_t lo[2 * W];
-  uint32_t cw[W + 1];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2 * W; ++i) lo[i] = 0;
-#pragma unroll
-    for (int i = 0; i <= W; ++i) cw[i] = 0;
-  }
-
-  // += x y: row i's even-j products at word pairs (i + j, i + j + 1) in one
-  // carry chain (carry out into position i + W), its odd-j products in
-  // another (carry out into position i + W + 1)
-  __device__ __forceinline__ void mac(const uint32_t (&x)[W], const uint32_t (&y)[W]) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-      mad_pair_cc(lo[i], lo[i + 1], x[i], y[0]);
-#pragma unroll
-      for (int j = 2; j < W; j += 2) madc_pair_cc(lo[i + j], lo[i + j + 1], x[i], y[j]);
-      cw[i] = addc(cw[i], 0);
-      mad_pair_cc(lo[i + 1], lo[i + 2], x[i], y[1]);
-#pragma unroll
-      for (int j = 3; j < W; j += 2) madc_pair_cc(lo[i + j], lo[i + j + 1], x[i], y[j]);
-      cw[i + 1] = addc(cw[i + 1], 0);
-    }
-  }
-};
-
-// W Montgomery reduction steps on the 2W + 1 words of v: v[W .. 2W] becomes
-// (v + M p) / R for the M < R that zeroes the low W words
-template <int W>
-__device__ __forceinline__ void redc_wide(uint32_t (&v)[2 * W + 1], const Field<W>& f) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const uint32_t m = v[i] * f.n0;
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const uint64_t t = (uint64_t)m * f.p[j] + v[i + j] + c;
-      v[i + j] = (uint32_t)t;
-      c = t >> 32;
-    }
-#pragma unroll
-    for (int j = i + W; j <= 2 * W; ++j) {
-      const uint64_t t = (uint64_t)v[j] + c;
-      v[j] = (uint32_t)t;
-      c = t >> 32;
-    }
-  }
-}
-
-// the residue of the sum S = v (2W + 1 words, S < K R^2 for K < 2^31):
-// canonical (S R^-2 mod p) or, with `mont`, S R^-1 mod p
-template <int W>
-__device__ __forceinline__ void reduce_wide(uint32_t (&r)[W], uint32_t (&v)[2 * W + 1],
-                                            const Field<W>& f,
-                                            const uint32_t* __restrict__ consts, bool mont) {
-  redc_wide<W>(v, f);  // v[W .. 2W] < K R + p
-  uint32_t u[2 * W + 1];
-#pragma unroll
-  for (int m = 0; m <= W; ++m) u[m] = v[W + m];
-#pragma unroll
-  for (int m = W + 1; m <= 2 * W; ++m) u[m] = 0;
-  redc_wide<W>(u, f);  // u[W .. 2W] < K + 1 + p < 2p
-  uint32_t d[W];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const uint64_t t = (uint64_t)u[W + i] - f.p[i] - borrow;
-    d[i] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-#pragma unroll
-  for (int i = 0; i < W; ++i) r[i] = borrow ? u[W + i] : d[i];
-  if (mont) {
-    uint32_t r2[W], x[W];
-#pragma unroll
-    for (int i = 0; i < W; ++i) {
-      r2[i] = __ldg(consts + W + 1 + i);
-      x[i] = r[i];
-    }
-    f.mul(r, x, r2);
-  }
-}
-
-// the residue of the thin kernel's lazy sum
-template <int W>
-__device__ __forceinline__ void finish(uint32_t (&r)[W], const Acc<W>& a, const Field<W>& f,
-                                       const uint32_t* __restrict__ consts, bool mont) {
-  uint32_t v[2 * W + 1];
-#pragma unroll
-  for (int m = 0; m < W; ++m) v[m] = a.lo[m];
-  uint64_t c = 0;
-#pragma unroll
-  for (int m = W; m < 2 * W; ++m) {
-    const uint64_t t = (uint64_t)a.lo[m] + a.cw[m - W] + c;
-    v[m] = (uint32_t)t;
-    c = t >> 32;
-  }
-  v[2 * W] = a.cw[W] + (uint32_t)c;  // S < K R^2: the top word holds it
-  reduce_wide<W>(r, v, f, consts, mont);
-}
-
 struct Out {
   int32_t* ptr;
   long long s_w, s_a, s_b, s_split;

@@ -72,34 +72,6 @@ __device__ __forceinline__ void store(const View& v, long long off, const uint32
   }
 }
 
-// x -= m where x >= m (one borrow chain, then a select)
-template <int W>
-__device__ __forceinline__ void cond_sub(uint32_t (&x)[W], const uint32_t (&m)[W]) {
-  uint32_t d[W];
-  d[0] = sub_cc(x[0], m[0]);
-#pragma unroll
-  for (int i = 1; i < W; ++i) d[i] = subc_cc(x[i], m[i]);
-  const uint32_t lt = subc(0, 0);  // all ones where x < m
-#pragma unroll
-  for (int i = 0; i < W; ++i) x[i] = lt ? x[i] : d[i];
-}
-
-// x < 2^(32 W) < 4p -> x mod p: x < 4p - 2p after the first subtract
-template <int W>
-__device__ __forceinline__ void reduce(uint32_t (&x)[W], const uint32_t (&p)[W],
-                                       const uint32_t (&p2)[W]) {
-  cond_sub<W>(x, p2);
-  cond_sub<W>(x, p);
-}
-
-// 2p (p's spare top bit keeps it in W words)
-template <int W>
-__device__ __forceinline__ void twice(uint32_t (&p2)[W], const uint32_t (&p)[W]) {
-  p2[0] = p[0] << 1;
-#pragma unroll
-  for (int i = 1; i < W; ++i) p2[i] = (p[i] << 1) | (p[i - 1] >> 31);
-}
-
 template <int W, int OP>
 __global__ void __launch_bounds__(kThreads)
     mont_mul_map_kernel(const View a, const View b, const View out,

@@ -42,26 +42,31 @@
 //                     length (one final block when rem + 3 <= 16, else two)
 //                     and writes the digest as LE words of its big-endian
 //                     bytes.
-//   merkle_tree,      merkle.cuh's kernels over SHA-256's parent node,
-//   merkle_walk       sha256(left digest || right digest): two compressions,
+//   merkle_tree       merkle.cuh's tree over SHA-256's parent node,
+//                     sha256(left digest || right digest): two compressions,
 //                     the second over the constant padding block (0x80000000,
 //                     zeros, length 512), whose schedule plus K is the
 //                     constant table kPadWK: 64 rounds and no schedule.  The
 //                     tree takes the parent in 16-round trips
-//                     (Sha256TreeMerkle), the walk unrolled (Sha256Merkle).
+//                     (Sha256TreeMerkle).
+//   merkle_walk       the verifier's walk, sha256_walk_kernel: the few-column
+//                     kernel's pattern over the parents of 32 paths, a round
+//                     warp and a schedule warp handing W + K over through
+//                     shared memory; the roots written out, or compared with
+//                     the commitment's root, clearing the verifier's flag.
 //
-// Three round bodies, each kept for the caller it was measured faster for
+// Two round bodies, each kept for the callers it was measured faster for
 // (on an H100, 700 W):
-//   rounds             the column kernels (wide and few): its sums a round
-//                      ahead as IMADs take the adds off the ALU pipe, the
-//                      wide kernel's limit, and leave a round chain three
-//                      instructions deep in the SASS (SHF, LOP3, IADD3);
-//   parent_compress    the parents, whose schedule is the ALU form
-//     <kCompact=false> (schedule_step<false>: with IMADs the walks were 2-3%
-//                      slower), unrolled: the walk, one warp a column chain;
-//     <kCompact=true>  in 16-round trips: the tree, whose many warps would
-//                      otherwise wait on instruction fetch (2^17 leaves
-//                      0.0596 against 0.0743 ms unrolled).
+//   rounds             the column kernels (wide and few) and the walk's round
+//                      warp: its sums a round ahead as IMADs take the adds
+//                      off the ALU pipe, the wide kernel's limit, and leave a
+//                      round chain three instructions deep in the SASS (SHF,
+//                      LOP3, IADD3);
+//   parent_compress    the tree's parents, the schedule inline in its ALU
+//                      form, in 16-round trips (kCompact): the tree's many
+//                      warps would otherwise wait on instruction fetch (2^17
+//                      leaves 0.0596 against 0.0743 ms unrolled); unrolled
+//                      for the latency probe scripts/sha256_chain.cu.
 //
 // What bounds them on an H100 (SXM, 700 W).  The wide kernel: the ALU pipe.
 // A compression is 48 schedule steps (two funnel-shift rotates and a shift
@@ -92,6 +97,10 @@ constexpr int kFewThreads = 32 * (1 + kRing);
 constexpr int kBarThreads = 64;  // a slot's barriers: the round warp and the slot's schedule warp
 constexpr int kBarFull = 1;      // named barriers kBarFull + slot, kBarEmpty + slot (0 is
 constexpr int kBarEmpty = 3;     // __syncthreads')
+constexpr int kWalkCols = 32;    // the walk's block: 32 columns, a lane each, in a round warp
+constexpr int kWalkThreads = 64; // and a schedule warp (the barriers' kBarThreads)
+constexpr int kBarDig = 1;       // the walk's named barriers: the level's node, then
+constexpr int kBarWK = 2;        // W + K of rounds 16 c .. 16 c + 15 at kBarWK + c - 1
 
 __constant__ uint32_t kH0[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
                                 0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
@@ -157,8 +166,8 @@ __device__ __forceinline__ void schedule_step(uint32_t (&w)[16], int t) {
 // shift, a LOP3, an IADD3: ptxas folds the a add into one IADD3), against
 // four in parent_compress.  On an H100 the wide kernel 4% and the
 // few-column kernel 4% faster than the same round with ptxas's adds; a lone
-// warp's Merkle parent was faster with parent_compress (2.59 against 2.66
-// us), whose adds take three inputs.
+// warp's Merkle parent with the schedule inline was faster with
+// parent_compress (2.59 against 2.66 us), whose adds take three inputs.
 template <class WK>
 __device__ __forceinline__ void rounds(uint32_t (&h)[8], WK&& wk) {
   uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], k = h[7];
@@ -207,7 +216,7 @@ __device__ __forceinline__ void compress(uint32_t (&h)[8], uint32_t (&w)[16]) {
 // h <- compress(h, w) for a Merkle parent: without kSchedule the block is
 // the constant padding block (kPadWK) and w is not read.  The round is
 // T1 = h + Sigma1(e) + Ch(e, f, g) + W + K, e = d + T1, a = T1 + Sigma0(a) +
-// Maj(a, b, c).  Unrolled (the walk's: one warp's chain) or, with kCompact,
+// Maj(a, b, c).  Unrolled (a lone thread's chain: the latency probe) or, with kCompact,
 // as trips of 16 rounds (the state's roles come back to the same registers
 // every 8 rounds, the window's every 16; the schedule of W[t + 16] beside
 // round t): ~0.4 of the straight code, for the tree, whose many warps, each
@@ -269,8 +278,8 @@ __device__ __forceinline__ void parent_compress(uint32_t (&h)[8], uint32_t (&w)[
 }
 
 // A Merkle node: sha256(left digest bytes || right digest bytes), a
-// scheduled compression and one over the padding block: merkle.cuh's walk
-// takes `parent`, unrolled.
+// scheduled compression and one over the padding block (the latency probe
+// scripts/sha256_chain.cu times both forms).
 struct Sha256Merkle {
   template <bool kCompact>
   static __device__ __forceinline__ void node(uint32_t (&cv)[8], const uint32_t (&l)[8],
@@ -286,10 +295,6 @@ struct Sha256Merkle {
     parent_compress<false, kCompact>(h, m);
 #pragma unroll
     for (int w = 0; w < 8; ++w) cv[w] = bswap(h[w]);
-  }
-  static __device__ __forceinline__ void parent(uint32_t (&cv)[8], const uint32_t (&l)[8],
-                                                const uint32_t (&r)[8]) {
-    node<false>(cv, l, r);
   }
 };
 
@@ -489,6 +494,133 @@ sha256_few_kernel(const Word* __restrict__ words, long long ld, long long n_word
   }
 }
 
+// The verifier's path walk, 32 opened columns a block: a round warp (a
+// lane a column) and a schedule warp.  At each level the round warp
+// publishes its node (kBarDig) and writes W + K of the first compression's
+// rounds 0 - 15 from the message words bswap(left || right) itself, while
+// the schedule warp builds W[t] + K[t] for t = 16 .. 63 from the same words
+// and hands them over 16 at a time (kBarWK + chunk - 1); the second
+// compression's, over the padding block, are the constant kPadWK, written
+// once.  All of them sit in shared memory, four to a 16-byte word,
+// lane-minor (the few-column kernel's ring).  The round warp runs both
+// compressions through one unrolled body of `rounds` (a loop of two: the
+// two compressions' 128 straight rounds were ~34 KB of code, and a walk
+// built so waited on instruction fetch, 3.4 us a level on an H100 against
+// 3.0 for a thread a column with the schedule inline), its W + K 16 at a
+// time in registers, each 16 read four rounds before its first round; on
+// an H100 2.3 us a level, ~30 clocks a round and the first chunk's
+// handover (the schedule warp starts when the node is published).  A
+// level costs the round warp
+// 128 rounds of about 12 ALU instructions, against about 20 with the
+// schedule inline.  One buffer suffices: the schedule warp writes a
+// level's W + K only after that level's node, which the round warp
+// publishes after reading the last chunk of the level before.  Both warps
+// load each level's sibling, the next one while a level runs.  Lanes past k
+// walk a copy of the last column and store nothing: every lane takes part
+// in the barriers.
+__global__ void __launch_bounds__(kWalkThreads)
+sha256_walk_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
+                   const long long* __restrict__ sibs, long long s_w, long long s_c,
+                   const long long* __restrict__ inv, const long long* __restrict__ idx, int k,
+                   int levels, long long* __restrict__ out, const long long* __restrict__ root,
+                   int32_t* __restrict__ flag) {
+  __shared__ uint32_t node[8][kWalkCols];
+  __shared__ uint4 wk[32][kWalkCols];  // W + K of rounds 4i .. 4i + 3: both compressions
+  const int lane = threadIdx.x % kWalkCols;
+  const int j_at = blockIdx.x * kWalkCols + lane;
+  const bool live = j_at < k;
+  const int j = live ? j_at : k - 1;
+  const long long col = idx[j];
+  uint32_t sib[8];
+  long long at_next = levels > 1 ? inv[(long long)k + j] * s_c : 0;
+  if (levels > 0) {
+    const long long at = inv[j] * s_c;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at];
+  }
+  // the level's message words bswap(left || right), then the next sibling
+  // loaded while the level runs
+  auto message = [&](int lvl, const uint32_t (&cv)[8], uint32_t (&m)[16]) {
+    const bool right = (col >> lvl) & 1;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      m[w] = bswap(right ? sib[w] : cv[w]);
+      m[8 + w] = bswap(right ? cv[w] : sib[w]);
+    }
+    if (lvl + 1 < levels) {  // first read at the next level: the load has this one to land
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at_next];
+      if (lvl + 2 < levels) at_next = inv[(long long)(lvl + 2) * k + j] * s_c;
+    }
+  };
+  if (threadIdx.x < kWalkCols) {  // the round warp
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      wk[16 + i][lane] = make_uint4(kPadWK[4 * i], kPadWK[4 * i + 1], kPadWK[4 * i + 2],
+                                    kPadWK[4 * i + 3]);
+    uint32_t cv[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)digs[w * d_w + j * d_c];
+    for (int lvl = 0; lvl < levels; ++lvl) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) node[w][lane] = cv[w];
+      bar_arrive(kBarDig);
+      uint32_t m[16], h[8];
+      message(lvl, cv, m);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wk[i][lane] = make_uint4(m[4 * i] + kK[4 * i], m[4 * i + 1] + kK[4 * i + 1],
+                                 m[4 * i + 2] + kK[4 * i + 2], m[4 * i + 3] + kK[4 * i + 3]);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) h[w] = kH0[w];
+#pragma unroll 1
+      for (int comp = 0; comp < 2; ++comp) {  // the scheduled block, then the padding
+        const uint4* src = &wk[16 * comp][lane];
+        uint4 q[4], next[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) q[u] = src[u * kWalkCols];
+        rounds(h, [&](int t) -> uint32_t {
+          const int i = t & 15;
+          if (t < 48 && i == 12) {  // the next 16, four rounds ahead
+            if (comp == 0) bar_sync(kBarWK + (t >> 4));
+#pragma unroll
+            for (int u = 0; u < 4; ++u) next[u] = src[(4 * ((t >> 4) + 1) + u) * kWalkCols];
+          }
+          if (t >= 16 && i == 0) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) q[u] = next[u];
+          }
+          const uint4& v = q[i >> 2];
+          return (i & 3) == 0 ? v.x : (i & 3) == 1 ? v.y : (i & 3) == 2 ? v.z : v.w;
+        });
+      }
+#pragma unroll
+      for (int w = 0; w < 8; ++w) cv[w] = bswap(h[w]);
+    }
+    if (live) merkle::walk_end(cv, j, k, out, root, flag);
+    return;
+  }
+  // the schedule warp
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    bar_sync(kBarDig);
+    uint32_t cv[8], m[16];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) cv[w] = node[w][lane];
+    message(lvl, cv, m);
+#pragma unroll 1
+    for (int c = 1; c < 4; ++c) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {  // W[16 c + i], the window's slot i
+        schedule_step<true>(m, 16 + i);
+        v[i & 3] = m[i] + kK[16 * c + i];
+        if ((i & 3) == 3) wk[4 * c + (i >> 2)][lane] = make_uint4(v[0], v[1], v[2], v[3]);
+      }
+      bar_arrive(kBarWK + c - 1);
+    }
+  }
+}
+
 template <typename Word>
 void launch_cols(const void* words, long long ld, long long n_words, int n_cols, int32_t* carry,
                  int carry_len, int32_t* cv, int finish, unsigned long long bits,
@@ -560,12 +692,20 @@ extern "C" int lcpc_sha256_merkle_tree(const long long* leaves, long long ld, in
                                                stream);
 }
 
-// The Merkle path walk of k opened columns over `levels` levels:
-// merkle.cuh's launch_walk with SHA-256's parent.
+// The Merkle path walk of k opened columns over `levels` levels, the roots
+// into out or compared with root (clearing *flag where one differs), the
+// arguments as merkle.cuh's walk_args_ok takes them: sha256_walk_kernel.
 extern "C" int lcpc_sha256_merkle_walk(const long long* digs, long long d_w, long long d_c,
                                        const long long* sibs, long long s_w, long long s_c,
                                        const long long* inv, const long long* idx, int k,
-                                       int levels, long long* out, int device, void* stream) {
-  return merkle::launch_walk<Sha256Merkle>(digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels,
-                                           out, device, stream);
+                                       int levels, long long* out, const long long* root,
+                                       int32_t* flag, int device, void* stream) {
+  if (!merkle::walk_args_ok(digs, sibs, inv, idx, k, levels, out, root, flag))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  sha256_walk_kernel<<<(k + kWalkCols - 1) / kWalkCols, kWalkThreads, 0,
+                       (cudaStream_t)stream>>>(digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k,
+                                               levels, out, root, flag);
+  return (int)cudaGetLastError();
 }

@@ -342,7 +342,7 @@ def _bind(lib) -> None:
     lib.lcpc_blake3_chunks.argtypes = [p, p, i, ll, i, ll, i, i, i, p, i, i, p]
     lib.lcpc_blake3_chunk_tree.argtypes = [p, i, i, i, i, p, i, p]
     lib.lcpc_blake3_merkle_tree.argtypes = [p, ll, i, ll, p, p, i, p]
-    lib.lcpc_blake3_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, i, p]
+    lib.lcpc_blake3_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, p, p, i, p]
     for fn in (lib.lcpc_blake3_chunks, lib.lcpc_blake3_chunk_tree, lib.lcpc_blake3_merkle_tree,
                lib.lcpc_blake3_merkle_walk):
         fn.restype = ctypes.c_int
@@ -608,39 +608,65 @@ def merkle_walk_plain(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Te
     return merkle.walk_by_parents(_u32(digs), _u32(uniq_sibs), inv, idx, merkle_parent_plain)
 
 
-def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
-                idx: torch.Tensor) -> torch.Tensor:
-    """The verifier's Merkle path walk (lib.rs:955-982): from the opened
-    columns' digests digs (8, k), level l's sibling of column j is
-    uniq_sibs[:, inv[l, j]] (uniq_sibs (8, U), inv (L, k), every entry < U),
-    on the left when bit l of idx[j] is set (idx (k,), the columns'
-    indices).  All int64; returns the (8, k) int64 roots the paths reach.
-
-    CUDA tensors launch csrc/blake3_cols.cu's merkle_walk once (counted in
-    merkle_walk.launches) or raise; CPU tensors run merkle_walk_plain."""
-    for name, t in (("digs", digs), ("uniq_sibs", uniq_sibs), ("inv", inv), ("idx", idx)):
-        _check_words(f"merkle_walk {name}", t, (torch.int64,))
+def _walk(name: str, entry, plain, counter, digs: torch.Tensor, uniq_sibs: torch.Tensor,
+         inv: torch.Tensor, idx: torch.Tensor, root, flag):
+    """Both digests' walk wrappers: the checks, the plain version `plain`
+    on CPU tensors, else one launch of the kernel behind `entry()` (a
+    library's walk entry point) counted in counter.launches.  Without root
+    returns the (8, k) roots; with root (8,) int64 clears flag ((1,) int32)
+    where a path reaches another node, and returns None."""
+    for nm, t in (("digs", digs), ("uniq_sibs", uniq_sibs), ("inv", inv), ("idx", idx),
+                  ("root", root)):
+        if t is not None:
+            _check_words(f"{name} {nm}", t, (torch.int64,))
+    if flag is not None:
+        _check_words(f"{name} flag", flag, (torch.int32,))
     k = digs.shape[1] if digs.dim() == 2 else -1
     if (digs.shape[0] != 8 or uniq_sibs.dim() != 2 or uniq_sibs.shape[0] != 8
-            or inv.dim() != 2 or inv.shape[1] != k or tuple(idx.shape) != (k,)):
-        raise ValueError(f"merkle_walk: digs (8, k), uniq_sibs (8, U), inv (L, k), idx (k,); "
-                         f"got {tuple(digs.shape)}, {tuple(uniq_sibs.shape)}, "
-                         f"{tuple(inv.shape)}, {tuple(idx.shape)}")
-    if _plain_here("merkle_walk", digs, uniq_sibs, inv, idx):
-        return merkle_walk_plain(digs, uniq_sibs, inv, idx)
-    out = torch.empty((8, k), dtype=torch.int64, device=digs.device)
+            or inv.dim() != 2 or inv.shape[1] != k or tuple(idx.shape) != (k,)
+            or (root is None) != (flag is None)
+            or root is not None and (tuple(root.shape) != (8,) or tuple(flag.shape) != (1,))):
+        raise ValueError(f"{name}: digs (8, k), uniq_sibs (8, U), inv (L, k), idx (k,), and "
+                         f"both or neither of root (8,) and flag (1,); got {tuple(digs.shape)}, "
+                         f"{tuple(uniq_sibs.shape)}, {tuple(inv.shape)}, {tuple(idx.shape)}, "
+                         f"{None if root is None else tuple(root.shape)}, "
+                         f"{None if flag is None else tuple(flag.shape)}")
+    if _plain_here(name, digs, uniq_sibs, inv, idx, root, flag):
+        roots = plain(digs, uniq_sibs, inv, idx)
+        if root is None:
+            return roots
+        flag.mul_((roots == _u32(root)[:, None]).all().to(flag.dtype))
+        return None
+    out = torch.empty((8, k), dtype=torch.int64, device=digs.device) if root is None else None
     if k == 0:
         return out
     levels = inv.shape[0]
     inv, idx = inv.contiguous(), idx.contiguous()
-    lib = cuda_build.load(_NAME, _bind)
     dev, stream = _launch_args(digs)
-    _check_launch("merkle_walk", lib.lcpc_blake3_merkle_walk(
+    _check_launch(name, entry()(
         digs.data_ptr(), *digs.stride(), uniq_sibs.data_ptr() if levels else None,
         *uniq_sibs.stride(), inv.data_ptr() if levels else None, idx.data_ptr(), k, levels,
-        out.data_ptr(), dev, stream))
-    merkle_walk.launches += 1
+        None if out is None else out.data_ptr(),
+        None if root is None else root.contiguous().data_ptr(),
+        None if flag is None else flag.data_ptr(), dev, stream))
+    counter.launches += 1
     return out
+
+
+def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
+                idx: torch.Tensor, *, root=None, flag=None):
+    """The verifier's Merkle path walk (lib.rs:955-982): from the opened
+    columns' digests digs (8, k), level l's sibling of column j is
+    uniq_sibs[:, inv[l, j]] (uniq_sibs (8, U), inv (L, k), every entry < U),
+    on the left when bit l of idx[j] is set (idx (k,), the columns'
+    indices).  All int64; returns the (8, k) int64 roots the paths reach,
+    or, given the commitment's root (8,), clears flag ((1,) int32, a view
+    of the verifier's state) where one differs and returns None.
+
+    CUDA tensors launch csrc/blake3_cols.cu's merkle_walk once (counted in
+    merkle_walk.launches) or raise; CPU tensors run merkle_walk_plain."""
+    return _walk("merkle_walk", lambda: cuda_build.load(_NAME, _bind).lcpc_blake3_merkle_walk,
+                 merkle_walk_plain, merkle_walk, digs, uniq_sibs, inv, idx, root, flag)
 
 
 merkle_walk.launches = 0

@@ -27,7 +27,9 @@ class DeviceDigest:
     name: str
     hash_word_columns: callable  # (L, C) words -> (8, C)
     merkle_tree: callable        # (8, n) leaves, np2 -> (8, 2 np2 - 1), leaves first
-    merkle_walk: callable        # digs (8, k), sibs (8, U), inv (L, k), idx (k,) -> (8, k)
+    merkle_walk: callable        # digs (8, k), sibs (8, U), inv (L, k), idx (k,) -> (8, k);
+                                 # with root= and flag=, the verifier's check (None)
+    merkle_walk_plain: callable  # the walk's plain version, on any device
     host: callable               # bytes -> 32-byte digest
 
 
@@ -36,6 +38,7 @@ BLAKE3 = DeviceDigest(
     hash_word_columns=_blake3.hash_word_columns,
     merkle_tree=_blake3.merkle_tree,
     merkle_walk=_blake3.merkle_walk,
+    merkle_walk_plain=_blake3.merkle_walk_plain,
     host=_blake3.blake3,
 )
 
@@ -44,6 +47,7 @@ SHA256 = DeviceDigest(
     hash_word_columns=_sha256.hash_word_columns,
     merkle_tree=_sha256.merkle_tree,
     merkle_walk=_sha256.merkle_walk,
+    merkle_walk_plain=_sha256.merkle_walk_plain,
     host=_sha256.digest_host,
 )
 

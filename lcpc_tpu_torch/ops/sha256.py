@@ -38,7 +38,7 @@ from ..utils import cuda_build
 from . import merkle
 from .mont_dot import LaunchCount
 from .blake3 import (_check_launch, _check_words, _launch_args, _plain_here, _tree_counter,
-                     _u32)
+                     _u32, _walk)
 
 _K = (
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -235,7 +235,7 @@ def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lcpc_sha256_cols.argtypes = [p, i, ll, ll, i, p, i, p, i, ll, p, i, i, p]
     lib.lcpc_sha256_merkle_tree.argtypes = [p, ll, i, ll, p, p, i, p]
-    lib.lcpc_sha256_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, i, p]
+    lib.lcpc_sha256_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, p, p, i, p]
     for fn in (lib.lcpc_sha256_cols, lib.lcpc_sha256_merkle_tree, lib.lcpc_sha256_merkle_walk):
         fn.restype = ctypes.c_int
 
@@ -354,39 +354,20 @@ merkle_tree.launches = 0
 
 
 def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
-                idx: torch.Tensor) -> torch.Tensor:
+                idx: torch.Tensor, *, root=None, flag=None):
     """The verifier's Merkle path walk (lib.rs:955-982), SHA-256 parents:
     from the opened columns' digests digs (8, k), level l's sibling of
     column j is uniq_sibs[:, inv[l, j]] (uniq_sibs (8, U), inv (L, k), every
     entry < U), on the left when bit l of idx[j] is set (idx (k,), the
     columns' indices).  All int64; returns the (8, k) int64 roots the paths
-    reach.
+    reach, or, given the commitment's root (8,), clears flag ((1,) int32, a
+    view of the verifier's state) where one differs and returns None.
 
-    CUDA tensors launch csrc/sha256_cols.cu's merkle_walk once (counted in
-    merkle_walk.launches) or raise; CPU tensors run merkle_walk_plain."""
-    for name, t in (("digs", digs), ("uniq_sibs", uniq_sibs), ("inv", inv), ("idx", idx)):
-        _check_words(f"merkle_walk {name}", t, (torch.int64,))
-    k = digs.shape[1] if digs.dim() == 2 else -1
-    if (digs.shape[0] != 8 or uniq_sibs.dim() != 2 or uniq_sibs.shape[0] != 8
-            or inv.dim() != 2 or inv.shape[1] != k or tuple(idx.shape) != (k,)):
-        raise ValueError(f"merkle_walk: digs (8, k), uniq_sibs (8, U), inv (L, k), idx (k,); "
-                         f"got {tuple(digs.shape)}, {tuple(uniq_sibs.shape)}, "
-                         f"{tuple(inv.shape)}, {tuple(idx.shape)}")
-    if _plain_here("merkle_walk", digs, uniq_sibs, inv, idx):
-        return merkle_walk_plain(digs, uniq_sibs, inv, idx)
-    out = torch.empty((8, k), dtype=torch.int64, device=digs.device)
-    if k == 0:
-        return out
-    levels = inv.shape[0]
-    inv, idx = inv.contiguous(), idx.contiguous()
-    lib = cuda_build.load(_NAME, _bind)
-    dev, stream = _launch_args(digs)
-    _check_launch("merkle_walk", lib.lcpc_sha256_merkle_walk(
-        digs.data_ptr(), *digs.stride(), uniq_sibs.data_ptr() if levels else None,
-        *uniq_sibs.stride(), inv.data_ptr() if levels else None, idx.data_ptr(), k, levels,
-        out.data_ptr(), dev, stream))
-    merkle_walk.launches += 1
-    return out
+    CUDA tensors launch csrc/sha256_cols.cu's walk once (a round warp and a
+    schedule warp for 32 columns; counted in merkle_walk.launches) or raise;
+    CPU tensors run merkle_walk_plain."""
+    return _walk("merkle_walk", lambda: cuda_build.load(_NAME, _bind).lcpc_sha256_merkle_walk,
+                 merkle_walk_plain, merkle_walk, digs, uniq_sibs, inv, idx, root, flag)
 
 
 merkle_walk.launches = 0

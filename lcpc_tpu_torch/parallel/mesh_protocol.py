@@ -40,7 +40,6 @@ import torch
 from ..core import protocol
 from ..core.encoding import LcEncoding
 from ..core.protocol import LcEvalProof, ProverError, _next_pow2, _pack_pairs
-from ..core.streaming import _canon_to_proof_words
 from ..fs.merlin import Transcript
 from ..ops import blake3
 from ..ops.digest import BLAKE3, DeviceDigest
@@ -247,8 +246,8 @@ def sharded_open_columns(comm: ShardedCommit, cols: list[int]) -> protocol.Batch
     picked = comm.words.index_select(1, torch.as_tensor(mine, device=dev))  # (R*W/2, k)
     every = c.gather(picked)  # (world, R*W/2, k)
     sel = every[torch.as_tensor(owner, device=dev), :, torch.arange(len(cols), device=dev)]
-    col_w = _canon_to_proof_words(comm.enc.spec, sel.T.contiguous())  # (W/2, R, k)
-    return protocol._batched_columns(col_w, comm.hashes_dev, comm.n_cols, cols)
+    return protocol._open_batched(comm.enc.spec, comm.hashes_dev, comm.n_cols, comm.n_rows,
+                                  cols, range(len(cols)), canon=sel.T.contiguous())
 
 
 def sharded_prove(comm: ShardedCommit, outer_tensor: list[int],

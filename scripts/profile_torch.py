@@ -39,7 +39,7 @@ import torch  # noqa: E402
 
 import lcpc_tpu_torch as P  # noqa: E402
 from lcpc_tpu_torch.core import protocol  # noqa: E402
-from lcpc_tpu_torch.ops import blake3  # noqa: E402
+from lcpc_tpu_torch.ops import blake3, verify_core  # noqa: E402
 from lcpc_tpu_torch.ops.limbs import get_ops  # noqa: E402
 
 LOG_N = 23
@@ -162,8 +162,17 @@ def main() -> int:
                               device="cuda", dtype=torch.int64)
     _, stages[f"verify.hash_opened_columns(k={k})"] = timed(
         lambda: blake3.hash_word_columns(col_words))
+    # the fused core's check, hash words and evaluation (ops/verify_core.py)
     inner_w = torch.from_numpy(ops.encode_repr_words(inner).view("int32")).cuda()
-    _, stages["verify.eval_dot"] = timed(lambda: protocol._eval_dot(spec, rows_w, inner_w))
+    enc_rows = protocol._rows_encode(enc, rows_w)
+    state = torch.from_numpy(verify_core.state_init(spec, 2, k)).cuda()
+    ts_w = torch.randint(0, 1 << 16, (spec.w16 // 2, 2, comm.n_rows), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    col_w = torch.randint(0, 1 << 16, (spec.w16 // 2, comm.n_rows, k), generator=gen,
+                          device="cuda", dtype=torch.int32)
+    idx = torch.randint(0, comm.n_cols, (k,), generator=gen, device="cuda")
+    _, stages["verify.verify_check"] = timed(lambda: verify_core.verify_check(
+        spec, state, ts_w, col_w, enc_rows, idx, p_eval=rows_w[-1], inner=inner_w))
     _, stages["verify.total"] = timed(
         lambda: proof.verify(root, outer, inner, enc, transcript(root)))
 

@@ -2,12 +2,15 @@
 commits in one call.
 
     python3 scripts/time_paths.py [--repo DIR] [--label NAME] [--reps N]
-                                  [--paths NAME,...]
+                                  [--paths NAME,...] [--digest blake3|sha256]
 
 Imports lcpc_tpu_torch from DIR (default: this checkout), so an older commit
 unpacked into the gitignored archive/ is timed by the same method:
-run parent, change, change, parent in one call.  ft255, BLAKE3, seed 0;
---paths picks some of them (default all but sdig_2_23):
+run parent, change, change, parent in one call.  ft255, seed 0, BLAKE3
+(--digest sha256 for the 2^23 paths); --paths picks some of them (default
+all but sdig_2_23); each trace counts the CUDA events torch.profiler saw
+and, exactly, the launches of every kernel wrapper of the checkout's
+lcpc_tpu_torch.ops (its .launches):
 
   - ligero_2_23: Ligero rho = 1/4 at 2^23 (commit -> prove -> verify): one
     cold run, then the median and the least of N warm runs (host clock
@@ -62,15 +65,36 @@ def synced(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+COUNTERS = {}  # the checkout's kernel wrappers by name, each with its .launches
+
+
+def find_counters():
+    """Every kernel wrapper of the checkout's lcpc_tpu_torch.ops that counts
+    its launches (a callable with an int .launches), by name."""
+    import pkgutil
+    ops = importlib.import_module("lcpc_tpu_torch.ops")
+    for info in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"lcpc_tpu_torch.ops.{info.name}")
+        for name, obj in vars(mod).items():
+            if (callable(obj) and isinstance(getattr(obj, "launches", None), int)
+                    and getattr(obj, "__module__", None) == mod.__name__):
+                COUNTERS[f"{info.name}.{name}"] = obj
+
+
 def trace(fn):
-    """One synchronized call under torch.profiler: wall, device busy, kernel
-    launches, idle share."""
+    """One synchronized call under torch.profiler: wall, device busy, the
+    CUDA events the trace saw (a lower bound: it can miss some), the port's
+    kernel launches by wrapper (exact), idle share."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for c in COUNTERS.values():
+        c.launches = 0
     with torch.profiler.profile(activities=acts) as prof:
         _, wall = synced(fn)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in kernels) / 1e3
+    port = {k: c.launches for k, c in COUNTERS.items() if c.launches}
     return {"wall_ms": wall, "device_busy_ms": busy, "launches": len(kernels),
+            "port_launches": port, "port_launches_total": sum(port.values()),
             "idle_share": max(0.0, 1 - busy / wall) if wall else None}
 
 
@@ -88,7 +112,7 @@ def packed_coeffs(spec, n, gen, block=1 << 26):
     return out
 
 
-def run_path(P, enc, commit, outer, inner, reps):
+def run_path(P, enc, commit, outer, inner, reps, digest=None):
     """Cold run, then `reps` warm runs of commit -> prove -> verify; returns
     the per-run (commit, prove, verify) ms and the last run's objects."""
     def transcript(root):
@@ -104,9 +128,11 @@ def run_path(P, enc, commit, outer, inner, reps):
         comm, c_ms = synced(commit)
         root = comm.get_root()
         proof, p_ms = synced(lambda: comm.prove(outer, transcript(root)))
-        value, v_ms = synced(lambda: proof.verify(root, outer, inner, enc, transcript(root)))
+        kw = {} if digest is None else {"digest": digest}
+        value, v_ms = synced(lambda: proof.verify(root, outer, inner, enc, transcript(root),
+                                                  **kw))
         runs.append((c_ms, p_ms, v_ms))
-    verify = lambda: proof.verify(root, outer, inner, enc, transcript(root))  # noqa: E731
+    verify = lambda: proof.verify(root, outer, inner, enc, transcript(root), **kw)  # noqa: E731
     return runs, comm, verify, value
 
 
@@ -124,6 +150,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=21)
     ap.add_argument("--paths", default="ligero_2_23,ligero_2_26_nokeep,ligero_2_28,"
                     "ligero_2_29_seeded")
+    ap.add_argument("--digest", default="blake3", help="the 2^23 paths' digest")
     args = ap.parse_args()
     paths = args.paths.split(",")
     unknown = set(paths) - set(PATHS)
@@ -136,12 +163,14 @@ def main() -> int:
     if not P.__file__.startswith(os.path.abspath(args.repo)):
         raise RuntimeError(f"lcpc_tpu_torch came from {P.__file__}, not {args.repo}")
     spmv = importlib.import_module("lcpc_tpu_torch.ops.spmv")
+    find_counters()
+    digest = P.DIGESTS_BY_NAME[args.digest]
     card = kb.card_line()
     spec = P.FT255
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     result = {"label": args.label, "repo": os.path.abspath(args.repo), "card": card,
-              "values": {}}
+              "digest": args.digest, "values": {}}
 
     # the 2^23 paths, in memory
     for name in ("sdig_2_23", "ligero_2_23"):
@@ -155,14 +184,14 @@ def main() -> int:
         coeffs = spmv.unpack_words(packed_coeffs(spec, n, gen), 0)  # (W, n) Montgomery limbs
         n_rows = -(-n // enc.n_per_row)
         outer, inner = P.univariate_tensors(spec, 0x5EED, enc.n_per_row, n_rows)
-        runs, comm, verify, value = run_path(P, enc, lambda: P.commit(coeffs, enc), outer,
-                                             inner, args.reps)
+        commit = lambda: P.commit(coeffs, enc, digest=digest)  # noqa: E731
+        runs, comm, verify, value = run_path(P, enc, commit, outer, inner, args.reps, digest)
         root = comm.get_root()
         tr = P.Transcript(b"time paths")
         tr.append_message(b"polycommit", root)
         tr.append_message(b"ncols", enc.get_n_col_opens().to_bytes(8, "big"))
         result[name] = summary(runs)
-        result[name]["traces"] = {"commit": trace(lambda: P.commit(coeffs, enc)),
+        result[name]["traces"] = {"commit": trace(commit),
                                   "prove": trace(lambda: comm.prove(outer, tr)),
                                   "verify": trace(verify)}
         result["values"][name] = value % (1 << 64)
@@ -188,7 +217,8 @@ def main() -> int:
     summed = [name for name in PATHS if name in paths and "traces" in result[name]]
     for name in summed:
         r = result[name]
-        log = ", ".join(f"{k} {v['launches']} launches, busy {v['device_busy_ms']:.2f} of "
+        log = ", ".join(f"{k} {v['launches']} CUDA events, {v['port_launches_total']} port "
+                        f"launches {v['port_launches']}, busy {v['device_busy_ms']:.2f} of "
                         f"{v['wall_ms']:.1f} ms, idle {v['idle_share']:.3f}"
                         for k, v in r["traces"].items())
         print(f"{args.label} {name}: commit / prove / verify median "
@@ -201,7 +231,7 @@ def main() -> int:
         json.dump(result, f, indent=1)
     print(json.dumps({k: result[k] for k in ("label", "card", "values")}
                      | {name: result[name]["median"] for name in summed}
-                     | {f"{name}_launches": {k: v["launches"]
+                     | {f"{name}_launches": {k: (v["launches"], v["port_launches_total"])
                                              for k, v in result[name]["traces"].items()}
                         for name in summed}
                      | ({"ligero_2_29_seeded_prove_ms": result["ligero_2_29_seeded"]["prove_ms"]}

@@ -133,7 +133,7 @@ def main() -> int:
           flush=True)
     lib_so = cuda_build.so_path("sha256_cols")
     hot = {"tree_block": kb.hot_code(lib_so, "merkle_tree_kernel", loop=False),
-           "walk_block": kb.hot_code(lib_so, "merkle_walk_kernel", loop=False),
+           "walk_block": kb.hot_code(lib_so, "walk_kernel", loop=False),
            "blake3_tree_block": kb.hot_code(cuda_build.so_path("blake3_cols"),
                                             "merkle_tree_kernel", loop=False)}
     for name, rec in hot.items():
@@ -330,9 +330,19 @@ def main() -> int:
         rec = {"ms": ms, "floor_ms": levels * lat[1]}
         if crit and crit["parent_us"]:
             rec["critical_path_ms"] = levels * crit["parent_us"] / 1e3
+        if crit and crit["compression_us"] and crit["issue_round_cycles"]:
+            # the walk of a round warp fed W + K: two compressions of
+            # the few-column kernel's round a level, its chain and one warp's
+            # issue of its ALU instructions
+            rec["critical_path_rounds_ms"] = levels * 2 * crit["compression_us"] / 1e3
+            rec["issue_rounds_ms"] = levels * 128 * crit["issue_round_cycles"] / crit["ghz"] / 1e6
         result["walks"][f"{k}x{levels}"] = rec
         print(f"{label} sha256 merkle_walk {k} x {levels}: {ms:.4f} ms, floor "
-              f"{rec['floor_ms']:.4f}", flush=True)
+              f"{rec['floor_ms']:.4f} (depth x a lone thread's parent), critical path "
+              f"{rec.get('critical_path_ms', 0):.4f} (the unrolled parent's SASS chain), "
+              f"{rec.get('critical_path_rounds_ms', 0):.4f} (128 rounds of the few-column "
+              f"round's chain), one warp's issue of those rounds "
+              f"{rec.get('issue_rounds_ms', 0):.4f}", flush=True)
     result["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
     out = os.path.join(_ROOT, "chiprun_out",
