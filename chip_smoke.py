@@ -6,7 +6,7 @@
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
   2. build the nine CUDA kernel sources from the checkout, one nvcc each,
-     started together (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
+     started together with the probes (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
      csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu,
      csrc/verify_core.cu); print
@@ -219,20 +219,33 @@ Phases, each fatal on failure (each prints the seconds it took):
      partials); its times pass through host memory, a correctness run;
   16. hold verify_core.cu's kernels and the walks in their verifier form
      against their plain versions, tolerance 0, at the Ligero 2^23,
-     Brakedown 2^23 and seeded 2^29 verify shapes (T = 2 rows of 256, 36,
-     2,048 against 189, 6,593, 189 opened columns, the evaluation over
-     32,768, 235,173, 262,144) with BLAKE3 (both verify routes: the encoded
-     rows at the opened columns, or the rows at the columns) and SHA-256,
-     on honest inputs and four tampers (a column word, an encoded row at
-     an opened column, a sibling digest, the root), which clear the same
-     flags; verify_check timed beside its bound (bytes over 3.35 TB/s or
-     wide products at 8.4 T/s) and its plain version, the walks in their
-     verifier form timed; gather_open at each path's opening (the
+     Brakedown 2^23 and seeded 2^29 verify shapes (ft255, T = 2 rows of 256,
+     36, 2,048 against 189, 6,593, 189 opened columns, the evaluation over
+     32,768, 235,173, 262,144) and at a small shape in ft63, ft127 and ft191
+     (36 rows, 189 of 4,096 columns, 4,096 terms: every W32 template), the
+     opened columns drawn with replacement (unsorted, a column opened
+     twice), with BLAKE3 (both verify routes: the encoded rows at the opened
+     columns, or the rows at the columns) and SHA-256, on honest inputs and
+     four tampers (a column word, an encoded row at an opened column, a
+     sibling digest, the root), which clear the same flags; gather_open from
+     the codeword's limbs, from int64 words (in order and reversed) and, at
+     the small shapes, from kept canonical words and a tail keep; at ft255
+     verify_check timed warm and cold (kernel_bench.time_kernel_cold: the
+     L2 flushed between launches) beside its bound (bytes over 3.35 TB/s
+     or wide products at 8.4 T/s) and its plain version, the walks in their
+     verifier form timed, gather_open at each path's opening (the
      codeword's limbs at 2^23, the evaluated columns' int64 words at 2^29)
      and at the 2^28 words-kept opening (2,048 rows x 189 columns of kept
-     canonical words, their columns cut to 2^16), timed beside its bound
-     (bytes), its plain version and the PyTorch index_select alone;
-  17. print the kernel table line, then the result line.
+     canonical words, their columns cut to 2^16), warm and cold beside its
+     bound (bytes), the floor of the random-sector probe
+     scripts/gather_probe.cu (one load per distinct 32-byte sector at the
+     same count, cold), its plain version and the PyTorch index_select
+     alone, warm and cold;
+  17. commit -> prove -> verify Ligero rho = 1/4 and Brakedown, BLAKE3, at
+     2^15 coefficients in ft63, ft127 and ft191 on the card and through the
+     port's CPU path: roots and proof bytes equal, every proof verified
+     (the polynomial's value), verify_check and gather_open launched;
+  18. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -2704,11 +2717,17 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
 VC_SHAPES = (("ligero 2^23", 256, 189, 1 << 17, 32_768),
              ("sdig 2^23", 36, 6_593, 357_699, 235_173),
              ("seeded 2^29", 2_048, 189, 1 << 20, 262_144))
+# the small shape held in ft63, ft127 and ft191 (W32 = 2, 4, 6)
+VC_FIELD_SHAPE = ("small", 36, 189, 1 << 12, 4_096)
 # the 2^28 words-kept opening: 2,048 rows of 189 opened columns out of kept
 # canonical words, their columns cut from 2^19 to 2^16 (the gather reads
 # the opened columns alone)
 VC_CANON = (2_048, 189, 1 << 16)
 VC_TAMPERS = ("column word", "encoded row", "sibling", "root")
+# the random-sector probe (scripts/gather_probe.cu) at each gather's sector
+# count: (plane-rows, sectors a plane-row)
+VC_PROBES = {"ligero 2^23": (16 * 256, 189), "sdig 2^23": (16 * 36, 6_593),
+             "2^28 words kept": (2_048 * 8, 189)}
 
 
 def vc_bound(spec, T, R, k, npr):
@@ -2722,15 +2741,25 @@ def vc_bound(spec, T, R, k, npr):
     return bound_ms(nbytes, w32 * w32 * ((T + 1) * R * k + T * k + npr))
 
 
+def vc_idx(torch, n_cols, k, gen):
+    """k opened columns of n_cols drawn with replacement, as the transcript
+    draws them (fs/sampling.py): unsorted, slot 5 repeating slot 2."""
+    idx = torch.randint(0, n_cols, (k,), generator=gen, device=DEV)
+    if k > 5:
+        idx[5] = idx[2]
+    return idx
+
+
 def vc_inputs(torch, P, kb, spec, digest, R, k, n_cols, npr, gen):
     """Random inputs of one verify core at a path's shape, all of whose
-    checks pass: ts and the opened columns (column 3 unreduced words
-    0xFFFFFFFF: a column word is any value below R), distinct columns idx,
-    encoded rows (W, T, n_cols) holding to_mont of each column's sums at the
-    opened columns (and the same as (W/2, T, k) int64 words, the columns
-    route's form), p_eval and inner, and a Merkle tree over random leaves
-    with the opened columns' digests at idx: its root and the path data
-    deduplicated by position, as verify makes them."""
+    checks pass: ts and the opened columns (every slot of a column opened
+    twice holding its words; column 3 unreduced words 0xFFFFFFFF: a column
+    word is any value below R), the columns idx drawn with replacement
+    (vc_idx), encoded rows (W, T, n_cols) holding to_mont of each column's
+    sums at the opened columns (and the same as (W/2, T, k) int64 words,
+    the columns route's form), p_eval and inner, and a Merkle tree over
+    random leaves with the opened columns' digests at idx: its root and the
+    path data deduplicated by position, as verify makes them."""
     import numpy as np
     from lcpc_tpu_torch.core import protocol
     from lcpc_tpu_torch.ops import mont_dot as md
@@ -2738,16 +2767,20 @@ def vc_inputs(torch, P, kb, spec, digest, R, k, n_cols, npr, gen):
     from lcpc_tpu_torch.ops.spmv import pack_words, unpack_words
 
     T, w = 2, spec.w16
-    ts = pack_words(kb.random_mont(spec, (T, w, R), gen).permute(1, 0, 2), 0).contiguous()
-    col = pack_words(kb.random_mont(spec, (R, w, k), gen).permute(1, 0, 2), 0).contiguous()
-    col[:, :, 3] = -1
-    idx = torch.randperm(n_cols, generator=gen, device=DEV)[:k]
+    ts = pack_words(kb.random_mont(spec, (T, w, R), gen, DEV).permute(1, 0, 2), 0).contiguous()
+    col = pack_words(kb.random_mont(spec, (R, w, k), gen, DEV).permute(1, 0, 2), 0)
+    idx = vc_idx(torch, n_cols, k, gen)
+    _, inv = torch.unique(idx, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), k, device=DEV).scatter_reduce(
+        0, inv, torch.arange(k, device=DEV), "amin")
+    col = col[:, :, first[inv]].contiguous()
+    col[:, :, idx == idx[3]] = -1
     got = md.mont_dot_plain(spec, ts, col)
     want = mm.mont_mul_map_plain(spec, got, op="to_mont", in_form="words", out_form="words")
-    enc_rows = kb.random_mont(spec, (T, w, n_cols), gen).permute(1, 0, 2).contiguous()
+    enc_rows = kb.random_mont(spec, (T, w, n_cols), gen, DEV).permute(1, 0, 2).contiguous()
     enc_rows[:, :, idx] = unpack_words(want, 0)
-    pe = pack_words(kb.random_mont(spec, (npr, w), gen), 1).contiguous()
-    inner = pack_words(kb.random_mont(spec, (npr, w), gen), 1).contiguous()
+    pe = pack_words(kb.random_mont(spec, (npr, w), gen, DEV), 1).contiguous()
+    inner = pack_words(kb.random_mont(spec, (npr, w), gen, DEV), 1).contiguous()
     words = mm.mont_mul_map_plain(spec, col, op="from_mont", in_form="words", out_form="hash")
     leaves = torch.randint(0, 2**32, (8, n_cols), generator=gen, device=DEV, dtype=torch.int64)
     leaves[:, idx] = digest.hash_word_columns(words)
@@ -2822,26 +2855,54 @@ def vc_plain(torch, vc, spec, digest, inp, want_cols, roots):
     return state, words, digs, roots
 
 
-def verify_core_phase(torch, kb, P, vc, gen):
+def vc_probe_floors(torch, kb, probe_so):
+    """The probe's time (ms) at each gather's sector count, ascending
+    within each plane-row and random, cold (the floor: the card reading
+    each element from its own 32-byte sector) and warm."""
+    probe = kb.GatherProbe(probe_so)
+    try:
+        out = {}
+        for tag, (rows, k) in VC_PROBES.items():
+            asc, rnd = probe.fn(rows, k), probe.fn(rows, k, random=True)
+            rec = {"sectors": rows * k, "ascending_cold_ms": kb.time_kernel_cold(asc),
+                   "random_cold_ms": kb.time_kernel_cold(rnd),
+                   "ascending_warm_ms": kb.time_kernel(asc), "random_warm_ms": kb.time_kernel(rnd)}
+            out[tag] = rec
+            log(f"  gather probe {tag}: {rows * k} sectors, cold {rec['ascending_cold_ms']:.4f} "
+                f"ms ascending, {rec['random_cold_ms']:.4f} random "
+                f"({32 * rows * k / rec['ascending_cold_ms'] / 1e9:.3f} TB/s of 32-byte "
+                f"sectors); warm {rec['ascending_warm_ms']:.4f}, {rec['random_warm_ms']:.4f}")
+        return out
+    finally:
+        probe.close()
+
+
+def verify_core_phase(torch, kb, P, vc, gen, probe_so):
     """Phase 16: verify_check, verify_walk (both digests) and gather_open
-    against their plain versions at the paths' shapes, tolerance 0, on
-    honest inputs and the four tampers (the same flags cleared), each timed
-    beside its bound and its plain version; gather_open also beside the
-    PyTorch index_select alone and at the 2^28 words-kept opening.
-    Returns the records."""
+    against their plain versions, tolerance 0, at the paths' shapes in
+    ft255 and at VC_FIELD_SHAPE in ft63, ft127 and ft191, on honest inputs
+    and the four tampers (the same flags cleared), the opened columns drawn
+    with replacement; at ft255 each kernel timed warm and cold beside its
+    bound and its plain version, gather_open also beside the probe's floor
+    and the PyTorch index_select alone (warm and cold), and at the 2^28
+    words-kept opening.  Returns the records."""
     import numpy as np
     from lcpc_tpu_torch.core import protocol
     from lcpc_tpu_torch.ops.spmv import pack_words
 
-    spec, T = P.FT255, 2
-    w32 = spec.w16 // 2
+    floors = vc_probe_floors(torch, kb, probe_so)
+    T = 2
     log("verify core kernels vs plain: tolerance 0 — every flag, evaluation word, hash word "
         "and opened word equal")
-    recs = {}
-    for tag, R, k, n_cols, npr in VC_SHAPES:
+    recs = {"probe": floors}
+    shapes = [(P.FT255, *sh) for sh in VC_SHAPES]
+    shapes += [(f, *VC_FIELD_SHAPE) for f in (P.FT63, P.FT127, P.FT191)]
+    for spec, tag, R, k, n_cols, npr in shapes:
+        w32, timed = spec.w16 // 2, spec is P.FT255
+        tag = tag if timed else f"{spec.name} {tag}"
         for digest in (P.BLAKE3, P.SHA256):
             inp = vc_inputs(torch, P, kb, spec, digest, R, k, n_cols, npr, gen)
-            state0 = torch.from_numpy(vc.state_init(spec, T, k)).to(DEV)
+            state0 = torch.from_numpy(vc.state_init(spec, T)).to(DEV)
             routes = (False, True) if digest is P.BLAKE3 else (False,)
             honest_roots = None
             for want_cols in routes:
@@ -2866,84 +2927,218 @@ def verify_core_phase(torch, kb, P, vc, gen):
                 log(f"  {tag} {digest.name} ({'columns' if want_cols else 'encode'} route): "
                     f"honest and tampered flags equal to plain {cases}; the evaluation and "
                     f"hash words equal")
-            # timings: the check (encode route), the walk in its verifier form
+            rec = recs.setdefault(tag, {"field": spec.name, "rows": R, "columns": k,
+                                        "n_cols": n_cols, "npr": npr,
+                                        "repeats": k - int(torch.unique(inp["idx"]).numel())})
+            if digest is P.BLAKE3 and not timed:
+                vc_many_rows(torch, kb, vc, spec, R, k, n_cols, npr, gen)
+            if digest is P.BLAKE3:
+                rec["gather"] = vc_gather_forms(torch, kb, vc, spec, tag, R, k, n_cols, inp,
+                                                gen, floors.get(tag) if timed else None,
+                                                timed)
+            if not timed:
+                continue
+            # timings: the check (encode route), warm and cold; the walk in
+            # its verifier form
             state = state0.clone()
-            ms = kb.time_kernel(lambda: vc.verify_check(
-                spec, state, inp["ts"], inp["col"], inp["enc_rows"], inp["idx"],
-                p_eval=inp["pe"], inner=inp["inner"]))
+
+            def check():
+                return vc.verify_check(spec, state, inp["ts"], inp["col"], inp["enc_rows"],
+                                       inp["idx"], p_eval=inp["pe"], inner=inp["inner"])
+
             digs = inp["digs_honest"]
             walk_ms = kb.time_kernel(lambda: vc.verify_walk(
                 digest, state, T, digs, inp["sibs"], inp["inv"], inp["idx"], inp["root"]))
-            rec = recs.setdefault(tag, {"rows": R, "columns": k, "n_cols": n_cols, "npr": npr})
             rec[f"walk_{digest.name}_ms"] = walk_ms
             rec["levels"] = int(inp["inv"].shape[0])
             if digest is P.SHA256:
                 continue
+            ms, cold = kb.time_kernel(check), kb.time_kernel_cold(check)
             _, plain_ms = time_host(torch, lambda: vc.verify_check_plain(
                 spec, inp["ts"], inp["col"], inp["enc_rows"], inp["idx"], p_eval=inp["pe"],
                 inner=inp["inner"]))
             bound, t_bytes, t_ops = vc_bound(spec, T, R, k, npr)
-            rec.update({"check_ms": ms, "check_plain_ms": plain_ms, "check_bound_ms": bound,
+            rec.update({"check_ms": ms, "check_cold_ms": cold, "check_plain_ms": plain_ms,
+                        "check_bound_ms": bound,
                         "check_bound_by": "bytes" if t_bytes >= t_ops else "operations",
                         "check_bytes_ms": t_bytes, "check_products_ms": t_ops})
             log(f"  verify_check {tag} (T {T} x {R} rows x {k} columns, npr {npr}): device "
-                f"{ms:.4f} ms, bound {bound:.4f} ms ({rec['check_bound_by']}; bytes "
-                f"{t_bytes:.4f}, products {t_ops:.4f}), plain {plain_ms:.1f} ms")
-            # gather_open: the codeword's limbs read in place (2^23), the
-            # evaluated columns' int64 words (2^29's opening by evaluation)
-            uniq = inp["uniq"]
-            if n_cols <= 1 << 19:
-                comm = kb.random_mont(spec, (R, spec.w16, n_cols), gen).permute(1, 0, 2)
-                comm = comm.contiguous()
-                kw, read = dict(mont=comm, off=n_cols), inp["idx"]
-                lib = lambda: comm.index_select(2, read)  # noqa: E731
-                nbytes = 4 * spec.w16 * R * k
-            else:
-                comm = inp["want_cols"].new_empty((w32, R, k)).random_(0, 2**32, generator=gen)
-                kw, read = dict(mont=comm, mont_form="words", off=k), torch.arange(k, device=DEV)
-                lib = lambda: comm.index_select(2, read)  # noqa: E731
-                nbytes = 8 * w32 * R * k
-            grec = vc_gather(torch, kb, vc, spec, f"{tag} opening", read, R, inp["tree"], uniq,
-                             kw, lib, nbytes)
-            rec["gather"] = grec
+                f"warm {ms:.4f} ms, cold {cold:.4f} ms, bound {bound:.4f} ms "
+                f"({rec['check_bound_by']}; bytes {t_bytes:.4f}, products {t_ops:.4f}), plain "
+                f"{plain_ms:.1f} ms")
         del inp
         torch.cuda.empty_cache()
+    vc_many_rows(torch, kb, vc, P.FT255, *VC_FIELD_SHAPE[1:], gen)  # three passes at W32 = 8
     # the 2^28 words-kept opening: canonical words converted in the gather
+    spec = P.FT255
+    w32 = spec.w16 // 2
     R, k, n_kept = VC_CANON
-    canon = pack_words(kb.random_mont(spec, (R, spec.w16, n_kept), gen).permute(1, 0, 2), 0)
+    canon = pack_words(kb.random_mont(spec, (R, spec.w16, n_kept), gen, DEV).permute(1, 0, 2),
+                       0)
     canon = canon.permute(1, 0, 2).reshape(R * w32, n_kept).contiguous()  # hash-word layout
     tree = torch.randint(0, 2**32, (8, 2 * n_kept - 1), generator=gen, device=DEV,
                          dtype=torch.int64)
-    idx_l = torch.randperm(n_kept, generator=gen, device=DEV)[:k]
+    idx_l = vc_idx(torch, n_kept, k, gen)
     uniq = torch.as_tensor(np.unique(protocol.path_node_indices(n_kept, idx_l.tolist()))
                            .astype(np.int64), device=DEV)
     recs["2^28 words kept"] = {"rows": R, "columns": k, "kept_columns": n_kept, "gather": vc_gather(
         torch, kb, vc, spec, "2^28 words-kept opening", idx_l, R, tree, uniq, dict(canon=canon),
-        lambda: canon.index_select(1, idx_l), 4 * w32 * R * k)}
+        lambda: canon.index_select(1, idx_l), 4 * w32 * R * k, floors["2^28 words kept"])}
     del canon, tree
     torch.cuda.empty_cache()
     return recs
 
 
-def vc_gather(torch, kb, vc, spec, tag, idx, R, hashes, uniq, kw, lib, in_bytes):
-    """gather_open against gather_open_plain at one shape, both timed, its
-    bound (the opened words read once, the buffer written once, the path
-    nodes), the PyTorch index_select of the columns alone beside."""
+def vc_many_rows(torch, kb, vc, spec, R, k, n_cols, npr, gen, T=5):
+    """verify_check with T rows of ts (more than one pass of the kernel's
+    accumulators at W32 = 6 and 8: it streams the rows once a pass) against
+    its plain version on random inputs, tolerance 0, both routes: every flag
+    as the plain version finds it, the evaluation and the hash words."""
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    w, w32 = spec.w16, spec.w16 // 2
+    ts = pack_words(kb.random_mont(spec, (T, w, R), gen, DEV).permute(1, 0, 2), 0).contiguous()
+    col = pack_words(kb.random_mont(spec, (R, w, k), gen, DEV).permute(1, 0, 2), 0).contiguous()
+    enc = kb.random_mont(spec, (T, w, n_cols), gen, DEV).permute(1, 0, 2).contiguous()
+    idx = vc_idx(torch, n_cols, k, gen)
+    want_w = pack_words(enc.index_select(2, idx), 0).to(torch.int64) & 0xFFFFFFFF
+    pe = pack_words(kb.random_mont(spec, (npr, w), gen, DEV), 1).contiguous()
+    inner = pack_words(kb.random_mont(spec, (npr, w), gen, DEV), 1).contiguous()
+    for want_cols in (False, True):
+        want = want_w if want_cols else enc
+        state = torch.from_numpy(vc.state_init(spec, T)).to(DEV)
+        words = vc.verify_check(spec, state, ts, col, want, idx, want_cols=want_cols,
+                                p_eval=pe, inner=inner)
+        ok, ev, pwords = vc.verify_check_plain(spec, ts, col, want, idx, want_cols=want_cols,
+                                               p_eval=pe, inner=inner)
+        got = state[: T + 1 + w32].tolist()
+        if got != [int(v) for v in ok.tolist()] + [1] + ev.tolist() or \
+                not torch.equal(words, pwords):
+            raise AssertionError(f"verify_check {spec.name} T {T}: kernel != plain")
+    log(f"  verify_check {spec.name} T {T} ({-(-T // (16 // w32))} passes of the rows), both "
+        f"routes: equal to plain")
+
+
+def vc_gather_forms(torch, kb, vc, spec, tag, R, k, n_cols, inp, gen, floor, timed):
+    """gather_open at one verify shape's opened columns (inp["idx"]: drawn
+    with replacement): from the codeword's limbs read in place (timed at
+    2^23), from int64 words made apart (the 2^29 opening by evaluation:
+    columns 0 .. k - 1, timed in order, held also in reverse), and, at the
+    small shapes, from kept canonical words and a tail keep (limbs below
+    off, kept words past it), each against gather_open_plain."""
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    w32, uniq, tree = spec.w16 // 2, inp["uniq"], inp["tree"]
+    rec = None
+    if n_cols <= 1 << 19:
+        comm = kb.random_mont(spec, (R, spec.w16, n_cols), gen, DEV).permute(1, 0, 2)
+        comm = comm.contiguous()
+        idx = inp["idx"]
+        rec = vc_gather(torch, kb, vc, spec, f"{tag} opening", idx, R, tree, uniq,
+                        dict(mont=comm, off=n_cols), lambda: comm.index_select(2, idx),
+                        4 * spec.w16 * R * k, floor, timed)
+        if not timed:
+            canon = pack_words(comm, 0).permute(1, 0, 2).reshape(R * w32, n_cols).contiguous()
+            half = n_cols // 2
+            for name, kw in (("kept words", dict(canon=canon)),
+                             ("tail keep", dict(mont=comm, off=half,
+                                                canon=canon[:, half:].contiguous()))):
+                vc_gather(torch, kb, vc, spec, f"{tag} {name} opening", idx, R, tree, uniq, kw,
+                          None, 0, None, False)
+        del comm
+    words = inp["want_cols"].new_empty((w32, R, k)).random_(0, 2**32, generator=gen)
+    kw, read = dict(mont=words, mont_form="words", off=k), torch.arange(k, device=DEV)
+    got = vc_gather(torch, kb, vc, spec, f"{tag} int64 words opening", read, R, tree, uniq,
+                    kw, lambda: words.index_select(2, read), 8 * w32 * R * k, None,
+                    timed and n_cols > 1 << 19)
+    vc_gather(torch, kb, vc, spec, f"{tag} int64 words opening, reversed", read.flip(0), R,
+              tree, uniq, kw, None, 0, None, False)
+    return rec or got
+
+
+def vc_gather(torch, kb, vc, spec, tag, idx, R, hashes, uniq, kw, lib, in_bytes, floor,
+              timed=True):
+    """gather_open against gather_open_plain at one shape; timed, its
+    warm and cold times, its bound (the opened words read once, the buffer
+    written once, the path nodes), the probe's floor and the PyTorch
+    index_select of the columns alone (warm and cold) beside."""
     got = vc.gather_open(spec, idx, R, hashes=hashes, uniq=uniq, **kw)
     want, plain_ms = time_host(torch, lambda: vc.gather_open_plain(
         spec, idx, R, hashes=hashes, uniq=uniq, **kw))
     if not torch.equal(got, want):
         raise AssertionError(f"gather_open {tag}: kernel != plain")
-    ms = kb.time_kernel(lambda: vc.gather_open(spec, idx, R, hashes=hashes, uniq=uniq, **kw))
-    lib_ms = kb.time_kernel(lib)
     U, k = uniq.numel(), idx.numel()
+    if not timed:
+        log(f"  gather_open {tag} ({R} rows x {k} columns, "
+            f"{k - int(torch.unique(idx).numel())} repeats): equal to plain")
+        return None
+    plan = vc.gather_plan(idx.cpu().numpy(), kw.get("off", 0), DEV)
+    call = lambda: vc.gather_open(spec, idx, R, hashes=hashes, uniq=uniq, plan=plan,  # noqa
+                                  **kw)
+    ms, cold = kb.time_kernel(call), kb.time_kernel_cold(call)
+    lib_ms, lib_cold = kb.time_kernel(lib), kb.time_kernel_cold(lib)
     nbytes = in_bytes + 4 * got.numel() + 64 * U + 8 * (k + U)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"  gather_open {tag} ({R} rows x {k} columns, {U} path nodes): equal to plain; device "
-        f"{ms:.4f} ms, bound {bound:.4f} ms (bytes), index_select alone {lib_ms:.4f} ms, plain "
-        f"{plain_ms:.1f} ms")
-    return {"ms": ms, "bound_ms": bound, "bound_by": "bytes", "plain_ms": plain_ms,
-            "library_ms": lib_ms, "path_nodes": U}
+    fl = floor["ascending_cold_ms"] if floor else None
+    log(f"  gather_open {tag} ({R} rows x {k} columns, {k - int(torch.unique(idx).numel())} "
+        f"repeats, {U} path nodes): equal to plain; device warm {ms:.4f} ms, cold {cold:.4f} "
+        f"ms, bound {bound:.4f} ms (bytes), the probe's floor "
+        f"{'-' if fl is None else f'{fl:.4f}'} ms (cold), index_select alone warm "
+        f"{lib_ms:.4f}, cold {lib_cold:.4f} ms, plain {plain_ms:.1f} ms")
+    return {"ms": ms, "cold_ms": cold, "bound_ms": bound, "bound_by": "bytes",
+            "floor_ms": fl, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_cold_ms": lib_cold, "path_nodes": U}
+
+
+FIELD_E2E_N = 1 << 15  # phase 17: coefficients a path in ft63, ft127 and ft191
+
+
+def every_field_phase(torch, P, counters):
+    """Phase 17: commit -> prove -> verify on the card in ft63, ft127 and
+    ft191 (Ligero rho = 1/4 and Brakedown, BLAKE3, FIELD_E2E_N coefficients
+    from a seed) and through the port's own CPU path on the same
+    coefficients: roots and proof wire bytes equal, each proof verified on
+    both (the polynomial's value), verify_check and gather_open launched on
+    the card.  Returns the records."""
+    from lcpc_tpu_torch.utils.tensors import seeded_values
+
+    out = {}
+    for spec in (P.FT63, P.FT127, P.FT191):
+        vals = seeded_values(spec.p, spec.w16, FIELD_E2E_N + 1, SEED + spec.w16)
+        coeffs, x = vals[:-1], vals[-1]
+        want = P.univariate_eval(spec, coeffs, x)
+        for name in ("ligero", "sdig"):
+            got = {}
+            for dev in (DEV, "cpu"):
+                t0 = time.perf_counter()
+                enc = (P.LigeroEncoding.new(spec, FIELD_E2E_N, *LIGERO_RHO, device=dev)
+                       if name == "ligero" else
+                       P.SdigEncoding.new(spec, FIELD_E2E_N, seed=SEED, device=dev))
+                for fn in counters.values():
+                    fn.launches = 0
+                comm = P.commit(coeffs, enc, digest=P.BLAKE3)
+                root = comm.get_root()
+                outer, inner = P.univariate_tensors(spec, x, enc.n_per_row, comm.n_rows)
+                tr = transcript_for(P, enc)
+                data = P.wire.serialize_proof(spec, comm.prove(outer, tr(root)))
+                value = P.wire.deserialize_proof(spec, data).verify(
+                    root, outer, inner, enc, tr(root), digest=P.BLAKE3)
+                launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+                got[dev] = (root, data, value, launches, (time.perf_counter() - t0) * 1e3)
+            (r_c, d_c, v_c, l_c, ms_c), (r_h, d_h, v_h, _, ms_h) = got[DEV], got["cpu"]
+            tag = f"{spec.name} {name} 2^{FIELD_E2E_N.bit_length() - 1}"
+            if r_c != r_h or d_c != d_h:
+                raise AssertionError(f"{tag}: the card's root or proof bytes != the CPU path's")
+            if v_c != want or v_h != want:
+                raise AssertionError(f"{tag}: verify returned another value")
+            if DEV != "cpu" and (l_c.get("verify_check", 0) < 1 or l_c.get("gather_open", 0) < 1):
+                raise AssertionError(f"{tag}: verify_check or gather_open not launched: {l_c}")
+            log(f"  {tag}: root and {len(d_c)} proof bytes equal to the CPU path's, verified on "
+                f"both; card {ms_c:.1f} ms, CPU {ms_h:.1f} ms (commit, prove, verify); the card's "
+                f"launches {l_c}")
+            out[tag] = {"proof_bytes": len(d_c), "card_ms": ms_c, "cpu_ms": ms_h,
+                        "launches": l_c}
+    return out
 
 
 def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
@@ -2970,6 +3165,7 @@ def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
         "replaces": ("lcpc_tpu/core/protocol.py:807 (_verify_core_fn), :767 "
                      "(_verify_core_cols_fn), :730 (_eval_dot_fn); XLA-fused, not Pallas"),
         "launches": lig[0]["verify_check"], "ms": main["check_ms"],
+        "cold_ms": main["check_cold_ms"],
         "plain_ms": main["check_plain_ms"], "bound_ms": main["check_bound_ms"],
         "bound_by": main["check_bound_by"], "library_ms": None,
         "shape": (f"the ligero 2^23 verify: T 2 x {main['rows']} rows x {main['columns']} "
@@ -2988,14 +3184,19 @@ def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
         "replaces": ("lcpc_tpu/core/protocol.py:547 (_gather_open), :538 (_gather_packed), "
                      "lcpc_tpu/core/streaming.py:332 (_gather_canon_fn); XLA-fused, not Pallas"),
         "launches": lig[0]["gather_open"], "ms": main["gather"]["ms"],
+        "cold_ms": main["gather"]["cold_ms"], "floor_ms": main["gather"]["floor_ms"],
         "plain_ms": main["gather"]["plain_ms"], "bound_ms": main["gather"]["bound_ms"],
         "bound_by": "bytes", "library_ms": main["gather"]["library_ms"],
+        "library_cold_ms": main["gather"]["library_cold_ms"],
         "library_call": "torch.index_select of the opened columns alone",
         "shape": (f"the ligero 2^23 prove's opening: {main['columns']} columns of "
                   f"{main['rows']} rows out of the codeword's limbs, "
                   f"{main['gather']['path_nodes']} path nodes"),
         "launches_paths": launches("gather_open"),
-        "other_shapes": {tag: rec["gather"] for tag, rec in vcore.items() if "gather" in rec},
+        "other_shapes": {tag: rec["gather"] for tag, rec in vcore.items()
+                         if rec.get("gather") is not None},
+        "probe_floors": vcore["probe"],
+        "fields_held": sorted({rec["field"] for rec in vcore.values() if "field" in rec}),
         "ptxas": ptx("gather_open_kernel"),
     }]
 
@@ -3504,8 +3705,10 @@ def main() -> int:
     # 2. build the eight kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:  # the probes beside the kernels
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:  # the probes beside the kernels
         chain_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR)
+        probe_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
+                              kb.GATHER_PROBE_SRC)
         tf_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
                            kb.TF_CHAIN_SRC)
         sha_f = pool.submit(kb.build_chain, cuda_build.NVCC_FLAGS, cuda_build.BUILD_DIR,
@@ -3516,8 +3719,10 @@ def main() -> int:
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
         sha_so, sha_chain_log = sha_f.result()
+        probe_so, _ = probe_f.result()
     log(f"build: {', '.join(f'{n}.cu {s:.2f} s' for n, s in secs.items())} and "
-        f"scripts/blake3_chain.cu, scripts/threefry_chain.cu, scripts/sha256_chain.cu "
+        f"scripts/blake3_chain.cu, scripts/threefry_chain.cu, scripts/sha256_chain.cu, "
+        f"scripts/gather_probe.cu "
         f"({time.perf_counter() - t0:.2f} s wall) with nvcc {' '.join(cuda_build.NVCC_FLAGS)}")
     ptxas = kb.ptxas_report(spmv.build_log)
     for w32, (regs, st, ld) in sorted(ptxas.items()):
@@ -3810,10 +4015,15 @@ def main() -> int:
     # 16. the verifier's core and the prover's opening against their plain
     # versions at the paths' shapes
     with Phase("16 verify core"):
-        vcore = verify_core_phase(torch, kb, P, vc, gen)
+        vcore = verify_core_phase(torch, kb, P, vc, gen, probe_so)
         torch.cuda.empty_cache()
 
-    # 17. kernel table
+    # 17. commit -> prove -> verify in ft63, ft127 and ft191 against the CPU path
+    with Phase("17 every field end to end"):
+        fields = every_field_phase(torch, P, counters)
+        torch.cuda.empty_cache()
+
+    # 18. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -3912,7 +4122,7 @@ def main() -> int:
                    "sha256": shas, "sha256_paths": sha_paths, "sha256_sass": sha_mix,
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
                    "verify_routes_2_23": lig_routes,
-                   "sharded": shard, "verify_core": vcore,
+                   "sharded": shard, "verify_core": vcore, "every_field": fields,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

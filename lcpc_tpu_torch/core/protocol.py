@@ -39,7 +39,8 @@ from ..ops.digest import BLAKE3, DeviceDigest
 from ..ops.limbs import get_ops, limbs_to_device
 from ..ops.mont_map import mont_mul_map
 from ..ops.mxu_prove import MxuCollapse, MxuColumnEval, mxu_prove_enabled
-from ..ops.verify_core import gather_open, read_state, state_init, verify_check, verify_walk
+from ..ops.verify_core import (GatherPlan, gather_open, plan_host, read_state, state_init,
+                               verify_check, verify_walk)
 from .encoding import LcEncoding
 
 # Verify evaluates the proof rows at the opened columns (MxuColumnEval: the
@@ -445,14 +446,17 @@ def _open_batched(spec, hashes_dev: torch.Tensor, n_cols: int, n_rows: int, cols
     the columns `read` (default `cols`) of the gather_open sources (mont,
     mont_form, canon, off) as (W/2, R, k) packed Montgomery words, and the
     paths of `cols` from the device Merkle array, only its UNIQUE nodes
-    (paths share most upper-tree nodes): one copy of the indices to the
-    device, one gather_open launch, one copy back."""
+    (paths share most upper-tree nodes): one copy of the indices and the
+    gather's plan (the columns sorted, each read once) to the device, one
+    gather_open launch, one copy back."""
     path_idx = path_node_indices(n_cols, cols)  # (k, L)
     uniq, inv = np.unique(path_idx.reshape(-1), return_inverse=True)
     k = len(cols)
-    d = _push({"idx": np.asarray(cols if read is None else read, dtype=np.int64),
-               "uniq": uniq.astype(np.int64)}, hashes_dev.device)
+    idx = np.asarray(cols if read is None else read, dtype=np.int64)
+    table, n_unique, n_mont = plan_host(idx, sources.get("off", 0))
+    d = _push({"idx": idx, "uniq": uniq.astype(np.int64), "plan": table}, hashes_dev.device)
     out = gather_open(spec, d["idx"], n_rows, hashes=hashes_dev, uniq=d["uniq"],
+                      plan=GatherPlan(d["plan"], n_unique, n_mont),
                       **sources).cpu().numpy().view(np.uint32)
     n = spec.w16 // 2 * n_rows * k
     paths = blake3.digests_to_bytes(out[n:].reshape(8, -1))[inv.reshape(-1)]
@@ -725,7 +729,7 @@ def verify(root: bytes, outer_tensor: list[int], inner_tensor: list[int],
     # tensors and columns as packed words, the path data, the inner tensor
     col_w = np.asarray(batched.col_w).astype(np.uint32, copy=False).view(np.int32)
     ts_w = (ts[0::2] | (ts[1::2] << np.uint32(16))).astype(np.uint32).view(np.int32)
-    host = {"state": state_init(spec, T, n_col_opens), "ts": ts_w, "col_w": col_w, "idx": idx,
+    host = {"state": state_init(spec, T), "ts": ts_w, "col_w": col_w, "idx": idx,
             "sibs": uniq_sibs.astype(np.int64), "inv": inv.astype(np.int64), "root": root_w}
     if fuse_eval:
         host["inner"] = ops.encode_repr_words(inner_tensor).view(np.int32)  # (npr, W/2)

@@ -9,7 +9,8 @@
 //
 // consts layout (uint32): p[W] | n0 (= -p^-1 mod 2^32), what Field reads;
 // the prover's kernels append r2[W] (R^2 mod p) | one[W] (R mod p, the
-// Montgomery form of 1).
+// Montgomery form of 1) | r3[W] (R^3 mod p: verify_core.cu's S R^-2 -> S
+// in one product).
 
 #pragma once
 

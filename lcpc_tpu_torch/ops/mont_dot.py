@@ -74,10 +74,10 @@ def _words(v: int, w32: int) -> list[int]:
 
 @functools.lru_cache(maxsize=None)
 def _consts_np(spec: FieldSpec) -> np.ndarray:
-    """p | -p^-1 mod 2^32 | R^2 mod p | R mod p, as int32 words."""
+    """p | -p^-1 mod 2^32 | R^2 mod p | R mod p | R^3 mod p, as int32 words."""
     w32, p = spec.w16 // 2, spec.p
     vals = (_words(p, w32) + [(-pow(p, -1, 1 << 32)) % (1 << 32)] + _words(spec.R2, w32)
-            + _words(spec.R % p, w32))
+            + _words(spec.R % p, w32) + _words(pow(spec.R, 3, p), w32))
     return np.array(vals, dtype=np.uint32).view(np.int32)
 
 

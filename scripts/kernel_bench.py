@@ -49,6 +49,47 @@ def time_kernel(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
+FLUSH_BYTES = 128 << 20  # over twice the H100's 50 MB L2
+_flush: dict = {}
+
+
+def flush_l2():
+    """Queue an L2 flush on the current stream: write one buffer of
+    FLUSH_BYTES, then read another of the same size, so the cache ends
+    holding clean lines of neither operand (as after a pass that streamed
+    other data), with no dirty line left to write back inside a timed call."""
+    dev = torch.cuda.current_device()
+    if dev not in _flush:
+        n = FLUSH_BYTES // 4
+        _flush[dev] = (torch.empty(n, dtype=torch.int32, device="cuda"),
+                       torch.ones(n, dtype=torch.int32, device="cuda"), torch.empty(
+                           (), dtype=torch.int64, device="cuda"))
+    w, r, out = _flush[dev]
+    w.fill_(7)
+    torch.sum(r, dim=0, dtype=torch.int64, out=out)
+
+
+def time_kernel_cold(fn, reps=10):
+    """Device ms per call with a cold L2: the median of `reps` launches,
+    each timed by its own pair of events, with flush_l2 between them
+    (outside the timed interval); all queued behind a sleeping kernel, so
+    the events time the device, not the host's issue."""
+    fn()
+    flush_l2()
+    torch.cuda.synchronize()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(reps)]
+    torch.cuda._sleep(4_000_000)
+    for start, end in evs:
+        flush_l2()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in evs)
+    return times[len(times) // 2]
+
+
 def random_mont(spec, shape, gen, device="cuda"):
     """Random field elements (< p) as int32 limbs of `shape` (W at dim 1)."""
     x = torch.randint(0, 1 << 16, shape, generator=gen, device=device,
@@ -239,6 +280,56 @@ def build_chain(flags, out_dir, src=CHAIN_SRC):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
     return so, proc.stdout + proc.stderr
+
+
+GATHER_PROBE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "gather_probe.cu")
+
+
+class GatherProbe:
+    """The random-sector probe (scripts/gather_probe.cu, built by
+    build_chain): one 4-byte load per distinct 32-byte sector of a 2 GiB
+    buffer, `rows` plane-rows of k sectors each, in ascending or random
+    order; the card's floor for a gather whose every element sits in its
+    own sector."""
+
+    WORDS = 1 << 29  # 2 GiB of int32
+
+    def __init__(self, so):
+        lib = ctypes.CDLL(so)
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.lcpc_probe_sectors.argtypes = [p, ll, i, ll, i, i, p, p]
+        lib.lcpc_probe_l2_granularity.argtypes = [i]
+        lib.lcpc_probe_get_l2_granularity.argtypes = [ctypes.POINTER(ll)]
+        self.lib = lib
+        self.buf = torch.randint(1, 1 << 30, (self.WORDS,), dtype=torch.int32, device="cuda")
+        self.sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def fn(self, rows, k, random=False, evict_first=False):
+        """A callable launching one pass over rows x k sectors."""
+        stride = (self.WORDS // rows) // 8 * 8
+
+        def run():
+            err = self.lib.lcpc_probe_sectors(
+                self.buf.data_ptr(), rows, k, stride, int(random), int(evict_first),
+                self.sink.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"gather probe launch: cudaError_t {err}")
+        return run
+
+    def granularity(self):
+        v = ctypes.c_longlong(0)
+        if self.lib.lcpc_probe_get_l2_granularity(ctypes.byref(v)) != 0:
+            raise RuntimeError("gather probe: cudaDeviceGetLimit failed")
+        return v.value
+
+    def set_granularity(self, nbytes):
+        """cudaLimitMaxL2FetchGranularity for the whole device."""
+        if self.lib.lcpc_probe_l2_granularity(int(nbytes)) != 0:
+            raise RuntimeError("gather probe: cudaDeviceSetLimit failed")
+
+    def close(self):
+        self.buf = None
+        torch.cuda.empty_cache()
 
 
 def compress_chain(so, cv, n):

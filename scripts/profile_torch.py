@@ -165,7 +165,7 @@ def main() -> int:
     # the fused core's check, hash words and evaluation (ops/verify_core.py)
     inner_w = torch.from_numpy(ops.encode_repr_words(inner).view("int32")).cuda()
     enc_rows = protocol._rows_encode(enc, rows_w)
-    state = torch.from_numpy(verify_core.state_init(spec, 2, k)).cuda()
+    state = torch.from_numpy(verify_core.state_init(spec, 2)).cuda()
     ts_w = torch.randint(0, 1 << 16, (spec.w16 // 2, 2, comm.n_rows), generator=gen,
                          device="cuda", dtype=torch.int32)
     col_w = torch.randint(0, 1 << 16, (spec.w16 // 2, comm.n_rows, k), generator=gen,

@@ -141,7 +141,7 @@ def _port(inst, what, want_cols):
     want = _t32(want_w) if want_cols else _t32(_limbs(enc))
     args = (_t32(inst.ts_w), _t32(col_w), want, torch.from_numpy(inst.idx))
     ev_args = dict(p_eval=_t32(inst.pe_w), inner=_t32(inst.inner_w))
-    state = torch.from_numpy(vc.state_init(spec, T, len(inst.idx)))
+    state = torch.from_numpy(vc.state_init(spec, T))
     words = vc.verify_check(spec, state, *args, want_cols=want_cols, **ev_args)
     digs = inst.digest.hash_word_columns(words)
     sibs_t, inv_t = torch.from_numpy(sibs.astype(np.int64)), torch.from_numpy(inst.inv)
@@ -195,43 +195,124 @@ def test_core_matches_reference_ft63(digest_name, want_cols):
     assert results["sibling"][0] == results["root"][0] == [True] * T + [False]
 
 
-@pytest.mark.parametrize("form", ["limbs", "canon"])
+@pytest.mark.parametrize("form", ["limbs", "canon", "words", "mixed"])
 def test_gather_matches_reference_ft63(form):
     """gather_open_plain against lcpc_tpu's _gather_open (the codeword's
-    limbs) and streaming._gather_canon_fn (the kept canonical words); the
-    gather_open wrapper on CPU tensors is the plain version."""
+    limbs) and streaming._gather_canon_fn (the kept canonical words), both
+    at once for a tail keep (columns below off from the limbs, the rest
+    from the kept words), and int64 u32 words picked as they are; the
+    opened columns unsorted, with repeats.  The wrapper on CPU tensors is
+    the plain version by the kernel's plan (gather_plan), given or made."""
     spec = P.FT63
     w32, R, n_cols = spec.w16 // 2, 5, 32
     rng = np.random.default_rng(11)
-    cols = [7, 30, 7, 0, 19]
+    cols = [7, 30, 7, 0, 19, 30, 7]
+    off = 16 if form == "mixed" else n_cols
     hashes = rng.integers(0, 1 << 32, (8, 2 * n_cols - 1), dtype=np.int64)
     uniq = np.unique(path_node_indices(n_cols, cols)).astype(np.int64)
     idx = torch.tensor(cols, dtype=torch.int64)
+    j_cols, j_uniq = jnp.asarray(np.asarray(cols, np.int32)), jnp.asarray(uniq.astype(np.int32))
+    j_hashes = jnp.asarray(hashes.astype(np.uint32))
+    comm = rng.integers(0, 1 << 16, (spec.w16, R, n_cols)).astype(np.uint32)
+    comm[:, :, 30] = 0xFFFF  # unreduced: packed as it is
+    vals = seeded_values(spec.p, spec.w16, R * n_cols, 12)
+    words = np.array([[_words(vals[r * n_cols + c], w32)[i] for c in range(n_cols)]
+                      for r in range(R) for i in range(w32)], dtype=np.uint32)
+    jl, jd = jprotocol._gather_open(jnp.asarray(comm), j_hashes, j_cols, j_uniq)
+    jc, _ = jstreaming._gather_canon_fn(j_get_ops(J.FT63))(jnp.asarray(words), j_hashes, j_cols,
+                                                         j_uniq)
     if form == "limbs":
-        comm = np.asarray(
-            [[[rng.integers(0, 1 << 16) for _ in range(n_cols)] for _ in range(R)]
-             for _ in range(spec.w16)], dtype=np.uint32)
-        comm[:, :, 30] = 0xFFFF  # unreduced: packed as it is
-        kw = dict(mont=_t32(comm), off=n_cols)
-        jw, jd = jprotocol._gather_open(jnp.asarray(comm), jnp.asarray(hashes.astype(np.uint32)),
-                                        jnp.asarray(np.asarray(cols, np.int32)),
-                                        jnp.asarray(uniq.astype(np.int32)))
-    else:
-        vals = seeded_values(spec.p, spec.w16, R * n_cols, 12)
-        words = np.array([[_words(vals[r * n_cols + c], w32)[i] for c in range(n_cols)]
-                          for r in range(R) for i in range(w32)], dtype=np.uint32)
-        kw = dict(canon=_t32(words))
-        jw, jd = jstreaming._gather_canon_fn(j_get_ops(J.FT63))(
-            jnp.asarray(words), jnp.asarray(hashes.astype(np.uint32)),
-            jnp.asarray(np.asarray(cols, np.int32)), jnp.asarray(uniq.astype(np.int32)))
+        kw, jw = dict(mont=_t32(comm), off=n_cols), np.asarray(jl)
+    elif form == "canon":
+        kw, jw, off = dict(canon=_t32(words)), np.asarray(jc), 0
+    elif form == "words":  # int64 u32 words, the columns made apart (the 2^29 opening)
+        packed = (comm[0::2] | (comm[1::2] << np.uint32(16))).astype(np.int64)
+        kw, jw = dict(mont=torch.from_numpy(packed), mont_form="words", off=n_cols), \
+            np.asarray(jl)
+    else:  # the tail keep: the kept words hold columns off .. n_cols - 1
+        kw = dict(mont=_t32(comm), off=off, canon=_t32(words[:, off:]))
+        jw = np.where(np.asarray(cols) < off, np.asarray(jl), np.asarray(jc))
     args = (spec, idx, R)
     kw.update(hashes=torch.from_numpy(hashes), uniq=torch.from_numpy(uniq))
+    plan = vc.gather_plan(cols, off)
+    assert (plan.n_unique, plan.n_mont) == (4, 4 if off == n_cols else 2 if off else 0)
     got = vc.gather_open(*args, **kw)
-    assert torch.equal(got, vc.gather_open_plain(*args, **kw))
+    assert torch.equal(got, vc.gather_open(*args, plan=plan, **kw))
+    assert torch.equal(got, vc.gather_open_plain(*args, plan=plan, **kw))
     got = got.numpy().view(np.uint32)
     n = w32 * R * len(cols)
-    assert np.array_equal(got[:n].reshape(w32, R, len(cols)), np.asarray(jw))
+    assert np.array_equal(got[:n].reshape(w32, R, len(cols)), jw)
     assert np.array_equal(got[n:].reshape(8, -1), np.asarray(jd))
+
+
+@pytest.mark.parametrize("cols,off", [([], 0), ([5], 0), ([9, 2, 9, 40, 2, 9, 0], 9),
+                                      ([3, 3, 3, 3], 4), (list(range(6)), 6),
+                                      (list(np.random.default_rng(5).integers(0, 357_699, 6_593)),
+                                       200_000)])
+def test_gather_plan(cols, off):
+    """The gather's host plan: the unique columns ascending, each one's run
+    of slots (every slot once, in transcript order within a run), the
+    columns below off counted; its table's layout is what gather_open_kernel
+    reads (csrc/verify_core.cu)."""
+    table, U, n_mont = vc.plan_host(cols, off)
+    idx = np.asarray(cols, dtype=np.int64)
+    k = idx.size
+    assert table.dtype == np.int32 and table.shape == (4 * U + k,)
+    head, perm = table[: 4 * U].reshape(U, 4), table[4 * U :]
+    ucols, first, starts, runs = head.T
+    assert np.array_equal(ucols, np.unique(idx)) and U == np.unique(idx).size
+    assert np.array_equal(starts, np.cumsum(runs) - runs) and runs.sum() == k
+    assert np.array_equal(np.sort(perm), np.arange(k))
+    for i in range(U):
+        run = perm[starts[i] : starts[i] + runs[i]]
+        assert run[0] == first[i] and np.all(idx[run] == ucols[i]) and np.all(np.diff(run) > 0)
+    assert n_mont == int(np.sum(ucols < off))
+    # the kernel's tasks (Montgomery source: 256 columns a warp; canonical:
+    # 64) cover each unique column once
+    tm, tc = vc.GATHER_TASK_COLS
+    seen = [i for c in range(-(-n_mont // tm)) for i in range(c * tm, min(n_mont, c * tm + tm))]
+    seen += [n_mont + i for c in range(-(-(U - n_mont) // tc))
+             for i in range(c * tc, min(U - n_mont, c * tc + tc))]
+    assert seen == list(range(U))
+
+
+@pytest.mark.parametrize("R,k,npr,splits", [(1, 189, 0, 1), (37, 189, 4_096, 2),
+                                            (128, 189, 7, 8), (256, 189, 32_768, 16),
+                                            (36, 6_593, 235_173, 1), (2_048, 189, 262_144, 16),
+                                            (100, 189, 1, 6), (300, 1_000, 9, 5)])
+def test_cluster_plan_and_state(R, k, npr, splits):
+    """verify_check's launch plan on a 132-SM card: the rows of each
+    32-column group split over a cluster of at most 16 blocks, every block
+    some rows and every row one block (R = 1, R not divisible by the split,
+    splits of 1, 2, 8 and 16 and between); the eval blocks in clusters of
+    the same size; the shared memory within a block's in every field; and
+    the state's layout (T flags, the path flag, the evaluation, the eval
+    counter) through state_len, state_init and read_state."""
+    got, rows = vc._split(132, R, k)
+    assert got == splits and splits <= vc.CLUSTER_MAX
+    assert -(-k // vc.COLS) * (splits - 1) < 132  # no more than cover every SM
+    spans = [(y * rows, min(R, y * rows + rows)) for y in range(splits)]
+    assert all(a < b for a, b in spans) and spans[0][0] == 0 and spans[-1][1] == R
+    assert all(spans[y][1] == spans[y + 1][0] for y in range(splits - 1))
+    assert splits == 1 or rows >= vc.CHUNK
+    col_blocks = -(-k // vc.COLS) * splits
+    for wave in (2 * 132 - 16, 2 * 132):  # the blocks a card holds, two an SM
+        blocks = vc._eval_blocks(npr, splits, col_blocks, wave)
+        assert blocks % splits == 0 and (npr > 0) == (blocks > 0)
+        assert blocks <= max(splits, min(wave - col_blocks, -(-npr // vc.EVAL_J)))
+        assert npr == 0 or blocks >= min(-(-npr // vc.EVAL_J), wave - col_blocks) - splits + 1
+    for spec in P.ALL_FIELDS:
+        w32, T = spec.w16 // 2, 2
+        assert max(vc._check_smem(w32, T, c) for c in (False, True)) <= vc.SMEM_MAX
+        n = vc.state_len(spec, T)
+        assert n == T + 1 + w32 + 1
+        s = vc.state_init(spec, T)
+        assert s.shape == (n,) and s.tolist() == [1] * (T + 1) + [0] * (w32 + 1)
+        ev = (spec.p - 1 - R) % spec.p
+        s[T + 1 : T + 1 + w32] = np.array(_words(ev, w32), dtype=np.uint32).view(np.int32)
+        s[1] = 0
+        flags, value = vc.read_state(spec, s, T)
+        assert flags.tolist() == [True, False, True] and value == ev
 
 
 def test_ft255_against_ints():
@@ -283,7 +364,7 @@ def test_wrappers_refuse():
     inst = Instance(spec, P.BLAKE3, seed=5, T=2, R=3, n_cols=8, idx=(1, 2), npr=2)
     ts, col, idx = _t32(inst.ts_w), _t32(inst.col_w), torch.from_numpy(inst.idx)
     enc = _t32(_limbs(inst.enc_words))
-    state = torch.from_numpy(vc.state_init(spec, 2, 2))
+    state = torch.from_numpy(vc.state_init(spec, 2))
     meta = lambda t: t.to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="unsupported device"):
         vc.verify_check(spec, meta(state), meta(ts), meta(col), meta(enc), meta(idx))
