@@ -244,8 +244,37 @@ Phases, each fatal on failure (each prints the seconds it took):
   17. commit -> prove -> verify Ligero rho = 1/4 and Brakedown, BLAKE3, at
      2^15 coefficients in ft63, ft127 and ft191 on the card and through the
      port's CPU path: roots and proof bytes equal, every proof verified
-     (the polynomial's value), verify_check and gather_open launched;
-  18. print the kernel table line, then the result line.
+     (the polynomial's value), verify_check and gather_open launched (one
+     commit a shape: staged, as a one-shot commit is);
+  18. the small commits (core/protocol.py: one CUDA-graph replay of the
+     commit's kernels, _commit_fused_fn, against the stages launched one by
+     one, the route forced through _FUSED_COMMIT_MAX): Ligero rho = 1/4 at
+     2^13, 2^15, 2^16, 2^17, 2^19, 2^20 and Brakedown CODE3 at 2^13, 2^15,
+     2^17, 2^19, 2^21 ft255 (every size lcpc_tpu fuses, a size on each side
+     of each of the port's gates), BLAKE3 at each, SHA-256 at the first and
+     the last: a shape's first commit staged, its second captured and
+     replayed, later ones replayed; every commit's roots, Merkle arrays,
+     codewords and coefficient matrices equal to the staged route's (at
+     2^13 also to the CPU path's and, Ligero, to the kernels' plain
+     versions on the card; the captured graph's nodes, from its DOT dump,
+     the port's kernels (as many as the staged route launches) and torch's
+     copies and packing, nothing else), a replay launching the staged
+     route's kernels once each; the port's own gates take the graph route
+     exactly at the sizes under them; two commits through one graph, the
+     first one's root, codeword and proof bytes unchanged and its proof
+     verified; commit host walls in turns (staged, graph, graph, staged;
+     16 each, medians), the one-shot commit and the capture's commit, the
+     copies timed;
+  19. hold the inverse NTT kernel (csrc/ntt_mont.cu's inverse pass) against
+     intt_inverse_plain, bit for bit, in every field (n = 2, 4, 2^10, 2^11,
+     2^12, and 2^12 in three passes; rows random, zeros, p - 1, p - 1 - (i
+     mod 7)), and at 2 and 256 x 2^17 ft255; intt(ntt(x)) == x at 256 x
+     2^17; the reference's FFT identity (the codeword collapsed by the
+     outer tensor with mont_dot, inverse-transformed: the collapsed
+     coefficients, then zeros) at 2^13 (commit by the graph: the shape's
+     third) and 2^23 (staged); time it warm and cold at 2 x 2^17 and 256 x 2^17 beside its
+     bound and plain version;
+  20. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -257,6 +286,7 @@ the package is missing.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -3141,6 +3171,447 @@ def every_field_phase(torch, P, counters):
     return out
 
 
+# phase 18: every size lcpc_tpu commits in one dispatch (its _FUSED_COMMIT_MAX,
+# 2^22 encoded elements): Ligero rho = 1/4 at 2^13 .. 2^20 (128 x 32,768, the
+# largest under it) and Brakedown CODE3 at 2^13 .. 2^21 (18 x 178,850), with a
+# size on each side of the port's gates (Ligero 2^16 | 2^17, Brakedown 2^19 |
+# 2^21); BLAKE3 at each, SHA-256 at the first and the last
+SMALL_LOGS = {"ligero": (13, 15, 16, 17, 19, 20), "sdig": (13, 15, 17, 19, 21)}
+SMALL_REPS = 16  # warm commits a route: staged, graph, graph, staged, 8 each
+GRAPH_GATE = 1 << 62  # protocol._FUSED_COMMIT_MAX past every size: the graph route
+# the port's kernels a commit graph may hold; torch's own kernel nodes there
+# are the limb layout's packing and copies (at::native elementwise kernels)
+GRAPH_KERNELS = ("ntt_pass_kernel", "spmv_mont_kernel", "mont_mul_map_kernel",
+                 "blake3_chunks_kernel", "chunk_tree_", "merkle_tree_kernel",
+                 "sha256_cols_kernel", "sha256_few_kernel")
+GRAPH_NODES = ("KERNEL", "MEMCPY", "MEMSET", "EMPTY")  # the node types a commit graph may hold
+
+
+def small_encoding(P, name, spec, n, dev):
+    return (P.LigeroEncoding.new(spec, n, *LIGERO_RHO, device=dev) if name == "ligero"
+            else P.SdigEncoding.new(spec, n, seed=SEED, device=dev))
+
+
+def ligero_commit_plain(P, nttm, enc, digest, mat):
+    """A Ligero commit through the kernels' plain versions, on mat's device:
+    (codeword limbs, Merkle array)."""
+    from lcpc_tpu_torch.ops import blake3 as b3
+    from lcpc_tpu_torch.ops import sha256 as sha
+    from lcpc_tpu_torch.ops.limbs import pack_row_words
+
+    plan = nttm.get_ntt(enc.spec, enc.n_cols)
+    comm = nttm.ntt_forward_plain(plan, mat)
+    words = pack_row_words(plan.ops.from_mont_plain(comm))
+    mod = b3 if digest.name == "blake3" else sha
+    np2 = 1 << (enc.n_cols - 1).bit_length()
+    return comm, mod.merkle_tree_plain(mod.hash_word_columns_plain(words), np2)
+
+
+def graph_node_check(kb, graph, path, n_port, tag):
+    """The nodes of a captured commit graph (kb.graph_nodes: its DOT dump,
+    written to `path`): {node type: count} and {kernel: count}.  Raises
+    unless it holds kernel nodes, every one the port's (GRAPH_KERNELS) or
+    torch's packing and copies, n_port of them the port's, and no node of
+    another type than GRAPH_NODES."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    nodes = kb.graph_nodes(graph, path)
+    types, kernels = {}, {}
+    for kind, label in nodes:
+        types[kind] = types.get(kind, 0) + 1
+        if kind == "KERNEL":
+            port = [g for g in GRAPH_KERNELS if g in label]
+            name = port[0] if port else ("torch" if "at::native" in label or "at6native" in label
+                                         else " ".join(label.split())[:200])
+            kernels[name] = kernels.get(name, 0) + 1
+    foreign = [k for k in kernels if k != "torch" and k not in GRAPH_KERNELS]
+    if not kernels or foreign or set(types) - set(GRAPH_NODES):
+        raise AssertionError(f"{tag}: the graph holds {types}, kernels {kernels or 'none'}")
+    if sum(v for k, v in kernels.items() if k != "torch") != n_port:
+        raise AssertionError(f"{tag}: the graph holds {kernels}, the staged route launched "
+                             f"{n_port} of the port's kernels")
+    return types, kernels
+
+
+def small_commit_bound(spec, n_rows, n_per_row, n_cols):
+    """(bound ms, by) of a Ligero BLAKE3 commit's device work: the NTT with
+    its words (ntt_cost), blake3_chunks and the chunk tree (hash_cost), the
+    Merkle tree (a compression a parent, 64 bytes a node written); the bytes
+    over 3.35 TB/s against the wide products at 8.4 T/s plus the
+    compressions at B3_COMPRESSION_S."""
+    nbytes, products, _ = ntt_cost(spec, n_rows, n_per_row, n_cols, True)
+    (b1, c1), (b2, c2) = hash_cost(n_rows * spec.w16 // 2, n_cols)
+    np2 = 1 << (n_cols - 1).bit_length()
+    nbytes += b1 + b2 + 64 * (2 * np2 - 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (products / WIDE_PRODUCTS_PER_S + (c1 + c2 + np2 - 1) * B3_COMPRESSION_S) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def small_commit_phase(torch, kb, P, nttm, counters, gen):
+    """Phase 18: the small commits by both routes through the public entry
+    point (the route forced through protocol._FUSED_COMMIT_MAX).  At each
+    size and digest of SMALL_LOGS: the staged route once, then the graph
+    route's first commit of the shape (a one-shot commit: staged, noted),
+    its second (the capture and one replay) and one more replay, each with
+    the launches counted and host-timed; roots, Merkle arrays, codewords
+    and coefficient matrices equal; at 2^13 equal to the port's CPU path
+    (and, Ligero, to the kernels' plain versions on the card) and, BLAKE3,
+    the captured graph's nodes walked (its DOT dump: the port's kernels,
+    as many as the staged route launched, and torch's packing and copies,
+    nothing else); the route the real gates take; two commits of one shape
+    through one graph, the first one's root, codeword and proof bytes
+    unchanged after the second and its proof verified; host walls in turns
+    (staged, graph, graph, staged; SMALL_REPS of each, medians); the graph
+    route's copies timed on the device.  Returns the records; the row's
+    (Ligero 2^13, BLAKE3) main run (counts zeroed just before, read just
+    after) under "main"."""
+    from lcpc_tpu_torch.core import protocol as proto
+    from lcpc_tpu_torch.ops.limbs import get_ops
+
+    spec = P.FT255
+    ops = get_ops(spec)
+    x_pt = 0x5EED % spec.p
+    gate0, capture0 = proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT
+    recs = {}
+    try:
+        for name, logs in SMALL_LOGS.items():
+            for log_n in logs:
+                n = 1 << log_n
+                enc = small_encoding(P, name, spec, n, DEV)
+                n_rows, npr, n_cols = enc.get_dims(n)
+                outer, inner = P.univariate_tensors(spec, x_pt, npr, n_rows)
+                tr = transcript_for(P, enc)
+                for digest in ((P.BLAKE3, P.SHA256) if log_n in (logs[0], logs[-1])
+                               else (P.BLAKE3,)):
+                    tag = f"{name} 2^{log_n} {digest.name}"
+                    a, b = kb.random_mont(spec, (2, spec.w16, n), gen, device=DEV)
+
+                    def commit(x, gate, e=enc):
+                        """gate None: the port's own gates and capture counts;
+                        else every gate `gate`, a capture at a shape's second
+                        commit."""
+                        proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT = (gate0, capture0) \
+                            if gate is None else ({k: gate for k in gate0}, {k: 2 for k in gate0})
+                        return P.commit(x, e, digest=digest)
+
+                    commit(a, 0)  # the tables built
+                    staged, _, l_staged = counted(torch, counters, lambda: commit(a, 0))
+                    one, one_ms, l_one = counted(torch, counters, lambda: commit(a, GRAPH_GATE))
+                    dot = log_n == logs[0] and digest is P.BLAKE3
+                    copies0 = proto._commit_fused_fn.copies
+                    with kb.debug_graphs() if dot else contextlib.nullcontext() as made:
+                        first, first_ms, l_first = counted(torch, counters,
+                                                           lambda: commit(a, GRAPH_GATE))
+                    graph, _, l_graph = counted(torch, counters, lambda: commit(a, GRAPH_GATE))
+                    copies = (proto._commit_fused_fn.copies - copies0) // 2
+                    for c in (one, first, graph):
+                        for what in ("hashes_dev", "comm", "coeffs"):
+                            if not torch.equal(getattr(c, what), getattr(staged, what)):
+                                raise AssertionError(f"{tag}: the graph route's {what} != the "
+                                                     f"staged route's")
+                    want_l = {**l_staged, "commit_graph": 1}
+                    if l_one != l_staged:
+                        raise AssertionError(f"{tag}: a shape's first commit launched {l_one}, "
+                                             f"the staged route {l_staged}")
+                    if l_first != want_l or l_graph != want_l:
+                        raise AssertionError(f"{tag}: the capture's commit launched {l_first}, "
+                                             f"a replay {l_graph}, the staged route {l_staged}")
+                    _, _, l_gate = counted(torch, counters, lambda: commit(a, None))
+                    under = n_rows * n_cols <= gate0.get(type(enc).__name__, 0)
+                    if (l_gate.get("commit_graph", 0) == 1) != under:
+                        raise AssertionError(f"{tag}: under the port's gates the commit "
+                                             f"launched {l_gate}")
+                    if dot:  # the port's capture count, on a shape never committed
+                        fresh, k = small_encoding(P, name, spec, n, DEV), capture0[
+                            type(enc).__name__]
+                        graphs = [counted(torch, counters, lambda: commit(a, None, fresh))[2].get(
+                            "commit_graph", 0) for _ in range(k + 1)]
+                        if graphs != [0] * (k - 1) + [1, 1]:
+                            raise AssertionError(f"{tag}: under the port's gates, commits 1 .. "
+                                                 f"{k + 1} replayed {graphs}")
+                        del fresh
+                    rec = {"n_rows": n_rows, "n_per_row": npr, "n_cols": n_cols,
+                           "elements": n_rows * n_cols, "launches_staged": l_staged,
+                           "launches_graph": l_graph, "launches_one_shot": l_one,
+                           "launches_capture_commit": l_first, "one_shot_ms": one_ms,
+                           "capture_commit_ms": first_ms, "copies": copies,
+                           "route_at_gate": "graph" if under else "staged",
+                           "capture_at": capture0.get(type(enc).__name__)}
+                    if dot:
+                        types, kernels = graph_node_check(
+                            kb, made[0], os.path.join(ROOT, "chiprun_out",
+                                                      f"commit_graph_{name}_{log_n}.dot"),
+                            sum(l_staged.values()), tag)
+                        rec.update(graph_nodes=types, graph_kernels=kernels)
+                    if log_n == logs[0]:
+                        cpu = P.commit(a.cpu(), small_encoding(P, name, spec, n, "cpu"),
+                                       digest=digest)
+                        if cpu.get_root() != graph.get_root() or not torch.equal(
+                                cpu.comm, graph.comm.cpu()):
+                            raise AssertionError(f"{tag}: the graph's commit != the CPU path's")
+                        if name == "ligero":
+                            (pc, pf), plain_ms = time_host(torch, lambda: ligero_commit_plain(
+                                P, nttm, enc, digest, staged.coeffs))
+                            if not (torch.equal(pc, graph.comm)
+                                    and torch.equal(pf, graph.hashes_dev)):
+                                raise AssertionError(f"{tag}: the graph's commit != the plain "
+                                                     f"versions'")
+                            rec["plain_ms"] = plain_ms
+                    # ownership: a second commit through the same graph
+                    root_a, hashes_a, comm_a = graph.get_root(), graph.hashes_dev.clone(), \
+                        graph.comm.clone()
+                    proof_a = P.wire.serialize_proof(spec, graph.prove(outer, tr(root_a)))
+                    other = commit(b, GRAPH_GATE)
+                    if other.get_root() == root_a:
+                        raise AssertionError(f"{tag}: two coefficient vectors, one root")
+                    if not (torch.equal(graph.hashes_dev, hashes_a)
+                            and torch.equal(graph.comm, comm_a)):
+                        raise AssertionError(f"{tag}: the next replay overwrote a commit")
+                    again = P.wire.serialize_proof(spec, graph.prove(outer, tr(root_a)))
+                    staged_proof = P.wire.serialize_proof(spec, staged.prove(outer, tr(root_a)))
+                    if again != proof_a or proof_a != staged_proof:
+                        raise AssertionError(f"{tag}: the first commit's proof changed")
+                    value = P.wire.deserialize_proof(spec, proof_a).verify(
+                        root_a, outer, inner, enc, tr(root_a), digest=digest)
+                    want = P.wire.deserialize_proof(spec, staged_proof).verify(
+                        root_a, outer, inner, enc, tr(root_a), digest=digest)
+                    if value != want:
+                        raise AssertionError(f"{tag}: the proofs' values differ")
+                    del other, first, staged, one
+                    # timed: host walls in turns
+                    runs = {"staged": [], "graph": []}
+                    for route in ("staged", "graph", "graph", "staged"):
+                        gate = 0 if route == "staged" else GRAPH_GATE
+                        runs[route] += [time_host(torch, lambda: commit(a, gate))[1]
+                                        for _ in range(SMALL_REPS // 2)]
+                    outs = [graph.comm, graph.hashes_dev] + (
+                        [graph.coeffs] if n_rows * npr > n else [])
+                    rec.update(
+                        staged_ms=statistics.median(runs["staged"]),
+                        graph_ms=statistics.median(runs["graph"]), runs_ms=runs,
+                        copy_ms=kb.time_kernel(lambda: [t.clone() for t in outs + [a]]),
+                        copy_bytes=2 * sum(t.numel() * t.element_size() for t in outs + [a]))
+                    if (name, log_n, digest.name) == ("ligero", logs[0], "blake3"):
+                        # the row's run: counts zeroed just before, read just after
+                        _, main_ms, main_l = counted(torch, counters,
+                                                     lambda: commit(a, GRAPH_GATE))
+                        rec.update(main_ms=main_ms, main_launches=main_l,
+                                   bound=small_commit_bound(spec, n_rows, npr, n_cols))
+                    recs[tag] = rec
+                    log(f"  {tag}: {n_rows} x {n_cols} = {n_rows * n_cols:,} elements; graph == "
+                        f"staged{' == CPU path' if log_n == logs[0] else ''}; one graph, two "
+                        f"commits: the first unchanged, its proof verified; staged "
+                        f"{rec['staged_ms']:.4f} ms, graph {rec['graph_ms']:.4f} ms "
+                        f"(x{rec['staged_ms'] / rec['graph_ms']:.2f}; {copies} copies, "
+                        f"{rec['copy_bytes'] / 1e6:.2f} MB, {rec['copy_ms']:.4f} ms); one-shot "
+                        f"commit (staged) {one_ms:.4f} ms, capture commit {first_ms:.3f} ms; "
+                        f"launches staged {sum(l_staged.values())}, graph 1 replay of "
+                        f"{sum(l_staged.values())} kernels; the port's gate: {rec['route_at_gate']}"
+                        + (f"; graph nodes {rec['graph_nodes']}, kernels {rec['graph_kernels']}"
+                           if dot else ""))
+                del enc, graph
+                proto._fused_commits.clear()
+                torch.cuda.empty_cache()
+    finally:
+        proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT = gate0, capture0
+    wins = {}
+    for tag, rec in recs.items():
+        if rec["graph_ms"] < rec["staged_ms"]:
+            enc_name = tag.split()[0]
+            wins[enc_name] = max(wins.get(enc_name, 0), rec["elements"])
+    log(f"  largest graph win (encoded elements): {wins}; the gates _FUSED_COMMIT_MAX = "
+        f"{gate0}")
+    return {"records": recs, "largest_graph_win": wins, "gate": gate0, "capture_at": capture0,
+            "main": recs[f"ligero 2^{SMALL_LOGS['ligero'][0]} blake3"]}
+
+
+INTT_LOGS = (1, 2, 10, 11, 12)  # phase 19: n = 2, 4, one pass's widest, two passes, 2^12
+INTT_TIMED = (17, (2, 256))  # phase 19: n = 2^17 at verify's rows and the 2^23 codeword's
+INTT_IDENTITY = (13, 23)     # phase 19: the FFT identity's sizes (the graph route, staged)
+
+
+def intt_cost(spec, r, n):
+    """(bytes, wide products) of one intt_inverse of r rows of n: the (W, r,
+    n) limbs read and written once, the (n-1, W32) table read once; every
+    butterfly with a twiddle other than 1 and every n^-1 scale one CIOS
+    product (2 W32^2 + W32 wide products)."""
+    w32 = spec.w16 // 2
+    butterflies = r * ((n // 2) * (n.bit_length() - 1) - (n - 1))
+    nbytes = 4 * (2 * spec.w16 * r * n + (n - 1) * w32)
+    return nbytes, (butterflies + r * n) * (2 * w32 * w32 + w32)
+
+
+def intt_phase(torch, kb, P, nttm, counters, gen):
+    """Phase 19: the inverse NTT kernel (csrc/ntt_mont.cu's inverse pass)
+    against intt_inverse_plain, bit for bit, in every field (n = INTT_LOGS,
+    2^12 in three passes; rows random, zeros, all p - 1, p -
+    1 - (i mod 7)); intt(ntt(x)) == x at 256 x 2^17; the reference's FFT
+    identity (collapse the codeword by the outer tensor with mont_dot,
+    inverse-transform it: the collapsed coefficients, then zeros) at 2^13
+    (the graph route) and 2^23 (the main path's width, counts zeroed just
+    before, read just after); timed warm and cold at 2 x 2^17 and 256 x
+    2^17 beside its bound and its plain version.  Returns the records."""
+    from lcpc_tpu_torch.core import protocol as proto
+    from lcpc_tpu_torch.ops.limbs import get_ops
+    from lcpc_tpu_torch.ops.mont_dot import mont_dot
+    from lcpc_tpu_torch.ops.spmv import unpack_words
+
+    out = {"cases": [], "shapes": {}, "identity": {}}
+    err = 0
+    for spec in P.ALL_FIELDS:
+        ops = get_ops(spec)
+        three = dict(log_chunk=6, log_t=2, max_tile_bytes=64 * spec.w16)  # 6 + 3 + 3 stages
+        for log_n, kw in [(v, {}) for v in INTT_LOGS] + [(12, three)]:
+            n = 1 << log_n
+            plan = nttm.InttPlan(spec, n, **kw)
+            if kw and len(plan.passes) != 3:
+                raise AssertionError(f"intt {spec.name}: forced plan {plan.passes}")
+            x = kb.random_mont(spec, (4, spec.w16, n), gen, device=DEV).permute(1, 0, 2)
+            x = x.contiguous()
+            x[:, 1] = 0
+            edge = [spec.p - 1] * n, [spec.p - 1 - i % 7 for i in range(n)]
+            for r, vals in zip((2, 3), edge):  # stored words near p, as they are
+                x[:, r] = torch.from_numpy(ops.encode_host(vals, to_mont=False)
+                                           .astype("int32")).to(DEV)
+            before = nttm.intt_inverse.launches
+            got = nttm.intt_inverse(plan, x)
+            if DEV != "cpu" and nttm.intt_inverse.launches - before != plan.launches_per_call:
+                raise AssertionError(f"intt {spec.name} n={n}: launches")
+            ok, e = equal_outputs(torch, got, nttm.intt_inverse_plain(plan, x))
+            err = max(err, e)
+            if not ok:
+                raise AssertionError(f"intt {spec.name} n=2^{log_n} {len(plan.passes)} passes: "
+                                     f"kernel != plain (max err {e})")
+            out["cases"].append({"field": spec.name, "n": n, "passes": len(plan.passes)})
+        log(f"  intt {spec.name} (W32={spec.w16 // 2}): n = 2^{', 2^'.join(map(str, INTT_LOGS))} "
+            f"and 2^12 in 3 passes x rows random / 0 / p-1 / near p: equal")
+    spec = P.FT255
+    log_n, rows = INTT_TIMED
+    n = 1 << log_n
+    plan, fwd = nttm.get_intt(spec, n), nttm.get_ntt(spec, n)
+    for r in rows:
+        x = kb.random_mont(spec, (r, spec.w16, n), gen, device=DEV).permute(1, 0, 2)
+        x = x.contiguous()
+        y = nttm.ntt_forward(fwd, x)
+        back = nttm.intt_inverse(plan, y)
+        if not torch.equal(back, x):
+            raise AssertionError(f"intt(ntt(x)) != x at {r} x 2^{log_n}")
+        want, plain_ms = time_host(torch, lambda: nttm.intt_inverse_plain(plan, y))
+        ok, e = equal_outputs(torch, back, want)
+        err = max(err, e)
+        if not ok:
+            raise AssertionError(f"intt {r} x 2^{log_n}: kernel != plain (max err {e})")
+        del want, back
+        ms = kb.time_kernel(lambda: nttm.intt_inverse(plan, y))
+        cold_ms = kb.time_kernel_cold(lambda: nttm.intt_inverse(plan, y))
+        nbytes, products = intt_cost(spec, r, n)
+        b, tb, to = bound_ms(nbytes, products)
+        out["shapes"][f"{r} rows"] = {"n": n,
+            "ms": ms, "cold_ms": cold_ms, "plain_ms": plain_ms, "bound_ms": b,
+            "bound_by": "bytes" if tb >= to else "operations", "bytes": nbytes,
+            "products": products, "passes": [dataclasses.astuple(ps) for ps in plan.passes]}
+        log(f"  intt ft255 {r} x 2^{log_n} ({plan.launches_per_call} passes): intt(ntt(x)) == x, "
+            f"equal to plain; {ms:.4f} ms warm, {cold_ms:.4f} cold, plain {plain_ms:.1f} ms, "
+            f"bound {b:.4f} ms (bytes {tb:.4f}, products {to:.4f})")
+        del x, y
+        torch.cuda.empty_cache()
+    ops = get_ops(spec)
+    for log_n in INTT_IDENTITY:
+        enc = P.LigeroEncoding.new(spec, 1 << log_n, *LIGERO_RHO, device=DEV)
+        coeffs = kb.random_mont(spec, (1, spec.w16, 1 << log_n), gen, device=DEV)[0]
+        n_rows, npr, n_cols = enc.get_dims(1 << log_n)
+        outer, _ = P.univariate_tensors(spec, 0x5EED % spec.p, npr, n_rows)
+        outer_m = torch.from_numpy(ops.encode_host(outer).astype("int32")).to(DEV)[:, None, :]
+        def identity():
+            comm = P.commit(coeffs, enc)
+            flat = unpack_words(mont_dot(spec, outer_m, comm.coeffs, "mont", x_form="limbs",
+                                         y_form="limbs"), 0)
+            enc_flat = unpack_words(mont_dot(spec, outer_m, comm.comm, "mont", x_form="limbs",
+                                             y_form="limbs"), 0)
+            return flat, nttm.intt_inverse(nttm.get_intt(spec, n_cols), enc_flat)
+
+        capture0 = proto._CAPTURE_AT
+        try:  # the shape's first commit (staged), then its capture: the counted
+            proto._CAPTURE_AT = {k: 2 for k in capture0}  # run replays where the gate allows
+            identity()
+            identity()
+        finally:
+            proto._CAPTURE_AT = capture0
+        (flat, back), ms, launches = counted(torch, counters, identity)
+        graph = launches.get("commit_graph", 0) == 1
+        if not torch.equal(back[:, :, :npr], flat) or back[:, :, npr:].any():
+            raise AssertionError(f"FFT identity 2^{log_n}: the inverse of the collapsed codeword "
+                                 f"!= the collapsed coefficients, zeros above")
+        out["identity"][f"2^{log_n}"] = {"n_rows": n_rows, "n_cols": n_cols, "ms": ms,
+                                         "graph_route": graph, "launches": launches}
+        log(f"  FFT identity 2^{log_n} ({n_rows} x {n_cols}, commit by the "
+            f"{'graph' if graph else 'staged'} route): intt(collapsed codeword) = collapsed "
+            f"coefficients, then zeros; {ms:.1f} ms; launches {launches}")
+        del enc, coeffs, flat, back
+        proto._fused_commits.clear()
+        torch.cuda.empty_cache()
+    if not out["identity"][f"2^{INTT_IDENTITY[0]}"]["graph_route"]:
+        raise AssertionError("FFT identity: the small commit did not take the graph route")
+    out["max_abs_err"] = err
+    return out
+
+
+def small_rows(small, inv):
+    """The kernel table rows of the small commit's graph and the inverse NTT."""
+    main = small["main"]
+    bound, by = main["bound"]
+    big = inv["shapes"][f"{INTT_TIMED[1][1]} rows"]
+    verify = inv["shapes"][f"{INTT_TIMED[1][0]} rows"]
+    return [{
+        "name": "commit_graph",
+        "route": "cuda",
+        "source": "lcpc_tpu_torch/core/protocol.py",
+        "replaces": "lcpc_tpu/core/protocol.py:345 (_commit_fused_fn, XLA-fused, not Pallas)",
+        "launches": main["main_launches"].get("commit_graph", 0),
+        "max_abs_err": 0,
+        "ms": main["graph_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "equal_to_plain": True,
+        "tolerance": 0,
+        "shape": (f"one ft255 rho=1/4 BLAKE3 commit of 2^{SMALL_LOGS['ligero'][0]} coefficients "
+                  f"({main['n_rows']} x {main['n_cols']}): one CUDA-graph replay of the port's "
+                  f"kernels, host wall with the copies in and out"),
+        "staged_ms": main["staged_ms"],
+        "one_shot_ms": main["one_shot_ms"],
+        "capture_commit_ms": main["capture_commit_ms"],
+        "kernels_a_replay": main["launches_staged"],
+        "graph_kernels": main["graph_kernels"],
+        "by_size_ms": {tag: [r["staged_ms"], r["graph_ms"], r["one_shot_ms"],
+                             r["capture_commit_ms"]] for tag, r in small["records"].items()},
+        "largest_graph_win_elements": small["largest_graph_win"],
+        "gate": small["gate"],
+    }, {
+        "name": "intt_inverse",
+        "route": "cuda",
+        "source": "lcpc_tpu_torch/csrc/ntt_mont.cu",
+        "replaces": "lcpc_tpu/ops/ntt.py:184 (_intt_inverse; BatchedIntt :229; XLA-fused, "
+                    "not Pallas)",
+        "launches": inv["identity"][f"2^{INTT_IDENTITY[1]}"]["launches"].get("intt_inverse", 0),
+        "max_abs_err": inv["max_abs_err"],
+        "ms": big["ms"],
+        "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+        "equal_to_plain": True,
+        "tolerance": 0,
+        "shape": "ft255 256 x 2^17 (the 2^23 Ligero codeword's rows), limbs in and out",
+        "cold_ms": big["cold_ms"],
+        "rows_2_ms": verify["ms"],
+        "rows_2_cold_ms": verify["cold_ms"],
+        "rows_2_plain_ms": verify["plain_ms"],
+        "rows_2_bound_ms": verify["bound_ms"],
+    }]
+
+
 def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
     """The kernel table rows of verify_core.cu's two kernels, each timed at
     the Ligero 2^23 shapes, the other paths' shapes and launches beside;
@@ -3316,7 +3787,10 @@ def main_coeffs(torch, spec, ops, gen):
 
 
 def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
-    """Every kernel wrapper of the port by its counter's name."""
+    """Every kernel wrapper of the port by its counter's name (and the
+    commit's CUDA graph, its replays)."""
+    from lcpc_tpu_torch.core import protocol
+
     return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
             "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
             "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
@@ -3326,7 +3800,8 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
             "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
             **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
             "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk,
-            "verify_check": vc.verify_check, "gather_open": vc.gather_open}
+            "verify_check": vc.verify_check, "gather_open": vc.gather_open,
+            "intt_inverse": nttm.intt_inverse, "commit_graph": protocol._commit_fused_fn}
 
 
 def counted(torch, counters, fn):
@@ -4023,7 +4498,17 @@ def main() -> int:
         fields = every_field_phase(torch, P, counters)
         torch.cuda.empty_cache()
 
-    # 18. kernel table
+    # 18. the small commits: the CUDA-graph route against the staged one
+    with Phase("18 small commits"):
+        small = small_commit_phase(torch, kb, P, nttm, counters, gen)
+        torch.cuda.empty_cache()
+
+    # 19. the inverse NTT against its plain version, and the FFT identity
+    with Phase("19 inverse ntt"):
+        inv = intt_phase(torch, kb, P, nttm, counters, gen)
+        torch.cuda.empty_cache()
+
+    # 20. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -4107,7 +4592,8 @@ def main() -> int:
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
         *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"], shard),
         *sha_rows(shas, sha_paths, sha_ptxas, sha_mix),
-        *vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas)]
+        *vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas),
+        *small_rows(small, inv)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -4123,6 +4609,7 @@ def main() -> int:
                    "stage_launches": {"sdig": sdig[8], "ligero": lig[8]},
                    "verify_routes_2_23": lig_routes,
                    "sharded": shard, "verify_core": vcore, "every_field": fields,
+                   "small_commits": small, "intt": inv,
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

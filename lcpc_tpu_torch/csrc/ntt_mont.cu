@@ -78,6 +78,20 @@
 // past the IMAD pipe is a different algorithm on the tensor cores (MxuNtt's
 // int8 digit four-step), left open.
 //
+// The inverse (lcpc_ntt_inverse_pass) replaces the XLA-fused `_intt_inverse`
+// (lcpc_tpu/ops/ntt.py:184, run by `BatchedIntt`; fffft's ifft_oi): bit-
+// reversed input to in-order coefficients by the decimation-in-time ladder,
+// half-sizes m = 1 .. n/2, butterfly (u, v) -> (u + v w_2m^-j, u - v w_2m^-j),
+// then n^-1.  It runs the forward plan's passes in reverse, each pass's
+// stages from its smallest half-size up, on the same tiles: the first pass
+// (the contiguous chunks) reads the limbs, the last (the widest strided
+// groups) multiplies by n^-1 and writes the limbs.  It reads the forward
+// table: w_2m^-j = -w_2m^(m-j) (w_2m^m = -1), so the product is v w_2m^(m-j)
+// and the butterfly's sum and difference swap.  The same bound as the
+// forward (2 W^2 + W wide products a non-trivial butterfly) plus one
+// product an element for n^-1: at 256 rows of 2^17, ft255, 38.8 G wide
+// products (4.62 ms) against 4.3 GB of limbs (1.28 ms).
+//
 // LCPC_NTT_NO_PRODUCTS (a diagnostic build, scripts/time_ntt.py --parts)
 // replaces every product by its input: wrong results, the passes' memory
 // and shared-memory time alone.
@@ -158,6 +172,42 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;\n" ::: "memory");
 }
 
+// A tile between shared memory (element e = g*T + t at s + e*W) and the
+// packed buffer, whose group row g is T*W contiguous words at src + (g <<
+// lo)*W: asynchronous copies in, plain stores out, 16 or 8 bytes each
+template <int W>
+__device__ __forceinline__ void load_tile_buf(uint32_t* s, const uint32_t* src, int tile, int T,
+                                              int lo) {
+  constexpr int kChunk = (W % 4 == 0) ? 4 : 2;  // words per copy
+  const int per_row = (T * W) / kChunk;
+  for (int q = threadIdx.x; q < tile * W / kChunk; q += blockDim.x) {
+    const int g = q / per_row;
+    const int off = (q - g * per_row) * kChunk;
+    const uint32_t* gp = src + ((size_t)g << lo) * W + off;
+    uint32_t* sp = s + (size_t)g * T * W + off;
+    if constexpr (kChunk == 4) cp_async16(sp, gp);
+    else cp_async8(sp, gp);
+  }
+  cp_async_wait_all();
+}
+
+template <int W>
+__device__ __forceinline__ void store_tile_buf(uint32_t* dst, const uint32_t* s, int tile, int T,
+                                               int lo) {
+  constexpr int kChunk = (W % 4 == 0) ? 4 : 2;
+  const int per_row = (T * W) / kChunk;
+  for (int q = threadIdx.x; q < tile * W / kChunk; q += blockDim.x) {
+    const int g = q / per_row;
+    const int off = (q - g * per_row) * kChunk;
+    uint32_t* gp = dst + ((size_t)g << lo) * W + off;
+    const uint32_t* sp = s + (size_t)g * T * W + off;
+    if constexpr (kChunk == 4)
+      *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
+    else
+      *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
+  }
+}
+
 // Butterfly b of stage 2^sg in a tile: its elements e0, e1 (= e0 + half-
 // size) in the tile and its twiddle index j (in the stage's row of tw)
 __device__ __forceinline__ long long bf_index(int sg, int b, int lo, int log_t, long long rg,
@@ -222,19 +272,7 @@ ntt_pass_kernel(const int32_t* __restrict__ limbs_in, const uint32_t* buf_in,
       store_words<W>(s + (size_t)e * W, v);
     }
   } else {
-    // a group row is T*W contiguous words in the packed buffer
-    const uint32_t* src = buf_in + ((size_t)row * n + base) * W;
-    constexpr int kChunk = (W % 4 == 0) ? 4 : 2;  // words per copy
-    const int per_row = (T * W) / kChunk;
-    for (int q = tid; q < tile * W / kChunk; q += nth) {
-      const int g = q / per_row;
-      const int off = (q - g * per_row) * kChunk;
-      const uint32_t* gp = src + ((size_t)g << lo) * W + off;
-      uint32_t* sp = s + (size_t)g * T * W + off;
-      if constexpr (kChunk == 4) cp_async16(sp, gp);
-      else cp_async8(sp, gp);
-    }
-    cp_async_wait_all();
+    load_tile_buf<W>(s, buf_in + ((size_t)row * n + base) * W, tile, T, lo);
   }
   __syncthreads();
 
@@ -292,19 +330,7 @@ ntt_pass_kernel(const int32_t* __restrict__ limbs_in, const uint32_t* buf_in,
       }
     }
   } else {
-    uint32_t* dst = buf_out + ((size_t)row * n + base) * W;
-    constexpr int kChunk = (W % 4 == 0) ? 4 : 2;
-    const int per_row = (T * W) / kChunk;
-    for (int q = tid; q < tile * W / kChunk; q += nth) {
-      const int g = q / per_row;
-      const int off = (q - g * per_row) * kChunk;
-      uint32_t* gp = dst + ((size_t)g << lo) * W + off;
-      const uint32_t* sp = s + (size_t)g * T * W + off;
-      if constexpr (kChunk == 4)
-        *reinterpret_cast<uint4*>(gp) = *reinterpret_cast<const uint4*>(sp);
-      else
-        *reinterpret_cast<uint2*>(gp) = *reinterpret_cast<const uint2*>(sp);
-    }
+    store_tile_buf<W>(buf_out + ((size_t)row * n + base) * W, s, tile, T, lo);
   }
 }
 
@@ -326,6 +352,116 @@ cudaError_t launch_pass(const int32_t* limbs_in, const uint32_t* buf_in, uint32_
   ntt_pass_kernel<W><<<(unsigned)blocks, threads, smem, stream>>>(
       limbs_in, buf_in, buf_out, limbs_out, words_out, tw, consts, R, log_n, k, hi, lo,
       log_t);
+  return cudaGetLastError();
+}
+
+// One pass of the inverse ladder (half-sizes 2^lo .. 2^hi, ascending) over
+// every row; the tile is the forward pass's.  Input: limbs_in (the first
+// pass, lo = log_t = 0) or buf_in; output: buf_out, or (the last pass, hi =
+// log_n - 1, buf_out null) limbs_out times n^-1.  DIT butterfly on (e0, e1)
+// of half-size m, j = its index mod m: t = v w_2m^-j, (u, v) -> (u + t,
+// u - t).  The table holds the forward twiddles w_2m^j, and w_2m^-j = -w_2m^(m-j)
+// (w_2m^m = -1): t' = v w_2m^(m-j) gives (u - t', u + t'); j = 0 needs no
+// product.
+template <int W>
+__global__ void __launch_bounds__(kMaxThreads)
+ntt_inverse_pass_kernel(const int32_t* __restrict__ limbs_in, const uint32_t* buf_in,
+                        uint32_t* buf_out, int32_t* __restrict__ limbs_out,
+                        const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                        int R, int log_n, int hi, int lo, int log_t) {
+  extern __shared__ uint4 smem_raw[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem_raw);
+  const int log_tile = hi - lo + 1 + log_t;
+  const int tile = 1 << log_tile;
+  const int T = 1 << log_t;
+  const long long n = 1LL << log_n;
+  const long long b_id = blockIdx.x;
+  const long long row = b_id >> (log_n - log_tile);
+  const long long tt = b_id & ((1LL << (log_n - log_tile)) - 1);
+  const long long rg = tt & ((1LL << (lo - log_t)) - 1);
+  const long long base = ((tt >> (lo - log_t)) << (hi + 1)) + (rg << log_t);
+  const size_t plane = (size_t)R * n;  // one limb plane of limbs_in / limbs_out
+
+  if (limbs_in != nullptr) {
+    // first pass (a contiguous chunk): 2W limb planes; word i = limb 2i | 2i+1 << 16
+    const int32_t* src = limbs_in + (size_t)row * n + base;
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      uint32_t v[W];
+#pragma unroll
+      for (int q = 0; q < W; ++q)
+        v[q] = (uint32_t)__ldg(src + (2 * q) * plane + e) |
+               ((uint32_t)__ldg(src + (2 * q + 1) * plane + e) << 16);
+      store_words<W>(s + (size_t)e * W, v);
+    }
+  } else {
+    load_tile_buf<W>(s, buf_in + ((size_t)row * n + base) * W, tile, T, lo);
+  }
+  __syncthreads();
+
+  const Field<W> f(consts);
+  for (int sg = lo; sg <= hi; ++sg) {
+    const uint32_t* tw_m = tw + (size_t)((1LL << sg) - 1) * W;
+    for (int b = threadIdx.x; b < tile / 2; b += blockDim.x) {
+      int e0, e1;
+      const long long j = bf_index(sg, b, lo, log_t, rg, e0, e1);
+      uint32_t u[W], v[W], hi_w[W], lo_w[W];
+      load_words<W>(u, s + (size_t)e0 * W);
+      load_words<W>(v, s + (size_t)e1 * W);
+      if (j != 0) {
+        uint32_t w[W], t[W];
+        ldg_words<W>(w, tw_m + (size_t)((1LL << sg) - j) * W);
+        f.mul(t, v, w);
+        f.sub(hi_w, u, t);
+        f.add(lo_w, u, t);
+      } else {
+        f.add(hi_w, u, v);
+        f.sub(lo_w, u, v);
+      }
+      store_words<W>(s + (size_t)e0 * W, hi_w);
+      store_words<W>(s + (size_t)e1 * W, lo_w);
+    }
+    __syncthreads();
+  }
+
+  if (buf_out == nullptr) {
+    // last pass: element e at base + (g << lo) + t, times n^-1, as 16-bit limbs
+    uint32_t n_inv[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) n_inv[q] = __ldg(consts + W + 1 + q);
+    int32_t* dst = limbs_out + (size_t)row * n + base;
+    for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+      const long long i = ((long long)(e >> log_t) << lo) + (e & (T - 1));
+      uint32_t v[W], c[W];
+      load_words<W>(v, s + (size_t)e * W);
+      f.mul(c, v, n_inv);
+#pragma unroll
+      for (int q = 0; q < W; ++q) {
+        dst[(2 * q) * plane + i] = (int32_t)(c[q] & 0xFFFFu);
+        dst[(2 * q + 1) * plane + i] = (int32_t)(c[q] >> 16);
+      }
+    }
+  } else {
+    store_tile_buf<W>(buf_out + ((size_t)row * n + base) * W, s, tile, T, lo);
+  }
+}
+
+template <int W>
+cudaError_t launch_inverse_pass(const int32_t* limbs_in, const uint32_t* buf_in,
+                                uint32_t* buf_out, int32_t* limbs_out, const uint32_t* tw,
+                                const uint32_t* consts, int R, int log_n, int hi, int lo,
+                                int log_t, int threads, cudaStream_t stream) {
+  const int log_tile = hi - lo + 1 + log_t;
+  const size_t smem = ((size_t)W << log_tile) * sizeof(uint32_t);
+  static size_t smem_set = 48 * 1024;  // the default dynamic shared memory cap
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ntt_inverse_pass_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const long long blocks = (long long)R << (log_n - log_tile);
+  ntt_inverse_pass_kernel<W><<<(unsigned)blocks, threads, smem, stream>>>(
+      limbs_in, buf_in, buf_out, limbs_out, tw, consts, R, log_n, hi, lo, log_t);
   return cudaGetLastError();
 }
 
@@ -370,4 +506,42 @@ extern "C" int lcpc_ntt_pass(const int32_t* limbs_in, const uint32_t* buf_in,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LCPC_NTT_PASS
+}
+
+// One pass of the inverse ladder (half-sizes 2^lo .. 2^hi, the forward
+// plan's passes in reverse) over every row.  Exactly one input: limbs_in
+// (2*w32, R, 2^log_n), bit-reversed Montgomery limbs below p, for the first
+// pass (lo = log_t = 0), else the packed (R, 2^log_n, w32) buf_in.  Output:
+// the packed buf_out (may equal buf_in), or for the last pass (hi = log_n -
+// 1, buf_out null) limbs_out (2*w32, R, 2^log_n), the in-order coefficients
+// times n^-1.  tw is the forward table; consts p[w32] | n0 | n^-1[w32]
+// (Montgomery form).  Returns the launch's cudaError_t (0 on success).
+extern "C" int lcpc_ntt_inverse_pass(const int32_t* limbs_in, const uint32_t* buf_in,
+                                     uint32_t* buf_out, int32_t* limbs_out, const uint32_t* tw,
+                                     const uint32_t* consts, int w32, int R, int log_n, int hi,
+                                     int lo, int log_t, int threads, int device, void* stream) {
+  const bool first = limbs_in != nullptr, last = buf_out == nullptr;
+  if (R < 0 || log_n < 1 || log_n > 30 || ((long long)R << log_n) >= (1LL << 40) ||
+      hi >= log_n || lo < 0 || lo > hi || log_t < 0 || log_t > lo ||
+      hi - lo + 1 + log_t > log_n || first == (buf_in != nullptr) ||
+      first != (lo == 0) || (first && log_t != 0) || last != (hi == log_n - 1) ||
+      last != (limbs_out != nullptr) || threads < 1 || threads > kMaxThreads ||
+      ((size_t)w32 * 4 << (hi - lo + 1 + log_t)) > (size_t)kMaxSmem ||
+      ((long long)R << (log_n - (hi - lo + 1 + log_t))) >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LCPC_NTT_INVERSE_PASS(W)                                                              \
+  launch_inverse_pass<W>(limbs_in, buf_in, buf_out, limbs_out, tw, consts, R, log_n, hi, lo, \
+                         log_t, threads, s)
+  switch (w32) {
+    case 2: return (int)LCPC_NTT_INVERSE_PASS(2);
+    case 4: return (int)LCPC_NTT_INVERSE_PASS(4);
+    case 6: return (int)LCPC_NTT_INVERSE_PASS(6);
+    case 8: return (int)LCPC_NTT_INVERSE_PASS(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LCPC_NTT_INVERSE_PASS
 }

@@ -34,7 +34,7 @@ from ..fields.spec import FieldSpec
 from ..fs.chacha import ChaCha20Rng
 from ..fs.sampling import UniformUsize, field_random_nonzero_raw
 from ..ops.limbs import get_ops
-from ..ops.spmv import RaggedCsr, pack_words, spmv_mont, unpack_words
+from ..ops.spmv import RaggedCsr, pack_words, spmv_consts, spmv_mont, unpack_words
 from ..utils.device import resolve_device
 
 LAMBDA = 128
@@ -517,6 +517,13 @@ class SdigEncoding(LcEncoding):
                                         self.postcodes[-1].n_in, self.device)
             self._dev = (pre, post, rs)
         return self._dev
+
+    def device_tables(self) -> tuple:
+        """The code's levels on self.device (device_mats) and each level's
+        SpMV constants."""
+        pre, post, rs = self.device_mats()
+        levels = [*pre, *post, rs]
+        return (*levels, *(spmv_consts(self.spec, dm) for dm in levels))
 
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs.

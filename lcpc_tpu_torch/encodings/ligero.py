@@ -164,6 +164,10 @@ class LigeroEncoding(LcEncoding):
                              f"got {tuple(rows.shape)}")
         return rows
 
+    def device_tables(self) -> tuple:
+        """The NTT plan's twiddle table and constants on self.device."""
+        return get_ntt(self.spec, self.n_cols).kernel_table(self.device)
+
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs: each
         row zero-padded to n_cols and transformed (the NTT's first pass reads

@@ -35,6 +35,7 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import struct
 
@@ -42,7 +43,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
-from . import merkle
+from . import launch_count, merkle
 
 IV = (
     0x6A09E667,
@@ -423,7 +424,7 @@ def blake3_chunks(words: torch.Tensor, out: torch.Tensor, *, carry=None,
     blake3_chunks.launches += 1
 
 
-blake3_chunks.launches = 0
+launch_count.counted(blake3_chunks)
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +497,7 @@ def merge_chunk_cvs(cvs: torch.Tensor, *, _lanes: "int | None" = None) -> torch.
     return out
 
 
-merge_chunk_cvs.launches = 0
+launch_count.counted(merge_chunk_cvs)
 
 
 def _chunking(n_words: int) -> tuple[int, int]:
@@ -572,6 +573,23 @@ def _tree_counter(device: torch.device, dev: int, stream: int) -> torch.Tensor:
     return counter
 
 
+@contextlib.contextmanager
+def own_tree_counter(device: torch.device):
+    """Inside: the tree kernels launched on `device`'s current stream take a
+    counter of their own (yielded, 0; a CUDA graph captured there keeps it
+    alive), the stream's own one back after."""
+    key = (device.index or 0, torch.cuda.current_stream(device).cuda_stream)
+    prev = _tree_counters.get(key)
+    counter = _tree_counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    try:
+        yield counter
+    finally:
+        if prev is None:
+            del _tree_counters[key]
+        else:
+            _tree_counters[key] = prev
+
+
 def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     """The commitment's Merkle array: column digests (8, n_cols) int64,
     zero digests padding them to n_cols_np2 leaves (a power of two), then
@@ -599,7 +617,7 @@ def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     return out
 
 
-merkle_tree.launches = 0
+launch_count.counted(merkle_tree)
 
 
 def merkle_walk_plain(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
@@ -669,7 +687,7 @@ def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
                  merkle_walk_plain, merkle_walk, digs, uniq_sibs, inv, idx, root, flag)
 
 
-merkle_walk.launches = 0
+launch_count.counted(merkle_walk)
 
 
 def digests_to_bytes(digests) -> np.ndarray:

@@ -43,6 +43,8 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from . import launch_count
+from .launch_count import LaunchCount
 from .limbs import get_ops
 from .spmv import pack_words, unpack_words
 
@@ -354,14 +356,6 @@ def _bind_dot(lib) -> None:
     lib.lcpc_mont_dot_thin_tc.restype = ctypes.c_int
 
 
-class LaunchCount:
-    """One of mont_dot's kernels: its launches, counted where mont_dot
-    launches it (`launches`)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
 KERNELS = {"thin": LaunchCount(), "thin_tc": LaunchCount(), "tile": LaunchCount()}
 
 
@@ -475,7 +469,7 @@ def mont_dot(spec: FieldSpec, x: torch.Tensor, y: torch.Tensor, out_form: str = 
     return out if flat is out else out.copy_(flat)
 
 
-mont_dot.launches = 0
+launch_count.counted(mont_dot)
 
 
 # ---- the power table ----------------------------------------------------------------
@@ -542,4 +536,4 @@ def power_table(spec: FieldSpec, g: torch.Tensor, K: int) -> torch.Tensor:
     return out
 
 
-power_table.launches = 0
+launch_count.counted(power_table)

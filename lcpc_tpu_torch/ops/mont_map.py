@@ -37,6 +37,7 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from . import launch_count
 from .limbs import MASK16, _chunked, _conv, _conv_const, _norm, get_ops, pack_row_words
 from .mont_dot import field_consts
 from .spmv import pack_words, unpack_words
@@ -259,5 +260,5 @@ def mont_addsub_map(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | None" =
                      in_form, out_form)
 
 
-mont_mul_map.launches = 0
-mont_addsub_map.launches = 0
+launch_count.counted(mont_mul_map)
+launch_count.counted(mont_addsub_map)

@@ -30,9 +30,14 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
   the unique residues < p, so they agree limb for limb.
   `ntt_forward_passes_plain` runs the same ladder pass by pass with the
   kernel's tile and butterfly index arithmetic (for the tests).
-- `InttPlan` / `intt_inverse` (fffft's ifft_oi): the ladder over FieldOps'
-  elementwise ops, which run the mont_map kernels on the card (no NTT
-  kernel of its own yet).
+- `InttPlan` / `intt_inverse` (fffft's ifft_oi, lcpc_tpu `_intt_inverse`):
+  the wrapper launches csrc/ntt_mont.cu's inverse pass, one launch per
+  pass (the forward plan's passes reversed; the forward twiddle table read
+  at w_2m^(m-j) with the sign folded into the butterfly; n^-1 applied as
+  the last pass stores), on CUDA tensors, or raises; CPU tensors take
+  `intt_inverse_plain`, the DIT ladder over FieldOps' plain versions.
+  `intt_inverse_passes_plain` runs it pass by pass with the kernel's
+  index arithmetic (for the tests).
 - `ntt_host`, `intt_host`, `ntt_reference_host` are the Python-int twins.
 """
 
@@ -47,8 +52,10 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from ..utils.device import with_index
+from . import launch_count
 from .limbs import FieldOps, get_ops, pack_row_words
-from .spmv import pack_words
+from .spmv import pack_words, unpack_words
 
 _NAME = "ntt_mont"
 LOG_CHUNK = 10           # the last pass: contiguous chunks of 1,024 elements
@@ -227,7 +234,7 @@ class NttPlan:
         words with half-size m's twiddles at rows m-1 .. 2m-2 (equal to
         stage_twiddles, built on the device by mont_powers), and the
         constant block p words | -p^-1 mod 2^32."""
-        key = ("kernel", torch.device(device))
+        key = ("kernel", with_index(device))  # as the kernels' tensors report it
         if key not in self._tables:
             # half-size m's twiddles w_n^(j n/2m) are every (n/2m)-th of
             # the n/2 powers of w_n, which mont_powers builds on the device
@@ -311,7 +318,9 @@ def ntt_forward_passes_plain(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lcpc_ntt_pass.argtypes = [p, p, p, p, p, p, p] + [i] * 9 + [p]
-    lib.lcpc_ntt_pass.restype = ctypes.c_int
+    lib.lcpc_ntt_inverse_pass.argtypes = [p] * 6 + [i] * 8 + [p]
+    for fn in (lib.lcpc_ntt_pass, lib.lcpc_ntt_inverse_pass):
+        fn.restype = ctypes.c_int
 
 
 _OUTPUTS = ("limbs", "both", "words")
@@ -379,17 +388,22 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
     return (out, words) if output == "both" else words
 
 
-ntt_forward.launches = 0
+launch_count.counted(ntt_forward)
 
 
-# ---- inverse (FieldOps' elementwise ops) ---------------------------------------------
+# ---- inverse --------------------------------------------------------------------------
 
 
 class InttPlan:
-    """Twiddles for the inverse transform (fffft's ifft_oi semantics:
-    bit-reversed input -- fft_io's output order -- to in-order coefficients)."""
+    """The inverse transform of size n (fffft's ifft_oi semantics:
+    bit-reversed input -- fft_io's output order -- to in-order
+    coefficients): the stage twiddles on the host, exactly lcpc_tpu's
+    `InttPlan.stage_twiddles` ((W, m) Montgomery limbs of w_2m^-j for
+    half-sizes m = 1 .. n/2), n^-1, and the kernel's passes: the forward
+    plan's (plan_passes, the same keyword arguments) in reverse, each
+    running its stages from the smallest half-size up."""
 
-    def __init__(self, spec: FieldSpec, n: int):
+    def __init__(self, spec: FieldSpec, n: int, **pass_kw):
         if n < 2 or n & (n - 1):
             raise ValueError(f"NTT size must be a power of two >= 2, got {n}")
         self.spec = spec
@@ -398,38 +412,167 @@ class InttPlan:
         if self.log_n > spec.s:
             raise ValueError(f"n = 2^{self.log_n} exceeds {spec.name}'s 2-adicity {spec.s}")
         self.ops = get_ops(spec)
-        p = spec.p
+        self.n_inv_limbs = self.ops.encode_host([pow(n, spec.p - 2, spec.p)])[:, 0]
+        self.passes = plan_passes(self.log_n, spec.w16 // 2, **pass_kw)[::-1]
+        self._tables: dict = {}
+
+    @functools.cached_property
+    def stage_twiddles(self) -> list[np.ndarray]:
+        """(W, m) Montgomery limbs of w_2m^-j for the DIT stages m = 1 .. n/2
+        (built on the host when first read): the plain version's table."""
+        spec, n, p = self.spec, self.n, self.spec.p
         w_n_inv = pow(spec.root_for_log_len(self.log_n), p - 2, p)
-        # DIT stages m = 1, 2, ..., n/2 with twiddle base w_{2m}^{-1}
-        self.stage_twiddles: list[np.ndarray] = [
-            self.ops.encode_host(_powers(pow(w_n_inv, n // (2 * m), p), m, p))
-            for m in (1 << s for s in range(self.log_n))
-        ]
-        self.n_inv_limbs = self.ops.encode_host([pow(n, p - 2, p)])[:, 0]
+        return [self.ops.encode_host(_powers(pow(w_n_inv, n // (2 * m), p), m, p))
+                for m in (1 << s for s in range(self.log_n))]
+
+    @property
+    def launches_per_call(self) -> int:
+        """Kernel launches of one intt_inverse: one per pass."""
+        return len(self.passes)
+
+    def stage_tensors(self, device) -> list[torch.Tensor]:
+        """The stage twiddles as (W, m) int32 tensors on `device` (plain version)."""
+        key = ("stages", torch.device(device))
+        if key not in self._tables:
+            self._tables[key] = [torch.from_numpy(t.astype(np.int32)).to(device)
+                                 for t in self.stage_twiddles]
+        return self._tables[key]
+
+    def kernel_table(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(tw, consts) for the kernel on `device`: tw is the forward plan's
+        packed table (get_ntt(spec, n).kernel_table), read at w_2m^(m-j)
+        with the sign folded into the butterfly (inverse_stage_twiddles
+        gives the table that reading amounts to), and consts the forward's
+        p words | -p^-1 mod 2^32, then n^-1's Montgomery words."""
+        key = ("kernel", with_index(device))  # as the kernels' tensors report it
+        if key not in self._tables:
+            tw, consts = get_ntt(self.spec, self.n).kernel_table(device)
+            n_inv = pack_words(torch.from_numpy(self.n_inv_limbs.astype(np.int32)), 0)
+            self._tables[key] = (tw, torch.cat([consts, n_inv.to(device)]))
+        return self._tables[key]
 
 
 @functools.lru_cache(maxsize=None)
 def get_intt(spec: FieldSpec, n: int) -> InttPlan:
+    """The size-n inverse plan of `spec`; its device tables are cached per device."""
     return InttPlan(spec, n)
 
 
-def intt_inverse(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
-    """x (W, R, n) Montgomery bit-reversed transform -> in-order coefficients:
-    the DIF stages in reverse as DIT butterflies with inverse twiddles
-    (u' = u + v*tw, v' = u - v*tw), then the n^-1 scale (lcpc_tpu
-    `_intt_inverse`)."""
-    ops: FieldOps = plan.ops
-    w, r, n = x.shape
-    if n != plan.n or w != ops.w:
-        raise ValueError(f"intt_inverse: x must be ({ops.w}, R, {plan.n}), got {tuple(x.shape)}")
-    for s, tw_np in enumerate(plan.stage_twiddles):
+def inverse_stage_twiddles(plan: InttPlan, tw: torch.Tensor) -> list[torch.Tensor]:
+    """The inverse stage twiddles as the kernel reads them from the forward
+    table tw ((n-1, W32) packed words): w_2m^-j = 1 at j = 0, else
+    -w_2m^(m-j) = p - tw[m-1 + m-j]; (W, m) int32 Montgomery limbs for m =
+    1 .. n/2, equal to plan.stage_twiddles (the tests hold them)."""
+    ops = plan.ops
+    limbs = unpack_words(tw.T.contiguous(), 0)  # (W, n-1)
+    one = torch.from_numpy(ops.encode_host([1]).astype(np.int32)).to(tw.device)
+    out = []
+    for s in range(plan.log_n):
         m = 1 << s
-        tw = torch.from_numpy(tw_np.astype(np.int32)).to(x.device)
+        rest = ops.neg_plain(limbs[:, m : 2 * m - 1].flip(1))  # j = 1 .. m-1 at m-1+m-j
+        out.append(torch.cat([one, rest], dim=1))
+    return out
+
+
+def intt_inverse_plain(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch ladder (any device): x (W, R, n) Montgomery limbs in
+    bit-reversed order -> in-order coefficients: DIT butterflies u' = u +
+    v tw, v' = u - v tw with the inverse twiddles for m = 1 .. n/2, then
+    the n^-1 scale (lcpc_tpu `_intt_inverse`, without the TPU's head/tail
+    layout split), with FieldOps' plain versions only."""
+    ops = plan.ops
+    w, r, n = x.shape
+    for s, tw in enumerate(plan.stage_tensors(x.device)):
+        m = 1 << s
         xr = x.reshape(w, r, n // (2 * m), 2, m)
         u, v = xr[:, :, :, 0], xr[:, :, :, 1]
-        vw = ops.mul(v, tw[:, None, None, :])
-        x = torch.stack([ops.add(u, vw), ops.sub(u, vw)], dim=3).reshape(w, r, n)
-    return ops.mul_const(x, plan.n_inv_limbs)
+        vw = ops.mul_plain(v, tw[:, None, None, :])
+        x = torch.stack([ops.add_plain(u, vw), ops.sub_plain(u, vw)], dim=3).reshape(w, r, n)
+    return ops.mul_const_plain(x, plan.n_inv_limbs)
+
+
+def intt_inverse_passes_plain(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
+    """The plain ladder run pass by pass as the inverse kernel runs it: the
+    tiles of each pass (NttPass.tile_indices), its stages from lo up to hi
+    with the kernel's butterfly index arithmetic, the twiddle read from the
+    forward table at m - j and its sign folded into the butterfly, n^-1
+    applied as the last pass stores.  Equals intt_inverse_plain; the CPU
+    tests hold the kernel's index arithmetic to it."""
+    ops = plan.ops
+    tw_fwd = get_ntt(plan.spec, plan.n).stage_tensors(x.device)  # half-size m at [log_n-1-s]
+    x = x.clone()
+    for ps in plan.passes:
+        idx = torch.from_numpy(ps.tile_indices(plan.log_n)).to(x.device)
+        xt = x[:, :, idx]                                      # (W, R, tiles, tile)
+        bf = np.arange(1 << (ps.log_tile - 1))
+        rg = (np.arange(idx.shape[0]) & ((1 << (ps.lo - ps.log_t)) - 1))[:, None]
+        t, gp = bf & ((1 << ps.log_t) - 1), bf >> ps.log_t
+        for s in range(ps.lo, ps.hi + 1):
+            m, log_mg = 1 << s, s - ps.lo
+            jg = gp & ((1 << log_mg) - 1)
+            e0 = ((((gp >> log_mg) << (log_mg + 1)) + jg) << ps.log_t) + t
+            e1 = torch.from_numpy(e0 + (1 << (log_mg + ps.log_t))).to(x.device)
+            e0 = torch.from_numpy(e0).to(x.device)
+            j = torch.from_numpy((jg << ps.lo) + (rg << ps.log_t) + t).to(x.device)
+            u, v = xt[..., e0], xt[..., e1]
+            tw = tw_fwd[plan.log_n - 1 - s][:, (m - j) % m]   # j = 0 reads w^0 = 1
+            vt = ops.mul_plain(v, tw[:, None])
+            pos = (j == 0)[None, None]
+            xt[..., e0] = torch.where(pos, ops.add_plain(u, vt), ops.sub_plain(u, vt))
+            xt[..., e1] = torch.where(pos, ops.sub_plain(u, vt), ops.add_plain(u, vt))
+        if ps is plan.passes[-1]:
+            xt = ops.mul_const_plain(xt, plan.n_inv_limbs)
+        x = torch.empty_like(x)
+        x[:, :, idx] = xt
+    return x
+
+
+def intt_inverse(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of each row: x (W, R, n) int32 Montgomery limbs below p,
+    bit-reversed (ntt_forward's output) -> (W, R, n) in-order coefficients,
+    the unique residues < p.
+
+    CUDA tensors go through the kernel (csrc/ntt_mont.cu's inverse pass),
+    one launch per pass of plan.passes, each counted in
+    intt_inverse.launches, or raise; passes hand over through a packed (R,
+    n, W32) scratch buffer.  CPU tensors take intt_inverse_plain.  Any
+    other device raises."""
+    w = plan.spec.w16
+    if x.dtype != torch.int32:
+        raise TypeError(f"intt_inverse: x must be int32, got {x.dtype}")
+    if x.dim() != 3 or x.shape[0] != w or x.shape[2] != plan.n:
+        raise ValueError(f"intt_inverse: x must be ({w}, R, {plan.n}), got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return intt_inverse_plain(plan, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"intt_inverse: unsupported device {x.device}")
+    x = x.contiguous()
+    r, n, w32 = x.shape[1], plan.n, w // 2
+    out = torch.empty_like(x)
+    if r:
+        buf = (torch.empty((r, n, w32), dtype=torch.int32, device=x.device)
+               if len(plan.passes) > 1 else None)
+        tw, consts = plan.kernel_table(x.device)
+        lib = cuda_build.load(_NAME, _bind)
+        dev = x.device.index or 0
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        last = len(plan.passes) - 1
+        for i, ps in enumerate(plan.passes):
+            err = lib.lcpc_ntt_inverse_pass(
+                x.data_ptr() if i == 0 else None,
+                None if i == 0 else buf.data_ptr(),
+                None if i == last else buf.data_ptr(),
+                out.data_ptr() if i == last else None,
+                tw.data_ptr(), consts.data_ptr(), w32, r, plan.log_n, ps.hi, ps.lo,
+                ps.log_t, ps.threads(r << (plan.log_n - ps.log_tile)), dev, stream)
+            if err != 0:
+                raise RuntimeError(f"ntt_mont inverse pass {i} (half-sizes 2^{ps.lo} .. "
+                                   f"2^{ps.hi}) launch failed: cudaError_t {err}")
+            intt_inverse.launches += 1
+    return out
+
+
+launch_count.counted(intt_inverse)
 
 
 # ---- host twins (Python ints) ---------------------------------------------------------

@@ -35,8 +35,8 @@ import hashlib
 import torch
 
 from ..utils import cuda_build
-from . import merkle
-from .mont_dot import LaunchCount
+from . import launch_count, merkle
+from .launch_count import LaunchCount
 from .blake3 import (_check_launch, _check_words, _launch_args, _plain_here, _tree_counter,
                      _u32, _walk)
 
@@ -304,7 +304,7 @@ def sha256_cols(words: torch.Tensor, *, cv=None, carry=None, carry_len: int = PR
     return out if finish else rem
 
 
-sha256_cols.launches = 0
+launch_count.counted(sha256_cols)
 
 
 def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
@@ -350,7 +350,7 @@ def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     return out
 
 
-merkle_tree.launches = 0
+launch_count.counted(merkle_tree)
 
 
 def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
@@ -370,7 +370,7 @@ def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
                  merkle_walk_plain, merkle_walk, digs, uniq_sibs, inv, idx, root, flag)
 
 
-merkle_walk.launches = 0
+launch_count.counted(merkle_walk)
 
 
 def digest_host(data: bytes) -> bytes:

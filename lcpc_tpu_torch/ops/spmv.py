@@ -34,6 +34,7 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from . import launch_count
 from .limbs import get_ops
 
 _NAME = "spmv_mont"
@@ -118,6 +119,11 @@ def kernel_consts(spec: FieldSpec, k: int) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _consts_on(spec: FieldSpec, k: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(kernel_consts(spec, k).view(np.int32)).to(device)
+
+
+def spmv_consts(spec: FieldSpec, mat: "RaggedCsr") -> torch.Tensor:
+    """The constant block spmv_mont's kernel reads for `mat`, on its device."""
+    return _consts_on(spec, mat.kmax, mat.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -281,7 +287,7 @@ def spmv_mont(spec: FieldSpec, x: torch.Tensor, mat: RaggedCsr,
     if mat.n_out * r == 0:
         return y
     lib = cuda_build.load(_NAME, _bind)
-    consts = _consts_on(spec, mat.kmax, x.device)
+    consts = spmv_consts(spec, mat)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.lcpc_spmv_mont(x.data_ptr(), mat.row_ptr.data_ptr(), mat.cols.data_ptr(),
                              mat.vals.data_ptr(), y.data_ptr(), consts.data_ptr(), w32,
@@ -293,4 +299,4 @@ def spmv_mont(spec: FieldSpec, x: torch.Tensor, mat: RaggedCsr,
     return y
 
 
-spmv_mont.launches = 0
+launch_count.counted(spmv_mont)

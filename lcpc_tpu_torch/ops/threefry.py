@@ -34,6 +34,7 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from . import launch_count
 
 _NAME = "seeded_gen"
 _MASK = 0xFFFFFFFF
@@ -165,5 +166,5 @@ def seeded_digits(spec: FieldSpec, key: tuple[int, int], i0: int, i1: int, lengt
     return out
 
 
-seeded_digits.launches = 0
+launch_count.counted(seeded_digits)
 

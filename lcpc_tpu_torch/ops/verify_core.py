@@ -51,6 +51,7 @@ import torch
 
 from ..fields.spec import FieldSpec
 from ..utils import cuda_build
+from . import launch_count
 from .blake3 import _check_launch, _launch_args, _plain_here
 from .mont_dot import _n_sm, field_consts, mont_dot_plain
 from .mont_map import mont_mul_map_plain
@@ -336,7 +337,7 @@ def verify_check(spec: FieldSpec, state: torch.Tensor, ts: torch.Tensor, col_w: 
     return words
 
 
-verify_check.launches = 0
+launch_count.counted(verify_check)
 
 
 def verify_walk(digest, state: torch.Tensor, at: int, digs: torch.Tensor,
@@ -416,4 +417,4 @@ def gather_open(spec: FieldSpec, idx: torch.Tensor, n_rows: int, *, mont=None,
     return out
 
 
-gather_open.launches = 0
+launch_count.counted(gather_open)

@@ -19,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def with_index(device) -> torch.device:
+    """`device` with its index: a CUDA device named without one is the
+    current one, as a tensor made there reports it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

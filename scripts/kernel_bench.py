@@ -6,8 +6,8 @@ latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, the
 SHA-256 compression's and Merkle parent's (scripts/sha256_chain.cu), with
 that probe's op chains (a dependent IADD3, LOP3, SHF, IMAD: latency and one
 warp's issue), the generator's threefry probe (scripts/threefry_chain.cu)
-and its mix, the hottest loop or block of a built kernel, and random packed
-operands.
+and its mix, the hottest loop or block of a built kernel, a captured CUDA
+graph's nodes, and random packed operands.
 
 Imports torch and nothing of the port, so a script can time any checkout's
 lcpc_tpu_torch with it.  Everything here needs a CUDA device except
@@ -17,6 +17,7 @@ lcpc_tpu_torch with it.  Everything here needs a CUDA device except
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import os
 import re
@@ -88,6 +89,42 @@ def time_kernel_cold(fn, reps=10):
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in evs)
     return times[len(times) // 2]
+
+
+@contextlib.contextmanager
+def debug_graphs():
+    """Inside: every torch.cuda.CUDAGraph made keeps its graph after the
+    capture (keep_graph, instantiated at its first replay) in debug mode,
+    so `debug_dump` can write its nodes, and is listed in the list
+    yielded."""
+    real, made = torch.cuda.CUDAGraph, []
+
+    def make(*a, **k):
+        g = real(*a, **{**k, "keep_graph": True})
+        g.enable_debug_mode()
+        made.append(g)
+        return g
+
+    torch.cuda.CUDAGraph = make
+    try:
+        yield made
+    finally:
+        torch.cuda.CUDAGraph = real
+
+
+def graph_nodes(graph, path):
+    """A captured graph's nodes from its DOT dump (cudaGraphDebugDotPrint,
+    written to `path`): [(node type, label text)], e.g. ("KERNEL", ...) with
+    the kernel's function name in the label."""
+    graph.debug_dump(path)
+    with open(path) as f:
+        dot = f.read()
+    nodes = []
+    for part in re.split(r'^\s*"[^"]+"\s*\[', dot, flags=re.M)[1:]:
+        kind = re.search(r'label=["<][{\s]*(?:<[^>]*>[{\s]*)*([A-Z][A-Z_]+)', part)
+        if kind:
+            nodes.append((kind.group(1), part))
+    return nodes
 
 
 def random_mont(spec, shape, gen, device="cuda"):

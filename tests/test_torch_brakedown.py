@@ -185,7 +185,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         raise AssertionError("a plain version reached a kernel wrapper")
 
     for mod, name in ((mont_map, "mont_mul_map"), (mont_map, "mont_addsub_map"),
-                      (spmv, "spmv_mont"), (ntt, "ntt_forward"), (mont_dot, "mont_dot"),
+                      (spmv, "spmv_mont"), (ntt, "ntt_forward"), (ntt, "intt_inverse"),
+                      (mont_dot, "mont_dot"),
                       (mont_dot, "power_table"), (sha256, "sha256_cols"),
                       (sha256, "hash_word_columns"), (sha256, "merkle_tree"),
                       (sha256, "merkle_walk"), (blake3, "blake3_chunks"),
@@ -197,6 +198,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
                         "cpu").reshape(FT63.w16, 2, 8)
     y = ntt.ntt_forward_plain(ntt.get_ntt(FT63, 8), x)
     ops.from_mont_plain(y)
+    for back in (ntt.intt_inverse_plain(ntt.get_intt(FT63, 8), y),
+                 ntt.intt_inverse_passes_plain(ntt.get_intt(FT63, 8), y)):
+        assert torch.equal(back, x)
     mont_dot.mont_dot_plain(FT63, x, y.permute(0, 2, 1), "mont", x_form="limbs", y_form="limbs")
     mont_dot.power_table_plain(FT63, spmv.pack_words(x[:, 0], 0), 5)
     ops.mul_sum_mont(x.permute(1, 0, 2), y[:, :, :8].permute(1, 0, 2))

@@ -164,6 +164,43 @@ def test_intt_inverse_round_trips(spec):
     assert _decode(spec, back)[0] == ntt.intt_host(spec, ntt.ntt_host(spec, rows[0]))
 
 
+def _edge_rows(spec, n, seed):
+    """A random row, zeros, all p - 1, and values near p."""
+    near = [spec.p - 1 - (i % 7) for i in range(n)]
+    return [_vals(spec, n, seed), [0] * n, [spec.p - 1] * n, near]
+
+
+@pytest.mark.parametrize("spec", [FT63, FT255], ids=lambda s: s.name)
+def test_intt_inverse_matches_reference(spec):
+    # the plain ladder against lcpc_tpu's jitted BatchedIntt (ft63) or the
+    # host twin (ft255), the kernel's passes (plain model) against the plain
+    # ladder for the default plan and a three-pass one, the wrapper on CPU
+    # tensors, and its refusals
+    three = dict(log_chunk=6, log_t=2, max_tile_bytes=64 * spec.w16)  # 6 + 3 + 2 stages
+    for n, kw in ((2, {}), (64, {}), (2048, three)):
+        plan = ntt.InttPlan(spec, n, **kw)
+        rows = _edge_rows(spec, n, seed=n)
+        x = _limbs(spec, rows)
+        got = ntt.intt_inverse_plain(plan, x)
+        if spec is FT63:
+            want = np.asarray(jntt.get_intt(J_FIELDS[spec.name], n)(
+                x.numpy().astype(np.uint32)))
+            assert np.array_equal(got.numpy(), want.astype(np.int32)), n
+        elif n <= 64:
+            assert _decode(spec, got) == [ntt.intt_host(spec, r) for r in rows], n
+        assert torch.equal(ntt.intt_inverse_passes_plain(plan, x), got), n
+        before = ntt.intt_inverse.launches
+        assert torch.equal(ntt.intt_inverse(plan, x), got)
+        assert ntt.intt_inverse.launches == before
+    assert len(plan.passes) == 3 and plan.launches_per_call == 3
+    with pytest.raises(TypeError):
+        ntt.intt_inverse(plan, x.long())
+    with pytest.raises(ValueError):
+        ntt.intt_inverse(plan, x[:, :, :-1])
+    with pytest.raises(ValueError, match="device"):
+        ntt.intt_inverse(plan, x.to("meta"))
+
+
 def test_mul_const_matches_reference():
     spec = FT255
     jops = j_get_ops(J_FIELDS[spec.name])
@@ -192,6 +229,19 @@ def test_kernel_table_layout(spec):
     c = consts.numpy().astype(np.int64) & 0xFFFFFFFF
     assert int.from_bytes(c[:w32].astype("<u4").tobytes(), "little") == spec.p
     assert (int(c[w32]) * spec.p) % (1 << 32) == (1 << 32) - 1
+    # the inverse kernel reads the same table, w_2m^-j as -w_2m^(m-j), and
+    # n^-1 after the forward constants: lcpc_tpu's inverse twiddles
+    iplan = ntt.InttPlan(spec, n)
+    itw, iconsts = iplan.kernel_table("cpu")
+    assert torch.equal(itw, tw) and torch.equal(iconsts[: w32 + 1], consts)
+    ic = iconsts.numpy().astype(np.int64) & 0xFFFFFFFF
+    assert spec.from_mont(int.from_bytes(ic[w32 + 1:].astype("<u4").tobytes(), "little")) * n \
+        % spec.p == 1
+    jstages = jntt.InttPlan(J_FIELDS[spec.name], n).stage_twiddles
+    for got, want, mine in zip(ntt.inverse_stage_twiddles(iplan, itw), jstages,
+                               iplan.stage_twiddles):
+        assert np.array_equal(got.numpy(), want.astype(np.int32))
+        assert np.array_equal(mine, want)
 
 
 def test_pack_rows_round_trip():
@@ -274,6 +324,12 @@ def test_plan_passes_cover_the_ladder(spec):
         assert stages == list(range(log_n - 1, -1, -1)), log_n
         assert passes[-1].lo == 0 and passes[-1].log_t == 0
         assert passes[-1].log_tile == min(log_n, ntt.LOG_CHUNK)
+        # the inverse: the same passes reversed, stages ascending, the first
+        # a contiguous chunk (it reads the limbs), the last the widest
+        inv = ntt.InttPlan(spec, 1 << log_n).passes
+        assert inv == passes[::-1]
+        assert [s for ps in inv for s in range(ps.lo, ps.hi + 1)] == list(range(log_n))
+        assert inv[0].lo == 0 and inv[0].log_t == 0 and inv[-1].hi == log_n - 1
         assert len(passes) <= 1 + -(-max(0, log_n - ntt.LOG_CHUNK) // 8)
         for ps in passes:
             assert ps.smem_bytes(w32) <= 232448
