@@ -5,11 +5,11 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the nine CUDA kernel sources from the checkout, one nvcc each,
+  2. build the ten CUDA kernel sources from the checkout, one nvcc each,
      started together with the probes (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
      csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu,
-     csrc/verify_core.cu); print
+     csrc/verify_core.cu, csrc/commit_small.cu); print
      ptxas's registers and spills per template (fatal if the SpMV's, the
      NTT's, the generator's, the power table's, either field map's or
      either verify_core kernel's W32 =
@@ -244,35 +244,34 @@ Phases, each fatal on failure (each prints the seconds it took):
   17. commit -> prove -> verify Ligero rho = 1/4 and Brakedown, BLAKE3, at
      2^15 coefficients in ft63, ft127 and ft191 on the card and through the
      port's CPU path: roots and proof bytes equal, every proof verified
-     (the polynomial's value), verify_check and gather_open launched (one
-     commit a shape: staged, as a one-shot commit is);
-  18. the small commits (core/protocol.py: one CUDA-graph replay of the
-     commit's kernels, _commit_fused_fn, against the stages launched one by
-     one, the route forced through _FUSED_COMMIT_MAX): Ligero rho = 1/4 at
-     2^13, 2^15, 2^16, 2^17, 2^19, 2^20 and Brakedown CODE3 at 2^13, 2^15,
-     2^17, 2^19, 2^21 ft255 (every size lcpc_tpu fuses, a size on each side
-     of each of the port's gates), BLAKE3 at each, SHA-256 at the first and
-     the last: a shape's first commit staged, its second captured and
-     replayed, later ones replayed; every commit's roots, Merkle arrays,
-     codewords and coefficient matrices equal to the staged route's (at
-     2^13 also to the CPU path's and, Ligero, to the kernels' plain
-     versions on the card; the captured graph's nodes, from its DOT dump,
-     the port's kernels (as many as the staged route launches) and torch's
-     copies and packing, nothing else), a replay launching the staged
-     route's kernels once each; the port's own gates take the graph route
-     exactly at the sizes under them; two commits through one graph, the
-     first one's root, codeword and proof bytes unchanged and its proof
-     verified; commit host walls in turns (staged, graph, graph, staged;
-     16 each, medians), the one-shot commit and the capture's commit, the
-     copies timed;
+     (the polynomial's value), verify_check and gather_open launched (each
+     commit on the card one launch of the small commit's kernel: its
+     W32 = 2, 4 and 6 instances);
+  18. the small commits by the kernel (csrc/commit_small.cu, one
+     cooperative launch: core/protocol.py's _commit_fused_fn) against the
+     stages launched one by one and the kernel's plain version, the route
+     forced through _FUSED_COMMIT_MAX: Ligero rho = 1/4 at 2^11, 2^13, 2^15,
+     2^16, 2^17, 2^19, 2^20 and Brakedown CODE3 at 2^13, 2^15, 2^17, 2^19,
+     2^21 ft255 (every size lcpc_tpu fuses), BLAKE3 and SHA-256 at each:
+     the first commit on a fresh encoding and a warm one each one launch
+     and no other counter moved, a kernel commit captured in a CUDA graph
+     one kernel node and nothing else, torch.profiler seeing the kernel
+     alone (its events a lower bound in this run); matrices, codewords,
+     Merkle arrays and roots equal
+     to the staged route's and the plain version's on seeded coefficients
+     and on all-(p-1) limbs of length n - 3 (at 2^13 also the CPU path's);
+     the port's gates take the kernel exactly under them; host walls of
+     the first commit by each route and warm medians in turns (staged,
+     kernel, kernel, staged; 16 each), the kernel's device ms beside its
+     bound and the staged route's, ptxas's registers and spills;
   19. hold the inverse NTT kernel (csrc/ntt_mont.cu's inverse pass) against
      intt_inverse_plain, bit for bit, in every field (n = 2, 4, 2^10, 2^11,
      2^12, and 2^12 in three passes; rows random, zeros, p - 1, p - 1 - (i
      mod 7)), and at 2 and 256 x 2^17 ft255; intt(ntt(x)) == x at 256 x
      2^17; the reference's FFT identity (the codeword collapsed by the
      outer tensor with mont_dot, inverse-transformed: the collapsed
-     coefficients, then zeros) at 2^13 (commit by the graph: the shape's
-     third) and 2^23 (staged); time it warm and cold at 2 x 2^17 and 256 x 2^17 beside its
+     coefficients, then zeros) at 2^13 (commit by the small commit's
+     kernel) and 2^23 (staged); time it warm and cold at 2 x 2^17 and 256 x 2^17 beside its
      bound and plain version;
   20. print the kernel table line, then the result line.
 
@@ -286,7 +285,6 @@ the package is missing.
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import dataclasses
 import hashlib
 import json
@@ -1043,7 +1041,7 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
     recs["compression_latency_ms"] = lat_ms
     log(f"  one compression's latency (a chain of {CHAIN} in one thread): {lat_ms * 1e3:.4f} us")
 
-    def columns(tag, w, host_cols=0, timed=False, tree_timed=False):
+    def columns(tag, w, host_cols=0, timed=False):
         n_words, n_cols = w.shape
         n_chunks = -(-(8 + n_words) // 256)
         final_len = 8 + n_words - 256 * (n_chunks - 1)
@@ -1060,7 +1058,7 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
         else:
             leaves_p, k2_plain = time_host(torch, lambda: b3.merge_chunk_cvs_plain(cvs_p))
             rec["tree"] = chunk_tree_check(torch, kb, b3, cvs, leaves_p, k2_plain, lat_ms, check,
-                                           tag, timed or tree_timed)
+                                           tag, timed)
             leaves = b3.merge_chunk_cvs(cvs)
         check(f"{tag} hash_word_columns", b3.hash_word_columns(w), leaves_p)
         if host_cols:
@@ -1072,11 +1070,15 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
         if timed:
             (k1_b, k1_c), _ = hash_cost(n_words, n_cols)
             k1_ms = kb.time_kernel(lambda: b3.blake3_chunks(w, cvs, final_len=final_len))
-            rec.update(k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_compressions=k1_c, k1_bytes=k1_b)
+            # a chunk's blocks are a chain: the longest, 16 compressions deep, is the floor
+            depth = min(16, -(-(8 + n_words) // 16))
+            rec.update(k1_ms=k1_ms, k1_plain_ms=k1_plain, k1_compressions=k1_c, k1_bytes=k1_b,
+                       k1_floor_ms=depth * lat_ms, k1_depth=depth)
             rec["k1_bound_ms"], rec["k1_bound_by"] = hash_bound_ms(k1_b, k1_c)
             log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
                 f"equal; blake3_chunks {k1_ms:.4f} ms (plain {k1_plain:.1f} ms, bound "
-                f"{rec['k1_bound_ms']:.4f} ms, {rec['k1_bound_by']}; {k1_c} compressions)")
+                f"{rec['k1_bound_ms']:.4f} ms, {rec['k1_bound_by']}; {k1_c} compressions; "
+                f"floor {depth} x one compression's latency {rec['k1_floor_ms']:.4f} ms)")
         else:
             log(f"  blake3 {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
                 f"equal{f', {host_cols} columns equal to the host hash' if host_cols else ''}")
@@ -1084,9 +1086,9 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
 
     columns("2^23 commit", words(*B3_COMMIT), host_cols=2, timed=True)
     columns("2^28 column length", words(*B3_LONG), host_cols=1, timed=True)
-    columns("2^23 verify (189 columns)", words(B3_COMMIT[0], B3_OPENED), tree_timed=True)
-    columns("2^28 verify (189 columns)", words(B3_LONG[0], B3_OPENED), tree_timed=True)
-    columns("brakedown 2^23 verify (6,593 columns)", words(288, 6_593), tree_timed=True)
+    columns("2^23 verify (189 columns)", words(B3_COMMIT[0], B3_OPENED), timed=True)
+    columns("2^28 verify (189 columns)", words(B3_LONG[0], B3_OPENED), timed=True)
+    columns("brakedown 2^23 verify (6,593 columns)", words(288, 6_593), timed=True)
     for n_words in (1, 8, 248, 504, 760, 2040):
         columns(f"edge {n_words}", words(n_words, 300), host_cols=2)
     for lens in ((248, 256, 256), (256, 256, 256), (247, 257)):
@@ -3172,19 +3174,18 @@ def every_field_phase(torch, P, counters):
 
 
 # phase 18: every size lcpc_tpu commits in one dispatch (its _FUSED_COMMIT_MAX,
-# 2^22 encoded elements): Ligero rho = 1/4 at 2^13 .. 2^20 (128 x 32,768, the
-# largest under it) and Brakedown CODE3 at 2^13 .. 2^21 (18 x 178,850), with a
-# size on each side of the port's gates (Ligero 2^16 | 2^17, Brakedown 2^19 |
-# 2^21); BLAKE3 at each, SHA-256 at the first and the last
-SMALL_LOGS = {"ligero": (13, 15, 16, 17, 19, 20), "sdig": (13, 15, 17, 19, 21)}
-SMALL_REPS = 16  # warm commits a route: staged, graph, graph, staged, 8 each
-GRAPH_GATE = 1 << 62  # protocol._FUSED_COMMIT_MAX past every size: the graph route
-# the port's kernels a commit graph may hold; torch's own kernel nodes there
-# are the limb layout's packing and copies (at::native elementwise kernels)
-GRAPH_KERNELS = ("ntt_pass_kernel", "spmv_mont_kernel", "mont_mul_map_kernel",
-                 "blake3_chunks_kernel", "chunk_tree_", "merkle_tree_kernel",
-                 "sha256_cols_kernel", "sha256_few_kernel")
-GRAPH_NODES = ("KERNEL", "MEMCPY", "MEMSET", "EMPTY")  # the node types a commit graph may hold
+# 2^22 encoded elements), and 2^11: Ligero rho = 1/4 at 2^11 .. 2^20 (128 x
+# 32,768, the largest under it) and Brakedown CODE3 at 2^13 .. 2^21 (18 x
+# 178,850); BLAKE3 and SHA-256 at each
+SMALL_LOGS = {"ligero": (11, 13, 15, 16, 17, 19, 20), "sdig": (13, 15, 17, 19, 21)}
+SMALL_REPS = 16  # warm commits a route: staged, kernel, kernel, staged, 8 each
+SMALL_MAIN_LOG = 13  # the kernel table's row: Ligero 2^13, BLAKE3 (also held to the CPU path)
+KERNEL_GATE = 1 << 62  # protocol._FUSED_COMMIT_MAX past every size: the kernel route
+PROFILED = 4       # kernel commits a torch.profiler trace of phase 18 holds
+PROFILE_TRIES = 5  # traces taken while one shows no CUDA event
+# the small commit kernel's noinline phases, whose spills ptxas reports apart
+COMMIT_PHASES = ("ligero_pass", "sdig_pack", "sdig_level", "b3_chunks", "b3_merge",
+                 "sha_columns", "tree_subtrees", "tree_top")
 
 
 def small_encoding(P, name, spec, n, dev):
@@ -3192,242 +3193,253 @@ def small_encoding(P, name, spec, n, dev):
             else P.SdigEncoding.new(spec, n, seed=SEED, device=dev))
 
 
-def ligero_commit_plain(P, nttm, enc, digest, mat):
-    """A Ligero commit through the kernels' plain versions, on mat's device:
-    (codeword limbs, Merkle array)."""
-    from lcpc_tpu_torch.ops import blake3 as b3
-    from lcpc_tpu_torch.ops import sha256 as sha
-    from lcpc_tpu_torch.ops.limbs import pack_row_words
-
-    plan = nttm.get_ntt(enc.spec, enc.n_cols)
-    comm = nttm.ntt_forward_plain(plan, mat)
-    words = pack_row_words(plan.ops.from_mont_plain(comm))
-    mod = b3 if digest.name == "blake3" else sha
-    np2 = 1 << (enc.n_cols - 1).bit_length()
-    return comm, mod.merkle_tree_plain(mod.hash_word_columns_plain(words), np2)
+def commit_ptxas(kb, build_log):
+    """ptxas's report of csrc/commit_small.cu: {kernel: (registers, spill
+    store bytes, spill load bytes)} of its 16 instantiations, and the
+    noinline phases' entries that spill."""
+    kernels = {**kb.ptxas_entries(build_log, "commit_ligero_kernel"),
+               **kb.ptxas_entries(build_log, "commit_sdig_kernel")}
+    spills = {k: v for name in COMMIT_PHASES
+              for k, v in kb.ptxas_entries(build_log, name).items() if v[1] or v[2]}
+    return kernels, spills
 
 
-def graph_node_check(kb, graph, path, n_port, tag):
-    """The nodes of a captured commit graph (kb.graph_nodes: its DOT dump,
-    written to `path`): {node type: count} and {kernel: count}.  Raises
-    unless it holds kernel nodes, every one the port's (GRAPH_KERNELS) or
-    torch's packing and copies, n_port of them the port's, and no node of
-    another type than GRAPH_NODES."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    nodes = kb.graph_nodes(graph, path)
-    types, kernels = {}, {}
-    for kind, label in nodes:
-        types[kind] = types.get(kind, 0) + 1
-        if kind == "KERNEL":
-            port = [g for g in GRAPH_KERNELS if g in label]
-            name = port[0] if port else ("torch" if "at::native" in label or "at6native" in label
-                                         else " ".join(label.split())[:200])
-            kernels[name] = kernels.get(name, 0) + 1
-    foreign = [k for k in kernels if k != "torch" and k not in GRAPH_KERNELS]
-    if not kernels or foreign or set(types) - set(GRAPH_NODES):
-        raise AssertionError(f"{tag}: the graph holds {types}, kernels {kernels or 'none'}")
-    if sum(v for k, v in kernels.items() if k != "torch") != n_port:
-        raise AssertionError(f"{tag}: the graph holds {kernels}, the staged route launched "
-                             f"{n_port} of the port's kernels")
-    return types, kernels
-
-
-def small_commit_bound(spec, n_rows, n_per_row, n_cols):
-    """(bound ms, by) of a Ligero BLAKE3 commit's device work: the NTT with
-    its words (ntt_cost), blake3_chunks and the chunk tree (hash_cost), the
-    Merkle tree (a compression a parent, 64 bytes a node written); the bytes
-    over 3.35 TB/s against the wide products at 8.4 T/s plus the
-    compressions at B3_COMPRESSION_S."""
-    nbytes, products, _ = ntt_cost(spec, n_rows, n_per_row, n_cols, True)
-    (b1, c1), (b2, c2) = hash_cost(n_rows * spec.w16 // 2, n_cols)
+def small_commit_bound(spec, enc, n_rows, digest_name):
+    """(bound ms, what bounds it, bytes, wide products, compressions) of one
+    small commit (ops/commit_small.py's function): the (W, length) limbs and
+    the encoding's tables read once (Ligero the (n-1, W32) twiddles, ntt_cost;
+    Brakedown each level's CSR and values, level_cost), the codeword's limbs
+    and the (8, 2 np2 - 1) int64 Merkle array written once; the products of
+    the encode (the NTT's non-trivial butterflies, or (W/2)^2 a nonzero and
+    row) and of the hash words (a reduction an element, W32^2 + W32); the
+    column hash's compressions (BLAKE3: hash_cost; SHA-256: sha_cols_cost)
+    and a compression a BLAKE3 Merkle parent or a SHA-256 parent's two, at
+    the probes' rates (phase 2)."""
+    w32 = spec.w16 // 2
+    npr, n_cols = enc.n_per_row, enc.n_cols
     np2 = 1 << (n_cols - 1).bit_length()
-    nbytes += b1 + b2 + 64 * (2 * np2 - 1)
+    out_bytes = 4 * spec.w16 * n_rows * n_cols + 64 * (2 * np2 - 1)
+    if hasattr(enc, "precodes"):
+        pre, post, rs = enc.device_mats()
+        nbytes, products = 4 * spec.w16 * n_rows * npr + out_bytes, 0
+        for dm in (*pre, *post, rs):
+            b, p = level_cost(spec, dm.nnz, dm.n_in, dm.n_out, n_rows)
+            nbytes += 4 * ((dm.n_out + 1) + dm.nnz * (1 + w32))  # the level's CSR and values
+            products += p
+        products += n_rows * n_cols * (w32 * w32 + w32)  # the hash words
+    else:
+        nbytes, products, _ = ntt_cost(spec, n_rows, npr, n_cols, True)
+        nbytes += out_bytes - 4 * spec.w16 * n_rows * n_cols - 4 * w32 * n_rows * n_cols
+    words = n_rows * w32
+    if digest_name == "blake3":
+        (_, c1), (_, c2) = hash_cost(words, n_cols)
+        comp, t_comp = c1 + c2 + np2 - 1, (c1 + c2 + np2 - 1) * B3_COMPRESSION_S
+    else:
+        _, c1 = sha_cols_cost(words, n_cols)
+        comp, t_comp = c1 + 2 * (np2 - 1), c1 * SHA_COMPRESSION_S + (np2 - 1) * SHA_PARENT_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (products / WIDE_PRODUCTS_PER_S + (c1 + c2 + np2 - 1) * B3_COMPRESSION_S) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    t_ops = products / WIDE_PRODUCTS_PER_S * 1e3 + t_comp * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes,
+            products, comp)
 
 
-def small_commit_phase(torch, kb, P, nttm, counters, gen):
-    """Phase 18: the small commits by both routes through the public entry
-    point (the route forced through protocol._FUSED_COMMIT_MAX).  At each
-    size and digest of SMALL_LOGS: the staged route once, then the graph
-    route's first commit of the shape (a one-shot commit: staged, noted),
-    its second (the capture and one replay) and one more replay, each with
-    the launches counted and host-timed; roots, Merkle arrays, codewords
-    and coefficient matrices equal; at 2^13 equal to the port's CPU path
-    (and, Ligero, to the kernels' plain versions on the card) and, BLAKE3,
-    the captured graph's nodes walked (its DOT dump: the port's kernels,
-    as many as the staged route launched, and torch's packing and copies,
-    nothing else); the route the real gates take; two commits of one shape
-    through one graph, the first one's root, codeword and proof bytes
-    unchanged after the second and its proof verified; host walls in turns
-    (staged, graph, graph, staged; SMALL_REPS of each, medians); the graph
-    route's copies timed on the device.  Returns the records; the row's
-    (Ligero 2^13, BLAKE3) main run (counts zeroed just before, read just
-    after) under "main"."""
+def commit_outputs_equal(torch, got, want):
+    """(mat, comm, flat) triples (or LcCommits) equal in every word."""
+    if hasattr(got, "hashes_dev"):
+        got = (got.coeffs, got.comm, got.hashes_dev)
+    if hasattr(want, "hashes_dev"):
+        want = (want.coeffs, want.comm, want.hashes_dev)
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def small_commit_phase(torch, kb, P, counters, gen, ptxas):
+    """Phase 18: the small commit by the kernel (csrc/commit_small.cu, one
+    cooperative launch: core/protocol.py's _commit_fused_fn) against the
+    staged route and the kernel's plain version (ops/commit_small.py's
+    commit_small_plain, the stages' plain versions on the card), the route
+    forced through protocol._FUSED_COMMIT_MAX.  At each size of SMALL_LOGS
+    and each digest: the first commit on a fresh encoding (its tables made
+    there) and a warm one, each counted: one launch of the kernel and no
+    other counter of the port's kernels moved (launch_count.COUNTERS); a
+    kernel commit's stream work captured in a CUDA graph: one kernel node,
+    the kernel's, and nothing else; torch.profiler's CUDA kernel events
+    over PROFILED warm commits, recorded: the kernel, at most once a commit,
+    and nothing else (events are a lower bound in this run: a trace that
+    shows none is taken again, up to PROFILE_TRIES); mat, comm, flat and
+    root equal to the staged route's and
+    to the plain version's on seeded coefficients and on all-(p-1) limbs
+    of a padded length (n - 3); the route the port's gates take; host walls
+    of the first commit by each route (fresh encodings) and warm medians in
+    turns (staged, kernel, kernel, staged; SMALL_REPS of each); the
+    kernel's device ms by CUDA events beside its bound and the staged
+    route's device ms; at 2^13 also against the port's CPU path.  Returns
+    the records, ptxas's report and the (Ligero 2^13, BLAKE3) main run
+    (counts zeroed just before, read just after) under "main"."""
     from lcpc_tpu_torch.core import protocol as proto
+    from lcpc_tpu_torch.ops import commit_small as cs
+    from lcpc_tpu_torch.ops import launch_count
     from lcpc_tpu_torch.ops.limbs import get_ops
 
     spec = P.FT255
     ops = get_ops(spec)
-    x_pt = 0x5EED % spec.p
-    gate0, capture0 = proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT
+    gate0 = proto._FUSED_COMMIT_MAX
     recs = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def moved(fn):
+        """fn() with every counter of the package zeroed before: (result, host
+        ms, {counter: launches} of those that moved)."""
+        for c in launch_count.COUNTERS:
+            c.launches = 0
+        out, ms = time_host(torch, fn)
+        return out, ms, {getattr(c, "__name__", repr(c)): c.launches
+                         for c in launch_count.COUNTERS if c.launches}
+
+    one = {"commit_small": 1}
+    dot = os.path.join(ROOT, "chiprun_out", "commit_small_graph.dot")  # the graphs' dumps
+    os.makedirs(os.path.dirname(dot), exist_ok=True)
     try:
         for name, logs in SMALL_LOGS.items():
             for log_n in logs:
                 n = 1 << log_n
-                enc = small_encoding(P, name, spec, n, DEV)
-                n_rows, npr, n_cols = enc.get_dims(n)
-                outer, inner = P.univariate_tensors(spec, x_pt, npr, n_rows)
-                tr = transcript_for(P, enc)
-                for digest in ((P.BLAKE3, P.SHA256) if log_n in (logs[0], logs[-1])
-                               else (P.BLAKE3,)):
+                small_encoding(P, name, spec, n, DEV).device_tables()  # the plan's table
+                for digest in (P.BLAKE3, P.SHA256):
                     tag = f"{name} 2^{log_n} {digest.name}"
-                    a, b = kb.random_mont(spec, (2, spec.w16, n), gen, device=DEV)
+                    a = kb.random_mont(spec, (1, spec.w16, n), gen, device=DEV)[0]
+                    edge = torch.from_numpy(ops.encode_host([spec.p - 1] * (n - 3), to_mont=False)
+                                            .astype("int32")).to(DEV)
 
-                    def commit(x, gate, e=enc):
-                        """gate None: the port's own gates and capture counts;
-                        else every gate `gate`, a capture at a shape's second
-                        commit."""
-                        proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT = (gate0, capture0) \
-                            if gate is None else ({k: gate for k in gate0}, {k: 2 for k in gate0})
+                    def commit(x, gate, e):
+                        proto._FUSED_COMMIT_MAX = gate0 if gate is None else {
+                            k: gate for k in gate0}
                         return P.commit(x, e, digest=digest)
 
-                    commit(a, 0)  # the tables built
-                    staged, _, l_staged = counted(torch, counters, lambda: commit(a, 0))
-                    one, one_ms, l_one = counted(torch, counters, lambda: commit(a, GRAPH_GATE))
-                    dot = log_n == logs[0] and digest is P.BLAKE3
-                    copies0 = proto._commit_fused_fn.copies
-                    with kb.debug_graphs() if dot else contextlib.nullcontext() as made:
-                        first, first_ms, l_first = counted(torch, counters,
-                                                           lambda: commit(a, GRAPH_GATE))
-                    graph, _, l_graph = counted(torch, counters, lambda: commit(a, GRAPH_GATE))
-                    copies = (proto._commit_fused_fn.copies - copies0) // 2
-                    for c in (one, first, graph):
-                        for what in ("hashes_dev", "comm", "coeffs"):
-                            if not torch.equal(getattr(c, what), getattr(staged, what)):
-                                raise AssertionError(f"{tag}: the graph route's {what} != the "
-                                                     f"staged route's")
-                    want_l = {**l_staged, "commit_graph": 1}
-                    if l_one != l_staged:
-                        raise AssertionError(f"{tag}: a shape's first commit launched {l_one}, "
-                                             f"the staged route {l_staged}")
-                    if l_first != want_l or l_graph != want_l:
-                        raise AssertionError(f"{tag}: the capture's commit launched {l_first}, "
-                                             f"a replay {l_graph}, the staged route {l_staged}")
-                    _, _, l_gate = counted(torch, counters, lambda: commit(a, None))
-                    under = n_rows * n_cols <= gate0.get(type(enc).__name__, 0)
-                    if (l_gate.get("commit_graph", 0) == 1) != under:
-                        raise AssertionError(f"{tag}: under the port's gates the commit "
-                                             f"launched {l_gate}")
-                    if dot:  # the port's capture count, on a shape never committed
-                        fresh, k = small_encoding(P, name, spec, n, DEV), capture0[
-                            type(enc).__name__]
-                        graphs = [counted(torch, counters, lambda: commit(a, None, fresh))[2].get(
-                            "commit_graph", 0) for _ in range(k + 1)]
-                        if graphs != [0] * (k - 1) + [1, 1]:
-                            raise AssertionError(f"{tag}: under the port's gates, commits 1 .. "
-                                                 f"{k + 1} replayed {graphs}")
-                        del fresh
-                    rec = {"n_rows": n_rows, "n_per_row": npr, "n_cols": n_cols,
-                           "elements": n_rows * n_cols, "launches_staged": l_staged,
-                           "launches_graph": l_graph, "launches_one_shot": l_one,
-                           "launches_capture_commit": l_first, "one_shot_ms": one_ms,
-                           "capture_commit_ms": first_ms, "copies": copies,
-                           "route_at_gate": "graph" if under else "staged",
-                           "capture_at": capture0.get(type(enc).__name__)}
-                    if dot:
-                        types, kernels = graph_node_check(
-                            kb, made[0], os.path.join(ROOT, "chiprun_out",
-                                                      f"commit_graph_{name}_{log_n}.dot"),
-                            sum(l_staged.values()), tag)
-                        rec.update(graph_nodes=types, graph_kernels=kernels)
-                    if log_n == logs[0]:
+                    fresh = small_encoding(P, name, spec, n, DEV)
+                    first, first_ms, l_first = moved(lambda: commit(a, KERNEL_GATE, fresh))
+                    enc = fresh
+                    n_rows, npr, n_cols = enc.get_dims(n)
+                    warm, warm_ms, l_warm = moved(lambda: commit(a, KERNEL_GATE, enc))
+                    if l_first != one or l_warm != one:
+                        raise AssertionError(f"{tag}: a kernel commit moved {l_first} (first), "
+                                             f"{l_warm} (warm); want {one}")
+                    staged_fresh = small_encoding(P, name, spec, n, DEV)
+                    _, staged_first_ms, l_staged = moved(
+                        lambda: commit(a, 0, staged_fresh))
+                    del staged_fresh
+                    staged = commit(a, 0, enc)
+                    plain, plain_ms = time_host(torch, lambda: cs.commit_small_plain(
+                        enc, digest, a))
+                    for what, got in (("first", first), ("warm", warm)):
+                        if not (commit_outputs_equal(torch, got, staged)
+                                and commit_outputs_equal(torch, got, plain)):
+                            raise AssertionError(f"{tag}: the kernel's {what} commit != the "
+                                                 f"staged route's or the plain version's")
+                    e_k = commit(edge, KERNEL_GATE, enc)
+                    if not (commit_outputs_equal(torch, e_k, commit(edge, 0, enc))
+                            and commit_outputs_equal(torch, e_k, cs.commit_small_plain(
+                                enc, digest, edge))):
+                        raise AssertionError(f"{tag}: all-(p-1) limbs of length n - 3: the "
+                                             f"kernel != the staged route or the plain version")
+                    if warm.get_root() != staged.get_root() or \
+                            e_k.get_root() == warm.get_root():
+                        raise AssertionError(f"{tag}: roots")
+                    if log_n == SMALL_MAIN_LOG:
                         cpu = P.commit(a.cpu(), small_encoding(P, name, spec, n, "cpu"),
                                        digest=digest)
-                        if cpu.get_root() != graph.get_root() or not torch.equal(
-                                cpu.comm, graph.comm.cpu()):
-                            raise AssertionError(f"{tag}: the graph's commit != the CPU path's")
-                        if name == "ligero":
-                            (pc, pf), plain_ms = time_host(torch, lambda: ligero_commit_plain(
-                                P, nttm, enc, digest, staged.coeffs))
-                            if not (torch.equal(pc, graph.comm)
-                                    and torch.equal(pf, graph.hashes_dev)):
-                                raise AssertionError(f"{tag}: the graph's commit != the plain "
-                                                     f"versions'")
-                            rec["plain_ms"] = plain_ms
-                    # ownership: a second commit through the same graph
-                    root_a, hashes_a, comm_a = graph.get_root(), graph.hashes_dev.clone(), \
-                        graph.comm.clone()
-                    proof_a = P.wire.serialize_proof(spec, graph.prove(outer, tr(root_a)))
-                    other = commit(b, GRAPH_GATE)
-                    if other.get_root() == root_a:
-                        raise AssertionError(f"{tag}: two coefficient vectors, one root")
-                    if not (torch.equal(graph.hashes_dev, hashes_a)
-                            and torch.equal(graph.comm, comm_a)):
-                        raise AssertionError(f"{tag}: the next replay overwrote a commit")
-                    again = P.wire.serialize_proof(spec, graph.prove(outer, tr(root_a)))
-                    staged_proof = P.wire.serialize_proof(spec, staged.prove(outer, tr(root_a)))
-                    if again != proof_a or proof_a != staged_proof:
-                        raise AssertionError(f"{tag}: the first commit's proof changed")
-                    value = P.wire.deserialize_proof(spec, proof_a).verify(
-                        root_a, outer, inner, enc, tr(root_a), digest=digest)
-                    want = P.wire.deserialize_proof(spec, staged_proof).verify(
-                        root_a, outer, inner, enc, tr(root_a), digest=digest)
-                    if value != want:
-                        raise AssertionError(f"{tag}: the proofs' values differ")
-                    del other, first, staged, one
-                    # timed: host walls in turns
-                    runs = {"staged": [], "graph": []}
-                    for route in ("staged", "graph", "graph", "staged"):
-                        gate = 0 if route == "staged" else GRAPH_GATE
-                        runs[route] += [time_host(torch, lambda: commit(a, gate))[1]
+                        if cpu.get_root() != warm.get_root() or not torch.equal(
+                                cpu.comm, warm.comm.cpu()):
+                            raise AssertionError(f"{tag}: the kernel's commit != the CPU path's")
+                    # the port's gate
+                    under = n_rows * n_cols <= gate0.get(type(enc).__name__, 0)
+                    _, _, l_gate = moved(lambda: commit(a, None, enc))
+                    if (l_gate == one) != under:
+                        raise AssertionError(f"{tag}: under the port's gates the commit "
+                                             f"launched {l_gate}")
+                    # a kernel commit's stream work, captured in a CUDA graph: the
+                    # kernel and nothing else (no torch kernel, copy or memset;
+                    # a host sync would fail the capture)
+                    nodes = kb.captured_nodes(lambda: cs.commit_small(enc, digest, a), dot)
+                    if [k for k, _ in nodes] != ["KERNEL"] or "commit_" not in nodes[0][1]:
+                        raise AssertionError(f"{tag}: a kernel commit's captured graph holds "
+                                             f"{[(k, t[:120]) for k, t in nodes]}")
+                    # torch.profiler over PROFILED commits, recorded: the kernel, at
+                    # most once a commit, and nothing else.  Its CUDA events in
+                    # this long run are a lower bound (phases 4, 6, 14 log traces
+                    # that lost some or all): a trace with none is taken again
+                    kernels = []
+                    for _ in range(PROFILE_TRIES):
+                        commit(a, KERNEL_GATE, enc)
+                        with torch.profiler.profile(activities=acts) as prof:
+                            time_host(torch, lambda: [commit(a, KERNEL_GATE, enc)
+                                                      for _ in range(PROFILED)])
+                        kernels = [e.name for e in prof.events()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                        if len(kernels) > PROFILED or any("commit_" not in k for k in kernels):
+                            raise AssertionError(f"{tag}: torch.profiler saw {kernels} over "
+                                                 f"{PROFILED} commits")
+                        if kernels:
+                            break
+                    # timed: host walls in turns, device ms by events
+                    runs = {"staged": [], "kernel": []}
+                    for route in ("staged", "kernel", "kernel", "staged"):
+                        gate = 0 if route == "staged" else KERNEL_GATE
+                        runs[route] += [time_host(torch, lambda: commit(a, gate, enc))[1]
                                         for _ in range(SMALL_REPS // 2)]
-                    outs = [graph.comm, graph.hashes_dev] + (
-                        [graph.coeffs] if n_rows * npr > n else [])
-                    rec.update(
-                        staged_ms=statistics.median(runs["staged"]),
-                        graph_ms=statistics.median(runs["graph"]), runs_ms=runs,
-                        copy_ms=kb.time_kernel(lambda: [t.clone() for t in outs + [a]]),
-                        copy_bytes=2 * sum(t.numel() * t.element_size() for t in outs + [a]))
-                    if (name, log_n, digest.name) == ("ligero", logs[0], "blake3"):
+                    dev_ms = kb.time_kernel(lambda: proto._commit_fused_fn(enc, digest)(a))
+                    staged_dev_ms = kb.time_kernel(lambda: proto._commit_staged(enc, digest, a))
+                    bound, by, nbytes, products, comp = small_commit_bound(spec, enc, n_rows,
+                                                                           digest.name)
+                    rec = {"n_rows": n_rows, "n_per_row": npr, "n_cols": n_cols,
+                           "elements": n_rows * n_cols, "first_ms": first_ms,
+                           "warm_counted_ms": warm_ms, "staged_first_ms": staged_first_ms,
+                           "staged_first_launches": l_staged,
+                           "staged_ms": statistics.median(runs["staged"]),
+                           "kernel_ms": statistics.median(runs["kernel"]), "runs_ms": runs,
+                           "device_ms": dev_ms, "staged_device_ms": staged_dev_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "bytes": nbytes, "products": products, "compressions": comp,
+                           "graph_nodes": [k for k, _ in nodes], "profiler_kernels": kernels,
+                           "route_at_gate": "kernel" if under else "staged"}
+                    if (name, log_n, digest.name) == ("ligero", SMALL_MAIN_LOG, "blake3"):
                         # the row's run: counts zeroed just before, read just after
                         _, main_ms, main_l = counted(torch, counters,
-                                                     lambda: commit(a, GRAPH_GATE))
-                        rec.update(main_ms=main_ms, main_launches=main_l,
-                                   bound=small_commit_bound(spec, n_rows, npr, n_cols))
+                                                     lambda: commit(a, KERNEL_GATE, enc))
+                        rec.update(main_ms=main_ms, main_launches=main_l)
                     recs[tag] = rec
-                    log(f"  {tag}: {n_rows} x {n_cols} = {n_rows * n_cols:,} elements; graph == "
-                        f"staged{' == CPU path' if log_n == logs[0] else ''}; one graph, two "
-                        f"commits: the first unchanged, its proof verified; staged "
-                        f"{rec['staged_ms']:.4f} ms, graph {rec['graph_ms']:.4f} ms "
-                        f"(x{rec['staged_ms'] / rec['graph_ms']:.2f}; {copies} copies, "
-                        f"{rec['copy_bytes'] / 1e6:.2f} MB, {rec['copy_ms']:.4f} ms); one-shot "
-                        f"commit (staged) {one_ms:.4f} ms, capture commit {first_ms:.3f} ms; "
-                        f"launches staged {sum(l_staged.values())}, graph 1 replay of "
-                        f"{sum(l_staged.values())} kernels; the port's gate: {rec['route_at_gate']}"
-                        + (f"; graph nodes {rec['graph_nodes']}, kernels {rec['graph_kernels']}"
-                           if dot else ""))
-                del enc, graph
-                proto._fused_commits.clear()
+                    log(f"  {tag}: {n_rows} x {n_cols} = {n_rows * n_cols:,} elements; kernel == "
+                        f"staged == plain (first, warm; seeded and all p-1 of n - 3)"
+                        f"{' == CPU path' if log_n == SMALL_MAIN_LOG else ''}; 1 launch, its "
+                        f"captured graph 1 kernel node; profiler {len(kernels)} of {PROFILED} seen "
+                        f"{kernels[0][:40] if kernels else '(none in ' + str(PROFILE_TRIES) + ' traces)'}"
+                        f"; first commit kernel {first_ms:.4f} ms, staged "
+                        f"{staged_first_ms:.4f}; warm kernel {rec['kernel_ms']:.4f} ms, staged "
+                        f"{rec['staged_ms']:.4f} (x{rec['staged_ms'] / rec['kernel_ms']:.2f}); "
+                        f"device {dev_ms:.4f} ms (staged {staged_dev_ms:.4f}), bound "
+                        f"{bound:.4f} ({by}), plain {plain_ms:.1f} ms; the port's gate: "
+                        f"{rec['route_at_gate']}")
+                    del first, warm, staged, plain, e_k
+                del enc, fresh
                 torch.cuda.empty_cache()
     finally:
-        proto._FUSED_COMMIT_MAX, proto._CAPTURE_AT = gate0, capture0
+        proto._FUSED_COMMIT_MAX = gate0
     wins = {}
     for tag, rec in recs.items():
-        if rec["graph_ms"] < rec["staged_ms"]:
+        if rec["kernel_ms"] < rec["staged_ms"] and tag.endswith("blake3"):
             enc_name = tag.split()[0]
             wins[enc_name] = max(wins.get(enc_name, 0), rec["elements"])
-    log(f"  largest graph win (encoded elements): {wins}; the gates _FUSED_COMMIT_MAX = "
-        f"{gate0}")
-    return {"records": recs, "largest_graph_win": wins, "gate": gate0, "capture_at": capture0,
-            "main": recs[f"ligero 2^{SMALL_LOGS['ligero'][0]} blake3"]}
+    kernels, spills = ptxas
+    log(f"  largest kernel win (encoded elements): {wins}; the gates _FUSED_COMMIT_MAX = "
+        f"{gate0}; ptxas {len(kernels)} kernels, noinline phases that spill: {spills or 'none'}")
+    return {"records": recs, "largest_kernel_win": wins, "gate": gate0,
+            "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                      for k, v in kernels.items()},
+            "phase_spills": {k: v[1] + v[2] for k, v in spills.items()},
+            "main": recs[f"ligero 2^{SMALL_MAIN_LOG} blake3"]}
 
 
 INTT_LOGS = (1, 2, 10, 11, 12)  # phase 19: n = 2, 4, one pass's widest, two passes, 2^12
 INTT_TIMED = (17, (2, 256))  # phase 19: n = 2^17 at verify's rows and the 2^23 codeword's
-INTT_IDENTITY = (13, 23)     # phase 19: the FFT identity's sizes (the graph route, staged)
+INTT_IDENTITY = (13, 23)     # phase 19: the FFT identity's sizes (the kernel route, staged)
 
 
 def intt_cost(spec, r, n):
@@ -3448,10 +3460,9 @@ def intt_phase(torch, kb, P, nttm, counters, gen):
     1 - (i mod 7)); intt(ntt(x)) == x at 256 x 2^17; the reference's FFT
     identity (collapse the codeword by the outer tensor with mont_dot,
     inverse-transform it: the collapsed coefficients, then zeros) at 2^13
-    (the graph route) and 2^23 (the main path's width, counts zeroed just
+    (the small commit's kernel) and 2^23 (the main path's width, counts zeroed just
     before, read just after); timed warm and cold at 2 x 2^17 and 256 x
     2^17 beside its bound and its plain version.  Returns the records."""
-    from lcpc_tpu_torch.core import protocol as proto
     from lcpc_tpu_torch.ops.limbs import get_ops
     from lcpc_tpu_torch.ops.mont_dot import mont_dot
     from lcpc_tpu_torch.ops.spmv import unpack_words
@@ -3530,64 +3541,59 @@ def intt_phase(torch, kb, P, nttm, counters, gen):
                                              y_form="limbs"), 0)
             return flat, nttm.intt_inverse(nttm.get_intt(spec, n_cols), enc_flat)
 
-        capture0 = proto._CAPTURE_AT
-        try:  # the shape's first commit (staged), then its capture: the counted
-            proto._CAPTURE_AT = {k: 2 for k in capture0}  # run replays where the gate allows
-            identity()
-            identity()
-        finally:
-            proto._CAPTURE_AT = capture0
         (flat, back), ms, launches = counted(torch, counters, identity)
-        graph = launches.get("commit_graph", 0) == 1
+        kernel = launches.get("commit_small", 0) == 1
         if not torch.equal(back[:, :, :npr], flat) or back[:, :, npr:].any():
             raise AssertionError(f"FFT identity 2^{log_n}: the inverse of the collapsed codeword "
                                  f"!= the collapsed coefficients, zeros above")
         out["identity"][f"2^{log_n}"] = {"n_rows": n_rows, "n_cols": n_cols, "ms": ms,
-                                         "graph_route": graph, "launches": launches}
+                                         "kernel_route": kernel, "launches": launches}
         log(f"  FFT identity 2^{log_n} ({n_rows} x {n_cols}, commit by the "
-            f"{'graph' if graph else 'staged'} route): intt(collapsed codeword) = collapsed "
+            f"{'kernel' if kernel else 'staged'} route): intt(collapsed codeword) = collapsed "
             f"coefficients, then zeros; {ms:.1f} ms; launches {launches}")
         del enc, coeffs, flat, back
-        proto._fused_commits.clear()
         torch.cuda.empty_cache()
-    if not out["identity"][f"2^{INTT_IDENTITY[0]}"]["graph_route"]:
-        raise AssertionError("FFT identity: the small commit did not take the graph route")
+    if not out["identity"][f"2^{INTT_IDENTITY[0]}"]["kernel_route"]:
+        raise AssertionError("FFT identity: the small commit did not take the kernel route")
     out["max_abs_err"] = err
     return out
 
 
 def small_rows(small, inv):
-    """The kernel table rows of the small commit's graph and the inverse NTT."""
+    """The kernel table rows of the small commit's kernel and the inverse NTT."""
     main = small["main"]
-    bound, by = main["bound"]
     big = inv["shapes"][f"{INTT_TIMED[1][1]} rows"]
     verify = inv["shapes"][f"{INTT_TIMED[1][0]} rows"]
     return [{
-        "name": "commit_graph",
+        "name": "commit_small",
         "route": "cuda",
-        "source": "lcpc_tpu_torch/core/protocol.py",
+        "source": "lcpc_tpu_torch/csrc/commit_small.cu",
         "replaces": "lcpc_tpu/core/protocol.py:345 (_commit_fused_fn, XLA-fused, not Pallas)",
-        "launches": main["main_launches"].get("commit_graph", 0),
+        "launches": main["main_launches"].get("commit_small", 0),
         "max_abs_err": 0,
-        "ms": main["graph_ms"],
+        "ms": main["device_ms"],
         "plain_ms": main["plain_ms"],
-        "bound_ms": bound,
-        "bound_by": by,
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,
         "equal_to_plain": True,
         "tolerance": 0,
-        "shape": (f"one ft255 rho=1/4 BLAKE3 commit of 2^{SMALL_LOGS['ligero'][0]} coefficients "
-                  f"({main['n_rows']} x {main['n_cols']}): one CUDA-graph replay of the port's "
-                  f"kernels, host wall with the copies in and out"),
-        "staged_ms": main["staged_ms"],
-        "one_shot_ms": main["one_shot_ms"],
-        "capture_commit_ms": main["capture_commit_ms"],
-        "kernels_a_replay": main["launches_staged"],
-        "graph_kernels": main["graph_kernels"],
-        "by_size_ms": {tag: [r["staged_ms"], r["graph_ms"], r["one_shot_ms"],
-                             r["capture_commit_ms"]] for tag, r in small["records"].items()},
-        "largest_graph_win_elements": small["largest_graph_win"],
+        "shape": (f"one ft255 rho=1/4 BLAKE3 commit of 2^{SMALL_MAIN_LOG} coefficients "
+                  f"({main['n_rows']} x "
+                  f"{main['n_cols']}): one cooperative launch, device ms by CUDA events"),
+        "host_first_ms": main["first_ms"],
+        "host_warm_ms": main["kernel_ms"],
+        "host_staged_ms": main["staged_ms"],
+        "host_staged_first_ms": main["staged_first_ms"],
+        "staged_device_ms": main["staged_device_ms"],
+        "by_size_ms": {tag: {k: r[k] for k in ("first_ms", "kernel_ms", "staged_first_ms",
+                                               "staged_ms", "device_ms", "staged_device_ms",
+                                               "bound_ms")}
+                       for tag, r in small["records"].items()},
+        "largest_kernel_win_elements": small["largest_kernel_win"],
         "gate": small["gate"],
+        "ptxas": small["ptxas"],
+        "phase_spills": small["phase_spills"],
     }, {
         "name": "intt_inverse",
         "route": "cuda",
@@ -3787,9 +3793,8 @@ def main_coeffs(torch, spec, ops, gen):
 
 
 def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
-    """Every kernel wrapper of the port by its counter's name (and the
-    commit's CUDA graph, its replays)."""
-    from lcpc_tpu_torch.core import protocol
+    """Every kernel wrapper of the port by its counter's name."""
+    from lcpc_tpu_torch.ops import commit_small as cs
 
     return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
             "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
@@ -3801,7 +3806,7 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
             **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
             "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk,
             "verify_check": vc.verify_check, "gather_open": vc.gather_open,
-            "intt_inverse": nttm.intt_inverse, "commit_graph": protocol._commit_fused_fn}
+            "intt_inverse": nttm.intt_inverse, "commit_small": cs.commit_small}
 
 
 def counted(torch, counters, fn):
@@ -4177,7 +4182,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # 2. build the eight kernel sources, one nvcc each, at once
+    # 2. build the ten kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:  # the probes beside the kernels
@@ -4190,7 +4195,7 @@ def main() -> int:
                             kb.SHA_CHAIN_SRC)
         secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
                                      "mont_dot", "power_table", "mont_map", "sha256_cols",
-                                     "verify_core"], force=True)
+                                     "verify_core", "commit_small"], force=True)
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
         sha_so, sha_chain_log = sha_f.result()
@@ -4246,6 +4251,14 @@ def main() -> int:
         log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
         if "ILi8E" in name and (st or ld):
             raise AssertionError(f"{name} spills: {st} / {ld} bytes")
+    cs_ptxas = commit_ptxas(kb, cuda_build.build_logs["commit_small"])
+    if len(cs_ptxas[0]) != 16:  # 2 encodings x 2 digests x W32 = 2, 4, 6, 8
+        raise AssertionError(f"commit_small kernels not reported by ptxas: {cs_ptxas[0]}")
+    for name, (regs, st, ld) in sorted(cs_ptxas[0].items()):
+        log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    for name, (regs, st, ld) in sorted(cs_ptxas[1].items()):
+        log(f"  ptxas {name} (a noinline phase of commit_small): {st} bytes spill stores, "
+            f"{ld} bytes spill loads")
     prove_ptxas = {}
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
                             ("power_table", "power_"), ("mont_map", "map_kernel")):
@@ -4498,9 +4511,9 @@ def main() -> int:
         fields = every_field_phase(torch, P, counters)
         torch.cuda.empty_cache()
 
-    # 18. the small commits: the CUDA-graph route against the staged one
+    # 18. the small commits: the kernel against the staged route and its plain version
     with Phase("18 small commits"):
-        small = small_commit_phase(torch, kb, P, nttm, counters, gen)
+        small = small_commit_phase(torch, kb, P, counters, gen, cs_ptxas)
         torch.cuda.empty_cache()
 
     # 19. the inverse NTT against its plain version, and the FFT identity
@@ -4584,6 +4597,10 @@ def main() -> int:
         "ms_2_28_length_4096_columns": c28["k1_ms"],
         "plain_ms_2_28_length_4096_columns": c28["k1_plain_ms"],
         "bound_ms_2_28_length_4096_columns": c28["k1_bound_ms"],
+        "verify_columns_ms_bound_floor": {
+            tag: [hashes[tag]["k1_ms"], hashes[tag]["k1_bound_ms"], hashes[tag]["k1_floor_ms"]]
+            for tag in ("2^23 verify (189 columns)", "2^28 verify (189 columns)",
+                        "brakedown 2^23 verify (6,593 columns)")},
         "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
                   for k, v in sorted(b3_ptxas.items()) if "chunks" in k},
         "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][

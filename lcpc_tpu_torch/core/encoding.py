@@ -61,11 +61,12 @@ class LcEncoding(abc.ABC):
         Input/output int32 Montgomery limbs (limb-major) on self.device.
         """
 
-    def device_tables(self) -> tuple:
-        """The tensors on self.device that encode_rows' kernels read besides
-        their operands, built now if they are not yet: what a captured
-        commit (core/protocol.py's CUDA graph) keeps alive.  None here."""
-        return ()
+    def device_tables(self):
+        """The tables on self.device that the small commit's kernel
+        (ops/commit_small.py: NttTables or LevelTable) reads besides its
+        operands, built now if they are not yet.  None here: an encoding
+        without that kernel commits stage by stage."""
+        return None
 
     def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows and the codeword's column-hash words: ((W, R, n_cols)

@@ -29,6 +29,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ldst.cuh"
+
 namespace merkle {
 
 constexpr int kTreeThreads = 256;
@@ -76,35 +78,26 @@ __device__ void merge_in_smem(uint32_t (*s)[kTreeNodes], int n, int lvl, long lo
   }
 }
 
-// Block b builds the subtree over leaves [b sub, (b + 1) sub), zero digests
-// past n_cols: level 1 straight from the leaves (two parents a thread,
-// copying the leaves into out on the way; at most 512 blocks for a 2^19 tree,
-// so all of them are resident at once and their leaf loads overlap), the
-// levels above it in shared memory.  The last block to finish (a counter in
-// device memory, which that block resets) builds the levels above the
-// subtree roots, reading them through L2.
-template <class Hash>
-__global__ void __launch_bounds__(kTreeThreads)
-merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_cols,
-                   long long np2, int log_sub, long long* __restrict__ out,
-                   unsigned* __restrict__ counter) {
-  __shared__ uint32_t s[8][kTreeNodes];
-  __shared__ bool last;
+// Subtree b over leaves [b sub, (b + 1) sub), sub = 2^log_sub, zero
+// digests past n_cols, by one block: level 1 straight from the leaves (read
+// by Ld, ldst.cuh; two parents a thread, copying the leaves into out on the
+// way), the levels above it in shared memory s.  Ends with s free.
+template <class Hash, class Ld>
+__device__ __forceinline__ void build_subtree(long long b, const long long* __restrict__ leaves,
+                                              long long ld, int n_cols, long long np2,
+                                              int log_sub, long long* __restrict__ out,
+                                              uint32_t (*s)[kTreeNodes]) {
   const int t = threadIdx.x;
   const long long total = 2 * np2 - 1;
-  if (np2 == 1) {  // the leaf is the root
-    if (t < 8) out[t] = (uint32_t)leaves[t * ld];
-    return;
-  }
   const int pairs = 1 << (log_sub - 1);
-  const long long first = (long long)blockIdx.x * pairs;  // of level 1
+  const long long first = b * pairs;  // of level 1
   for (int i = t; i < pairs; i += kTreeThreads) {
     const long long leaf = 2 * (first + i);
     uint32_t l[8], r[8], cv[8];
 #pragma unroll
     for (int w = 0; w < 8; ++w) {
-      l[w] = leaf < n_cols ? (uint32_t)leaves[w * ld + leaf] : 0u;
-      r[w] = leaf + 1 < n_cols ? (uint32_t)leaves[w * ld + leaf + 1] : 0u;
+      l[w] = leaf < n_cols ? (uint32_t)Ld::ld(leaves + w * ld + leaf) : 0u;
+      r[w] = leaf + 1 < n_cols ? (uint32_t)Ld::ld(leaves + w * ld + leaf + 1) : 0u;
       out[w * total + leaf] = l[w];
       out[w * total + leaf + 1] = r[w];
     }
@@ -117,15 +110,16 @@ merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_col
   }
   __syncthreads();
   merge_in_smem<Hash>(s, pairs, 1, first, np2, out);
-  if (gridDim.x == 1) return;
-  __threadfence();  // this block's nodes are visible before its count is
-  __syncthreads();
-  if (t == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  int lvl = log_sub;
-  long long n = gridDim.x;  // the subtree roots
+}
+
+// The levels above the n subtree roots (level lvl of out, n a power of two),
+// by one block: levels wider than s through L2, then the rest in s.
+template <class Hash>
+__device__ __forceinline__ void build_top(long long n, int lvl, long long np2,
+                                          long long* __restrict__ out,
+                                          uint32_t (*s)[kTreeNodes]) {
+  const int t = threadIdx.x;
+  const long long total = 2 * np2 - 1;
   for (; n > kTreeNodes; n >>= 1, ++lvl) {  // levels wider than s
     const long long src = level_offset(np2, lvl), dst = level_offset(np2, lvl + 1);
     for (long long i = t; i < n / 2; i += kTreeThreads) {
@@ -148,6 +142,33 @@ merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_col
   }
   __syncthreads();
   merge_in_smem<Hash>(s, (int)n, lvl, 0, np2, out);
+}
+
+// Block b builds subtree b (build_subtree; at most 512 blocks for a 2^19
+// tree, so all of them are resident at once and their leaf loads overlap).
+// The last block to finish (a counter in device memory, which that block
+// resets) builds the levels above the subtree roots (build_top).
+template <class Hash>
+__global__ void __launch_bounds__(kTreeThreads)
+merkle_tree_kernel(const long long* __restrict__ leaves, long long ld, int n_cols,
+                   long long np2, int log_sub, long long* __restrict__ out,
+                   unsigned* __restrict__ counter) {
+  __shared__ uint32_t s[8][kTreeNodes];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  if (np2 == 1) {  // the leaf is the root
+    if (t < 8) out[t] = (uint32_t)leaves[t * ld];
+    return;
+  }
+  build_subtree<Hash, lcpc::LoadPlain>(blockIdx.x, leaves, ld, n_cols, np2, log_sub, out, s);
+  if (gridDim.x == 1) return;
+  __threadfence();  // this block's nodes are visible before its count is
+  __syncthreads();
+  if (t == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  build_top<Hash>(gridDim.x, log_sub, np2, out, s);
   if (t == 0) *counter = 0u;  // ready for the next launch on this stream
 }
 

@@ -33,8 +33,10 @@ from ..core.soundness import n_degree_tests
 from ..fields.spec import FieldSpec
 from ..fs.chacha import ChaCha20Rng
 from ..fs.sampling import UniformUsize, field_random_nonzero_raw
-from ..ops.limbs import get_ops
-from ..ops.spmv import RaggedCsr, pack_words, spmv_consts, spmv_mont, unpack_words
+from ..ops.commit_small import LevelTable
+from ..ops.limbs import get_ops, pack_row_words
+from ..ops.spmv import (RaggedCsr, apply_mat_plain, pack_words, spmv_consts, spmv_mont,
+                        unpack_words)
 from ..utils.device import resolve_device
 
 LAMBDA = 128
@@ -428,6 +430,7 @@ class SdigEncoding(LcEncoding):
         self.n_per_row = n_per_row
         self.n_cols = codeword_length(self.precodes, self.postcodes)
         self._dev = None
+        self._table = None
 
     @property
     def systematic_prefix(self) -> int:
@@ -518,12 +521,71 @@ class SdigEncoding(LcEncoding):
             self._dev = (pre, post, rs)
         return self._dev
 
-    def device_tables(self) -> tuple:
-        """The code's levels on self.device (device_mats) and each level's
-        SpMV constants."""
+    def device_tables(self) -> LevelTable:
+        """The small commit kernel's level table on self.device, built once
+        (ops/commit_small.py's LevelTable; csrc/commit_small.cu's Level):
+        a row a level in encode_rows' order (the precodes, the Reed-Solomon
+        base case, the postcodes from the last).  The word buffer holds the
+        codeword's n_cols positions, then the last precode's outputs (the
+        base case's input, no codeword column)."""
+        if self._table is None:
+            pre, post, rs = self.device_mats()
+            rows, consts = [], []
+
+            def level(in_pos, out_pos, dm, codeword):
+                consts.append(spmv_consts(self.spec, dm))
+                rows.append([in_pos, out_pos, dm.n_out, dm.nnz, int(codeword),
+                             dm.row_ptr.data_ptr(), dm.cols.data_ptr(), dm.vals.data_ptr(),
+                             consts[-1].data_ptr()])
+
+            for in_pos, out_pos, dm, codeword in self._levels(pre, post, rs):
+                level(in_pos, out_pos, dm, codeword)
+            table = torch.tensor(rows, dtype=torch.int64, device=self.device)
+            self._table = LevelTable(table, self.n_cols + pre[-1].n_out,
+                                     max(r[2] for r in rows), tuple(consts))
+        return self._table
+
+    def _levels(self, pre, post, rs):
+        """encode_rows' levels in order: (input position, output position,
+        level, whether its outputs are codeword columns) in the word buffer
+        [x | y_1 .. y_{t-1} | rs | v_t .. v_1], the last precode's output at
+        n_cols (past the codeword; encode.rs:36-94)."""
+        out, starts, off, x = [], [0], self.n_per_row, 0
+        for dm in pre[:-1]:
+            starts.append(off)
+            out.append((x, off, dm, True))
+            x, off = off, off + dm.n_out
+        # base case: the last precode feeds the Reed-Solomon code
+        out.append((x, self.n_cols, pre[-1], False))
+        starts.append(off)
+        out.append((self.n_cols, off, rs, True))
+        off += rs.n_out
+        # backward pass: postcode i reads the encoded sub-codeword from
+        # segment i+1 to the current end
+        for i in range(len(post) - 1, -1, -1):
+            assert off - starts[i + 1] == post[i].n_in, (off - starts[i + 1], post[i].n_in)
+            out.append((starts[i + 1], off, post[i], True))
+            off += post[i].n_out
+        assert off == self.n_cols
+        return out
+
+    def _encode_packed(self, rows: torch.Tensor, spmv) -> torch.Tensor:
+        """encode_rows through `spmv(spec, x, level, out)`: the packed
+        (positions, R, W32) buffer (module docstring), levels in _levels'
+        order, unpacked to (W, R, n_cols) limbs at the end."""
         pre, post, rs = self.device_mats()
-        levels = [*pre, *post, rs]
-        return (*levels, *(spmv_consts(self.spec, dm) for dm in levels))
+        w, r, npr = rows.shape
+        if npr != self.n_per_row:
+            raise ValueError(f"rows must be (W, R, {self.n_per_row}), got {tuple(rows.shape)}")
+        buf = torch.empty((self.n_cols + pre[-1].n_out, r, w // 2), dtype=torch.int32,
+                          device=rows.device)
+        # pack where the limbs lie (coalesced), then move the words
+        buf[:npr] = pack_words(rows, 0).permute(2, 1, 0)
+        for in_pos, out_pos, dm, _ in self._levels(pre, post, rs):
+            spmv(self.spec, buf[in_pos : in_pos + dm.n_in], dm,
+                 buf[out_pos : out_pos + dm.n_out])
+        # move the words limb-major first, then unpack (coalesced)
+        return unpack_words(buf[: self.n_cols].permute(2, 1, 0).contiguous(), 0)
 
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs.
@@ -532,43 +594,21 @@ class SdigEncoding(LcEncoding):
         positions lead and one (position, r) is W32 contiguous 32-bit words,
         so each level's input is a contiguous slice of one buffer
         [x | y_1 .. y_{t-1} | rs | v_t .. v_1] and its output is written in
-        place right after the previous one (encode.rs:36-94).  Each of the
-        reference's `_apply_mat_device` and `_rs_device` calls is one
-        spmv_mont call here.  Rows are packed on entry and unpacked on exit,
-        so the reference's limb-major layout holds at the boundary."""
-        pre, post, rs = self.device_mats()
-        w, r, npr = rows.shape
-        if npr != self.n_per_row:
-            raise ValueError(f"rows must be (W, R, {self.n_per_row}), got {tuple(rows.shape)}")
-        buf = torch.empty((self.n_cols, r, w // 2), dtype=torch.int32, device=rows.device)
-        # pack where the limbs lie (coalesced), then move the words
-        buf[:npr] = pack_words(rows, 0).permute(2, 1, 0)
-        starts = [0]  # segment starts: x, y_1 .. y_{t-1}, rs
-        off = npr
+        place right after the previous one (encode.rs:36-94); the last
+        precode's output, the base case's input, sits past the codeword.
+        Each of the reference's `_apply_mat_device` and `_rs_device` calls
+        is one spmv_mont call here.  Rows are packed on entry and unpacked
+        on exit, so the reference's limb-major layout holds at the
+        boundary."""
+        return self._encode_packed(rows, lambda spec, x, dm, out: spmv_mont(spec, x, dm, out=out))
 
-        def put(x, dm):
-            nonlocal off
-            spmv_mont(self.spec, x, dm, out=buf[off : off + dm.n_out])
-            off += dm.n_out
-
-        x = buf[:npr]
-        for dm in pre[:-1]:
-            starts.append(off)
-            put(x, dm)
-            x = buf[starts[-1] : off]
-        # base case: the last precode feeds the Reed-Solomon code
-        tmp = spmv_mont(self.spec, x, pre[-1])
-        starts.append(off)
-        put(tmp, rs)
-        # backward pass: postcode i reads the encoded sub-codeword from
-        # segment i+1 to the current end
-        for i in range(len(post) - 1, -1, -1):
-            inp = buf[starts[i + 1] : off]
-            assert inp.shape[0] == post[i].n_in, (inp.shape, post[i].n_in)
-            put(inp, post[i])
-        assert off == self.n_cols
-        # move the words limb-major first, then unpack (coalesced)
-        return unpack_words(buf.permute(2, 1, 0).contiguous(), 0)
+    def encode_rows_words_plain(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """encode_rows_words through the plain versions (apply_mat_plain a
+        level, from_mont_plain and the pack) on rows' device, which is the
+        level matrices' (self.device)."""
+        limbs = self._encode_packed(
+            rows, lambda spec, x, dm, out: out.copy_(apply_mat_plain(spec, x, dm)))
+        return limbs, pack_row_words(self.ops.from_mont_plain(limbs))
 
     def encode_row_host(self, row: list[int]) -> list[int]:
         assert len(row) <= self.n_cols

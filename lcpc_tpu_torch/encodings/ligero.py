@@ -28,8 +28,9 @@ import torch
 from ..core.encoding import LcEncoding
 from ..core.soundness import n_degree_tests
 from ..fields.spec import FieldSpec
-from ..ops.limbs import get_ops
-from ..ops.ntt import get_ntt, ntt_forward, ntt_host
+from ..ops.commit_small import NttTables
+from ..ops.limbs import get_ops, pack_row_words
+from ..ops.ntt import get_ntt, ntt_forward, ntt_forward_plain, ntt_host
 from ..utils.device import resolve_device
 
 LAMBDA = 128
@@ -60,6 +61,7 @@ class LigeroEncoding(LcEncoding):
         self.n_cols = n_cols
         self.device = resolve_device(device)
         self.ops = get_ops(spec)
+        self._tables = None
 
     # ---- constructors (lib.rs:120-148) ---------------------------------------
 
@@ -164,9 +166,13 @@ class LigeroEncoding(LcEncoding):
                              f"got {tuple(rows.shape)}")
         return rows
 
-    def device_tables(self) -> tuple:
-        """The NTT plan's twiddle table and constants on self.device."""
-        return get_ntt(self.spec, self.n_cols).kernel_table(self.device)
+    def device_tables(self) -> NttTables:
+        """The NTT plan's twiddle table and constants on self.device (what
+        the small commit's kernel reads: ops/commit_small.py), kept after
+        the first call."""
+        if self._tables is None:
+            self._tables = NttTables(*get_ntt(self.spec, self.n_cols).kernel_table(self.device))
+        return self._tables
 
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs: each
@@ -178,6 +184,13 @@ class LigeroEncoding(LcEncoding):
         """encode_rows with the hash words written by the NTT's last pass."""
         return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
                            output="both")
+
+    def encode_rows_words_plain(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """encode_rows_words through the plain versions (ntt_forward_plain,
+        from_mont_plain and the pack) on rows' device."""
+        plan = get_ntt(self.spec, self.n_cols)
+        limbs = ntt_forward_plain(plan, self._check_rows(rows))
+        return limbs, pack_row_words(self.ops.from_mont_plain(limbs))
 
     def encode_rows_words_only(self, rows: torch.Tensor) -> torch.Tensor:
         """The hash words alone: the NTT's last pass writes no limbs."""

@@ -35,7 +35,6 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import struct
 
@@ -571,23 +570,6 @@ def _tree_counter(device: torch.device, dev: int, stream: int) -> torch.Tensor:
         counter = torch.zeros(1, dtype=torch.int32, device=device)
         _tree_counters[(dev, stream)] = counter
     return counter
-
-
-@contextlib.contextmanager
-def own_tree_counter(device: torch.device):
-    """Inside: the tree kernels launched on `device`'s current stream take a
-    counter of their own (yielded, 0; a CUDA graph captured there keeps it
-    alive), the stream's own one back after."""
-    key = (device.index or 0, torch.cuda.current_stream(device).cuda_stream)
-    prev = _tree_counters.get(key)
-    counter = _tree_counters[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    try:
-        yield counter
-    finally:
-        if prev is None:
-            del _tree_counters[key]
-        else:
-            _tree_counters[key] = prev
 
 
 def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:

@@ -31,6 +31,8 @@ class DeviceDigest:
                                  # with root= and flag=, the verifier's check (None)
     merkle_walk_plain: callable  # the walk's plain version, on any device
     host: callable               # bytes -> 32-byte digest
+    hash_word_columns_plain: callable  # the column hash's plain version, on any device
+    merkle_tree_plain: callable        # the tree's plain version, on any device
 
 
 BLAKE3 = DeviceDigest(
@@ -40,6 +42,8 @@ BLAKE3 = DeviceDigest(
     merkle_walk=_blake3.merkle_walk,
     merkle_walk_plain=_blake3.merkle_walk_plain,
     host=_blake3.blake3,
+    hash_word_columns_plain=_blake3.hash_word_columns_plain,
+    merkle_tree_plain=_blake3.merkle_tree_plain,
 )
 
 SHA256 = DeviceDigest(
@@ -49,6 +53,8 @@ SHA256 = DeviceDigest(
     merkle_walk=_sha256.merkle_walk,
     merkle_walk_plain=_sha256.merkle_walk_plain,
     host=_sha256.digest_host,
+    hash_word_columns_plain=_sha256.hash_word_columns_plain,
+    merkle_tree_plain=_sha256.merkle_tree_plain,
 )
 
 DIGESTS_BY_NAME = {d.name: d for d in (BLAKE3, SHA256)}

@@ -6,8 +6,8 @@ latency probe (scripts/blake3_chain.cu) and its instruction mix by pipe, the
 SHA-256 compression's and Merkle parent's (scripts/sha256_chain.cu), with
 that probe's op chains (a dependent IADD3, LOP3, SHF, IMAD: latency and one
 warp's issue), the generator's threefry probe (scripts/threefry_chain.cu)
-and its mix, the hottest loop or block of a built kernel, a captured CUDA
-graph's nodes, and random packed operands.
+and its mix, the hottest loop or block of a built kernel, the nodes of a
+CUDA graph captured around a call, and random packed operands.
 
 Imports torch and nothing of the port, so a script can time any checkout's
 lcpc_tpu_torch with it.  Everything here needs a CUDA device except
@@ -17,7 +17,6 @@ lcpc_tpu_torch with it.  Everything here needs a CUDA device except
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import os
 import re
@@ -91,32 +90,26 @@ def time_kernel_cold(fn, reps=10):
     return times[len(times) // 2]
 
 
-@contextlib.contextmanager
-def debug_graphs():
-    """Inside: every torch.cuda.CUDAGraph made keeps its graph after the
-    capture (keep_graph, instantiated at its first replay) in debug mode,
-    so `debug_dump` can write its nodes, and is listed in the list
-    yielded."""
-    real, made = torch.cuda.CUDAGraph, []
-
-    def make(*a, **k):
-        g = real(*a, **{**k, "keep_graph": True})
-        g.enable_debug_mode()
-        made.append(g)
-        return g
-
-    torch.cuda.CUDAGraph = make
-    try:
-        yield made
-    finally:
-        torch.cuda.CUDAGraph = real
-
-
-def graph_nodes(graph, path):
-    """A captured graph's nodes from its DOT dump (cudaGraphDebugDotPrint,
-    written to `path`): [(node type, label text)], e.g. ("KERNEL", ...) with
-    the kernel's function name in the label."""
+def captured_nodes(fn, path):
+    """The stream work of fn(): the nodes of a CUDA graph captured around it
+    on a side stream (every kernel, copy and memset it enqueues there; a
+    host sync inside fails the capture), from the graph's DOT dump
+    (cudaGraphDebugDotPrint, written to `path`): [(node type, label text)],
+    e.g. ("KERNEL", ...) with the kernel's function name in the label.  The
+    graph is never replayed."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    graph.enable_debug_mode()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
     graph.debug_dump(path)
+    del graph
     with open(path) as f:
         dot = f.read()
     nodes = []

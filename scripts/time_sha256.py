@@ -27,7 +27,9 @@ card's, not the code's), then:
     (131,072 x 2,048; 357,699 x 288; 524,288 x 16,384; the 2^28 path's
     1,792-word update over 524,288 columns), a sweep of both kernels over
     1,024 .. 131,072 columns of 288 and 2,048 words (the crossover in
-    ops/sha256.FEW_COLS_MAX); both digests' Merkle trees at 2^17, 2^19 and
+    ops/sha256.FEW_COLS_MAX); BLAKE3's chunk kernel (blake3_chunks, which
+    shares csrc/blake3.cuh with the small commit) at the same verify and
+    wide shapes; both digests' Merkle trees at 2^17, 2^19 and
     357,699 -> 2^19 leaves and at 2^8 .. 2^12; the SHA-256 walks at 189 x
     17 and 6,593 x 19.
 With --repo, the checkout in DIR (an older commit unpacked into the
@@ -145,7 +147,7 @@ def main() -> int:
     wide_only = ["wide"] if routes[0] else [None]
     result = {"label": label, "card": card, "repo": repo, "build_s": secs, "ptxas": ptxas,
               "sass": mix, "sass_hot": hot, "routes": routes, "checks": 0, "cols": {}, "sweep": {}, "trees": {},
-              "walks": {}}
+              "walks": {}, "blake3_chunks": {}}
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
@@ -285,6 +287,16 @@ def main() -> int:
     print(f"{label} sha256_cols update {c} columns x {n} words: {ms:.4f} ms, bound {b:.4f} "
           f"({by}, {b / ms:.1%})", flush=True)
     del w, cv, carry
+    torch.cuda.empty_cache()
+
+    for n, c in VERIFY_SHAPES + WIDE_SHAPES:
+        w = words(n, c)
+        n_chunks, final_len = b3._chunking(n)
+        cvs = torch.empty((n_chunks, 8, c), dtype=torch.int32, device="cuda")
+        ms = kb.time_kernel(lambda: b3.blake3_chunks(w, cvs, final_len=final_len), reps=args.reps)
+        result["blake3_chunks"][f"{c}x{n}"] = {"ms": ms}
+        print(f"{label} blake3_chunks {c} columns x {n} words: {ms:.4f} ms", flush=True)
+        del w, cvs
     torch.cuda.empty_cache()
 
     for n in SWEEP_WORDS:

@@ -222,11 +222,12 @@ def test_merkle_parent_of_one_pair():
                                      torch.from_numpy(right.astype(np.int64)))
     want = hashlib.sha256(left.astype("<u4").tobytes() + right.astype("<u4").tobytes())
     assert bytes(digests_to_bytes(got)[0]) == want.digest()
-    # the kernels' constant tables (csrc/sha256_cols.cu, which only the card
-    # runs): the initial hash value, K, and W + K of a parent's padding block
-    # (0x80000000, zeros, the bit length 512), its schedule run here
+    # the kernels' constant tables (csrc/sha256.cuh, which sha256_cols.cu and
+    # commit_small.cu include and only the card runs): the initial hash
+    # value, K, and W + K of a parent's padding block (0x80000000, zeros, the
+    # bit length 512), its schedule run here
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "lcpc_tpu_torch", "csrc", "sha256_cols.cu")
+                        "lcpc_tpu_torch", "csrc", "sha256.cuh")
     with open(path) as f:
         src = f.read()
     assert _cu_table(src, "kH0") == list(sha256._H0)
