@@ -37,13 +37,15 @@ Phases, each fatal on failure (each prints the seconds it took):
      bound of each level's nonzeros;
   4. drive the Brakedown path at 2^23 ft255 CODE3 BLAKE3 through the public
      entry points: commit -> prove -> verify once cold (kernel launches
-     counted: the BLAKE3 trees 4 times, 2 chunk trees, 1 Merkle tree and 1
-     path walk; the collapse through mont_dot's CUDA-core thin kernel;
+     counted: BLAKE3's commit hash by blake3_chunks and 1 chunk tree, 1
+     Merkle tree, verify's opened columns by 1 launch of the few-column
+     kernel and 1 path walk; the collapse through mont_dot's CUDA-core
+     thin kernel;
      mont_mul_map; verify_check; gather_open) and 3 times warm (median
      ms), then once traced by stage (mont_mul_map launched once in commit,
      where the plain limb graph converted the codeword to hash words, once
      in verify, the proof rows to Montgomery form; verify's core after the
-     rows at most 4 launches, verify_check, the column hash and the walk,
+     rows exactly 3 launches, verify_check, the column hash and the walk,
      prove's opening one gather_open; every CUDA event of each stage, its
      host-device copies apart, beside commit a2037ab's); check the
      evaluation against the
@@ -74,9 +76,10 @@ Phases, each fatal on failure (each prints the seconds it took):
      opened value, both timed); reproduce its golden fixture
      (tests/data/torch_golden_ligero.json) under BLAKE3 and SHA-256 (the
      SHA-256 kernels);
-  7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, merkle_tree
-     and merkle_walk, one launch each) against their plain versions, word
-     for word: the 2^23 Ligero commit's columns (2,048 words x 131,072), the
+  7. hold the BLAKE3 kernels (blake3_chunks; the chunk tree, the
+     few-column kernel, merkle_tree and merkle_walk, one launch each)
+     against their plain versions, word for word: the 2^23 Ligero
+     commit's columns (2,048 words x 131,072), the
      2^28 commit's column length (16,384 words) over 4,096 columns, 189
      columns of both lengths, Brakedown's 6,593 opened columns, edge lengths
      (1, 8, 248, 504, 760, 2,040 words; a few columns also against the host
@@ -87,7 +90,13 @@ Phases, each fatal on failure (each prints the seconds it took):
      (and 5 x 0, 40 x 3); time each (device, and the trees' host wall)
      against its bound and the trees against their dependency floor (depth
      x one compression's latency, from a one-thread chain of 4,096 in
-     scripts/blake3_chain.cu);
+     scripts/blake3_chain.cu); the few-column kernel (hash_word_columns'
+     "few" route, words to digests in one launch) against its plain version
+     and the wide route (blake3_chunks, then the chunk tree) at verify's
+     three shapes, 1, 31 and 33 columns of 8 .. 16,384 words
+     (B3_FEW_WORDS) and FEW_COLS_MAX columns, verify's shapes timed warm
+     and cold in turns wide, few, few, wide beside the bound and the floor
+     (a chunk's compressions and the chunk tree's levels);
   8. the streaming commit against the in-memory one at 2^26 (Ligero ft255
      rho = 1/4, 1,024 x 65,536 coefficients, 262,144 columns): equal roots
      and proof bytes with (a) unpacked coefficients on the card in 128-row
@@ -104,7 +113,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      memory, proof
      bytes); the evaluation against one computed on the card in the other
      association order (rows against the inner tensor first, plain
-     FieldOps, collapse_canon_plain); the BLAKE3 trees launched 4 times;
+     FieldOps, collapse_canon_plain); the BLAKE3 trees and the few-column
+     kernel launched 4 times (verify's core counted again: 3 launches);
      tampered proofs; verify by both routes (verify_routes); the
      retained words hashed in memory equal to the streamed leaves, the
      chunk tree of 524,288 x 65 CVs equal to its plain version (and both
@@ -136,8 +146,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      x 262,144 coefficients, 2^20 columns, the 68.7 GB of hash words not
      kept: commit_streaming -> prove (MxuCollapse and MxuColumnEval over
      regenerated blocks) -> verify (the gate's route) once cold with the
-     launches counted (the generator, the NTT, both BLAKE3 kernels, the
-     trees 4 times, mont_dot, the power table), then warm runs (median ms
+     launches counted (the generator, the NTT, blake3_chunks, the trees
+     and the few-column kernel 4 times, mont_dot, the power table; verify's
+     core counted again: 3 launches), then warm runs (median ms
      beside the Rust reference's 64-core numbers, peak memory); the
      evaluation against one over regenerated blocks with the plain collapse
      in the other order; tampered proofs; verify by both routes
@@ -327,6 +338,10 @@ MERKLE_TREES = ((1 << 17, 1 << 17), (1 << 19, 1 << 19), (357_699, 1 << 19))
 WALKS = ((189, 17), (6_593, 19))
 CHAIN = 4096                # phase 7: compressions of the latency probe
 TREES = ("chunk_tree", "merkle_tree", "merkle_walk")  # the BLAKE3 tree kernels
+# phase 7: the few-column kernel's shapes beside verify's: columns x words
+# (one chunk with ROOT at 248, two at 249, 17 chunks at 4,104, 65 at 16,384)
+B3_FEW_COLS = (1, 31, 33)
+B3_FEW_WORDS = (8, 248, 249, 504, 2_048, 4_104, 16_384)
 DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot's three
 # the kernels a 2^23 path launches besides its hash kernels: Brakedown's
 # SpMV, its collapse on mont_dot's CUDA-core thin kernel and its
@@ -379,7 +394,7 @@ SHA_TREE_EDGES = ((1, 1), (2, 2), (300, 512), (513, 1024))  # phase 13: odd tree
 SHA_BIG_WARM = 2            # warm runs of phase 14's 2^28 path (fewer when the time limit nears)
 SHA_BIG_WARM_DEADLINE_S = 800
 B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
-              "merkle_tree_kernel", "merkle_walk_kernel")
+              "blake3_cols_few_kernel", "merkle_tree_kernel", "merkle_walk_kernel")
 LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
 N_STREAM = 1 << 26   # phase 8: streaming against the in-memory commit
 N_BIG = 1 << 28      # phase 9: the slice's path
@@ -714,21 +729,30 @@ def stage_launches(torch, P, counters, enc, commit, outer, inner, digest):
 ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mont_mul_map", "power_table", "mont_dot", *DOT_KERNELS}
 
 
-def check_core_launches(stages, tag, digest):
-    """Verify's core (everything after the rows: verify_check, the column
-    hash, the walk) at most 4 launches with BLAKE3 and 3 with SHA-256,
-    verify_check and the walk once each; prove's opening one gather_open;
-    the stages' copies (torch.profiler's Memcpy events) logged."""
-    verify, prove = stages["verify"]["counters"], stages["prove"]["counters"]
+def check_verify_core(verify, tag, digest):
+    """Verify's core (everything after the rows) from its launches by
+    counter: exactly 3 launches with either digest, verify_check, the
+    column hash (BLAKE3's few-column kernel, or sha256_cols) and the walk
+    once each; no blake3_chunks and no chunk tree.  Returns the core."""
     # sha256_cols's launches by kernel count them twice
     core = {k: n for k, n in verify.items() if k not in ROWS_KERNELS | set(SHA_COLS_KERNELS)}
-    walk = "merkle_walk" if digest.name == "blake3" else "sha256_merkle_walk"
-    limit = 4 if digest.name == "blake3" else 3
+    want = ({"verify_check": 1, "blake3_cols_few": 1, "merkle_walk": 1}
+            if digest.name == "blake3" else
+            {"verify_check": 1, "sha256_cols": 1, "sha256_merkle_walk": 1})
+    if core != want:
+        raise AssertionError(f"{tag}: verify's core launches {core}, not {want}")
+    return core
+
+
+def check_core_launches(stages, tag, digest):
+    """Verify's core 3 launches (check_verify_core); prove's opening one
+    gather_open; the stages' copies (torch.profiler's Memcpy events)
+    logged."""
+    verify, prove = stages["verify"]["counters"], stages["prove"]["counters"]
+    core = check_verify_core(verify, tag, digest)
     opening = {k: n for k, n in prove.items() if k not in ROWS_KERNELS}
-    if (sum(core.values()) > limit or core.get("verify_check") != 1 or core.get(walk) != 1
-            or opening != {"gather_open": 1}):
-        raise AssertionError(f"{tag}: verify's core launches {core} (at most {limit}), prove's "
-                             f"opening {opening}")
+    if opening != {"gather_open": 1}:
+        raise AssertionError(f"{tag}: prove's opening {opening}")
     log(f"  {tag}: verify's core {sum(core.values())} launches {core}, copies "
         f"{stages['verify']['copies']}; prove's opening {opening}, prove's copies "
         f"{stages['prove']['copies']}")
@@ -790,9 +814,10 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
 
 
 # BLAKE3 tree launches of commit -> prove -> verify: the chunk tree once in
-# commit (the column digests) and once in verify (the opened columns), the
-# Merkle tree in commit, the path walk in verify
-TREE_LAUNCHES_PATH = {"chunk_tree": 2, "merkle_tree": 1, "merkle_walk": 1}
+# commit (the column digests), the Merkle tree in commit; in verify the
+# few-column kernel (the opened columns, their chunk trees in it) and the
+# path walk
+TREE_LAUNCHES_PATH = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 1, "blake3_cols_few": 1}
 # of commit_streaming -> prove: the column digests' chunk tree and the Merkle tree
 TREE_LAUNCHES_STREAM = {"chunk_tree": 1, "merkle_tree": 1, "merkle_walk": 0}
 # SHA-256 launches of commit -> prove -> verify in memory: the column hash in
@@ -1103,6 +1128,58 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
         log(f"  blake3 streaming updates of {lens} words (carries {carries[:-1]}): equal "
             f"to the one-shot plain hash")
 
+    def few(tag, w, timed=False):
+        """The few-column route (one launch, words -> digests) against its
+        plain version and the wide route, word for word; with `timed`, both
+        routes warm and cold in turns wide, few, few, wide."""
+        n_words, n_cols = w.shape
+        before = b3.COLS_KERNELS["few"].launches
+        got = b3.hash_word_columns(w, _route="few")
+        if b3.COLS_KERNELS["few"].launches != before + 1:
+            raise AssertionError(f"blake3 few {tag}: the kernel did not launch once")
+        want, plain_ms = time_host(torch, lambda: b3.hash_word_columns_few_plain(w))
+        check(f"few {tag} vs plain", got, want)
+        check(f"few {tag} vs wide", got, b3.hash_word_columns(w, _route="wide"))
+        if not timed:
+            return
+        total = 8 + n_words
+        n_chunks, blocks = -(-total // 256), -(-total // 16)
+        depth = min(16, blocks) + (n_chunks - 1).bit_length()
+        nbytes, comps = 4 * n_words * n_cols + 64 * n_cols, (blocks + n_chunks - 1) * n_cols
+        rec = {"n_words": n_words, "n_cols": n_cols, "n_chunks": n_chunks, "launches": 1,
+               "plain_ms": plain_ms, "compressions": comps, "bytes": nbytes, "depth": depth,
+               "floor_ms": depth * lat_ms}
+        rec["bound_ms"], rec["bound_by"] = hash_bound_ms(nbytes, comps)
+        for mode, timer in (("warm", kb.time_kernel), ("cold", kb.time_kernel_cold)):
+            rec[f"{mode}_turns"] = [
+                (route, timer(lambda: b3.hash_word_columns(w, _route=route)))
+                for route in ("wide", "few", "few", "wide")]
+            ms = {r: statistics.median(t for k, t in rec[f"{mode}_turns"] if k == r)
+                  for r in ("wide", "few")}
+            rec["ms" if mode == "warm" else "cold_ms"] = ms["few"]
+            rec["wide_ms" if mode == "warm" else "wide_cold_ms"] = ms["wide"]
+        rec["host_ms"] = host_ms(torch, lambda: b3.hash_word_columns(w, _route="few"))
+        recs.setdefault("few", {})[tag] = rec
+        log(f"  blake3 few {tag}: {n_cols} columns of {n_words} words ({n_chunks} chunks): "
+            f"equal to plain and wide; 1 launch, device warm {rec['ms']:.4f} ms, cold "
+            f"{rec['cold_ms']:.4f} (turns wide, few, few, wide: warm "
+            f"{[round(t, 4) for _, t in rec['warm_turns']]}, cold "
+            f"{[round(t, 4) for _, t in rec['cold_turns']]}), host wall {rec['host_ms']:.4f} ms; "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), floor {depth} x latency "
+            f"{rec['floor_ms']:.4f} ms, plain {plain_ms:.1f} ms")
+
+    for tag, (n_words, n_cols) in (("2^23 verify (189 columns)", (B3_COMMIT[0], B3_OPENED)),
+                                   ("2^28 verify (189 columns)", (B3_LONG[0], B3_OPENED)),
+                                   ("brakedown 2^23 verify (6,593 columns)", (288, 6_593))):
+        few(tag, words(n_words, n_cols), timed=True)
+    for n_cols in B3_FEW_COLS:
+        for n_words in B3_FEW_WORDS:
+            few(f"{n_cols} x {n_words}", words(n_words, n_cols))
+    for n_words in (288, 2_048):
+        few(f"FEW_COLS_MAX x {n_words}", words(n_words, b3.FEW_COLS_MAX))
+    log(f"  blake3 few: {len(B3_FEW_COLS)} x {len(B3_FEW_WORDS)} shapes {B3_FEW_COLS} x "
+        f"{B3_FEW_WORDS} and {b3.FEW_COLS_MAX} x 288, 2,048: equal to plain and wide")
+
     for n_cols, np2 in MERKLE_TREES + ((1, 1), (2, 2), (300, 512), (513, 1024)):
         leaves = digests(n_cols)
         got = b3.merkle_tree(leaves, np2)
@@ -1297,7 +1374,8 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     # route protocol.VERIFY_COLS_MIN picks: at the opened columns (the power
     # table, mont_dot's tile kernel) or through the encode (the NTT)
     for name, n in launches.items():
-        if (n > 0) != (name in ligero_kernels(enc.n_cols) | {"blake3_chunks", *TREES}):
+        if (n > 0) != (name in ligero_kernels(enc.n_cols)
+                       | {"blake3_chunks", *TREES, "blake3_cols_few"}):
             raise AssertionError(f"path 2^28: {name} launched {n} times")
     tables = 1 if verify_at_columns(enc.n_cols) else 0
     if launches["power_table"] != tables:
@@ -1310,6 +1388,9 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
         raise AssertionError("path 2^28: verify's evaluation != the evaluation on the card")
     log("  verify returned the evaluation computed on the card in the other order: ok")
     root = comm.get_root()
+    _, _, v_launches = counted(torch, counters, lambda: proof.verify(
+        root, outer, inner, enc, transcript(root)))
+    log(f"  path 2^28 verify's core: {check_verify_core(v_launches, 'path 2^28', P.BLAKE3)}")
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28", P.BLAKE3)
@@ -1751,7 +1832,8 @@ def path_2_29(torch, kb, P, counters, md, card):
     log(f"path 2^29 cold: commit {cold[0]:.1f} ms, prove {cold[1]:.1f} ms, verify "
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
         f"memory {peak:.2f} GiB")
-    path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "mont_dot", "power_table",
+    path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "blake3_cols_few",
+                    "mont_dot", "power_table",
                     *DOT_KERNELS, "mont_mul_map",  # verify's conversion
                     "verify_check", "gather_open"}
     for name, n in launches.items():
@@ -1767,6 +1849,9 @@ def path_2_29(torch, kb, P, counters, md, card):
     log("  verify returned the evaluation computed with the plain collapse in the other "
         "order: ok")
     root = comm.get_root()
+    _, _, v_launches = counted(torch, counters, lambda: proof.verify(
+        root, outer, inner, enc, transcript(root)))
+    log(f"  path 2^29 verify's core: {check_verify_core(v_launches, 'path 2^29', P.BLAKE3)}")
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29", P.BLAKE3)
@@ -1886,6 +1971,35 @@ def blake3_mix(kb, chain_so, lib_so):
         raise AssertionError(f"the probe's compression is not on the vector ALU: {mix['chain']}")
     return {"per_compression_alu_fma_all": counts, "least": least,
             "chain_opcodes": mix["chain_opcodes"], "compression_ps": B3_COMPRESSION_S * 1e12}
+
+
+def few_row(hashes, big, sdig, lig, s29, b3_ptxas, b3_mix):
+    """The kernel table's row of BLAKE3's few-column kernel, timed at the
+    2^23 Ligero verify's opened columns (189 x 2,048 words), the other
+    verify shapes beside; its launches those of each path's run."""
+    few = hashes["few"]
+    rec = few["2^23 verify (189 columns)"]
+    return {
+        "name": "blake3_cols_few", "route": "cuda", "source": "lcpc_tpu_torch/csrc/blake3_cols.cu",
+        "replaces": ("lcpc_tpu/ops/blake3_jax.py:249 (hash_word_columns, with its chunk tree "
+                     ":221-245) as lcpc_tpu/core/protocol.py:838 and :787 (_verify_core_fn, "
+                     "_verify_core_cols_fn) call it on the opened columns; XLA-fused, not Pallas"),
+        "launches": lig[0]["blake3_cols_few"], "max_abs_err": hashes["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None, "equal_to_plain": True,
+        "tolerance": 0, "shape": "the 2^23 ligero verify's opened columns: 189 x 2,048 words",
+        "cold_ms": rec["cold_ms"], "floor_ms": rec["floor_ms"], "host_ms": rec["host_ms"],
+        "wide_route_ms": rec["wide_ms"], "wide_route_cold_ms": rec["wide_cold_ms"],
+        "verify_shapes": few,
+        "launches_paths": {"sdig_2_23": sdig[0]["blake3_cols_few"],
+                           "ligero_2_23": lig[0]["blake3_cols_few"],
+                           "streaming_2_28": big["launches"]["blake3_cols_few"],
+                           "seeded_2_29": s29["launches"]["blake3_cols_few"]},
+        "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                  for k, v in sorted(b3_ptxas.items()) if "blake3_cols_few" in k},
+        "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
+            b3_mix["least"]][:3],
+    }
 
 
 def tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix):
@@ -2570,7 +2684,8 @@ def check_sha_stages(stages, tag, want, plain_per_compression, b3_stages=None):
     limit = max(plain_per_compression, 1000)
     for name, rec in stages.items():
         got = {k: v for k, v in rec["counters"].items() if k in SHA_KERNELS + SHA_COLS_KERNELS}
-        if got != want[name] or any(k in rec["counters"] for k in ("blake3_chunks", *TREES)):
+        if got != want[name] or any(k in rec["counters"]
+                                    for k in ("blake3_chunks", *TREES, "blake3_cols_few")):
             raise AssertionError(f"{tag} {name}: launches {rec['counters']}, want {want[name]}")
         if rec["cuda_kernels"] >= limit:
             raise AssertionError(f"{tag} {name}: {rec['cuda_kernels']} CUDA kernel launches, "
@@ -3798,6 +3913,7 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
 
     return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
             "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
+            **{f"blake3_cols_{k}": v for k, v in b3.COLS_KERNELS.items()},
             "merkle_tree": b3.merkle_tree, "merkle_walk": b3.merkle_walk,
             "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
             **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
@@ -3843,6 +3959,7 @@ def sharded_stages(torch, P, counters, commit_fn, enc, outer, inner, digest, wan
         raise AssertionError(f"{tag}: verify returned the wrong evaluation")
     check_launched(c_l, commit_kernels | HASH_COMMIT[digest.name], f"{tag} commit")
     check_launched(p_l, prove_kernels, f"{tag} prove")
+    check_verify_core(v_l, f"{tag} verify", digest)
     return (root, P.wire.serialize_proof(enc.spec, proof),
             {"commit": c_ms, "prove": p_ms, "verify": v_ms},
             {"commit": c_l, "prove": p_l, "verify": v_l})
@@ -4174,7 +4291,7 @@ def main() -> int:
     if hasattr(b3, "blake3_parents"):
         raise AssertionError("the per-level blake3_parents kernel is still in the port")
     counters = kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc)
-    hashing = {"blake3_chunks", *TREES}
+    hashing = {"blake3_chunks", *TREES, "blake3_cols_few"}  # the in-memory paths' hashing
 
     # 1. the card
     card = kb.card_line()
@@ -4221,7 +4338,8 @@ def main() -> int:
     b3_ptxas = {k: v for name in B3_KERNELS
                 for k, v in kb.ptxas_entries(cuda_build.build_logs["blake3_cols"],
                                              name).items()}
-    if len(b3_ptxas) != 8:  # chunks 2 output types, the chunk tree 2 x 2 input types, 2
+    # chunks 2 output types, the chunk tree 2 x 2 input types, the few-column kernel, 2
+    if len(b3_ptxas) != 9:
         raise AssertionError(f"blake3 kernels not reported by ptxas: {b3_ptxas}")
     for name, (regs, st, ld) in sorted(b3_ptxas.items()):
         log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
@@ -4605,7 +4723,8 @@ def main() -> int:
                   for k, v in sorted(b3_ptxas.items()) if "chunks" in k},
         "sass_compression_alu_fma_all": b3_mix["per_compression_alu_fma_all"][
             b3_mix["least"]][:3],
-    }, *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
+    }, few_row(hashes, big, sdig, lig, s29, b3_ptxas, b3_mix),
+        *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
         *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"], shard),
         *sha_rows(shas, sha_paths, sha_ptxas, sha_mix),

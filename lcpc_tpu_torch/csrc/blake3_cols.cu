@@ -34,6 +34,23 @@
 //                     stack in shared memory (n - 1 compressions in a chain,
 //                     every thread busy); with few a warp per column merges
 //                     level by level (ceil(log2 n) deep).
+//   cols_few          the column hash of few columns (verify's opened ones)
+//                     from words to digests in one launch: a warp a (32
+//                     columns, chunk), kFewWarps chunks of a column group a
+//                     block, so that each warp has a scheduler of its SM to
+//                     itself (one warp's compression keeps a scheduler's
+//                     ALU pipe 80% busy: two on one scheduler take twice
+//                     as long); each lane's chunk chain fed from a ring of
+//                     message blocks that cp.async fills kFewStages - 1
+//                     blocks ahead ([stage][word][lane], a warp's 32 columns
+//                     one 128-byte row segment a word), so no compression
+//                     waits on its own loads; then the block's chunk tree
+//                     level by level across its warps in shared memory, the
+//                     same pairing as the chunk-tree kernels; with several
+//                     blocks a column group, each writes its subtree's CV to
+//                     scratch and counts in on a self-resetting counter, and
+//                     the last block merges them level by level in shared
+//                     memory.
 //   merkle_tree       the whole Merkle array in one launch, and
 //   merkle_walk       the verifier's path walk, a thread per opened column:
 //                     the kernels of merkle.cuh (shared with sha256_cols.cu)
@@ -50,7 +67,17 @@
 // 0.30 ms/GB of reading them at 3.35 TB/s.  The trees do far less
 // work (a 2^17-leaf tree is 0.005 ms of instructions), so what bounds them
 // is their depth: a compression's dependency chain times the tree's levels,
-// and before this design the host's issue of one launch per level.
+// and before this design the host's issue of one launch per level.  So is
+// the column hash of few columns: 189 columns of 2,056 words are 1,701
+// chunks, far too few to fill the integer pipes, so its floor is a chunk's
+// 16 chained compressions plus the chunk tree's ceil(log2 n) levels.
+// blake3_chunks and the tree kernel took 2.4 times that, in two launches:
+// each block's loads issued only after the previous compression ended,
+// then the chunk CVs through device memory.  cols_few keeps the loads'
+// latency off the chain and the CVs on the chip; its chunk chains still
+// take ~1.0 us a block on the H100 against a lone compression's 0.73
+// (scripts/time_blake3_few.py --trace), the block's 16 copies and ring
+// reads adding ~400 SASS instructions to the compression's ~700.
 //
 // The compression, the parent node and the chunk body live in blake3.cuh,
 // shared with the small commit's kernel (commit_small.cu).
@@ -187,6 +214,202 @@ chunk_tree_warp_kernel(const In* __restrict__ cvs, int n, int n_cols,
   if (lane < 8) out[(size_t)lane * n_cols + c] = s[lane * cap];
 }
 
+// ---- the few-column route: (L, C) words -> (8, C) digests, one launch ----
+
+constexpr int kFewWarps = 4;    // chunk warps a block: one a scheduler of its SM
+constexpr int kFewStages = 4;   // a warp's ring of message blocks
+constexpr int kFewRing = kFewStages * 16 * 32;  // its words, [stage][word][lane]
+constexpr int kFewSlot = 8 * 32;                // a node of 32 columns, [word][lane]
+constexpr int kFewSmemMax = 227 * 1024;         // an H100 block's dynamic shared memory
+
+__device__ __forceinline__ void cp_async4(uint32_t* smem, const uint32_t* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Block b of chunk j of column c (len words) into ring stage b % kFewStages:
+// stream word 256 j + 16 b + t is words row (that - 8); the prefix's words,
+// those past the chunk's end and a column past n_cols are zeros, stored
+// directly.  A lane fills and reads only its own column's words.
+__device__ __forceinline__ void few_issue(uint32_t* ring, const uint32_t* __restrict__ words,
+                                         int n_cols, int c, bool col_ok, int j, int len,
+                                         int b) {
+  uint32_t* dst = ring + (b % kFewStages) * 16 * 32 + (threadIdx.x & 31);
+  const long long first = (long long)kChunkWords * j + 16 * b - kPrefixWords;
+  if (col_ok && first >= 0 && 16 * b + 16 <= len) {  // a whole block of words: no tests
+    const uint32_t* src = words + first * n_cols + c;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) cp_async4(dst + t * 32, src + (size_t)t * n_cols);
+    return;
+  }
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const long long row = first + t;
+    if (col_ok && 16 * b + t < len && row >= 0)
+      cp_async4(dst + t * 32, words + row * n_cols + c);
+    else
+      dst[t * 32] = 0u;
+  }
+}
+
+// The CVs of warps 0 .. m-1 (a node a lane's column) merged into warp 0's,
+// level by level: at level h warp w, a multiple of 2h, takes warp w + h's
+// node as its right child when there is one; an odd last node rises
+// unmerged (BLAKE3's tree, paired as chunk_tree_warp_kernel pairs it).  A
+// warp writes its slot once, at the level it becomes a right child.  ROOT
+// on the last merge when `root`.  Every thread of the block calls it.
+__device__ __forceinline__ void merge_warps(uint32_t (&cv)[8], int m, bool root,
+                                            uint32_t* slots) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int h = 1; h < m; h <<= 1) {
+    if (warp < m && (warp & (2 * h - 1)) == h) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) slots[(warp * 8 + w) * 32 + lane] = cv[w];
+    }
+    __syncthreads();
+    if ((warp & (2 * h - 1)) == 0 && warp + h < m) {
+      uint32_t r[8];
+#pragma unroll
+      for (int w = 0; w < 8; ++w) r[w] = slots[((warp + h) * 8 + w) * 32 + lane];
+      parent_cv(cv, cv, r, PARENT | (root && 2 * h >= m ? ROOT : 0u));
+    }
+  }
+  __syncthreads();  // every slot read: free for the next merge
+}
+
+// The last block of a column group: its n >= 2 subtree CVs, in shared
+// memory as nodes [node][word][lane], merged level by level (pairs, an odd
+// last node promoted) by the block's warps a pair each, in rounds; ROOT on
+// the last merge, whose CV warp 0 returns in cv.
+__device__ __forceinline__ void merge_nodes(uint32_t (&cv)[8], int n, uint32_t* nodes) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  for (; n > 2; n = (n + 1) / 2) {
+    const int pairs = n / 2;
+    for (int base = 0; base < pairs; base += n_warps) {
+      const int i = base + warp;
+      uint32_t l[8], r[8], p[8];
+      if (i < pairs) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          l[w] = nodes[(2 * i * 8 + w) * 32 + lane];
+          r[w] = nodes[((2 * i + 1) * 8 + w) * 32 + lane];
+        }
+        parent_cv(p, l, r, PARENT);
+      }
+      __syncthreads();  // the round's nodes read before any is overwritten
+      if (i < pairs) {
+#pragma unroll
+        for (int w = 0; w < 8; ++w) nodes[(i * 8 + w) * 32 + lane] = p[w];
+      }
+      __syncthreads();
+    }
+    if ((n & 1) && warp == 0) {  // promote: node n - 1 was written by no round
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        nodes[(pairs * 8 + w) * 32 + lane] = nodes[((n - 1) * 8 + w) * 32 + lane];
+    }
+    __syncthreads();
+  }
+  if (warp == 0) {
+    uint32_t l[8], r[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      l[w] = nodes[w * 32 + lane];
+      r[w] = nodes[(8 + w) * 32 + lane];
+    }
+    parent_cv(cv, l, r, PARENT | ROOT);
+  }
+}
+
+// Block (x, y): columns [32 x, 32 x + 32), chunks [kFewWarps y, ...), warp w
+// chunk kFewWarps y + w, with n_chunks chunks a column, the last final_len
+// words.  One block a column group (gridDim.y == 1): its merge ends in the
+// digest.  Several: each writes its subtree's CV to scratch (gridDim.y, 8,
+// n_cols) and adds one to counters[x]; the last to arrive loads the
+// gridDim.y CVs into shared memory (over the rings), merges them
+// (merge_nodes: the subtrees are aligned runs of the level order, so the
+// tree is the same) and sets counters[x] back to 0.
+__global__ void __launch_bounds__(kFewWarps * 32)
+blake3_cols_few_kernel(const uint32_t* __restrict__ words, int n_cols, int n_chunks,
+                       int final_len, long long* __restrict__ out,
+                       uint32_t* __restrict__ scratch, int* __restrict__ counters) {
+  // rings [warp][kFewRing] (the last block's nodes after them), slots
+  // [warp][kFewSlot], the flag: sized by lcpc_blake3_cols_few
+  extern __shared__ uint32_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const int n_groups = gridDim.y;
+  const int ring_words = max(n_warps * kFewRing, n_groups > 1 ? n_groups * kFewSlot : 0);
+  uint32_t* ring = smem + warp * kFewRing;
+  uint32_t* slots = smem + ring_words;
+  int* last = reinterpret_cast<int*>(slots + n_warps * kFewSlot);
+  const int c = blockIdx.x * 32 + lane;
+  const bool col_ok = c < n_cols;
+  const int j = blockIdx.y * kFewWarps + warp;
+  const int m = min(n_warps, n_chunks - (int)blockIdx.y * kFewWarps);  // this block's chunks
+  uint32_t cv[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+  if (warp < m) {
+    const int len = j == n_chunks - 1 ? final_len : kChunkWords;
+    const int n_blocks = (len + 15) >> 4;
+#pragma unroll 1
+    for (int s = 0; s < kFewStages - 1; ++s) {
+      if (s < n_blocks) few_issue(ring, words, n_cols, c, col_ok, j, len, s);
+      cp_async_commit();
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) cv[i] = kIV[i];
+    for (int b = 0; b < n_blocks; ++b) {
+      if (b + kFewStages - 1 < n_blocks)
+        few_issue(ring, words, n_cols, c, col_ok, j, len, b + kFewStages - 1);
+      cp_async_commit();
+      cp_async_wait<kFewStages - 1>();  // block b's group has landed
+      uint32_t msg[16];
+      const uint32_t* src = ring + (b % kFewStages) * 16 * 32 + lane;
+#pragma unroll
+      for (int t = 0; t < 16; ++t) msg[t] = src[t * 32];
+      const bool end = b == n_blocks - 1;
+      const uint32_t flags = (b == 0 ? CHUNK_START : 0u) |
+                             (end ? (CHUNK_END | (n_chunks == 1 ? ROOT : 0u)) : 0u);
+      compress(cv, msg, (unsigned long long)j, end ? (uint32_t)(len - 16 * b) * 4u : 64u,
+               flags);
+    }
+  }
+  merge_warps(cv, m, n_groups == 1, slots);
+  if (n_groups > 1) {
+    if (warp == 0 && col_ok) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w) scratch[((size_t)blockIdx.y * 8 + w) * n_cols + c] = cv[w];
+    }
+    __threadfence();  // this block's CVs are visible before its count is
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(counters + blockIdx.x, 1) == n_groups - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    for (int i = warp; i < n_groups; i += n_warps) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        smem[(i * 8 + w) * 32 + lane] =
+            col_ok ? __ldcg(scratch + ((size_t)i * 8 + w) * n_cols + c) : 0u;
+    }
+    __syncthreads();
+    merge_nodes(cv, n_groups, smem);
+    if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch on this stream
+  }
+  if (warp == 0 && col_ok) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) out[(size_t)w * n_cols + c] = cv[w];
+  }
+}
+
 }  // namespace
 
 // Chunk CVs of n_chunks consecutive chunks of every column's stream (carry
@@ -263,6 +486,39 @@ extern "C" int lcpc_blake3_chunk_tree(const void* cvs, int in_i64, int n, int n_
       chunk_tree_warp_kernel<uint32_t><<<blocks, kThreads, smem, s>>>(
           static_cast<const uint32_t*>(cvs), n, n_cols, out);
   }
+  return (int)cudaGetLastError();
+}
+
+// The column hash of words (n_words, n_cols) row-major u32 into out (8,
+// n_cols) int64: column c's digest is BLAKE3 of 8 zero words || its words,
+// in one launch.  With more than kFewWarps chunks a column (n_words > 1,016)
+// it needs scratch, ceil(chunks / kFewWarps) x 8 x n_cols u32, and counters,
+// one int a 32-column group, all 0 (the kernel leaves them 0); the last
+// block's shared memory holds a node of each of those groups of chunks.
+extern "C" int lcpc_blake3_cols_few(const int32_t* words, long long n_words, int n_cols,
+                                    long long* out, void* scratch, int* counters, int device,
+                                    void* stream) {
+  const long long total = kPrefixWords + n_words;
+  const long long n_chunks = (total + kChunkWords - 1) / kChunkWords;
+  const long long n_groups = (n_chunks + kFewWarps - 1) / kFewWarps;
+  const int n_warps = (int)(n_chunks < kFewWarps ? n_chunks : kFewWarps);
+  const long long ring_words =
+      n_groups > 1 && n_groups * kFewSlot > n_warps * kFewRing ? n_groups * kFewSlot
+                                                               : n_warps * kFewRing;
+  const long long smem = 4 * (ring_words + n_warps * kFewSlot + 1);
+  if (n_cols < 1 || n_words < 0 || out == nullptr || (words == nullptr && n_words > 0) ||
+      smem > kFewSmemMax || (n_groups > 1 && (scratch == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(blake3_cols_few_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_cols + 31) / 32, (unsigned)n_groups);
+  blake3_cols_few_kernel<<<grid, n_warps * 32, (size_t)smem, (cudaStream_t)stream>>>(
+      reinterpret_cast<const uint32_t*>(words), n_cols, (int)n_chunks,
+      (int)(total - kChunkWords * (n_chunks - 1)), out, static_cast<uint32_t*>(scratch),
+      counters);
   return (int)cudaGetLastError();
 }
 

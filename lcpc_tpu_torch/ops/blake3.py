@@ -20,8 +20,12 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
   `merkle_tree_plain` and `merkle_walk_plain`, built from the vectorized
   compression `_compress_t` (`blake3_parents_plain` for parent nodes).
 - `hash_word_columns` is the digest entry point built on them (port of
-  lcpc_tpu/ops/blake3_jax.py); `hash_word_columns_plain` is the same
-  through the plain versions, and `merkle_parent_plain` and
+  lcpc_tpu/ops/blake3_jax.py): by `cols_route`, at few columns (verify's
+  opened ones) one launch of the few-column kernel from words to digests,
+  else (the commits) `blake3_chunks` and the chunk tree; on CPU tensors
+  `hash_word_columns_plain` (the wide route through the plain versions);
+  `hash_word_columns_few_plain` is the few route's order, the reference
+  the tests hold the kernel to, and `merkle_parent_plain` and
   `merkle_layer_plain` (lcpc_tpu's `merkle_parent` and `merkle_layer`)
   are the steps of the plain trees, on any device.  Column words are u32 values as int32
   storage (the layout `encode_rows_words` returns) or as int64; digests are
@@ -43,6 +47,7 @@ import torch
 
 from ..utils import cuda_build
 from . import launch_count, merkle
+from .launch_count import LaunchCount
 
 IV = (
     0x6A09E667,
@@ -341,10 +346,11 @@ def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.lcpc_blake3_chunks.argtypes = [p, p, i, ll, i, ll, i, i, i, p, i, i, p]
     lib.lcpc_blake3_chunk_tree.argtypes = [p, i, i, i, i, p, i, p]
+    lib.lcpc_blake3_cols_few.argtypes = [p, ll, i, p, p, p, i, p]
     lib.lcpc_blake3_merkle_tree.argtypes = [p, ll, i, ll, p, p, i, p]
     lib.lcpc_blake3_merkle_walk.argtypes = [p, ll, ll, p, ll, ll, p, p, i, i, p, p, p, i, p]
-    for fn in (lib.lcpc_blake3_chunks, lib.lcpc_blake3_chunk_tree, lib.lcpc_blake3_merkle_tree,
-               lib.lcpc_blake3_merkle_walk):
+    for fn in (lib.lcpc_blake3_chunks, lib.lcpc_blake3_chunk_tree, lib.lcpc_blake3_cols_few,
+               lib.lcpc_blake3_merkle_tree, lib.lcpc_blake3_merkle_walk):
         fn.restype = ctypes.c_int
 
 
@@ -435,14 +441,15 @@ launch_count.counted(blake3_chunks)
 WARP_TREE_MAX_COLS = 4096
 
 
-def merge_chunk_cvs_plain(cvs: torch.Tensor) -> torch.Tensor:
+def merge_chunk_cvs_plain(cvs: torch.Tensor, root: bool = True) -> torch.Tensor:
     """The chunk tree through blake3_parents_plain, level by level (adjacent
     pairs, an odd last CV promoted: BLAKE3's largest-power-of-two-left
-    tree), on any device; (n >= 2, 8, C) -> (8, C) int64."""
+    tree), ROOT on the last merge unless `root` is False (a subtree), on
+    any device; (n >= 2, 8, C) -> (8, C) int64."""
     while cvs.shape[0] > 2:
         n = cvs.shape[0]
         cvs = blake3_parents_plain(cvs[0:n:2], cvs[1:n:2], n // 2, PARENT)
-    return blake3_parents_plain(cvs[0:1], cvs[1:2], 1, PARENT | ROOT)[0]
+    return blake3_parents_plain(cvs[0:1], cvs[1:2], 1, PARENT | (ROOT if root else 0))[0]
 
 
 def merge_chunk_cvs_stack_plain(cvs: torch.Tensor) -> torch.Tensor:
@@ -508,24 +515,98 @@ def _chunking(n_words: int) -> tuple[int, int]:
 
 
 def hash_word_columns_plain(words: torch.Tensor) -> torch.Tensor:
-    """hash_word_columns through the kernels' plain versions, on any device
-    (what chip_smoke.py holds the kernels to on the card)."""
+    """hash_word_columns' wide route through its kernels' plain versions
+    (every chunk, then the chunk tree), on any device (what chip_smoke.py
+    holds the kernels to on the card)."""
     n_chunks, final_len = _chunking(words.shape[0])
     cvs = blake3_chunks_plain(words, None, PREFIX_WORDS, 0, n_chunks, final_len,
                               root=n_chunks == 1)
     return cvs[0] if n_chunks == 1 else merge_chunk_cvs_plain(cvs)
 
 
-def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
+# hash_word_columns' routes: "few" (one launch of the few-column kernel, a
+# column's chain of compressions the limit) up to FEW_COLS_MAX columns of up
+# to FEW_WORDS_MAX words, else "wide" (blake3_chunks, then the chunk tree:
+# the card's integer pipes the limit).  FEW_COLS_MAX holds verify's opened
+# columns (189 Ligero, 6,593 Brakedown) and stays under the 16,384 columns
+# of the smallest staged Ligero commit (2^17 coefficients), so the commits
+# keep the wide route; on an H100 the few kernel leads at every column
+# count to 32,768 and loses at 65,536 of 288 words
+# (scripts/time_blake3_few.py's sweep).
+FEW_COLS_MAX = 8_192
+FEW_WARPS = 4  # the few kernel's chunks a block (csrc/blake3_cols.cu's kFewWarps)
+# the longest column it takes: the last block of a column group holds a
+# 1 KiB node of every FEW_WARPS chunks in its 227 KiB of shared memory, and
+# 1 KiB a warp besides (lcpc_blake3_cols_few)
+FEW_WORDS_MAX = 256 * FEW_WARPS * ((227 * 1024 // 4 - FEW_WARPS * 256 - 1) // 256) - PREFIX_WORDS
+ROUTES = ("few", "wide")
+# the launches of the few route's kernel (the wide route's two kernels,
+# blake3_chunks and the chunk tree, count their own)
+COLS_KERNELS = {"few": LaunchCount()}
+
+
+def cols_route(n_cols: int, n_words: int = 0) -> str:
+    """The route hash_word_columns takes over n_cols columns of n_words."""
+    return "few" if n_cols <= FEW_COLS_MAX and n_words <= FEW_WORDS_MAX else "wide"
+
+
+def hash_word_columns_few_plain(words: torch.Tensor) -> torch.Tensor:
+    """hash_word_columns' few route, the kernel's order on any device: every
+    chunk's CV (blake3_chunks_plain), then each block's FEW_WARPS chunks
+    merged level by level into its subtree's CV, then those merged level by
+    level (merge_chunk_cvs_plain), ROOT on the final merge: what the tests
+    and chip_smoke.py hold the kernel to.  Equal to hash_word_columns_plain:
+    the blocks' runs are aligned powers of two."""
+    n_chunks, final_len = _chunking(words.shape[0])
+    cvs = blake3_chunks_plain(words, None, PREFIX_WORDS, 0, n_chunks, final_len,
+                              root=n_chunks == 1)
+    if n_chunks == 1:
+        return cvs[0]
+    if n_chunks <= FEW_WARPS:  # one block a column group
+        return merge_chunk_cvs_plain(cvs)
+    full, n_cols = n_chunks // FEW_WARPS, cvs.shape[2]
+    # the whole runs of FEW_WARPS chunks side by side, as columns of one batch
+    runs = cvs[: full * FEW_WARPS].reshape(full, FEW_WARPS, 8, n_cols).permute(1, 2, 0, 3)
+    nodes = [merge_chunk_cvs_plain(runs.reshape(FEW_WARPS, 8, full * n_cols), root=False)
+             .reshape(8, full, n_cols).permute(1, 0, 2)]
+    tail = cvs[full * FEW_WARPS :]
+    if tail.shape[0]:
+        nodes.append((merge_chunk_cvs_plain(tail, root=False) if tail.shape[0] > 1
+                      else _u32(tail[0]))[None])
+    nodes = torch.cat(nodes)
+    return merge_chunk_cvs_plain(nodes)
+
+
+def hash_word_columns(words: torch.Tensor, *, _route: "str | None" = None) -> torch.Tensor:
     """Hash each column of a word matrix behind a 32-zero-byte prefix.
 
     words: (L, C) u32 words, int32 storage (as encode_rows_words returns
     them) or int64 values — the message of column c is 8 zero words followed
-    by words[:, c] (lib.rs:706-745).  Returns (8, C) int64 digests.  One
-    blake3_chunks launch over every (column, chunk), then one chunk-tree
-    launch."""
-    n_cols = words.shape[1]
-    n_chunks, final_len = _chunking(words.shape[0])
+    by words[:, c] (lib.rs:706-745).  Returns (8, C) int64 digests.
+
+    `cols_route` picks the route by the shape (`_route` forces one, for
+    tests and timing): "few" (verify's opened columns), one launch of
+    csrc/blake3_cols.cu's few-column kernel from words to digests (counted
+    in COLS_KERNELS["few"]; its plain version, in the kernel's order,
+    hash_word_columns_few_plain); "wide" (the commits), one blake3_chunks
+    launch over every (column, chunk), then one chunk-tree launch
+    (merge_chunk_cvs) when a column has several chunks.  CUDA tensors
+    launch the route's kernels or raise; CPU tensors run
+    hash_word_columns_plain, whichever the route (the routes' digests are
+    the same)."""
+    _check_words("hash_word_columns words", words, (torch.int32, torch.int64))
+    if (words.dim() != 2 or _route not in (None, *ROUTES)
+            or _route == "few" and words.shape[0] > FEW_WORDS_MAX):
+        raise ValueError(f"hash_word_columns: words (L, C) and a route of {list(ROUTES)}, "
+                         f"L <= {FEW_WORDS_MAX} for the few route; got {tuple(words.shape)} "
+                         f"and {_route}")
+    if _plain_here("hash_word_columns", words):
+        return hash_word_columns_plain(words)
+    n_words, n_cols = words.shape
+    route = cols_route(n_cols, n_words) if _route is None else _route
+    if route == "few":
+        return _cols_few(words)
+    n_chunks, final_len = _chunking(n_words)
     if n_chunks == 1:
         out = torch.empty((1, 8, n_cols), dtype=torch.int64, device=words.device)
         blake3_chunks(words, out, final_len=final_len, root=True)
@@ -533,6 +614,32 @@ def hash_word_columns(words: torch.Tensor) -> torch.Tensor:
     cvs = torch.empty((n_chunks, 8, n_cols), dtype=torch.int32, device=words.device)
     blake3_chunks(words, cvs, final_len=final_len)
     return merge_chunk_cvs(cvs)
+
+
+def _cols_few(words: torch.Tensor) -> torch.Tensor:
+    """The few route on the card: one allocation (the digests, then the
+    kernel's scratch when a column has more than FEW_WARPS chunks), one
+    launch."""
+    n_words, n_cols = words.shape
+    out_words = 8 * n_cols  # int64 elements of the digests
+    if n_cols == 0:
+        return torch.empty((8, 0), dtype=torch.int64, device=words.device)
+    if words.dtype == torch.int64:
+        words = words.to(torch.int32)  # the same u32 bit patterns
+    words = words.contiguous()
+    groups = -(-_chunking(n_words)[0] // FEW_WARPS)
+    buf = torch.empty(out_words + (4 * groups * n_cols if groups > 1 else 0), dtype=torch.int64,
+                      device=words.device)
+    lib = cuda_build.load(_NAME, _bind)
+    dev, stream = _launch_args(words)
+    counters = (_stream_counters("few", words.device, dev, stream, -(-n_cols // 32))
+                if groups > 1 else None)
+    _check_launch("hash_word_columns (few)", lib.lcpc_blake3_cols_few(
+        words.data_ptr() if n_words else None, n_words, n_cols, buf.data_ptr(),
+        buf.data_ptr() + 8 * out_words if groups > 1 else None,
+        None if counters is None else counters.data_ptr(), dev, stream))
+    COLS_KERNELS["few"].launches += 1
+    return buf[:out_words].view(8, n_cols)
 
 
 def _nodes(d: torch.Tensor) -> torch.Tensor:
@@ -558,18 +665,26 @@ def merkle_tree_plain(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:
     return merkle.tree_by_layers(leaves, n_cols_np2, merkle_layer_plain)
 
 
-_tree_counters: dict = {}  # (device, stream) -> the tree kernels' self-resetting counter
+_counters: dict = {}  # (use, device, stream) -> self-resetting int32 counters on the card
+
+
+def _stream_counters(use: str, device: torch.device, dev: int, stream: int,
+                     n: int = 1) -> torch.Tensor:
+    """At least n int32 counters on the card for the kernels of one use on
+    (dev, stream): 0 before each launch and again after it (each launch
+    sets back what it counted), so every launch on that stream can share
+    them; a longer buffer replaces a shorter one."""
+    counters = _counters.get((use, dev, stream))
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[(use, dev, stream)] = counters
+    return counters
 
 
 def _tree_counter(device: torch.device, dev: int, stream: int) -> torch.Tensor:
-    """The counter a Merkle tree launch on (dev, stream) takes: one int32 on
-    the card, 0 before each launch and again after it, so every tree kernel
-    (BLAKE3's and SHA-256's, merkle.cuh) on that stream can share it."""
-    counter = _tree_counters.get((dev, stream))
-    if counter is None:
-        counter = torch.zeros(1, dtype=torch.int32, device=device)
-        _tree_counters[(dev, stream)] = counter
-    return counter
+    """The counter a Merkle tree launch on (dev, stream) takes, shared by
+    every tree kernel on that stream (BLAKE3's and SHA-256's, merkle.cuh)."""
+    return _stream_counters("tree", device, dev, stream)
 
 
 def merkle_tree(leaves: torch.Tensor, n_cols_np2: int) -> torch.Tensor:

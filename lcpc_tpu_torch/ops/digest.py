@@ -9,7 +9,8 @@ is the default, its entries the wrappers of the CUDA kernels in
 csrc/blake3_cols.cu (ops/blake3.py); SHA256 is the second construction
 behind the same plug point, its entries the wrappers of csrc/sha256_cols.cu
 (ops/sha256.py).  Each tree and each walk is one launch, the column hash one
-launch for SHA-256 and two for BLAKE3 (chunks, then the chunk tree).
+launch for SHA-256 and, for BLAKE3, one at verify's column counts (its
+few-column kernel) and two past them (chunks, then the chunk tree).
 Protocol entry points accept a `digest=` parameter; proofs do not record the
 digest (as in the reference, prover and verifier agree out of band).
 """

@@ -11,11 +11,13 @@ single-device commit and prove (and so lcpc_tpu's):
   post=pack_row_words)`: the NTT's or SpMV's kernels, straight to the
   canonical hash words), one all_to_all reshards the words rows -> columns,
   each rank hashes its column slice (`hash_word_columns`: blake3_chunks and
-  the chunk tree, or sha256_cols), the leaf digests are all-gathered and
-  every rank builds the same Merkle tree (`merkle_tree`).  Rows that do not
-  divide the ranks are padded with zero rows, dropped before hashing;
-  codewords whose columns do not divide the ranks (Brakedown) get zero pad
-  columns, whose leaves are dropped before the tree.  What is resharded
+  the chunk tree, or the few-column kernel for a slice of at most
+  `blake3.FEW_COLS_MAX` columns, or sha256_cols), the leaf digests are
+  all-gathered and every rank builds the same Merkle tree (`merkle_tree`).
+  Rows that do not divide the ranks are padded with zero rows, dropped
+  before hashing; codewords whose columns do not divide the ranks
+  (Brakedown) get zero pad columns, whose leaves are dropped before the
+  tree.  What is resharded
   and kept are the packed canonical hash words, 32 B an ft255 element (the
   limbs would be 64): lcpc_tpu keeps limbs; the bytes out are the same.
 - commit, "wide" (`_build_commit_fn_wide`): every rank holds all rows but a

@@ -1,8 +1,12 @@
 """The port's BLAKE3: published vectors (pinned in tests/test_blake3.py), the
 kernels' plain versions (chunk-parallel column hash, chunk tree, Merkle
-tree, parent nodes), the sequential plain twin, the CV-stack order and the
-streaming carry against the host hash, and equality with lcpc_tpu's device
-hash and Merkle layers.  Tolerance 0: exact hashing."""
+tree, parent nodes, the few-column route), the sequential plain twin, the
+CV-stack order and the streaming carry against the host hash, equality with
+lcpc_tpu's device hash and Merkle layers, and a model of the few-column
+kernel's grid.  Tolerance 0: exact hashing."""
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -56,7 +60,22 @@ def test_columns_match_reference():
     words = np.random.default_rng(0).integers(0, 2**32, size=(296, 6), dtype=np.uint32)
     ours = hash_word_columns(torch.from_numpy(words.astype(np.int64))).numpy()
     assert np.array_equal(ours, np.asarray(blake3_jax.hash_word_columns(words)))
-
+    # the few route's plain version (verify's columns) against lcpc_tpu at
+    # one chunk with ROOT (248 + 8 words) and nine chunks (more than a
+    # block's FEW_WARPS, a last chunk of 8 words), against the host hash at
+    # two chunks, two whole chunks and eight whole chunks; on CPU tensors
+    # hash_word_columns (either route) runs the wide route's plain version
+    for n_words in (248, 249, 504, 2040, 2048):
+        words = np.random.default_rng(n_words).integers(0, 2**32, size=(n_words, 33),
+                                                        dtype=np.uint32)
+        t = torch.from_numpy(words.view(np.int32))
+        few = b3.hash_word_columns_few_plain(t)
+        if n_words in (248, 2048):
+            assert np.array_equal(few.numpy(), np.asarray(blake3_jax.hash_word_columns(words)))
+        else:
+            assert [bytes(d) for d in digests_to_bytes(few)] == _host_digests(words), n_words
+        assert torch.equal(hash_word_columns(t), few)
+        assert torch.equal(hash_word_columns(t, _route="few"), few)
 
 @pytest.mark.parametrize("n_words", [8, 760])
 def test_int32_storage_words(n_words):
@@ -141,6 +160,9 @@ def test_wrappers_refuse_other_devices():
             call()
     with pytest.raises(TypeError):
         hash_word_columns(torch.zeros((16, 2), dtype=torch.float32))
+    for route in ("few", "wide"):  # the column hash by either route: no host run of a card's words
+        with pytest.raises(ValueError, match="unsupported device"):
+            hash_word_columns(words, _route=route)
 
 
 def test_wrappers_refuse_mixed_devices():
@@ -161,6 +183,16 @@ def test_wrappers_refuse_mixed_devices():
 
 
 def test_tree_wrappers_refuse_wrong_types_and_shapes():
+    # the column hash: u32 words as int32 or int64 only, (L, C) only, a
+    # route of ROUTES only (one operand: no devices to mix)
+    for bad in (torch.zeros((16, 2), dtype=torch.float64), torch.zeros((16, 2), dtype=torch.int16)):
+        with pytest.raises(TypeError):
+            hash_word_columns(bad, _route="few")
+    for bad in (torch.zeros(16, dtype=torch.int32), torch.zeros((2, 16, 2), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            hash_word_columns(bad)
+    with pytest.raises(ValueError):
+        hash_word_columns(torch.zeros((16, 2), dtype=torch.int32), _route="narrow")
     digs = torch.zeros((8, 3), dtype=torch.int64)
     inv, idx = torch.zeros((2, 3), dtype=torch.int64), torch.zeros(3, dtype=torch.int64)
     with pytest.raises(TypeError):
@@ -243,3 +275,151 @@ def test_merkle_tree_vs_reference_layers(n_cols, np2):
         nodes = digests_to_bytes(got)
         assert bytes(nodes[-1]) == blake3(bytes(nodes[-3]) + bytes(nodes[-2]))
 
+
+
+def _b3_tree(lo, hi, root):
+    """BLAKE3's chunk tree over chunks [lo, hi) by its definition: the left
+    subtree the largest power of two of chunks below hi - lo; (kind, ...,
+    ROOT flag) nodes."""
+    if hi - lo == 1:
+        return ("C", lo, root)
+    mid = lo + b3._left_len(hi - lo)
+    return ("P", _b3_tree(lo, mid, False), _b3_tree(mid, hi, False), root)
+
+
+def _few_merge(cv, m, root):
+    """csrc/blake3_cols.cu's merge_warps over the nodes of warps 0 .. m-1:
+    at level h, warp w (a multiple of 2h) takes the node warp w + h wrote
+    at that level; ROOT on the last merge when root."""
+    h = 1
+    while h < m:
+        slots = {w: cv[w] for w in range(m) if w & (2 * h - 1) == h}
+        for w in range(m):
+            if w & (2 * h - 1) == 0 and w + h < m:
+                assert cv[w] is not None and slots[w + h] is not None
+                cv[w] = ("P", cv[w], slots[w + h], root and 2 * h >= m)
+        h *= 2
+    return cv[0]
+
+
+def _few_merge_nodes(nodes, n_warps):
+    """csrc/blake3_cols.cu's merge_nodes: the last block's n >= 2 nodes,
+    level by level in place, a pair a warp in rounds (each round's nodes
+    read before it writes any), an odd last node promoted; ROOT on the last
+    merge."""
+    nodes, n = list(nodes), len(nodes)
+    while n > 2:
+        pairs = n // 2
+        for base in range(0, pairs, n_warps):
+            got = {i: ("P", nodes[2 * i], nodes[2 * i + 1], False)
+                   for i in range(base, min(base + n_warps, pairs))}
+            for i, node in got.items():
+                nodes[i] = node
+        if n % 2:
+            nodes[pairs] = nodes[n - 1]
+        n = (n + 1) // 2
+    return ("P", nodes[0], nodes[1], True)
+
+
+def _few_grid_model(n_cols, n_words, warps, stages, rng):
+    """The few-column kernel's grid in numpy, blocks in a random order (they
+    run in none), with lcpc_blake3_cols_few's sizes: each warp's ring of
+    `stages` message blocks (block b read from stage b % stages after the
+    wait for all but the newest stages - 1 groups: it must have landed and
+    not been overwritten), each words row a column loaded once, each (column,
+    chunk) CV written once before its merge, the blocks' subtrees through
+    scratch and the counter, the last block's merge of them.  Returns (the
+    digests' trees by column group, the counters after)."""
+    total = 8 + n_words
+    n_chunks = -(-total // 256)
+    final_len = total - 256 * (n_chunks - 1)
+    n_groups, n_warps, n_gx = -(-n_chunks // warps), min(n_chunks, warps), -(-n_cols // 32)
+    reads = np.zeros((n_words, n_gx), dtype=np.int64)  # a column group's lanes read alike
+    written = np.zeros((n_chunks, n_gx), dtype=np.int64)
+    counters, scratch, out = np.zeros(n_gx, dtype=np.int64), {}, {}
+    blocks = [(x, y) for x in range(n_gx) for y in range(n_groups)]
+    for i in rng.permutation(len(blocks)):
+        x, y = blocks[i]
+        m = min(n_warps, n_chunks - y * warps)
+        cv = [None] * n_warps
+        for w in range(m):
+            j = y * warps + w
+            length = final_len if j == n_chunks - 1 else 256
+            n_blocks = (length + 15) >> 4
+            stage, groups = [None] * stages, []
+
+            def issue(b):
+                stage[b % stages] = b
+                rows = 256 * j + 16 * b - 8 + np.arange(16)
+                rows = rows[(16 * b + np.arange(16) < length) & (rows >= 0)]
+                reads[rows, x] += 1
+                groups.append([b])
+
+            for b in range(stages - 1):
+                issue(b) if b < n_blocks else groups.append([])
+            for b in range(n_blocks):
+                issue(b + stages - 1) if b + stages - 1 < n_blocks else groups.append([])
+                landed = {blk for g in groups[: len(groups) - (stages - 1)] for blk in g}
+                assert b in landed and stage[b % stages] == b, (j, b)
+            written[j, x] += 1
+            cv[w] = ("C", j, n_chunks == 1)
+        node = _few_merge(cv, m, n_groups == 1)
+        if n_groups > 1:
+            scratch[(x, y)] = node
+            counters[x] += 1
+            if counters[x] < n_groups:
+                continue
+            node = _few_merge_nodes([scratch[(x, g)] for g in range(n_groups)], n_warps)
+            counters[x] = 0
+        assert x not in out
+        out[x] = node
+    assert (reads == 1).all() and (written == 1).all()
+    return out, counters
+
+
+def test_few_route():
+    """The few-column route: cols_route's choice (verify's columns on it, the
+    commits' off it); the plain version against the host hash at 17 chunks
+    (an odd count: promotion, two blocks' runs); and a numpy model of the kernel's grid, its constants parsed from
+    csrc/blake3_cols.cu: every words row read once, every (column, chunk)
+    CV written once before its merge, the tree BLAKE3's with ROOT once at
+    the top, the counters back at 0.  Update the model with the kernel's
+    index arithmetic."""
+    for n_cols in (1, 31, 32, 33, 189, 6_593, b3.FEW_COLS_MAX):
+        assert b3.cols_route(n_cols) == "few"
+    assert b3.cols_route(b3.FEW_COLS_MAX + 1) == "wide"
+    assert b3.cols_route(16_384) == "wide"  # the smallest staged commit's columns
+    assert b3.cols_route(189, b3.FEW_WORDS_MAX) == "few"
+    assert b3.cols_route(189, b3.FEW_WORDS_MAX + 1) == "wide"
+    words = np.random.default_rng(4104).integers(0, 2**32, size=(4104, 2), dtype=np.uint32)
+    got = b3.hash_word_columns_few_plain(torch.from_numpy(words.view(np.int32)))
+    assert [bytes(d) for d in digests_to_bytes(got)] == _host_digests(words)
+
+    src = open(os.path.join(os.path.dirname(b3.__file__), os.pardir, "csrc",
+                            "blake3_cols.cu")).read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    warps, stages = const["kFewWarps"], const["kFewStages"]
+    assert warps == b3.FEW_WARPS and warps & (warps - 1) == 0  # aligned runs: one tree
+    assert "constexpr int kFewRing = kFewStages * 16 * 32;" in src
+    assert "constexpr int kFewSlot = 8 * 32;" in src
+    assert "constexpr int kFewSmemMax = 227 * 1024;" in src  # an H100 block's 232,448 bytes
+    assert "const long long smem = 4 * (ring_words + n_warps * kFewSlot + 1);" in src
+
+    def smem(n_words):  # lcpc_blake3_cols_few's bytes: the rings or the top's nodes, slots
+        n_chunks = -(-(8 + n_words) // 256)
+        n_groups, n_warps = -(-n_chunks // warps), min(n_chunks, warps)
+        ring = max(n_warps * stages * 16 * 32, n_groups * 256 if n_groups > 1 else 0)
+        return 4 * (ring + n_warps * 256 + 1)
+
+    assert smem(b3.FEW_WORDS_MAX) <= 227 * 1024 < smem(b3.FEW_WORDS_MAX + 256 * warps)
+    rng = np.random.default_rng(19)
+    # one chunk (ROOT on it), 2, 4, 5, 9, 16, 17, 65 chunks and FEW_WORDS_MAX's
+    for n_cols, n_words in ((40, 0), (40, 8), (40, 247), (40, 248), (40, 1016), (40, 1017),
+                            (40, 2048), (40, 4088), (40, 4089), (40, 16_384),
+                            (3, b3.FEW_WORDS_MAX)):
+        total = 8 + n_words
+        n_chunks = -(-total // 256)
+        out, counters = _few_grid_model(n_cols, n_words, warps, stages, rng)
+        assert sorted(out) == list(range(-(-n_cols // 32))), n_words
+        assert all(t == _b3_tree(0, n_chunks, True) for t in out.values()), n_words
+        assert not counters.any()

@@ -190,8 +190,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
                       (mont_dot, "power_table"), (sha256, "sha256_cols"),
                       (sha256, "hash_word_columns"), (sha256, "merkle_tree"),
                       (sha256, "merkle_walk"), (blake3, "blake3_chunks"),
-                      (blake3, "merge_chunk_cvs"), (blake3, "merkle_tree"),
-                      (blake3, "merkle_walk")):
+                      (blake3, "merge_chunk_cvs"), (blake3, "_cols_few"),
+                      (blake3, "merkle_tree"), (blake3, "merkle_walk")):
         monkeypatch.setattr(mod, name, kernel)
     ops, rng = get_ops(FT63), np.random.default_rng(3)
     x = limbs_to_device(ops.encode_host([int(v) for v in rng.integers(0, 1 << 62, 2 * 8)]),
@@ -208,6 +208,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     digs = sha256.hash_word_columns_plain(words)
     cv, carry, rem = sha256.sha256_update_plain(sha256.h0_state(16, "cpu"), None, 8, words)
     assert torch.equal(sha256.sha256_finalize_plain(cv, carry, rem, 10), digs)
+    assert torch.equal(blake3.hash_word_columns_few_plain(words),
+                       blake3.hash_word_columns_plain(words))
     for mod in (sha256, blake3):
         flat = mod.merkle_tree_plain(mod.hash_word_columns_plain(words), 16)
         walked = mod.merkle_walk_plain(flat[:, :2], flat[:, 2:3].expand(8, 2).contiguous(),
