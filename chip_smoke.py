@@ -15,7 +15,9 @@ Phases, each fatal on failure (each prints the seconds it took):
      either verify_core kernel's W32 =
      8 spills, any of mont_dot's tensor-core templates (tile and thin_tc)
      spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills,
-     the few-column column hash and the walk included;
+     the few-column column hash and the walk included, or the NTT's words-in
+     first pass at W32 = 8 spills, or BLAKE3's walk (a quad of lanes a
+     column) has a stack frame or spills;
      every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
@@ -44,7 +46,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      mont_mul_map; verify_check; gather_open) and 3 times warm (median
      ms), then once traced by stage (mont_mul_map launched once in commit,
      where the plain limb graph converted the codeword to hash words, once
-     in verify, the proof rows to Montgomery form; verify's core after the
+     in verify, the proof rows to Montgomery words written straight into the
+     encode's level buffer (PR 20: no pack after it); verify's core after the
      rows exactly 3 launches, verify_check, the column hash and the walk,
      prove's opening one gather_open; every CUDA event of each stage, its
      host-device copies apart, beside commit a2037ab's); check the
@@ -62,15 +65,21 @@ Phases, each fatal on failure (each prints the seconds it took):
      2C, 2^12, 2^18 and a 2^12 plan forced to 3 passes, with rows all zero,
      all p-1, a delta and random); time each whole call (every pass) and the
      plain version against the bound of the non-trivial butterflies, the hash
-     words' reductions and the bytes;
+     words' reductions and the bytes; the words-in first pass (PR 20:
+     verify's canonical proof rows taken to Montgomery form as the first
+     pass loads them) bit-equal to mont_mul_map's to_mont then the NTT at R
+     = 2, n = 2^17, 2^19 and 2^20 and on one-pass edges in every field, and
+     the 2^23 verify rows' conversion and encode timed by both routes in
+     turns;
   6. drive the Ligero path at 2^23 ft255 rho = 1/4 BLAKE3 the same way as
      phase 4 (one cold run with the launches counted, 3 warm: prove's
      collapse through mont_dot's thin tensor-core kernel; verify's rows by
      the route protocol.VERIFY_COLS_MIN picks at 2^17 columns: the encode
-     (a second encode) or at the opened columns (one power table and the
-     tile kernel), one conversion through mont_mul_map either way; the
-     column check and the evaluation in verify_check; no conversion in
-     commit), traced by stage as in phase 4, with
+     (a second encode, whose first NTT pass converts the proof rows as it
+     loads them: no mont_mul_map launch, PR 20) or at the opened columns
+     (one power table and the tile kernel, one conversion through
+     mont_mul_map); the column check and the evaluation in verify_check; no
+     conversion in commit), traced by stage as in phase 4, with
      the evaluation and tamper checks; verify by both routes on the same
      proof (verify_routes: equal values, the same error kind for a flipped
      opened value, both timed); reproduce its golden fixture
@@ -86,11 +95,17 @@ Phases, each fatal on failure (each prints the seconds it took):
      hash), the chunk tree in both of its modes (a thread or a warp per
      column), streaming updates with carries of 0, 8 and 255 words, Merkle
      trees of 2^17 and 2^19 leaves and of 357,699 leaves padded to 2^19
-     (and 1, 2, 300 and 513 leaves), path walks of 189 x 17 and 6,593 x 19
-     (and 5 x 0, 40 x 3); time each (device, and the trees' host wall)
-     against its bound and the trees against their dependency floor (depth
-     x one compression's latency, from a one-thread chain of 4,096 in
-     scripts/blake3_chain.cu); the few-column kernel (hash_word_columns'
+     (and 1, 2, 300 and 513 leaves), path walks (PR 20: a quad of lanes a
+     column) at 1, 5, 33, 189 and 6,593 columns x 0, 1, 17, 19 and 20
+     levels with repeated columns, in the roots form and the verifier's
+     (the flag kept on honest paths, cleared by a sibling tampered at the
+     first or the last level or by a tampered digest); time each (device,
+     and the trees' host wall; the walks at 189 x 17 and 6,593 x 19 warm
+     and cold, both forms) against its bound and the trees against their
+     dependency floor (depth x one compression's latency, from a chain of
+     4,096 in scripts/blake3_chain.cu, in each of its layouts: one thread,
+     one thread with its adds on the FMA pipe, one quad of lanes, the
+     walk's floor the quad's); the few-column kernel (hash_word_columns'
      "few" route, words to digests in one launch) against its plain version
      and the wide route (blake3_chunks, then the chunk tree) at verify's
      three shapes, 1, 31 and 33 columns of 8 .. 16,384 words
@@ -160,7 +175,10 @@ Phases, each fatal on failure (each prints the seconds it took):
   12. hold the field maps (mont_mul_map, mont_addsub_map) against their
      plain versions, bit for bit: the 2^23 Brakedown commit's conversion
      (36 x 357,699 limbs -> hash words), Ligero 2^23 verify's rows (2 x
-     32,768 words -> words and limbs), verify's opened columns (256 x 189
+     32,768 words -> words and limbs), Brakedown 2^23 verify's rows (2 x
+     235,173 words -> the encode's packed level buffer in one launch, PR 20,
+     against the old route, to limbs then a pack and a copy, timed in turns
+     old, new, new, old), verify's opened columns (256 x 189
      and 36 x 6,593 words -> hash words), the 2^28 streaming prove's opened
      columns (2,048 x 189 hash words -> words), add and sub at the codeword's
      shape; each timed beside its bound (bytes or wide products) and the
@@ -365,17 +383,33 @@ def verify_at_columns(n_cols):
 
 def ligero_kernels(n_cols):
     """LIGERO_KERNELS as verify's route at n_cols uses them: through the
-    encode, no power table, no tile kernel and no thin launch summing its
-    splits (nothing else on a path with the words kept launches them)."""
+    encode, no power table, no tile kernel, no thin launch summing its
+    splits and no mont_mul_map (the NTT's first pass converts the proof
+    rows; nothing else on a path with the words kept launches them)."""
     if verify_at_columns(n_cols):
         return set(LIGERO_KERNELS)
-    return LIGERO_KERNELS - {"power_table", "mont_dot_tile", "mont_dot_thin"}
+    return LIGERO_KERNELS - {"power_table", "mont_dot_tile", "mont_dot_thin", "mont_mul_map"}
 
 
-# mont_mul_map launches of a verify by either route: the proof rows to
-# Montgomery form (the column check, the opened columns' hash words and the
-# evaluation are verify_check's)
-VERIFY_MAPS = 1
+# mont_mul_map launches of a verify: the proof rows to Montgomery form (the
+# column check, the opened columns' hash words and the evaluation are
+# verify_check's).  Brakedown: one, written into the encode's level buffer;
+# Ligero: none through the encode (the NTT's first pass converts them as it
+# loads them, PR 20), one at the opened columns (before the tile kernel)
+SDIG_VERIFY_MAPS = 1
+
+
+def ligero_verify_maps(n_cols):
+    """mont_mul_map launches of a Ligero verify at n_cols columns."""
+    return 1 if verify_at_columns(n_cols) else 0
+
+
+def check_verify_maps(verify, tag, want):
+    """A verify's launches by counter hold `want` mont_mul_map launches."""
+    got = verify.get("mont_mul_map", 0)
+    if got != want:
+        raise AssertionError(f"{tag}: verify launched mont_mul_map {got} times, not {want}")
+    log(f"  {tag}: verify's mont_mul_map launches {got}")
 SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
 SHA_COLS_KERNELS = ("sha256_cols_few", "sha256_cols_wide")  # sha256_cols's two, by their counters
 SHA_NARROW = (1, 31, 32, 33)  # phase 13: few-column kernel column counts beside 189 and 6,593
@@ -393,8 +427,9 @@ SHA_STREAM_COLS = 1000
 SHA_TREE_EDGES = ((1, 1), (2, 2), (300, 512), (513, 1024))  # phase 13: odd trees, also timed
 SHA_BIG_WARM = 2            # warm runs of phase 14's 2^28 path (fewer when the time limit nears)
 SHA_BIG_WARM_DEADLINE_S = 800
+B3_WALK = "merkle_walk_quad_kernel"  # the path walk, a quad of lanes a column (PR 20)
 B3_KERNELS = ("blake3_chunks_kernel", "chunk_tree_stack_kernel", "chunk_tree_warp_kernel",
-              "blake3_cols_few_kernel", "merkle_tree_kernel", "merkle_walk_kernel")
+              "blake3_cols_few_kernel", "merkle_tree_kernel", B3_WALK)
 LOG_N_VERIFY_BIG = 19       # phase 5: the 2^28 verify's NTT size
 N_STREAM = 1 << 26   # phase 8: streaming against the in-memory commit
 N_BIG = 1 << 28      # phase 9: the slice's path
@@ -419,6 +454,7 @@ MAP_CODEWORD = (36, 357_699)
 MAP_VERIFY_ROWS = (2, 32_768)
 MAP_OPENED = ((256, 189), (36, 6_593))
 MAP_STREAM_OPENED = (2_048, 189)
+MAP_SDIG_VERIFY_ROWS = (2, 235_173)  # phase 12: the 2^23 Brakedown verify's proof rows
 # (CUDA events torch.profiler saw, a lower bound; the port's kernel launches,
 # exact) of a warm commit, prove and verify of each 2^23 path on the parent
 # commit a2037ab, before verify's core and prove's opening were kernels
@@ -641,6 +677,80 @@ def compare_ntt(torch, kb, nttm, plan, x, tag, rows, words):
         f"{ms:.4f} ms{f' (limbs only {limbs_ms:.4f} ms)' if words else ''}, plain "
         f"{plain_ms:.1f} ms, bound {b:.4f} ms ({by}; bytes {tb:.4f}, products {to:.4f}; "
         f"{butterflies} non-trivial butterflies)")
+    return rec
+
+
+NTT_WORDS_IN_LOGS = (17, 19, 20)  # phase 5: the words-in first pass at R = 2, every field
+
+
+def ntt_words_in(torch, kb, P, nttm, lenc, gen):
+    """Verify's proof rows through the NTT's words-in first pass
+    (ntt_forward(input="words"): canonical words, any value below R, to
+    Montgomery form as the first pass loads them; PR 20) bit-equal to
+    mont_mul_map's to_mont, then ntt_forward, limbs and hash words, at R = 2,
+    k = n / 4 and n = 2^NTT_WORDS_IN_LOGS in every field, and at n = 2 and
+    2^10 (one pass) with k = 1 and n / 2 + 1; at the 2^23 Ligero verify's
+    shape also against the plain version.  There the rows' encode (the
+    conversion and every pass) is timed by both routes in turns old
+    (mont_mul_map, then ntt_forward), new, new, old, warm and cold, beside
+    its bound.  Returns the record."""
+    from lcpc_tpu_torch.ops import mont_map as mm
+
+    def rows(spec, r, k):  # canonical words below 2^(32 W32): some >= p, a row all ones
+        x = torch.randint(-2**31, 2**31, (r, k, spec.w16 // 2), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        x[0, : max(1, k // 8)] = -1
+        return x
+
+    def old(plan, x, output="limbs"):
+        return nttm.ntt_forward(plan, mm.mont_mul_map(plan.spec, x.permute(2, 0, 1),
+                                                      op="to_mont", in_form="words"),
+                                output=output)
+
+    cases = [(field, 1 << log_n, 1 << (log_n - 2)) for field in P.ALL_FIELDS
+             for log_n in NTT_WORDS_IN_LOGS]
+    cases += [(field, n, k) for field in P.ALL_FIELDS for n in (2, 1 << 10)
+              for k in (1, n // 2 + 1)]
+    for field, n, k in cases:
+        plan = nttm.get_ntt(field, n)
+        x = rows(field, 2, k)
+        before = nttm.ntt_forward.launches
+        got = nttm.ntt_forward(plan, x, input="words", output="both")
+        if nttm.ntt_forward.launches - before != plan.launches_per_call:
+            raise AssertionError(f"ntt words in {field.name} n={n}: not one launch a pass")
+        ok, err = equal_outputs(torch, got, old(plan, x, "both"))
+        if not ok:
+            raise AssertionError(f"ntt words in {field.name} n={n} k={k}: != to_mont + ntt "
+                                 f"(max err {err})")
+    spec, plan = lenc.spec, nttm.get_ntt(lenc.spec, lenc.n_cols)
+    x = rows(spec, 2, lenc.n_per_row)
+    got = nttm.ntt_forward(plan, x, input="words")
+    want, plain_ms = time_host(torch, lambda: nttm.ntt_forward_plain(plan, mm.mont_mul_map_plain(
+        spec, x.permute(2, 0, 1), op="to_mont", in_form="words")))
+    if not torch.equal(got, want):
+        raise AssertionError("ntt words in at the 2^23 verify shape: != plain")
+    rec = {"cases": [f"{f.name} n={n} k={k}" for f, n, k in cases], "plain_ms": plain_ms,
+           "r": 2, "k": lenc.n_per_row, "n": plan.n}
+    for mode, timer in (("", kb.time_kernel), ("cold_", kb.time_kernel_cold)):
+        turns = [(tag, timer(fn)) for tag, fn in (
+            ("old", lambda: old(plan, x)), ("new", lambda: lenc.encode_canon_rows(x)),
+            ("new", lambda: lenc.encode_canon_rows(x)), ("old", lambda: old(plan, x)))]
+        rec[f"{mode}turns"] = turns
+        rec[f"{mode}ms"] = statistics.median(v for t, v in turns if t == "new")
+        rec[f"old_{mode}ms"] = statistics.median(v for t, v in turns if t == "old")
+    w32 = spec.w16 // 2
+    nbytes, products, _ = ntt_cost(spec, 2, lenc.n_per_row, plan.n, False)
+    nbytes -= 4 * w32 * 2 * lenc.n_per_row  # words in (W32 a element), not limbs (2 W32)
+    products += 2 * lenc.n_per_row * (2 * w32 * w32 + w32)  # the conversion's product
+    rec["bound_ms"], t_bytes, t_ops = bound_ms(nbytes, products)
+    rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  ntt words in (the first pass converts canonical words): equal to mont_mul_map + "
+        f"ntt_forward (limbs and words) in every field at R = 2, n = 2^{NTT_WORDS_IN_LOGS} "
+        f"(k = n/4), n = 2 and 1,024 (k = 1, n/2 + 1); at the 2^23 verify shape equal to plain "
+        f"({plain_ms:.1f} ms); verify's rows (conversion and encode) warm, turns old, new, new, "
+        f"old {[(t, round(v, 4)) for t, v in rec['turns']]} ms, cold "
+        f"{[(t, round(v, 4)) for t, v in rec['cold_turns']]}; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
     return rec
 
 
@@ -1061,10 +1171,20 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
     node = cv0[None, :, None]
     for _ in range(4):
         node = b3.blake3_parents_plain(node, node, 1, b3.PARENT)
-    check("compress chain", kb.compress_chain(chain_so, cv0, 4), node[0, :, 0])
-    lat_ms = kb.time_kernel(lambda: kb.compress_chain(chain_so, cv0, CHAIN), reps=3) / CHAIN
+    lats = {}
+    for layout in kb.CHAIN_LAYOUTS:  # one thread; its adds on the FMA pipe; a quad of lanes
+        check(f"compress chain ({layout})", kb.compress_chain(chain_so, cv0, 4, layout),
+              node[0, :, 0])
+        lats[layout] = kb.time_kernel(lambda: kb.compress_chain(chain_so, cv0, CHAIN, layout),
+                                      reps=3) / CHAIN
+    lat_ms = lats["thread"]
     recs["compression_latency_ms"] = lat_ms
-    log(f"  one compression's latency (a chain of {CHAIN} in one thread): {lat_ms * 1e3:.4f} us")
+    recs["compression_latency_ms_by_layout"] = lats
+    recs["layouts_sass"] = kb.chain_layout_mix(chain_so)
+    log(f"  one compression's latency (a chain of {CHAIN}): one thread {lat_ms * 1e3:.4f} us, "
+        f"one thread with its adds on the FMA pipe {lats['fma'] * 1e3:.4f} us, a quad of lanes "
+        f"(the walk's) {lats['quad'] * 1e3:.4f} us; SASS a compression (ALU, FMA, all, SHFL; "
+        f"the quad's a lane's) {recs['layouts_sass']}")
 
     def columns(tag, w, host_cols=0, timed=False):
         n_words, n_cols = w.shape
@@ -1200,29 +1320,47 @@ def blake3_phase(torch, kb, b3, gen, chain_so):
             f"floor {depth} x latency = {depth * lat_ms:.4f} ms, plain {plain_ms:.1f} ms")
     log("  blake3 merkle trees of 1, 2, 300 -> 512 and 513 -> 1,024 leaves: equal")
 
-    for k, levels in WALKS + ((5, 0), (40, 3)):
-        n_sibs = max(1, k * levels // 2)
-        digs, sibs = digests(k), digests(n_sibs)
-        inv = torch.randint(0, n_sibs, (levels, k), generator=gen, device="cuda")
-        idx = torch.randint(0, 1 << levels, (k,), generator=gen, device="cuda")
-        idx[:2] = idx[2]  # opened columns repeat
+    # the walk (a quad of lanes a column) against merkle_walk_plain at
+    # 1 .. 6,593 columns x 0 .. 20 levels, repeated columns, both forms: the
+    # roots, and the root compared in the kernel (the flag kept on honest
+    # paths, cleared by a sibling tampered at the first or the last level or
+    # by a tampered digest); scripts/time_blake3_walk.py's checks
+    import time_blake3_walk as tbw
+    n_walks = tbw.checks(b3, gen, None)
+    log(f"  blake3 merkle walks of {tbw.CHECK_K} columns x {tbw.CHECK_LEVELS} levels "
+        f"({n_walks} shapes): equal to plain in the roots form; in the verifier's form the flag "
+        f"kept on honest paths, cleared by a tampered sibling (first, last level) or digest")
+    for k, levels in WALKS:  # honest paths of a tree over random leaves, as verify walks them
+        digs, sibs, inv, idx, root = tbw.tree_inputs(b3, gen, k, levels)
         got = b3.merkle_walk(digs, sibs, inv, idx)
         want, plain_ms = time_host(torch, lambda: b3.merkle_walk_plain(digs, sibs, inv, idx))
         check(f"merkle walk {k} x {levels}", got, want)
-        if (k, levels) not in WALKS:
-            continue
-        ms = kb.time_kernel(lambda: b3.merkle_walk(digs, sibs, inv, idx))
-        wall = host_ms(torch, lambda: b3.merkle_walk(digs, sibs, inv, idx))
+        check(f"merkle walk {k} x {levels} reaches the root", got, root[:, None].expand(8, k))
+        flag = torch.ones(1, dtype=torch.int32, device="cuda")
+        rec = {"columns": k, "levels": levels, "launches": 1, "plain_ms": plain_ms}
+        for form, call in (("", lambda: b3.merkle_walk(digs, sibs, inv, idx)),
+                           ("verifier_", lambda: b3.merkle_walk(digs, sibs, inv, idx, root=root,
+                                                                flag=flag))):
+            rec[f"{form}ms"] = kb.time_kernel(call)
+            rec[f"{form}cold_ms"] = kb.time_kernel_cold(call)
+        if int(flag) != 1:
+            raise AssertionError(f"blake3 merkle walk {k} x {levels}: honest paths cleared the "
+                                 f"flag")
+        rec["host_ms"] = host_ms(torch, lambda: b3.merkle_walk(digs, sibs, inv, idx))
         read = int(torch.unique(inv).numel())
-        bound, by = hash_bound_ms(64 * k + 64 * read + 8 * levels * k + 8 * k + 64 * k,
-                                  k * levels)
-        recs[f"walk {k}"] = {"columns": k, "levels": levels, "launches": 1, "ms": ms,
-                             "host_ms": wall, "plain_ms": plain_ms, "bound_ms": bound,
-                             "bound_by": by, "floor_ms": levels * lat_ms}
+        rec["bound_ms"], rec["bound_by"] = hash_bound_ms(
+            64 * k + 64 * read + 8 * levels * k + 8 * k + 64 * k, k * levels)
+        # the floor: depth x the quad layout's compression latency (the
+        # walk's); the one-thread layout's, the floor before PR 20, beside
+        rec["floor_ms"] = levels * lats["quad"]
+        rec["thread_floor_ms"] = levels * lat_ms
+        recs[f"walk {k}"] = rec
         log(f"  blake3 merkle walk of {k} columns x {levels} levels: equal; 1 launch, device "
-            f"{ms:.4f} ms, host wall {wall:.4f} ms, bound {bound:.4f} ms ({by}), floor "
-            f"{levels * lat_ms:.4f} ms, plain {plain_ms:.1f} ms")
-    log("  blake3 merkle walks of 5 x 0 and 40 x 3: equal")
+            f"warm {rec['ms']:.4f} ms, cold {rec['cold_ms']:.4f} (the verifier's form "
+            f"{rec['verifier_ms']:.4f}, {rec['verifier_cold_ms']:.4f}), host wall "
+            f"{rec['host_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), floor "
+            f"{levels} x the quad's latency {rec['floor_ms']:.4f} ms (a thread's "
+            f"{rec['thread_floor_ms']:.4f}), plain {plain_ms:.1f} ms")
     recs["max_abs_err"] = errs[0]
     return recs
 
@@ -1391,6 +1529,7 @@ def path_2_28(torch, kb, P, counters, b3, nttm, gen, card):
     _, _, v_launches = counted(torch, counters, lambda: proof.verify(
         root, outer, inner, enc, transcript(root)))
     log(f"  path 2^28 verify's core: {check_verify_core(v_launches, 'path 2^28', P.BLAKE3)}")
+    check_verify_maps(v_launches, "path 2^28", ligero_verify_maps(enc.n_cols))
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^28", P.BLAKE3)
@@ -1833,11 +1972,12 @@ def path_2_29(torch, kb, P, counters, md, card):
         f"{cold[2]:.1f} ms; launches {launches}; row block {comm.row_block}; peak device "
         f"memory {peak:.2f} GiB")
     path_kernels = {"seeded_gen", "ntt_mont", "blake3_chunks", *TREES, "blake3_cols_few",
-                    "mont_dot", "power_table",
-                    *DOT_KERNELS, "mont_mul_map",  # verify's conversion
-                    "verify_check", "gather_open"}
+                    "mont_dot", "power_table", *DOT_KERNELS, "verify_check", "gather_open"}
     for name, n in launches.items():
-        if (n > 0) != (name in path_kernels):
+        # mont_mul_map builds the n = 2^20 plan's twiddle table (mont_powers)
+        # where this run makes it first, and converts verify's rows at the
+        # opened columns' route; verify's are checked below
+        if name != "mont_mul_map" and (n > 0) != (name in path_kernels):
             raise AssertionError(f"path 2^29: {name} launched {n} times")
     check_hash_launches(launches, TREE_LAUNCHES_PATH, "path 2^29")
     if comm.words_dev is not None or comm.words_host is not None:
@@ -1852,6 +1992,7 @@ def path_2_29(torch, kb, P, counters, md, card):
     _, _, v_launches = counted(torch, counters, lambda: proof.verify(
         root, outer, inner, enc, transcript(root)))
     log(f"  path 2^29 verify's core: {check_verify_core(v_launches, 'path 2^29', P.BLAKE3)}")
+    check_verify_maps(v_launches, "path 2^29", ligero_verify_maps(enc.n_cols))
     data = P.wire.serialize_proof(spec, proof)
     log(f"  proof {len(data)} bytes")
     tamper_checks(P, spec, data, root, outer, inner, enc, transcript, "path 2^29", P.BLAKE3)
@@ -1954,7 +2095,9 @@ def blake3_mix(kb, chain_so, lib_so):
     it holds).  The least time any of them gives sets B3_COMPRESSION_S: no
     kernel's compression issues less."""
     global B3_COMPRESSION_S
-    mix = kb.blake3_sass_mix(chain_so, lib_so, B3_KERNELS)
+    # the walk's quad layout splits a compression over four lanes: its
+    # count a lane is no compression's (phase 7 logs it, kb.chain_layout_mix)
+    mix = kb.blake3_sass_mix(chain_so, lib_so, tuple(k for k in B3_KERNELS if k != B3_WALK))
     if mix is None:
         raise RuntimeError("cuobjdump not found: the BLAKE3 bound cannot be counted")
     counts = {"probe": mix["chain"], **mix["kernels"]}
@@ -2051,8 +2194,16 @@ def tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix):
             "lcpc_tpu/core/protocol.py:840-845 (_verify_core_fn's path walk) and :793 "
             "(_verify_core_cols_fn); XLA-fused, not Pallas", w189,
             f"the {size} ligero verify's walk: 189 columns x 17 levels",
-            floor_ms=w189["floor_ms"], brakedown_2_23=hashes[f"walk {WALKS[1][0]}"],
-            ptxas=ptx("merkle_walk_kernel")),
+            floor_ms=w189["floor_ms"], thread_floor_ms=w189["thread_floor_ms"],
+            cold_ms=w189["cold_ms"], verifier_form_ms=w189["verifier_ms"],
+            verifier_form_cold_ms=w189["verifier_cold_ms"],
+            brakedown_2_23=hashes[f"walk {WALKS[1][0]}"],
+            compression_latency_ms_by_layout=hashes["compression_latency_ms_by_layout"],
+            layouts_sass=hashes["layouts_sass"],
+            note_walk="redesigned PR 20: a quad of lanes a column (blake3.cuh quad_parent); "
+                      "floor_ms = levels x the quad's probed compression latency, "
+                      "thread_floor_ms the one-thread layout's",
+            ptxas=ptx(B3_WALK)),
     ]
 
 
@@ -2116,6 +2267,7 @@ def mont_map_phase(torch, kb, P, mm, gen):
           out_form="words", timed=map_cost(spec, t * npr, w32, w32, mul_p))
     check("ligero 2^23 verify rows -> limbs", mm.mont_mul_map, mm.mont_mul_map_plain, spec,
           rows.permute(2, 0, 1), op="to_mont", in_form="words")
+    recs["brakedown 2^23 verify rows"] = sdig_verify_rows(torch, kb, mm, spec, gen)
     # verify's opened columns: packed Montgomery words -> canonical hash words
     for (r, k), name in zip(MAP_OPENED, ("ligero", "brakedown")):
         col = pack_words(kb.random_mont(spec, (r, w, k), gen, DEV), 1).permute(1, 0, 2).contiguous()
@@ -2193,6 +2345,69 @@ def mont_map_phase(torch, kb, P, mm, gen):
         f"time each, back to back")
     recs["max_abs_err"] = errs[0]
     return recs
+
+
+def sdig_verify_rows(torch, kb, mm, spec, gen):
+    """Brakedown 2^23 verify's proof rows, (2, 235,173) canonical words (some
+    >= p, a row all ones), to Montgomery words written by one mont_mul_map
+    launch straight into the encode's packed (positions, R, W/2) level
+    buffer (SdigEncoding.encode_canon_rows, PR 20), against the route it
+    replaced (to_mont to limbs, then pack_words and a copy into the buffer)
+    and the plain version, word for word; both routes timed in turns old,
+    new, new, old beside the bytes bound (the words read once, written
+    once), and each route's CUDA kernels counted by torch.profiler."""
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    t, npr = MAP_SDIG_VERIFY_ROWS
+    w32 = spec.w16 // 2
+    rows = torch.randint(-2**31, 2**31, (t, npr, w32), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    rows[0] = -1
+    buf = torch.zeros((npr + 5, t, w32), dtype=torch.int32, device=DEV)
+    old_buf = torch.zeros_like(buf)
+
+    def new():
+        mm.mont_mul_map(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
+                        out_form="words", out=buf[:npr].permute(2, 1, 0))
+
+    def old():
+        limbs = mm.mont_mul_map(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words")
+        old_buf[:npr] = pack_words(limbs, 0).permute(2, 1, 0)
+
+    before = mm.mont_mul_map.launches
+    new()
+    if mm.mont_mul_map.launches != before + 1:
+        raise AssertionError("brakedown verify rows: the packed output took more than a launch")
+    old()
+    want = mm.mont_mul_map_plain(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
+                                 out_form="words").permute(2, 1, 0)
+    if not (torch.equal(buf, old_buf) and torch.equal(buf[:npr], want) and not buf[npr:].any()):
+        raise AssertionError("brakedown verify rows: the packed output != the old pack or plain")
+    turns = [(tag, kb.time_kernel(fn, reps=20))
+             for tag, fn in (("old", old), ("new", new), ("new", new), ("old", old))]
+    _, plain_ms = time_host(torch, lambda: mm.mont_mul_map_plain(
+        spec, rows.permute(2, 0, 1), op="to_mont", in_form="words", out_form="words"))
+    nbytes, products = map_cost(spec, t * npr, w32, w32, 2 * w32 * w32 + w32)
+    bound, t_bytes, t_ops = bound_ms(nbytes, products)
+    kernels = {}
+    for tag, fn in (("old", old), ("new", new)):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels[tag] = sorted(e.name[:50] for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA)
+    ms = statistics.median(v for k, v in turns if k == "new")
+    rec = {"ms": ms, "old_route_ms": statistics.median(v for k, v in turns if k == "old"),
+           "turns": turns, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "share": bound / ms,
+           "bytes": nbytes, "products": products, "cuda_kernels": kernels}
+    log(f"  mont_mul_map brakedown 2^23 verify rows: (2, 235,173) words -> the level buffer's "
+        f"packed Montgomery words, equal to the old pack and plain; turns old, new, new, old "
+        f"{[(k, round(v, 4)) for k, v in turns]} ms (bound {bound:.4f} ms, {rec['bound_by']}, "
+        f"{100 * bound / ms:.1f}%); CUDA kernels old {kernels['old']}, new {kernels['new']}; "
+        f"plain {plain_ms:.2f} ms")
+    return rec
 
 
 def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
@@ -2830,7 +3045,7 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
     check_sha_stages(lig[8], "sha_ligero", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["ligero"])
     check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0,
-                                              "verify": VERIFY_MAPS})
+                                              "verify": ligero_verify_maps(lenc.n_cols)})
     del lenc
     t0 = time.perf_counter()
     enc = P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device=DEV)
@@ -2841,7 +3056,8 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
                      sha_launches_path(*shape))
     check_sha_stages(sdig[8], "sha_sdig", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["sdig"])
-    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0, "verify": VERIFY_MAPS})
+    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0,
+                                             "verify": SDIG_VERIFY_MAPS})
     del enc
     torch.cuda.empty_cache()
     for tag, r in (("ligero_2_23", lig), ("sdig_2_23", sdig)):
@@ -3960,6 +4176,8 @@ def sharded_stages(torch, P, counters, commit_fn, enc, outer, inner, digest, wan
     check_launched(c_l, commit_kernels | HASH_COMMIT[digest.name], f"{tag} commit")
     check_launched(p_l, prove_kernels, f"{tag} prove")
     check_verify_core(v_l, f"{tag} verify", digest)
+    check_verify_maps(v_l, f"{tag} verify", ligero_verify_maps(enc.n_cols)
+                      if isinstance(enc, P.LigeroEncoding) else SDIG_VERIFY_MAPS)
     return (root, P.wire.serialize_proof(enc.spec, proof),
             {"commit": c_ms, "prove": p_ms, "verify": v_ms},
             {"commit": c_l, "prove": p_l, "verify": v_l})
@@ -4335,6 +4553,13 @@ def main() -> int:
             f"stores, {ld} bytes spill loads")
     if ntt_ptxas[8][1:] != (0, 0):
         raise AssertionError(f"ntt_pass_kernel W32=8 spills: {ntt_ptxas[8]}")
+    words_ptxas = kb.ptxas_report(cuda_build.build_logs["ntt_mont"], "ntt_words_pass_kernel")
+    if sorted(words_ptxas) != [2, 4, 6, 8] or words_ptxas[8][1:] != (0, 0):
+        raise AssertionError(f"ntt_words_pass_kernel (the words-in first pass) not reported or "
+                             f"W32=8 spills: {words_ptxas}")
+    for w32, (regs, st, ld) in sorted(words_ptxas.items()):
+        log(f"  ptxas ntt_words_pass_kernel W32={w32}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
     b3_ptxas = {k: v for name in B3_KERNELS
                 for k, v in kb.ptxas_entries(cuda_build.build_logs["blake3_cols"],
                                              name).items()}
@@ -4343,9 +4568,16 @@ def main() -> int:
         raise AssertionError(f"blake3 kernels not reported by ptxas: {b3_ptxas}")
     for name, (regs, st, ld) in sorted(b3_ptxas.items()):
         log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill loads")
-    for name, (regs, st, ld) in kb.ptxas_entries(chain_log, "compress_chain_kernel").items():
-        log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill stores, "
-            f"{ld} bytes spill loads")
+    walk_stack = kb.ptxas_stack(cuda_build.build_logs["blake3_cols"], B3_WALK)
+    walk_spill = [v[1:] for k, v in b3_ptxas.items() if B3_WALK in k]
+    if list(walk_stack.values()) != [0] or walk_spill != [(0, 0)]:
+        raise AssertionError(f"the walk kernel uses local memory: stack {walk_stack}, spills "
+                             f"{walk_spill}")
+    log(f"  ptxas {B3_WALK}: 0 bytes stack frame, no spill")
+    for probe in ("compress_chain_kernel", "quad_chain_kernel"):
+        for name, (regs, st, ld) in kb.ptxas_entries(chain_log, probe).items():
+            log(f"  ptxas {name} (the latency probe): {regs} registers, {st} bytes spill "
+                f"stores, {ld} bytes spill loads")
     b3_mix = blake3_mix(kb, chain_so, cuda_build.so_path("blake3_cols"))
     sha_ptxas = {k: v for name in ("sha256_cols_kernel", "sha256_few_kernel", "merkle_tree_kernel",
                                    "sha256_walk_kernel")
@@ -4460,7 +4692,7 @@ def main() -> int:
     # words, the evaluation's two operands to Montgomery form
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
                      SDIG_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": VERIFY_MAPS})
+    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": SDIG_VERIFY_MAPS})
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -4519,6 +4751,7 @@ def main() -> int:
     ntt_2_19(torch, kb, nttm, spec, gen, ntt_rows)
     for field in P.ALL_FIELDS:  # every template, W32 = 2, 4, 6, 8
         ntt_edges(torch, kb, nttm, field, gen)
+    ntt_words = ntt_words_in(torch, kb, P, nttm, lenc, gen)
     torch.cuda.empty_cache()
     phase.done()
 
@@ -4531,13 +4764,14 @@ def main() -> int:
     # encode (the NTT); either way the column check runs on the thin
     # tensor-core kernel and the evaluation's dot on the thin kernel.
     # The commit's hash words come from the NTT's last pass: no conversion;
-    # verify converts the proof rows, the opened columns and the
-    # evaluation's two operands (four mont_mul_map launches; the encode
-    # route one more, the encoded rows at the opened columns)
+    # verify's proof rows are converted by the NTT's first pass as it loads
+    # them on the encode route (no mont_mul_map, PR 20), by one mont_mul_map
+    # launch on the opened columns' route (verify_check converts the rest)
     cols_route = verify_at_columns(lenc.n_cols)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
                     ligero_kernels(lenc.n_cols) | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0, "verify": VERIFY_MAPS})
+    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0,
+                                          "verify": ligero_verify_maps(lenc.n_cols)})
     per_encode = plan.launches_per_call
     encodes, tables = (1, 1) if cols_route else (2, 0)
     if lig[0]["ntt_mont"] != encodes * per_encode or lig[0]["power_table"] != tables:
@@ -4685,6 +4919,7 @@ def main() -> int:
         "verify_encode_plain_ms": ntt_verify["plain_ms"],
         "verify_encode_bound_ms": ntt_verify["bound_ms"],
         "verify_encode_bound_by": ntt_verify["bound_by"],
+        "verify_rows_words_in": ntt_words,
         "ptxas": {str(w): {"registers": v[0], "spill_bytes": v[1] + v[2]}
                   for w, v in sorted(ntt_ptxas.items())},
         "n_2_19_block_words_only_ms": big["block_words_only_ms"],

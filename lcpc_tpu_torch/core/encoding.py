@@ -61,6 +61,14 @@ class LcEncoding(abc.ABC):
         Input/output int32 Montgomery limbs (limb-major) on self.device.
         """
 
+    @abc.abstractmethod
+    def encode_canon_rows(self, rows_w: torch.Tensor) -> torch.Tensor:
+        """encode_rows of rows given as canonical words, the verifier's
+        proof rows: (R, n_per_row, W/2) int32 storage of u32 (any value
+        below 2^(16 W)) -> (W, R, n_cols) Montgomery limbs, equal to
+        encode_rows of their to_mont.  Each encoding folds the conversion
+        into its encode's first kernel."""
+
     def device_tables(self):
         """The tables on self.device that the small commit's kernel
         (ops/commit_small.py: NttTables or LevelTable) reads besides its

@@ -594,9 +594,9 @@ def prove(comm: LcCommit, outer_tensor: list[int], enc: LcEncoding,
 
 def _rows_encode(enc: LcEncoding, rows_w: torch.Tensor) -> torch.Tensor:
     """Packed repr words (T, npr, W/2) int32 -> encoded rows (W, T, n_cols):
-    to Montgomery limbs in one mont_map launch, then the encode."""
-    rows = mont_mul_map(enc.spec, rows_w.permute(2, 0, 1), op="to_mont", in_form="words")
-    return enc.encode_rows(rows)
+    the encoding's encode_canon_rows (Ligero: the NTT's first pass converts
+    as it loads; Brakedown: one conversion into the level buffer)."""
+    return enc.encode_canon_rows(rows_w)
 
 
 def _verify_core(spec, digest: DeviceDigest, enc_rows, ts, col_w, idx, uniq_sibs, inv,

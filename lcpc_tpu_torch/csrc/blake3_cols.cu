@@ -51,10 +51,17 @@
 //                     scratch and counts in on a self-resetting counter, and
 //                     the last block merges them level by level in shared
 //                     memory.
-//   merkle_tree       the whole Merkle array in one launch, and
-//   merkle_walk       the verifier's path walk, a thread per opened column:
-//                     the kernels of merkle.cuh (shared with sha256_cols.cu)
-//                     over BLAKE3's parent node.
+//   merkle_tree       the whole Merkle array in one launch: merkle.cuh's
+//                     kernel (shared with sha256_cols.cu) over BLAKE3's
+//                     parent node.
+//   merkle_walk       the verifier's path walk, a quad of lanes per opened
+//                     column (blake3.cuh's quad_parent: the state's four
+//                     columns in four lanes, the diagonals by shuffles), so
+//                     a level waits on 14 G rather than 56 and on one
+//                     lane's issue of a quarter of the compression; the
+//                     next level's sibling is loaded while a level runs,
+//                     and the child's words reach every lane of the quad by
+//                     the feed-forward's shuffles.
 //
 // What bounds them on an H100 (SXM, 700 W): blake3_chunks, the integer pipes.
 // A compression is 7 rounds x 8 G x 12 instructions (2 three-input adds, 2
@@ -77,10 +84,17 @@
 // latency off the chain and the CVs on the chip; its chunk chains still
 // take ~1.0 us a block on the H100 against a lone compression's 0.73
 // (scripts/time_blake3_few.py --trace), the block's 16 copies and ring
-// reads adding ~400 SASS instructions to the compression's ~700.
+// reads adding ~400 SASS instructions to the compression's ~700.  The
+// walk is a chain of depth dependent parents and its columns are few (189
+// or 6,593): a thread a column took ~1.0 us a level on the H100 (one warp
+// issuing the whole compression, 0.63-0.73 us, then waiting on its next
+// loads), where the compression's own dependency chain is 14 G of ~12
+// dependent instructions; the quad layout issues a quarter of it a lane
+// and waits on that chain plus the diagonals' shuffles (0.47 us).
 //
-// The compression, the parent node and the chunk body live in blake3.cuh,
-// shared with the small commit's kernel (commit_small.cu).
+// The compression, the parent node, the quad's parent and the chunk body
+// live in blake3.cuh, shared with the small commit's kernel
+// (commit_small.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -410,6 +424,79 @@ blake3_cols_few_kernel(const uint32_t* __restrict__ words, int n_cols, int n_chu
   }
 }
 
+// ---- the verifier's path walk: a quad of lanes a column ---------------------
+
+constexpr int kWalkQuadThreads = 128;  // 32 columns a block
+
+// Column j (a quad of lanes) starts from its digest and walks `levels`
+// levels: the sibling is sibs[:, inv[l, j]], on the left when bit l of
+// idx[j] is set; each level one quad_parent over the side's message.  The
+// next level's sibling and the index after it are loaded while a level
+// runs, and each load is first read a level after it is issued (the index
+// scaled, the sibling moved into place after the compression), in a loop
+// body without branches (past the last level the loads repeat its row, read
+// by no one): a level waits on its compression alone, not on a load's L2
+// latency.  Quads past k walk column k - 1 and store nothing: every lane
+// runs every shuffle.  The end is merkle.cuh's walk_end split by lane: lane
+// q holds words q and 4 + q of the root it reached and writes them to out,
+// or compares them with root's, the quad's four lanes voting (a ballot) and
+// its first lane clearing *flag where any of them differs.
+__global__ void __launch_bounds__(kWalkQuadThreads)
+merkle_walk_quad_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
+                        const long long* __restrict__ sibs, long long s_w, long long s_c,
+                        const long long* __restrict__ inv, const long long* __restrict__ idx,
+                        int k, int levels, long long* __restrict__ out,
+                        const long long* __restrict__ root, int32_t* __restrict__ flag) {
+  const Quad L(threadIdx.x);
+  const int q = threadIdx.x & 3;
+  const long long j_at = (long long)blockIdx.x * (kWalkQuadThreads / 4) + threadIdx.x / 4;
+  const bool live = j_at < k;
+  const long long j = live ? j_at : k - 1;
+  uint32_t node[8], sib[8] = {};
+#pragma unroll
+  for (int w = 0; w < 8; ++w) node[w] = (uint32_t)digs[w * d_w + j * d_c];
+  const long long col = idx[j];
+  const long long last = levels > 0 ? levels - 1 : 0;  // a row of inv past which loads repeat
+  long long inv_next = levels > 1 ? inv[(long long)k + j] : 0;  // level 1's sibling
+  if (levels > 0) {
+    const long long at = inv[j] * s_c;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at];
+  }
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    // the next level's sibling, by the index loaded a level ago, and the
+    // index after it; read after this level's compression, and the next
+    const long long at = inv_next * s_c;
+    uint32_t next[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) next[w] = (uint32_t)sibs[w * s_w + at];
+    inv_next = inv[min((long long)lvl + 2, last) * k + j];
+    // the side by selects: a quad's lanes take the same one, a warp's both
+    const bool right = (col >> lvl) & 1;
+    uint32_t m[16];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      m[w] = right ? sib[w] : node[w];
+      m[8 + w] = right ? node[w] : sib[w];
+    }
+    quad_parent(node, m, MERKLE, L);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) sib[w] = next[w];
+  }
+  const uint32_t lo = L.pick(node[0], node[1], node[2], node[3]);
+  const uint32_t hi = L.pick(node[4], node[5], node[6], node[7]);
+  if (root != nullptr) {
+    const bool differ = lo != (uint32_t)root[q] || hi != (uint32_t)root[4 + q];
+    const unsigned votes = __ballot_sync(0xFFFFFFFFu, differ) >> (threadIdx.x & 28);
+    if (live && q == 0 && (votes & 0xFu)) *flag = 0;
+    return;
+  }
+  if (live) {
+    out[(size_t)q * k + j] = lo;
+    out[(size_t)(4 + q) * k + j] = hi;
+  }
+}
+
 }  // namespace
 
 // Chunk CVs of n_chunks consecutive chunks of every column's stream (carry
@@ -531,14 +618,20 @@ extern "C" int lcpc_blake3_merkle_tree(const long long* leaves, long long ld, in
                                            stream);
 }
 
-// The Merkle path walk of k opened columns over `levels` levels, the roots
-// into out or compared with root (clearing *flag where one differs):
-// merkle.cuh's launch_walk with BLAKE3's parent.
+// The Merkle path walk of k opened columns over `levels` levels (arguments
+// as merkle.cuh's walk_args_ok takes them), the roots into out or compared
+// with root (clearing *flag where one differs): merkle_walk_quad_kernel.
 extern "C" int lcpc_blake3_merkle_walk(const long long* digs, long long d_w, long long d_c,
                                        const long long* sibs, long long s_w, long long s_c,
                                        const long long* inv, const long long* idx, int k,
                                        int levels, long long* out, const long long* root,
                                        int32_t* flag, int device, void* stream) {
-  return merkle::launch_walk<Blake3Merkle>(digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels,
-                                           out, root, flag, device, stream);
+  if (!merkle::walk_args_ok(digs, sibs, inv, idx, k, levels, out, root, flag))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (4LL * k + kWalkQuadThreads - 1) / kWalkQuadThreads;
+  merkle_walk_quad_kernel<<<(unsigned)blocks, kWalkQuadThreads, 0, (cudaStream_t)stream>>>(
+      digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out, root, flag);
+  return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// The Merkle tree and the verifier's path walk over any digest's parent
-// function: the kernels behind blake3_cols.cu's merkle_tree and merkle_walk
-// and sha256_cols.cu's merkle_tree entry points (SHA-256's walk is a kernel
-// of its own, sha256_walk_kernel, which takes walk_args_ok and walk_end).
+// The Merkle tree over any digest's parent function: the kernel behind
+// blake3_cols.cu's and sha256_cols.cu's merkle_tree entry points; and the
+// verifier's path walk's argument check (walk_args_ok, both digests' walk
+// entry points) and end (walk_end, sha256_walk_kernel's; BLAKE3's
+// merkle_walk_quad_kernel, a quad of lanes a column, ends the same way
+// split by lane).
 //
 // A digest is 8 u32 words (LE words of the digest bytes), and Hash::parent(cv,
 // l, r) writes the parent node of l || r into cv (cv may alias neither input
@@ -13,15 +15,9 @@
 //                       its flat offset; the last block to finish (an atomic
 //                       counter) builds the levels above the subtree roots.
 //                       Zero digests pad the leaves to a power of two.
-//   merkle_walk_kernel  one thread per opened column walks its path to the
-//                       root, the sibling picked by the deduplicated index map
-//                       and its side by the column's index bits; it writes
-//                       the roots the paths reach or, given the root, clears
-//                       a flag where one differs (the verifier's walk).
 //
-// What bounds them: the walk by its depth, a parent's latency a level; the
-// tree by its depth too above the subtree roots (the last block's levels,
-// one parent's latency each), and in the subtrees by the parents'
+// What bounds it: its depth above the subtree roots (the last block's
+// levels, one parent's latency each), and in the subtrees the parents'
 // instructions over the warps a level keeps busy, fewer at each level up.
 
 #pragma once
@@ -36,7 +32,6 @@ namespace merkle {
 constexpr int kTreeThreads = 256;
 constexpr int kTreeNodes = 2 * kTreeThreads;  // a level in shared memory
 constexpr int kTreeLeaves = 2 * kTreeNodes;   // a block's subtree
-constexpr int kWalkThreads = 128;
 
 // the first node of level lvl in the flat leaves-first array
 __device__ __forceinline__ long long level_offset(long long np2, int lvl) {
@@ -190,51 +185,6 @@ __device__ __forceinline__ void walk_end(const uint32_t (&cv)[8], int j, int k,
   for (int w = 0; w < 8; ++w) out[(size_t)w * k + j] = cv[w];
 }
 
-// Column j starts from its digest and walks `levels` levels: the sibling is
-// sibs[:, inv[l, j]], on the left when bit l of idx[j] is set.  The walk is
-// a chain of dependent parents, but its gathers are not: the next level's
-// sibling and the index after it are loaded while this level's parent
-// runs, so the loop waits on the parent alone.
-template <class Hash>
-__global__ void __launch_bounds__(kWalkThreads)
-merkle_walk_kernel(const long long* __restrict__ digs, long long d_w, long long d_c,
-                   const long long* __restrict__ sibs, long long s_w, long long s_c,
-                   const long long* __restrict__ inv, const long long* __restrict__ idx,
-                   int k, int levels, long long* __restrict__ out,
-                   const long long* __restrict__ root, int32_t* __restrict__ flag) {
-  const int j = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (j >= k) return;
-  uint32_t cv[8], sib[8], next[8] = {};
-#pragma unroll
-  for (int w = 0; w < 8; ++w) cv[w] = (uint32_t)digs[w * d_w + j * d_c];
-  const long long col = idx[j];
-  long long at_next = levels > 1 ? inv[(long long)k + j] * s_c : 0;
-  if (levels > 0) {
-    const long long at = inv[j] * s_c;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) sib[w] = (uint32_t)sibs[w * s_w + at];
-  }
-  for (int lvl = 0; lvl < levels; ++lvl) {
-    if (lvl + 1 < levels) {
-#pragma unroll
-      for (int w = 0; w < 8; ++w) next[w] = (uint32_t)sibs[w * s_w + at_next];
-      if (lvl + 2 < levels) at_next = inv[(long long)(lvl + 2) * k + j] * s_c;
-    }
-    // the side by selects, not a branch: the columns of a warp take both
-    // sides, and a branch would run the parent once for each
-    const bool right = (col >> lvl) & 1;
-    uint32_t l[8], r[8];
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      l[w] = right ? sib[w] : cv[w];
-      r[w] = right ? cv[w] : sib[w];
-      sib[w] = next[w];
-    }
-    Hash::parent(cv, l, r);
-  }
-  walk_end(cv, j, k, out, root, flag);
-}
-
 // The whole Merkle tree over leaves (8, n_cols) int64 (word stride ld,
 // column stride 1), zero digests padding them to np2 (a power of two >=
 // n_cols): out (8, 2 np2 - 1) int64, contiguous, leaves first, then each
@@ -268,24 +218,6 @@ inline bool walk_args_ok(const long long* digs, const long long* sibs, const lon
   return digs != nullptr && idx != nullptr && k >= 1 && levels >= 0 && levels <= 63 &&
          (levels == 0 || (sibs != nullptr && inv != nullptr)) &&
          (root != nullptr ? flag != nullptr : out != nullptr);
-}
-
-// The Merkle path walk of k opened columns over `levels` levels (arguments
-// as walk_args_ok takes them): the roots the paths reach into out, or, given
-// root, *flag cleared where one differs.  Returns the launch's cudaError_t.
-template <class Hash>
-int launch_walk(const long long* digs, long long d_w, long long d_c, const long long* sibs,
-                long long s_w, long long s_c, const long long* inv, const long long* idx, int k,
-                int levels, long long* out, const long long* root, int32_t* flag, int device,
-                void* stream) {
-  if (!walk_args_ok(digs, sibs, inv, idx, k, levels, out, root, flag))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  merkle_walk_kernel<Hash>
-      <<<(k + kWalkThreads - 1) / kWalkThreads, kWalkThreads, 0, (cudaStream_t)stream>>>(
-          digs, d_w, d_c, sibs, s_w, s_c, inv, idx, k, levels, out, root, flag);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace merkle

@@ -114,6 +114,22 @@ __device__ __forceinline__ void store_tile_buf(uint32_t* dst, const uint32_t* s,
   }
 }
 
+// v <- the element of W canonical words at x (any value below 2^(32 W)) in
+// Montgomery form: reduced below p, then one product with R^2 mod p
+// (consts: p | n0 | R^2), as mont_map.cu's to_mont
+template <int W>
+__device__ __forceinline__ void to_mont_words(uint32_t (&v)[W], const uint32_t* x_at,
+                                              const uint32_t* __restrict__ consts) {
+  const Field<W> f(consts);
+  uint32_t x[W], p2[W], r2[W];
+  ldg_words<W>(x, x_at);
+#pragma unroll
+  for (int q = 0; q < W; ++q) r2[q] = __ldg(consts + W + 1 + q);
+  lcpc::twice<W>(p2, f.p);
+  lcpc::reduce<W>(x, f.p, p2);
+  f.mul(v, x, r2);
+}
+
 // Butterfly b of stage 2^sg in a tile: its elements e0, e1 (= e0 + half-
 // size) in the tile and its twiddle index j (in the stage's row of tw)
 __device__ __forceinline__ long long bf_index(int sg, int b, int lo, int log_t, long long rg,
@@ -134,9 +150,14 @@ __device__ __forceinline__ long long bf_index(int sg, int b, int lo, int log_t, 
 // column i at r k + i, elements from `limit` on zero; mat_out, if given,
 // receives the (2W, R, k) matrix so read) or buf_in; output: buf_out, or
 // (the last pass, lo = log_t = 0, buf_out null) limbs_out and/or words_out.
-// Ends with the tile written and s still being read: a block taking
-// another tile synchronizes first.
-template <int W>
+// kWordsIn (the verifier's proof rows): limbs_in holds canonical words
+// instead, (R, k, W) u32 as int32, element (r, i) the W words at (r k + i)
+// W, any value below 2^(32 W); each element read is reduced below p and
+// taken to Montgomery form by one product with R^2 mod p (consts + W + 1:
+// the constant block p | n0 | R^2), as mont_map.cu's to_mont; plane is
+// unused.  Ends with the tile written and s still being read: a block
+// taking another tile synchronizes first.
+template <int W, bool kWordsIn = false>
 __device__ __forceinline__ void forward_tile(
     long long b_id, const int32_t* __restrict__ limbs_in, long long plane, long long limit,
     int32_t* __restrict__ mat_out, const uint32_t* buf_in, uint32_t* buf_out,
@@ -168,11 +189,16 @@ __device__ __forceinline__ void forward_tile(
       const long long i = base + ((long long)(e >> log_t) << lo) + (e & (T - 1));
       uint32_t v[W];
       if (i < k && row0 + i < limit) {
+        if constexpr (kWordsIn) {
+          to_mont_words<W>(v, reinterpret_cast<const uint32_t*>(limbs_in) + (row0 + i) * W,
+                           consts);
+        } else {
 #pragma unroll
-        for (int q = 0; q < W; ++q) {
-          const uint32_t l0 = (uint32_t)__ldg(src + (2 * q) * plane + i);
-          const uint32_t l1 = (uint32_t)__ldg(src + (2 * q + 1) * plane + i);
-          v[q] = l0 | (l1 << 16);
+          for (int q = 0; q < W; ++q) {
+            const uint32_t l0 = (uint32_t)__ldg(src + (2 * q) * plane + i);
+            const uint32_t l1 = (uint32_t)__ldg(src + (2 * q + 1) * plane + i);
+            v[q] = l0 | (l1 << 16);
+          }
         }
       } else {
 #pragma unroll

@@ -32,6 +32,14 @@
 //   limbs_in  (2W, R, k)   -- first pass: the rows as 16-bit limbs, packed
 //                             into words in registers; columns k .. n-1 are
 //                             zero and never read
+//   words_in  (R, k, W)    -- or (lcpc_ntt_words_pass: the verifier's proof
+//                             rows) canonical u32 words, each element
+//                             reduced below p and taken to Montgomery form
+//                             by one product with R^2 as it is loaded, so
+//                             the rows' conversion is no launch of its own
+//                             (ntt.cuh's forward_tile<W, true>; one product
+//                             an element, 2 W^2 + W wide products, beside
+//                             the pass's butterflies)
 //   buf       (R, n, W)    -- between passes: one element is W contiguous
 //                             words; a middle pass works in place
 //   limbs_out (2W, R, n)   -- last pass, optional: the transform as 16-bit
@@ -148,6 +156,41 @@ cudaError_t launch_pass(const int32_t* limbs_in, const uint32_t* buf_in, uint32_
   ntt_pass_kernel<W><<<(unsigned)blocks, threads, smem, stream>>>(
       limbs_in, buf_in, buf_out, limbs_out, words_out, tw, consts, R, log_n, k, hi, lo,
       log_t);
+  return cudaGetLastError();
+}
+
+// The first pass over the verifier's proof rows as canonical words: (R, k,
+// W) u32 words_in, each element taken to Montgomery form as it is loaded
+// (forward_tile's kWordsIn); consts p | n0 | R^2.  Output as ntt_pass_kernel's.
+template <int W>
+__global__ void __launch_bounds__(kMaxThreads)
+ntt_words_pass_kernel(const int32_t* __restrict__ words_in, uint32_t* buf_out,
+                      int32_t* __restrict__ limbs_out, int32_t* __restrict__ words_out,
+                      const uint32_t* __restrict__ tw, const uint32_t* __restrict__ consts,
+                      int R, int log_n, int k, int hi, int lo, int log_t) {
+  extern __shared__ uint4 smem_raw[];
+  forward_tile<W, true>(blockIdx.x, words_in, 0, (long long)R * k, nullptr, nullptr, buf_out,
+                        limbs_out, words_out, tw, consts, R, log_n, k, hi, lo, log_t,
+                        reinterpret_cast<uint32_t*>(smem_raw));
+}
+
+template <int W>
+cudaError_t launch_words_pass(const int32_t* words_in, uint32_t* buf_out, int32_t* limbs_out,
+                              int32_t* words_out, const uint32_t* tw, const uint32_t* consts,
+                              int R, int log_n, int k, int hi, int lo, int log_t, int threads,
+                              cudaStream_t stream) {
+  const int log_tile = hi - lo + 1 + log_t;
+  const size_t smem = ((size_t)W << log_tile) * sizeof(uint32_t);
+  static size_t smem_set = 48 * 1024;  // the default dynamic shared memory cap
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ntt_words_pass_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const long long blocks = (long long)R << (log_n - log_tile);
+  ntt_words_pass_kernel<W><<<(unsigned)blocks, threads, smem, stream>>>(
+      words_in, buf_out, limbs_out, words_out, tw, consts, R, log_n, k, hi, lo, log_t);
   return cudaGetLastError();
 }
 
@@ -302,6 +345,46 @@ extern "C" int lcpc_ntt_pass(const int32_t* limbs_in, const uint32_t* buf_in,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LCPC_NTT_PASS
+}
+
+// The first pass of the ladder (hi = log_n - 1) over the verifier's proof
+// rows as canonical words: words_in (R, k, w32) int32 storage of u32, any
+// value below 2^(32 w32), 16-byte aligned (8 at w32 = 2 and 6), each
+// element reduced below p and taken to Montgomery form as it is loaded
+// (mont_map.cu's to_mont fused into the load); consts p[w32] | n0 | R^2
+// mod p[w32] (ops/mont_dot.field_consts).  Output, tiles, threads and the
+// return as lcpc_ntt_pass's.
+extern "C" int lcpc_ntt_words_pass(const int32_t* words_in, uint32_t* buf_out,
+                                   int32_t* limbs_out, int32_t* words_out, const uint32_t* tw,
+                                   const uint32_t* consts, int w32, int R, int log_n, int k,
+                                   int hi, int lo, int log_t, int threads, int device,
+                                   void* stream) {
+  const bool last = buf_out == nullptr;
+  if (words_in == nullptr || R < 0 || log_n < 1 || log_n > 30 ||
+      ((long long)R << log_n) >= (1LL << 40) || hi != log_n - 1 || lo < 0 || lo > hi ||
+      log_t < 0 || log_t > lo || hi - lo + 1 + log_t > log_n || k < 0 || k > (1 << log_n) ||
+      (last && (lo != 0 || log_t != 0 || (limbs_out == nullptr && words_out == nullptr))) ||
+      (!last && (limbs_out != nullptr || words_out != nullptr)) ||
+      threads < 1 || threads > kMaxThreads ||
+      ((size_t)w32 * 4 << (hi - lo + 1 + log_t)) > (size_t)kMaxSmem ||
+      ((long long)R << (log_n - (hi - lo + 1 + log_t))) >= (1LL << 31) ||
+      (reinterpret_cast<uintptr_t>(words_in) & (w32 % 4 == 0 ? 15 : 7)) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return 0;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+#define LCPC_NTT_WORDS_PASS(W)                                                               \
+  launch_words_pass<W>(words_in, buf_out, limbs_out, words_out, tw, consts, R, log_n, k, hi, \
+                       lo, log_t, threads, s)
+  switch (w32) {
+    case 2: return (int)LCPC_NTT_WORDS_PASS(2);
+    case 4: return (int)LCPC_NTT_WORDS_PASS(4);
+    case 6: return (int)LCPC_NTT_WORDS_PASS(6);
+    case 8: return (int)LCPC_NTT_WORDS_PASS(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LCPC_NTT_WORDS_PASS
 }
 
 // One pass of the inverse ladder (half-sizes 2^lo .. 2^hi, the forward

@@ -35,6 +35,7 @@ from ..fs.chacha import ChaCha20Rng
 from ..fs.sampling import UniformUsize, field_random_nonzero_raw
 from ..ops.commit_small import LevelTable
 from ..ops.limbs import get_ops, pack_row_words
+from ..ops.mont_map import mont_mul_map
 from ..ops.spmv import (RaggedCsr, apply_mat_plain, pack_words, spmv_consts, spmv_mont,
                         unpack_words)
 from ..utils.device import resolve_device
@@ -569,18 +570,24 @@ class SdigEncoding(LcEncoding):
         assert off == self.n_cols
         return out
 
-    def _encode_packed(self, rows: torch.Tensor, spmv) -> torch.Tensor:
+    def _encode_packed(self, rows: torch.Tensor, spmv, canon: bool = False) -> torch.Tensor:
         """encode_rows through `spmv(spec, x, level, out)`: the packed
         (positions, R, W32) buffer (module docstring), levels in _levels'
-        order, unpacked to (W, R, n_cols) limbs at the end."""
+        order, unpacked to (W, R, n_cols) limbs at the end.  With canon the
+        rows are (R, n_per_row, W32) canonical words (encode_canon_rows)."""
         pre, post, rs = self.device_mats()
-        w, r, npr = rows.shape
-        if npr != self.n_per_row:
-            raise ValueError(f"rows must be (W, R, {self.n_per_row}), got {tuple(rows.shape)}")
-        buf = torch.empty((self.n_cols + pre[-1].n_out, r, w // 2), dtype=torch.int32,
+        w32 = self.spec.w16 // 2
+        r, npr = (rows.shape[0], rows.shape[1]) if canon else (rows.shape[1], rows.shape[2])
+        want = (r, self.n_per_row, w32) if canon else (2 * w32, r, self.n_per_row)
+        if tuple(rows.shape) != want:
+            raise ValueError(f"rows must be {want}, got {tuple(rows.shape)}")
+        buf = torch.empty((self.n_cols + pre[-1].n_out, r, w32), dtype=torch.int32,
                           device=rows.device)
-        # pack where the limbs lie (coalesced), then move the words
-        buf[:npr] = pack_words(rows, 0).permute(2, 1, 0)
+        if canon:  # to Montgomery form, written straight into the buffer's layout
+            mont_mul_map(self.spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
+                         out_form="words", out=buf[:npr].permute(2, 1, 0))
+        else:  # pack where the limbs lie (coalesced), then move the words
+            buf[:npr] = pack_words(rows, 0).permute(2, 1, 0)
         for in_pos, out_pos, dm, _ in self._levels(pre, post, rs):
             spmv(self.spec, buf[in_pos : in_pos + dm.n_in], dm,
                  buf[out_pos : out_pos + dm.n_out])
@@ -601,6 +608,14 @@ class SdigEncoding(LcEncoding):
         on exit, so the reference's limb-major layout holds at the
         boundary."""
         return self._encode_packed(rows, lambda spec, x, dm, out: spmv_mont(spec, x, dm, out=out))
+
+    def encode_canon_rows(self, rows_w: torch.Tensor) -> torch.Tensor:
+        """encode_rows of (R, n_per_row, W/2) canonical words (the verifier's
+        proof rows): one mont_mul_map launch writes their Montgomery words
+        straight into the packed level buffer (no pack after a conversion),
+        then the levels; on the CPU the same through the plain versions."""
+        return self._encode_packed(rows_w, lambda spec, x, dm, out: spmv_mont(spec, x, dm, out=out),
+                                   canon=True)
 
     def encode_rows_words_plain(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows_words through the plain versions (apply_mat_plain a

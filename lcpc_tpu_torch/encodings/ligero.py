@@ -180,6 +180,18 @@ class LigeroEncoding(LcEncoding):
         only the n_per_row columns)."""
         return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows))
 
+    def encode_canon_rows(self, rows_w: torch.Tensor) -> torch.Tensor:
+        """encode_rows of (R, n_per_row, W/2) canonical words (the verifier's
+        proof rows): the NTT's first pass takes each element to Montgomery
+        form as it loads it (ntt_forward(input="words")), so the conversion
+        has no launch of its own on the card; on the CPU the plain chain,
+        mont_mul_map_plain's to_mont then ntt_forward_plain."""
+        r, npr, w32 = rows_w.shape
+        if npr != self.n_per_row or w32 != self.ops.w // 2:
+            raise ValueError(f"rows must be (R, {self.n_per_row}, {self.ops.w // 2}) words, "
+                             f"got {tuple(rows_w.shape)}")
+        return ntt_forward(get_ntt(self.spec, self.n_cols), rows_w, input="words")
+
     def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows with the hash words written by the NTT's last pass."""
         return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),

@@ -27,7 +27,10 @@ the column), and Merkle nodes are blake3(left_digest || right_digest)
   `hash_word_columns_few_plain` is the few route's order, the reference
   the tests hold the kernel to, and `merkle_parent_plain` and
   `merkle_layer_plain` (lcpc_tpu's `merkle_parent` and `merkle_layer`)
-  are the steps of the plain trees, on any device.  Column words are u32 values as int32
+  are the steps of the plain trees, on any device;
+  `merkle_parent_quad_plain` is the walk kernel's parent in its quad
+  layout (a lane a column of the state), the model the tests hold to
+  `merkle_parent_plain`.  Column words are u32 values as int32
   storage (the layout `encode_rows_words` returns) or as int64; digests are
   (8, n) int64 tensors holding u32 values.
 - `hash_word_columns_sequential` is the block-by-block plain version (one
@@ -655,6 +658,37 @@ def merkle_parent_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor
     return out[:, :, 0].t()
 
 
+def merkle_parent_quad_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """merkle_parent_plain in the walk kernel's quad layout (csrc/blake3.cuh
+    quad_parent), on any device: the state as (n, 4) rows a, b, c, d, lane
+    q on the last axis holding column q; each message word a select by lane
+    (the kernel's `pick`); the diagonal step lane q's G_{q-1}, a, c, d rolled
+    in from lanes q - 1, q + 1, q + 2 and back after; the output's words
+    from the two lanes holding their halves.  (8, n) each -> (8, n) int64."""
+    m = list(torch.cat([_u32(left), _u32(right)]).unbind(0))  # 16 x (n,)
+
+    def pick(*ws):  # word ws[q] in lane q: (n, 4)
+        return torch.stack([m[i] for i in ws], dim=-1)
+
+    n = left.shape[1]
+    iv = torch.tensor(IV, dtype=torch.int64, device=left.device)
+    a, b = iv[0:4].expand(n, 4), iv[4:8].expand(n, 4)
+    c = iv[0:4].expand(n, 4)
+    d = torch.tensor([0, 0, BLOCK_LEN, CHUNK_START | CHUNK_END | ROOT], dtype=torch.int64,
+                     device=left.device).expand(n, 4)
+    for r in range(7):
+        a, b, c, d = _g4(a, b, c, d, pick(0, 2, 4, 6), pick(1, 3, 5, 7))
+        a, c, d = a.roll(1, -1), c.roll(-1, -1), d.roll(-2, -1)
+        a, b, c, d = _g4(a, b, c, d, pick(14, 8, 10, 12), pick(15, 9, 11, 13))
+        if r < 6:
+            a, c, d = a.roll(-1, -1), c.roll(1, -1), d.roll(2, -1)
+            m = [m[i] for i in MSG_PERMUTATION]
+    # lane p holds a_{p-1}, b_p, c_{p+1}, d_{p+2}
+    lo = [a[:, (i + 1) % 4] ^ c[:, (i + 3) % 4] for i in range(4)]
+    hi = [b[:, i] ^ d[:, (i + 2) % 4] for i in range(4)]
+    return torch.stack(lo + hi)
+
+
 def merkle_layer_plain(digests: torch.Tensor) -> torch.Tensor:
     """One Merkle layer through blake3_parents_plain: (8, n), n even -> (8, n // 2)."""
     return merkle_parent_plain(digests[:, 0::2], digests[:, 1::2])
@@ -778,8 +812,9 @@ def merkle_walk(digs: torch.Tensor, uniq_sibs: torch.Tensor, inv: torch.Tensor,
     or, given the commitment's root (8,), clears flag ((1,) int32, a view
     of the verifier's state) where one differs and returns None.
 
-    CUDA tensors launch csrc/blake3_cols.cu's merkle_walk once (counted in
-    merkle_walk.launches) or raise; CPU tensors run merkle_walk_plain."""
+    CUDA tensors launch csrc/blake3_cols.cu's merkle_walk_quad_kernel once
+    (a quad of lanes a column; counted in merkle_walk.launches) or raise;
+    CPU tensors run merkle_walk_plain."""
     return _walk("merkle_walk", lambda: cuda_build.load(_NAME, _bind).lcpc_blake3_merkle_walk,
                  merkle_walk_plain, merkle_walk, digs, uniq_sibs, inv, idx, root, flag)
 

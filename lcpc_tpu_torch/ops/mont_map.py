@@ -17,9 +17,12 @@ Forms of a field-element tensor, all int32:
   "hash"   (R*W/2, C) words of pack_row_words' layout (word r*W/2 + i of
            column c), standing for the (W/2, R, C) words of batch (R, C).
 Both operands have in_form and as many batch dims; the output has out_form
-over their broadcast batch.  mul, add and sub take operands below
-p (Montgomery residues, as lcpc_tpu's ops); to_mont and from_mont any value
-below R = 2^(16 W); every map returns the unique residue below p.
+over their broadcast batch, in a new tensor or, with mont_mul_map's `out=`,
+written into a given one at any strides that two batch dims express
+(Brakedown's verify writes its rows into the encode's packed level
+buffer).  mul, add and sub take operands below p (Montgomery residues, as
+lcpc_tpu's ops); to_mont and from_mont any value below R = 2^(16 W); every
+map returns the unique residue below p.
 
 On a CUDA tensor a wrapper launches its kernel (one launch, counted in
 `mont_mul_map.launches` / `mont_addsub_map.launches`) or raises; on a CPU
@@ -195,12 +198,14 @@ def _merge_2d(ts, batch):
     return R, C, sr, sc
 
 
-def _launch(kernel, spec, op, av, bv, in_form, out_form, batch) -> torch.Tensor:
+def _launch(kernel, spec, op, av, bv, in_form, out_form, batch, into=None) -> torch.Tensor:
     """One launch of `kernel` over the broadcast batch; returns the output
-    in out_form."""
+    in out_form, written into `into` when given (_check_into)."""
     w, w32 = spec.w16, spec.w16 // 2
     device = av.device
-    if out_form == "hash":
+    if into is not None:
+        out = ov = into
+    elif out_form == "hash":
         out = torch.empty((batch[0] * w32, batch[1]), dtype=torch.int32, device=device)
         ov = out.unflatten(0, (batch[0], w32)).transpose(0, 1)
     else:
@@ -215,6 +220,9 @@ def _launch(kernel, spec, op, av, bv, in_form, out_form, batch) -> torch.Tensor:
     if dims is None:  # strides no two dims express: the operands copied contiguous
         ts = [t.contiguous() for t in ts[:-1]] + [ov]
         dims = _merge_2d(ts, batch)
+    if dims is None:
+        raise ValueError(f"{kernel.__name__}: out's strides {ov.stride()} take more than two "
+                         f"dims of the batch {tuple(batch)}")
     R, C, sr, sc = dims
 
     def view(k, form):
@@ -233,22 +241,42 @@ def _launch(kernel, spec, op, av, bv, in_form, out_form, batch) -> torch.Tensor:
     return out
 
 
-def _dispatch(kernel, plain, ops_, spec, a, b, op, in_form, out_form):
+def _check_into(spec, into, av, out_form, batch) -> None:
+    """`into` is an int32 tensor of out_form ("limbs" or "words") over the
+    batch, (W or W/2, ...batch), on the operands' device: any strides, the
+    batch merged to at most two dims (the kernel's)."""
+    if out_form == "hash":
+        raise ValueError("out: limbs or words only (a hash-words output is allocated)")
+    rows = spec.w16 if out_form == "limbs" else spec.w16 // 2
+    if into.dtype != torch.int32 or into.device != av.device or tuple(into.shape) != (
+            rows, *batch):
+        raise ValueError(f"out must be int32 ({rows}, {', '.join(map(str, batch))}) on "
+                         f"{av.device}, got {into.dtype} {tuple(into.shape)} on {into.device}")
+
+
+def _dispatch(kernel, plain, ops_, spec, a, b, op, in_form, out_form, into=None):
     av, bv, batch = _check(spec, op, ops_, a, b, in_form, out_form)
+    if into is not None:
+        _check_into(spec, into, av, out_form, batch)
     if av.device.type == "cpu":
-        return plain(spec, a, b, op=op, in_form=in_form, out_form=out_form)
+        res = plain(spec, a, b, op=op, in_form=in_form, out_form=out_form)
+        return res if into is None else into.copy_(res)
     if av.device.type != "cuda":
         raise ValueError(f"{kernel.__name__}: unsupported device {av.device}")
-    return _launch(kernel, spec, op, av, bv, in_form, out_form, batch)
+    return _launch(kernel, spec, op, av, bv, in_form, out_form, batch, into)
 
 
 def mont_mul_map(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | None" = None, *,
-                 op: str = "mul", in_form: str = "limbs",
-                 out_form: str = "limbs") -> torch.Tensor:
+                 op: str = "mul", in_form: str = "limbs", out_form: str = "limbs",
+                 out: "torch.Tensor | None" = None) -> torch.Tensor:
     """a b R^-1 ("mul"), a R ("to_mont") or a R^-1 ("from_mont") mod p of
-    each element, in out_form; see the module docstring."""
+    each element, in out_form; see the module docstring.  With `out` (a
+    limbs or words tensor over the batch, any strides two dims express) the
+    result is written there and returned: Brakedown's verify writes its
+    proof rows' Montgomery words straight into the encode's packed
+    (positions, R, W/2) level buffer, `out=buf[:npr].permute(2, 1, 0)`."""
     return _dispatch(mont_mul_map, mont_mul_map_plain, MUL_OPS, spec, a, b, op, in_form,
-                     out_form)
+                     out_form, out)
 
 
 def mont_addsub_map(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | None" = None, *,

@@ -21,9 +21,13 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
   launch per pass: the first reads the (W, R, k) limbs, the last writes the
   (W, R, n) limbs, the canonical hash words or both (`output` = "limbs",
   "words" or "both"); passes hand over through one packed (R, n, W32)
-  scratch buffer.  It raises if a launch fails.  On
-  CPU tensors it runs `ntt_forward_plain` (then from_mont and the pack for
-  the words).  `ntt_forward.launches` counts kernel launches.
+  scratch buffer.  With `input="words"` (the verifier's proof rows) the
+  first pass reads (R, k, W32) canonical words instead and takes each
+  element to Montgomery form as it loads it (one product with R^2, as
+  mont_mul_map's to_mont; `lcpc_ntt_words_pass`).  It raises if a launch
+  fails.  On CPU tensors it runs `ntt_forward_plain` (after
+  mont_mul_map_plain's to_mont for words in; then from_mont and the pack
+  for the words out).  `ntt_forward.launches` counts kernel launches.
 - `ntt_forward_plain` is the plain PyTorch twin: the Gentleman-Sande ladder
   of `_ntt_forward` with FieldOps.add_plain/sub_plain/mul_plain (no
   kernel), on any device.  Both return
@@ -55,6 +59,7 @@ from ..utils import cuda_build
 from ..utils.device import with_index
 from . import launch_count
 from .limbs import FieldOps, get_ops, pack_row_words
+from .mont_dot import field_consts
 from .spmv import pack_words, unpack_words
 
 _NAME = "ntt_mont"
@@ -318,17 +323,25 @@ def ntt_forward_passes_plain(plan: NttPlan, x: torch.Tensor) -> torch.Tensor:
 def _bind(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.lcpc_ntt_pass.argtypes = [p, p, p, p, p, p, p] + [i] * 9 + [p]
+    lib.lcpc_ntt_words_pass.argtypes = [p] * 6 + [i] * 9 + [p]
     lib.lcpc_ntt_inverse_pass.argtypes = [p] * 6 + [i] * 8 + [p]
-    for fn in (lib.lcpc_ntt_pass, lib.lcpc_ntt_inverse_pass):
+    for fn in (lib.lcpc_ntt_pass, lib.lcpc_ntt_words_pass, lib.lcpc_ntt_inverse_pass):
         fn.restype = ctypes.c_int
 
 
 _OUTPUTS = ("limbs", "both", "words")
+_INPUTS = ("limbs", "words")
 
 
-def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
-    """Forward NTT of each row: x (W, R, k <= n) int32 Montgomery limbs,
-    zero-padded to n.  `output` names what the last pass writes:
+def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs",
+                input: str = "limbs"):
+    """Forward NTT of each row, zero-padded to n: with input="limbs" x is
+    (W, R, k <= n) int32 Montgomery limbs; with input="words" (the
+    verifier's proof rows) x is (R, k <= n, W/2) canonical words, int32
+    storage of u32, any value below R = 2^(16 W), which the first pass
+    takes to Montgomery form as it loads them (a product with R^2, as
+    mont_mul_map's to_mont: no launch of its own).  `output` names what the
+    last pass writes:
       "limbs"  (W, R, n) limbs in bit-reversed order;
       "both"   (limbs, words), words the canonical hash words, (R*W/2, n)
                int32 storage of LE u32 words (word r*W/2 + i of column c);
@@ -337,17 +350,26 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
 
     CUDA tensors go through the kernel (csrc/ntt_mont.cu), one launch per
     pass, each counted in ntt_forward.launches, or raise; CPU tensors take
-    ntt_forward_plain (and from_mont and the pack).  Any other device
+    ntt_forward_plain (after mont_mul_map_plain's to_mont for words in;
+    then from_mont and the pack for words out).  Any other device
     raises."""
     w = plan.spec.w16
     if x.dtype != torch.int32:
         raise TypeError(f"ntt_forward: x must be int32, got {x.dtype}")
-    if x.dim() != 3 or x.shape[0] != w or x.shape[2] > plan.n:
-        raise ValueError(f"ntt_forward: x must be ({w}, R, k <= {plan.n}), "
-                         f"got {tuple(x.shape)}")
+    if input not in _INPUTS:
+        raise ValueError(f"ntt_forward: input must be one of {_INPUTS}, got {input!r}")
+    words_in = input == "words"
+    # the dims of the element's limbs or words, of the columns, and their count
+    e_dim, k_dim, rows = (2, 1, w // 2) if words_in else (0, 2, w)
+    if x.dim() != 3 or x.shape[e_dim] != rows or x.shape[k_dim] > plan.n:
+        want = f"(R, k <= {plan.n}, {rows})" if words_in else f"({w}, R, k <= {plan.n})"
+        raise ValueError(f"ntt_forward: x must be {want}, got {tuple(x.shape)}")
     if output not in _OUTPUTS:
         raise ValueError(f"ntt_forward: output must be one of {_OUTPUTS}, got {output!r}")
     if x.device.type == "cpu":
+        if words_in:
+            from .mont_map import mont_mul_map_plain
+            x = mont_mul_map_plain(plan.spec, x.permute(2, 0, 1), op="to_mont", in_form="words")
         y = ntt_forward_plain(plan, x)
         if output == "limbs":
             return y
@@ -356,7 +378,10 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
     if x.device.type != "cuda":
         raise ValueError(f"ntt_forward: unsupported device {x.device}")
     x = x.contiguous()
-    r, k, n, w32 = x.shape[1], x.shape[2], plan.n, w // 2
+    if words_in and x.data_ptr() % 16:  # the kernel's vector loads
+        x = x.clone()
+    r, k = (x.shape[0], x.shape[1]) if words_in else (x.shape[1], x.shape[2])
+    n, w32 = plan.n, w // 2
     out = (torch.empty((w, r, n), dtype=torch.int32, device=x.device)
            if output != "words" else None)
     words = (torch.empty((r * w32, n), dtype=torch.int32, device=x.device)
@@ -370,15 +395,19 @@ def ntt_forward(plan: NttPlan, x: torch.Tensor, *, output: str = "limbs"):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         last = len(plan.passes) - 1
         for i, ps in enumerate(plan.passes):
-            err = lib.lcpc_ntt_pass(
-                x.data_ptr() if i == 0 else None,
-                None if i == 0 else buf.data_ptr(),
-                None if i == last else buf.data_ptr(),
-                out.data_ptr() if i == last and out is not None else None,
-                words.data_ptr() if i == last and words is not None else None,
-                tw.data_ptr(), consts.data_ptr(), w32, r, plan.log_n, k,
-                ps.hi, ps.lo, ps.log_t, ps.threads(r << (plan.log_n - ps.log_tile)), dev,
-                stream)
+            outs = (None if i == last else buf.data_ptr(),
+                    out.data_ptr() if i == last and out is not None else None,
+                    words.data_ptr() if i == last and words is not None else None)
+            shape = (w32, r, plan.log_n, k, ps.hi, ps.lo, ps.log_t,
+                     ps.threads(r << (plan.log_n - ps.log_tile)), dev, stream)
+            if i == 0 and words_in:  # the proof rows to Montgomery form in the first load
+                err = lib.lcpc_ntt_words_pass(x.data_ptr(), *outs, tw.data_ptr(),
+                                              field_consts(plan.spec, x.device).data_ptr(),
+                                              *shape)
+            else:
+                err = lib.lcpc_ntt_pass(x.data_ptr() if i == 0 else None,
+                                        None if i == 0 else buf.data_ptr(), *outs,
+                                        tw.data_ptr(), consts.data_ptr(), *shape)
             if err != 0:
                 raise RuntimeError(f"ntt_mont pass {i} (half-sizes 2^{ps.hi} .. 2^{ps.lo}) "
                                    f"launch failed: cudaError_t {err}")

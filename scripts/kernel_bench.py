@@ -171,6 +171,21 @@ def ptxas_entries(build_log, kernel):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def ptxas_stack(build_log, kernel):
+    """{mangled function name: stack frame bytes} of every function whose
+    name contains `kernel`, from nvcc -v ("Function properties for ...",
+    then "N bytes stack frame")."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"properties for (\w+)", line)
+            name = m.group(1) if m and kernel in m.group(1) else None
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name is not None:
+            out[name] = int(m.group(1))
+    return out
+
+
 def find_tool(name):
     """A CUDA toolkit program (PATH, then CUDA_HOME), or None."""
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
@@ -275,7 +290,8 @@ def blake3_sass_mix(chain_so, lib_so, kernels):
     chain_funcs, lib_funcs = sass_functions(chain_so), sass_functions(lib_so)
     if chain_funcs is None or lib_funcs is None:
         return None
-    probe = next(v for k, v in chain_funcs.items() if "compress_chain_kernel" in k)
+    probe = next((v for k, v in chain_funcs.items() if "compress_chain_kernelILb0E" in k),
+                 None) or next(v for k, v in chain_funcs.items() if "compress_chain_kernel" in k)
     body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
     chain = tuple(x / CHAIN_PER_TRIP for x in pipe_mix(body))
     per_kernel = {}
@@ -286,6 +302,27 @@ def blake3_sass_mix(chain_so, lib_so, kernels):
             per_kernel[name] = (*(x / n for x in mix), n)
     return {"chain": chain, "kernels": per_kernel,
             "chain_opcodes": dict(collections.Counter(t.split()[0] for t in body).most_common())}
+
+
+def chain_layout_mix(chain_so):
+    """Each BLAKE3 probe layout's compression by pipe from its loop body's
+    SASS (scripts/blake3_chain.cu): {layout: (ALU, FMA, all, SHFL)} a
+    compression, the quad's a lane's (its loop body is one compression, the
+    one-thread layouts' CHAIN_PER_TRIP); None without cuobjdump."""
+    funcs = sass_functions(chain_so)
+    if funcs is None:
+        return None
+    out = {}
+    for layout, name, per in (("thread", "compress_chain_kernelILb0E", CHAIN_PER_TRIP),
+                              ("fma", "compress_chain_kernelILb1E", CHAIN_PER_TRIP),
+                              ("quad", "quad_chain_kernel", 1)):
+        probe = next((v for k, v in funcs.items() if name in k), None)
+        if probe is None:
+            continue
+        body = max(_loops(probe), key=lambda lp: pipe_mix(lp)[0])
+        shfl = sum(t.split()[0].startswith("SHFL") for t in body)
+        out[layout] = tuple(x / per for x in (*pipe_mix(body), shfl))
+    return out
 
 
 CHAIN_PER_TRIP = 4  # compressions (threefry steps) in a probe's loop body (kPerTrip)
@@ -362,22 +399,28 @@ class GatherProbe:
         torch.cuda.empty_cache()
 
 
-def compress_chain(so, cv, n):
+# the probe's layouts (scripts/blake3_chain.cu): one thread, one thread with
+# its adds on the FMA pipe, one quad of lanes (the path walk's compression)
+CHAIN_LAYOUTS = {"thread": "lcpc_blake3_compress_chain", "fma": "lcpc_blake3_compress_chain_fma",
+                 "quad": "lcpc_blake3_quad_chain"}
+
+
+def compress_chain(so, cv, n, layout="thread"):
     """n (a multiple of CHAIN_PER_TRIP) dependent compressions cv <-
     compress(IV, cv || cv, 0, 64, PARENT) of an (8,) int64 CV on the card,
-    in one thread of the probe `so`."""
+    by the probe `so` in `layout` (CHAIN_LAYOUTS: one thread, one thread
+    with its adds on the FMA pipe, one quad of lanes)."""
     lib = _chain_libs.get(so)
     if lib is None:
         lib = _chain_libs[so] = ctypes.CDLL(so)
-        lib.lcpc_blake3_compress_chain.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                                   ctypes.c_void_p, ctypes.c_void_p]
-        lib.lcpc_blake3_compress_chain.restype = ctypes.c_int
+    fn = getattr(lib, CHAIN_LAYOUTS[layout])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     cv = cv.contiguous()
     out = torch.empty(8, dtype=torch.int64, device=cv.device)
-    err = lib.lcpc_blake3_compress_chain(cv.data_ptr(), n, out.data_ptr(),
-                                         torch.cuda.current_stream(cv.device).cuda_stream)
+    err = fn(cv.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(cv.device).cuda_stream)
     if err:
-        raise RuntimeError(f"compress_chain launch failed: cudaError_t {err}")
+        raise RuntimeError(f"compress_chain ({layout}) launch failed: cudaError_t {err}")
     return out
 
 

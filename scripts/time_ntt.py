@@ -14,6 +14,16 @@ events), on random ft255 rows:
     wrapper has it, else `ntt_forward`, then
     `from_mont` and `_pack_words` (what the commit ran before the NTT wrote
     the words).
+  - verify's proof rows (2 rows of 32,768 canonical words, some of them
+    >= p): `protocol._rows_encode(enc, rows_w)`, the conversion to
+    Montgomery form and the encode (PR 20: the NTT's first pass converts as
+    it loads; before, one mont_mul_map launch, then the NTT), warm and cold,
+    with the launches of one call by kernel (chip_smoke.py phase 5 holds
+    the words-in pass to mont_mul_map + ntt_forward in every field);
+  - the same for Brakedown's verify rows (2 x 235,173 words; PR 20: the
+    conversion writes the level buffer, no pack) with --sdig;
+  - the small commit's one launch (`protocol._commit_fused_fn`, BLAKE3) at
+    Ligero 2^13 and 2^16, whose kernel shares the NTT's pass body.
 With --sweep it also times the commit shape under other pass plans, and
 with --parts each pass alone at both shapes, built as is and built
 with LCPC_NTT_NO_PRODUCTS (every twiddle product left out: the passes'
@@ -93,6 +103,7 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true", help="also time other pass plans")
     ap.add_argument("--parts", action="store_true",
                     help="also time each pass alone, with and without the products")
+    ap.add_argument("--sdig", action="store_true", help="also Brakedown 2^23's verify rows")
     args = ap.parse_args()
     sys.path[:0] = [os.path.abspath(args.repo)]
 
@@ -151,8 +162,54 @@ def main() -> int:
                  f" ({'fused' if fused else 'from_mont + pack after'})"
                  if "with_words_ms" in rec else ""), flush=True)
         del x
+    encs = [("ligero", enc)]
+    if args.sdig:
+        encs.append(("sdig", P.SdigEncoding.new(spec, N_COEFFS, seed=SEED, device="cuda")))
+    for name, e in encs:
+        result[f"rows_{name}"] = time_rows(torch, kb, P, protocol, e, gen)
+        print(f"{args.label} {name} verify rows {result[f'rows_{name}']}", flush=True)
+    result["commit_small"] = {}
+    for log_n in SMALL_LOGS:
+        e = P.LigeroEncoding.new(spec, 1 << log_n, 1, 4, device="cuda")
+        arr = kb.random_mont(spec, (1, spec.w16, 1 << log_n), gen)[0].contiguous()
+        fn = protocol._commit_fused_fn(e, P.BLAKE3)
+        fn(arr)
+        result["commit_small"][log_n] = kb.time_kernel(lambda: fn(arr), reps=20)
+        print(f"{args.label} commit_small ligero 2^{log_n}: "
+              f"{result['commit_small'][log_n]:.4f} ms", flush=True)
     print(json.dumps(result), flush=True)
     return 0
+
+
+SMALL_LOGS = (13, 16)
+
+
+def canon_rows(torch, spec, r, npr, gen):
+    """(r, npr, W/2) int32 canonical words, random below 2^(16 W): values >=
+    p among them (the conversion reduces them), the first all ones."""
+    w32 = spec.w16 // 2
+    x = torch.randint(-2**31, 2**31, (r, npr, w32), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    x[:, 0] = -1
+    return x
+
+
+def time_rows(torch, kb, P, protocol, enc, gen):
+    """Verify's rows at the 2^23 shape: protocol._rows_encode warm and cold,
+    and one call's launches by kernel."""
+    from lcpc_tpu_torch.ops import launch_count
+    x = canon_rows(torch, enc.spec, 2, enc.n_per_row, gen)
+    rec = {"rows": 2, "n_per_row": enc.n_per_row,
+           "warm_ms": kb.time_kernel(lambda: protocol._rows_encode(enc, x), reps=20),
+           "cold_ms": kb.time_kernel_cold(lambda: protocol._rows_encode(enc, x), reps=20)}
+    counters = {getattr(c, "__name__", f"counter {i}"): c
+                for i, c in enumerate(launch_count.COUNTERS)}
+    before = {k: c.launches for k, c in counters.items()}
+    protocol._rows_encode(enc, x)
+    torch.cuda.synchronize()
+    rec["launches"] = {k: c.launches - before[k] for k, c in counters.items()
+                       if c.launches != before[k]}
+    return rec
 
 
 if __name__ == "__main__":

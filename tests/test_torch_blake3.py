@@ -142,6 +142,19 @@ def test_parents_plain_promotes_odd_node():
             want = b3.compress(list(b3.IV), cvs[2 * i, :, c].tolist() + cvs[2 * i + 1, :, c]
                                .tolist(), 0, 64, b3.PARENT)[:8]
             assert out[i, :, c].tolist() == want
+    # the walk kernel's parent in its quad layout (a lane a column of the
+    # state, the diagonals rolled across the lanes) is the same node, on
+    # random words, all-0xFFFFFFFF words and words with the top bit set
+    rng = np.random.default_rng(5)
+    top = rng.integers(0, 2**31, size=(16, 4), dtype=np.uint32) | np.uint32(1 << 31)
+    for words in (rng.integers(0, 2**32, size=(16, 4), dtype=np.uint32),
+                  np.full((16, 4), 0xFFFFFFFF, dtype=np.uint32), top):
+        t = torch.from_numpy(words.astype(np.int64))
+        quad = b3.merkle_parent_quad_plain(t[:8], t[8:])
+        assert torch.equal(quad, b3.merkle_parent_plain(t[:8], t[8:]))
+        got = digests_to_bytes(quad)
+        for c in range(4):
+            assert bytes(got[c]) == blake3(words[:, c].astype("<u4").tobytes())
 
 
 def test_wrappers_refuse_other_devices():

@@ -16,7 +16,7 @@ from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device, pack_row_words
-from lcpc_tpu_torch.ops.mont_map import mont_addsub_map_plain, mont_mul_map_plain
+from lcpc_tpu_torch.ops.mont_map import mont_addsub_map_plain, mont_mul_map, mont_mul_map_plain
 from lcpc_tpu_torch.ops.spmv import pack_words
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -108,6 +108,20 @@ def test_elementwise_ops_match_field(field):
         assert torch.equal(getattr(ops, name + "_plain")(bt), getattr(ops, name)(bt)), name
     empty = a[:, :0]
     assert mont_mul_map_plain(spec, empty, empty).shape == (spec.w16, 0)
+    # out=: the words written into a strided view (Brakedown's verify rows
+    # into its level buffer: (positions, R, W/2) seen as (W/2, R, positions)),
+    # the rest of the buffer untouched; a wrong shape, dtype or form refused
+    rows = bw.reshape(w32, 4, 7)
+    buf = torch.full((9, 4, w32), -7, dtype=torch.int32)
+    view = buf[:7].permute(2, 1, 0)
+    got = mont_mul_map(spec, rows, op="to_mont", in_form="words", out_form="words", out=view)
+    assert got.data_ptr() == buf.data_ptr() and (buf[7:] == -7).all()
+    assert torch.equal(view, mont_mul_map_plain(spec, rows, op="to_mont", in_form="words",
+                                                out_form="words"))
+    for bad, form in ((view[:, :, :6], "words"), (view.to(torch.int64), "words"),
+                      (view, "hash")):
+        with pytest.raises(ValueError):
+            mont_mul_map(spec, rows, op="to_mont", in_form="words", out_form=form, out=bad)
 
 
 def test_reductions_match_field(field):

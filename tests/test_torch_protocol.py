@@ -266,9 +266,25 @@ def test_merkle_walk_vs_reference_paths(dedup):
         sj, rj = s.numpy().astype(np.uint32), right.numpy()
         jloop = np.asarray(_j_merkle_parent(np.where(rj, sj, jloop), np.where(rj, jloop, sj)))
     assert torch.equal(got, loop) and np.array_equal(got.numpy(), jloop)
-    # a wrong sibling no longer reaches the root
-    sibs[0, int(inv[2, 0])] ^= 1
-    assert not torch.equal(b3.merkle_walk(digs, sibs, inv, idx)[:, 0], flat[:, -1])
+    # the verifier's form: the root compared in the walk, the flag kept
+    root = flat[:, -1].clone()
+    flag = torch.ones(1, dtype=torch.int32)
+    assert b3.merkle_walk(digs, sibs, inv, idx, root=root, flag=flag) is None
+    assert int(flag) == 1
+    # a wrong sibling at the first, a middle and the last level no longer
+    # reaches the root, in either form
+    for lvl in (0, 2, path_len - 1):
+        at = int(inv[lvl, 0])
+        sibs[0, at] ^= 1
+        assert not torch.equal(b3.merkle_walk(digs, sibs, inv, idx)[:, 0], flat[:, -1])
+        b3.merkle_walk(digs, sibs, inv, idx, root=root, flag=flag)
+        assert int(flag) == 0, lvl
+        sibs[0, at] ^= 1
+        flag.fill_(1)
+    # and a wrong digest
+    digs[3, 0] ^= 1 << 31
+    b3.merkle_walk(digs, sibs, inv, idx, root=root, flag=flag)
+    assert int(flag) == 0
 
 
 def test_verify_columns_route_accepts_and_rejects_alike(monkeypatch):

@@ -193,6 +193,28 @@ def test_core_matches_reference_ft63(digest_name, want_cols):
     assert results["column word"][0] == [False] * (T + 1)  # every row and the path
     assert results["encoded row"][0] == [False] + [True] * T
     assert results["sibling"][0] == results["root"][0] == [True] * T + [False]
+    if digest_name == "blake3" and not want_cols:
+        # verify's rows: the proof rows' canonical words (any value below R,
+        # all-ones and top-bit words among them) to Montgomery form and
+        # encoded, by the port's words-in route (encode_canon_rows: on CPU
+        # tensors mont_mul_map_plain then the plain encode; Brakedown's
+        # conversion written into the level buffer) against lcpc_tpu's
+        # to_mont and encode as its host twins compute them (encode_host's
+        # to_mont of encode_row_host's codeword: the encode is linear; its
+        # jitted _rows_encode_fn recompiles for 3-9 s on XLA:CPU)
+        jops = j_get_ops(J.FT63)
+        for ours, theirs in ((P.LigeroEncoding.new_from_dims(P.FT63, 16, 64, 1, 4, device="cpu"),
+                              J.LigeroEncoding.new_from_dims(J.FT63, 16, 64, 1, 4)),
+                             (P.SdigEncoding(P.FT63, 64, seed=3, device="cpu"),
+                              J.SdigEncoding(J.FT63, 64, seed=3))):
+            rows = np.random.default_rng(3).integers(0, 1 << 32, (2, ours.n_per_row, 2),
+                                                     dtype=np.uint32)
+            rows[0, :3] = 0xFFFFFFFF
+            rows[1, :3] |= np.uint32(1 << 31)
+            got = P.core.protocol._rows_encode(ours, _t32(rows)).numpy().astype(np.uint32)
+            ints = [[_int(e) % J.FT63.p for e in row] for row in rows]
+            want = np.stack([jops.encode_host(theirs.encode_row_host(v)) for v in ints], axis=1)
+            assert np.array_equal(got, want), type(ours).__name__
 
 
 @pytest.mark.parametrize("form", ["limbs", "canon", "words", "mixed"])
