@@ -367,8 +367,8 @@ DOT_KERNELS = {"mont_dot_thin", "mont_dot_thin_tc", "mont_dot_tile"}  # mont_dot
 # kernel, the power table and mont_dot's tile kernel (a thin launch summing
 # its K splits) of verify at the columns, its conversion; both paths'
 # verify core and prove opening
-SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map", "verify_check",
-                "gather_open"}
+SDIG_KERNELS = {"spmv_mont", "mont_dot", "mont_dot_thin", "mont_mul_map", "mont_mul_map_vec",
+                "verify_check", "gather_open"}
 LIGERO_KERNELS = {"ntt_mont", "mont_dot", "power_table", "mont_mul_map", "verify_check",
                   "gather_open"} | DOT_KERNELS
 
@@ -391,25 +391,34 @@ def ligero_kernels(n_cols):
     return LIGERO_KERNELS - {"power_table", "mont_dot_tile", "mont_dot_thin", "mont_mul_map"}
 
 
-# mont_mul_map launches of a verify: the proof rows to Montgomery form (the
-# column check, the opened columns' hash words and the evaluation are
-# verify_check's).  Brakedown: one, written into the encode's level buffer;
+# mont_mul_map launches of a verify by mode (strided, element-contiguous):
+# the proof rows to Montgomery form (the column check, the opened columns'
+# hash words and the evaluation are verify_check's).  Brakedown: one,
+# written into the encode's level buffer by the element-contiguous mode;
 # Ligero: none through the encode (the NTT's first pass converts them as it
-# loads them, PR 20), one at the opened columns (before the tile kernel)
-SDIG_VERIFY_MAPS = 1
+# loads them), one strided at the opened columns (before the tile kernel)
+SDIG_VERIFY_MAPS = (0, 1)
 
 
 def ligero_verify_maps(n_cols):
-    """mont_mul_map launches of a Ligero verify at n_cols columns."""
-    return 1 if verify_at_columns(n_cols) else 0
+    """mont_mul_map launches by mode of a Ligero verify at n_cols columns."""
+    return (1 if verify_at_columns(n_cols) else 0, 0)
+
+
+def map_modes(launches):
+    """mont_mul_map's launches by mode, (strided, element-contiguous), of a
+    run's launches by counter."""
+    return launches.get("mont_mul_map", 0), launches.get("mont_mul_map_vec", 0)
 
 
 def check_verify_maps(verify, tag, want):
-    """A verify's launches by counter hold `want` mont_mul_map launches."""
-    got = verify.get("mont_mul_map", 0)
+    """A verify's launches by counter hold `want` mont_mul_map launches by
+    mode."""
+    got = map_modes(verify)
     if got != want:
-        raise AssertionError(f"{tag}: verify launched mont_mul_map {got} times, not {want}")
-    log(f"  {tag}: verify's mont_mul_map launches {got}")
+        raise AssertionError(f"{tag}: verify launched mont_mul_map {got} times by mode, "
+                             f"not {want}")
+    log(f"  {tag}: verify's mont_mul_map launches by mode (strided, element-contiguous) {got}")
 SHA_KERNELS = ("sha256_cols", "sha256_merkle_tree", "sha256_merkle_walk")  # the counters
 SHA_COLS_KERNELS = ("sha256_cols_few", "sha256_cols_wide")  # sha256_cols's two, by their counters
 SHA_NARROW = (1, 31, 32, 33)  # phase 13: few-column kernel column counts beside 189 and 6,593
@@ -455,6 +464,10 @@ MAP_VERIFY_ROWS = (2, 32_768)
 MAP_OPENED = ((256, 189), (36, 6_593))
 MAP_STREAM_OPENED = (2_048, 189)
 MAP_SDIG_VERIFY_ROWS = (2, 235_173)  # phase 12: the 2^23 Brakedown verify's proof rows
+MAP_COLS_ROWS = (2, 262_144)  # phase 12: the 2^29 verify's rows as the columns route reads them
+MAP_VEC_EDGE = (3, 1_031)     # phase 12: the element-contiguous mode in every field (rows x k)
+WHOLE_MODE = "Lb1EE"  # in mont_mul_map_kernel<W, OP, true>'s names: the element-contiguous mode
+MAP_VEC_REPS = 20             # phase 12: timed calls a turn
 # (CUDA events torch.profiler saw, a lower bound; the port's kernel launches,
 # exact) of a warm commit, prove and verify of each 2^23 path on the parent
 # commit a2037ab, before verify's core and prove's opening were kernels
@@ -836,7 +849,8 @@ def stage_launches(torch, P, counters, enc, commit, outer, inner, digest):
 # kernels of verify's rows (the encode, or the rows at the opened columns)
 # and of prove's collapse: the rest of a stage is verify's core and prove's
 # opening
-ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mont_mul_map", "power_table", "mont_dot", *DOT_KERNELS}
+ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mont_mul_map", "mont_mul_map_vec", "power_table",
+                "mont_dot", *DOT_KERNELS}
 
 
 def check_verify_core(verify, tag, digest):
@@ -914,7 +928,7 @@ def main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, tag, path_
                             digest)
     parent = PARENT_LAUNCHES.get(f"{tag} {digest.name}")
     for i, (name, rec) in enumerate(stages.items()):
-        port = sum(n for k, n in rec["counters"].items()
+        port = sum(n for k, n in rec["counters"].items()  # sub-kernels counted twice
                    if k not in DOT_KERNELS and k not in SHA_COLS_KERNELS)
         log(f"  {tag} {name}: {rec['cuda_kernels']} CUDA events, {port} launches of the "
             f"port's kernels" + (f" (commit a2037ab's: {parent[i][0]}, {parent[i][1]})"
@@ -970,12 +984,13 @@ def sha_launches_path(commit_cols, verify_cols, commit_calls=1):
 
 
 def check_map_launches(stages, tag, want):
-    """mont_mul_map's launches by stage of a traced run equal `want`, and
-    mont_addsub_map launched nowhere."""
-    got = {name: rec["counters"].get("mont_mul_map", 0) for name, rec in stages.items()}
+    """mont_mul_map's launches by stage and mode (map_modes) of a traced run
+    equal `want`, and mont_addsub_map launched nowhere."""
+    got = {name: map_modes(rec["counters"]) for name, rec in stages.items()}
     if got != want or any("mont_addsub_map" in rec["counters"] for rec in stages.values()):
-        raise AssertionError(f"{tag}: mont_mul_map launches by stage {got} != {want}")
-    log(f"  {tag}: mont_mul_map launches by stage {got}; mont_addsub_map none")
+        raise AssertionError(f"{tag}: mont_mul_map launches by stage and mode {got} != {want}")
+    log(f"  {tag}: mont_mul_map launches by stage and mode (strided, element-contiguous) {got}; "
+        f"mont_addsub_map none")
 
 
 def check_hash_launches(launches, want, tag):
@@ -2267,7 +2282,7 @@ def mont_map_phase(torch, kb, P, mm, gen):
           out_form="words", timed=map_cost(spec, t * npr, w32, w32, mul_p))
     check("ligero 2^23 verify rows -> limbs", mm.mont_mul_map, mm.mont_mul_map_plain, spec,
           rows.permute(2, 0, 1), op="to_mont", in_form="words")
-    recs["brakedown 2^23 verify rows"] = sdig_verify_rows(torch, kb, mm, spec, gen)
+    recs.update(vector_route(torch, kb, P, mm, gen))
     # verify's opened columns: packed Montgomery words -> canonical hash words
     for (r, k), name in zip(MAP_OPENED, ("ligero", "brakedown")):
         col = pack_words(kb.random_mont(spec, (r, w, k), gen, DEV), 1).permute(1, 0, 2).contiguous()
@@ -2347,70 +2362,155 @@ def mont_map_phase(torch, kb, P, mm, gen):
     return recs
 
 
-def sdig_verify_rows(torch, kb, mm, spec, gen):
-    """Brakedown 2^23 verify's proof rows, (2, 235,173) canonical words (some
-    >= p, a row all ones), to Montgomery words written by one mont_mul_map
-    launch straight into the encode's packed (positions, R, W/2) level
-    buffer (SdigEncoding.encode_canon_rows, PR 20), against the route it
-    replaced (to_mont to limbs, then pack_words and a copy into the buffer)
-    and the plain version, word for word; both routes timed in turns old,
-    new, new, old beside the bytes bound (the words read once, written
-    once), and each route's CUDA kernels counted by torch.profiler."""
-    from lcpc_tpu_torch.ops.spmv import pack_words
+def canon_rows(torch, spec, t, npr, gen):
+    """(t, npr, W/2) int32 canonical words, random below R (>= p among
+    them); row 0 all ones (R - 1), row 1 all p - 1 (where t > 1)."""
+    from lcpc_tpu_torch.ops.limbs import get_ops
 
-    t, npr = MAP_SDIG_VERIFY_ROWS
     w32 = spec.w16 // 2
     rows = torch.randint(-2**31, 2**31, (t, npr, w32), generator=gen, device=DEV,
                          dtype=torch.int32)
     rows[0] = -1
-    buf = torch.zeros((npr + 5, t, w32), dtype=torch.int32, device=DEV)
-    old_buf = torch.zeros_like(buf)
-
-    def new():
-        mm.mont_mul_map(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
-                        out_form="words", out=buf[:npr].permute(2, 1, 0))
-
-    def old():
-        limbs = mm.mont_mul_map(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words")
-        old_buf[:npr] = pack_words(limbs, 0).permute(2, 1, 0)
-
-    before = mm.mont_mul_map.launches
-    new()
-    if mm.mont_mul_map.launches != before + 1:
-        raise AssertionError("brakedown verify rows: the packed output took more than a launch")
-    old()
-    want = mm.mont_mul_map_plain(spec, rows.permute(2, 0, 1), op="to_mont", in_form="words",
-                                 out_form="words").permute(2, 1, 0)
-    if not (torch.equal(buf, old_buf) and torch.equal(buf[:npr], want) and not buf[npr:].any()):
-        raise AssertionError("brakedown verify rows: the packed output != the old pack or plain")
-    turns = [(tag, kb.time_kernel(fn, reps=20))
-             for tag, fn in (("old", old), ("new", new), ("new", new), ("old", old))]
-    _, plain_ms = time_host(torch, lambda: mm.mont_mul_map_plain(
-        spec, rows.permute(2, 0, 1), op="to_mont", in_form="words", out_form="words"))
-    nbytes, products = map_cost(spec, t * npr, w32, w32, 2 * w32 * w32 + w32)
-    bound, t_bytes, t_ops = bound_ms(nbytes, products)
-    kernels = {}
-    for tag, fn in (("old", old), ("new", new)):
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels[tag] = sorted(e.name[:50] for e in prof.events()
-                              if e.device_type == torch.autograd.DeviceType.CUDA)
-    ms = statistics.median(v for k, v in turns if k == "new")
-    rec = {"ms": ms, "old_route_ms": statistics.median(v for k, v in turns if k == "old"),
-           "turns": turns, "plain_ms": plain_ms, "bound_ms": bound,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "share": bound / ms,
-           "bytes": nbytes, "products": products, "cuda_kernels": kernels}
-    log(f"  mont_mul_map brakedown 2^23 verify rows: (2, 235,173) words -> the level buffer's "
-        f"packed Montgomery words, equal to the old pack and plain; turns old, new, new, old "
-        f"{[(k, round(v, 4)) for k, v in turns]} ms (bound {bound:.4f} ms, {rec['bound_by']}, "
-        f"{100 * bound / ms:.1f}%); CUDA kernels old {kernels['old']}, new {kernels['new']}; "
-        f"plain {plain_ms:.2f} ms")
-    return rec
+    if t > 1:
+        pm1 = get_ops(spec).encode_repr_words([spec.p - 1]).view("int32")
+        rows[1] = torch.from_numpy(pm1.copy()).to(DEV)
+    return rows
 
 
-def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
+def strided_map(spec, a, *, out, op, in_form, out_form):
+    """mont_mul_map's strided mode (a thread an element) on views its
+    wrapper takes by the element-contiguous mode: csrc/mont_map.cu's entry
+    called with `whole` 0, to compare and time the two modes on the same
+    views (counted nowhere).  Returns out."""
+    from lcpc_tpu_torch.ops import mont_map as mm
+    from lcpc_tpu_torch.utils import cuda_build
+
+    av, bv, batch = mm._check(spec, op, mm.MUL_OPS, a, None, in_form, out_form)
+    _, ts, dims = mm._operands(spec, av, bv, out_form, batch, out)
+    args = mm._entry_args(spec, op, ts, [in_form] * (len(ts) - 1) + [out_form], dims)
+    err = cuda_build.load("mont_map", mm._bind).lcpc_mont_mul_map(*args, 0)
+    if err != 0:
+        raise RuntimeError(f"mont_mul_map's strided mode ({op}) failed: cudaError_t {err}")
+    return out
+
+
+def vector_route(torch, kb, P, mm, gen):
+    """mont_mul_map's element-contiguous mode (ops/mont_map.map_route)
+    against its plain version and against the strided mode on the same
+    views (strided_map), word for word (tolerance 0), in every field (W/2
+    = 2, 4, 6, 8), each launch counted by its mode: verify's proof rows
+    written into Brakedown's packed (positions, R, W/2) level buffer and
+    into rows of their own shape ("vector"); the
+    columns route's rows to new words (core/protocol.py:748) and rows 4
+    bytes off their alignment, which must take the strided route; canonical
+    words all ones, all p - 1 and random (>= p among them).  At ft255 the
+    Brakedown 2^23 verify's rows (2 x 235,173) into the level buffer timed
+    warm and cold in turns strided, vector, vector, strided, and the 2^29
+    verify's rows (2 x 262,144) by the columns route (strided) warm and
+    cold, beside the bytes bound (the words read once, written once) and
+    the plain version.  Returns the records."""
+    recs, cases = {}, []
+    kw = dict(op="to_mont", in_form="words", out_form="words")
+
+    def into_buffer(spec, rows, strided=False):  # the level buffer (positions, R, W/2)
+        t, npr, w32 = rows.shape
+        buf = torch.zeros((npr + 5, t, w32), dtype=torch.int32, device=DEV)
+        (strided_map if strided else mm.mont_mul_map)(spec, rows.permute(2, 0, 1),
+                                                        out=buf[:npr].permute(2, 1, 0), **kw)
+        return buf
+
+    for spec in P.ALL_FIELDS:
+        t, npr = MAP_VEC_EDGE
+        rows = canon_rows(torch, spec, t, npr, gen)
+        a = rows.permute(2, 0, 1)
+        want = mm.mont_mul_map_plain(spec, a, **kw)
+        level = into_buffer(spec, rows)[:npr].permute(2, 1, 0)
+        routes = {
+            "level_buffer": mm.map_route(spec, a, out=level, **kw),
+            "proof_rows": mm.map_route(spec, a, out=torch.empty_like(rows).permute(2, 0, 1), **kw),
+            "columns_rows": mm.map_route(spec, a, **kw)}
+        before = (mm.VECTOR.launches, mm.mont_mul_map.launches)
+        bufs = [into_buffer(spec, rows, strided) for strided in (True, False)]
+        same = torch.empty_like(rows)
+        mm.mont_mul_map(spec, a, out=same.permute(2, 0, 1), **kw)
+        if routes["level_buffer"] != "vector" or routes["proof_rows"] != "vector" or \
+                (mm.VECTOR.launches - before[0], mm.mont_mul_map.launches - before[1]) != (2, 0):
+            raise AssertionError(f"{spec.name}: routes {routes}")
+        if not all(torch.equal(b[:npr].permute(2, 1, 0), want) and not b[npr:].any()
+                   for b in bufs) or not torch.equal(same.permute(2, 0, 1), want):
+            raise AssertionError(f"{spec.name}: the element-contiguous mode != plain")
+        if routes["columns_rows"] != "strided" or not torch.equal(mm.mont_mul_map(spec, a, **kw),
+                                                                   want):
+            raise AssertionError(f"{spec.name} columns-route rows ({routes['columns_rows']}): "
+                                 f"!= plain")
+        flat = torch.empty(rows.numel() + 1, dtype=torch.int32, device=DEV)
+        off = flat[1:].view(rows.shape)
+        off.copy_(rows)
+        routes["offset_rows"] = mm.map_route(spec, off.permute(2, 0, 1),
+                                             out=torch.empty_like(rows).permute(2, 0, 1), **kw)
+        before = (mm.VECTOR.launches, mm.mont_mul_map.launches)
+        got = torch.empty_like(rows)
+        mm.mont_mul_map(spec, off.permute(2, 0, 1), out=got.permute(2, 0, 1), **kw)
+        counts = (mm.VECTOR.launches - before[0], mm.mont_mul_map.launches - before[1])
+        if routes["offset_rows"] != "strided" or counts != (0, 1) or \
+                not torch.equal(got.permute(2, 0, 1), want):
+            raise AssertionError(f"{spec.name} rows 4 bytes off ({routes['offset_rows']}): "
+                                 f"!= plain")
+        cases.append({"field": spec.name, **routes})
+    log(f"  mont_mul_map element-contiguous mode in every field ({MAP_VEC_EDGE[0]} x "
+        f"{MAP_VEC_EDGE[1]} canonical words: all ones, all p - 1, random): into the level "
+        f"buffer and into proof rows (vector) equal to plain and to the strided mode; "
+        f"the columns route's rows and rows 4 bytes off their alignment took the strided route, "
+        f"equal to plain")
+    recs["vector_route_cases"] = cases
+
+    spec = P.FT255
+    w32 = spec.w16 // 2
+    for tag, (t, npr) in (("brakedown 2^23 verify rows", MAP_SDIG_VERIFY_ROWS),
+                          ("2^29 verify rows, columns route", MAP_COLS_ROWS)):
+        rows = canon_rows(torch, spec, t, npr, gen)
+        a = rows.permute(2, 0, 1)
+        want = mm.mont_mul_map_plain(spec, a, **kw)
+        if tag.startswith("brakedown"):
+            buf = into_buffer(spec, rows)
+            if not torch.equal(buf[:npr].permute(2, 1, 0), want) or \
+                    not torch.equal(into_buffer(spec, rows, strided=True), buf):
+                raise AssertionError(f"{tag}: != plain or the strided route")
+            out = buf[:npr].permute(2, 1, 0)
+            fns = {"strided": lambda: strided_map(spec, a, out=out, **kw),
+                   "vector": lambda: mm.mont_mul_map(spec, a, out=out, **kw)}
+            order = ("strided", "vector", "vector", "strided")
+        else:
+            out = None
+            fns = {"strided": lambda: mm.mont_mul_map(spec, a, **kw)}
+            if not torch.equal(fns["strided"](), want):
+                raise AssertionError(f"{tag}: != plain")
+            order = ("strided",)
+        route = mm.map_route(spec, a, out=out, **kw)
+        turns = [(k, kb.time_kernel(fns[k], reps=MAP_VEC_REPS)) for k in order]
+        cold = [(k, kb.time_kernel_cold(fns[k], reps=MAP_VEC_REPS)) for k in order]
+        _, plain_ms = time_host(torch, lambda: mm.mont_mul_map_plain(spec, a, **kw))
+        nbytes, products = map_cost(spec, t * npr, w32, w32, 2 * w32 * w32 + w32)
+        bound, t_bytes, t_ops = bound_ms(nbytes, products)
+        ms = statistics.median(v for k, v in turns if k == route)
+        rec = {"route": route, "ms": ms,
+               "cold_ms": statistics.median(v for k, v in cold if k == route),
+               "strided_ms": statistics.median(v for k, v in turns if k == "strided"),
+               "strided_cold_ms": statistics.median(v for k, v in cold if k == "strided"),
+               "turns": turns, "cold_turns": cold, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "share": bound / ms,
+               "bytes": nbytes, "products": products}
+        recs[tag] = rec
+        log(f"  mont_mul_map {tag} ({t} x {npr:,} canonical words -> Montgomery words, "
+            f"{route}): equal to plain" + (" and to the strided route" if len(fns) > 1 else "")
+            + f"; warm turns {' '.join(order)} {[round(v, 4) for _, v in turns]} ms, cold "
+            f"{[round(v, 4) for _, v in cold]} (bound {bound:.4f} ms, {rec['bound_by']}, "
+            f"{100 * bound / ms:.1f}%); plain {plain_ms:.2f} ms")
+        del rows, a, want
+    return recs
+
+
+def map_rows(maps, s29, big, sdig, lig, ptx, shard):
     """The kernel table rows of the field maps: mont_mul_map timed at the
     2^23 Brakedown commit's conversion (its launches from that path), the
     other shapes beside; mont_addsub_map at the same codeword (its launches
@@ -2436,7 +2536,8 @@ def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
                                          "streaming_2_28": big["launches"][name],
                                          "seeded_2_29": s29["launches"][name]},
                 "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
-                          for k, v in sorted(map_ptxas.items()) if name in k}, **extra}
+                          for k, v in sorted(ptx["mont_map"].items())
+                          if name in k and WHOLE_MODE not in k}, **extra}
 
     commit = "brakedown 2^23 commit: (16, 36, 357,699) limbs -> hash words"
     return [
@@ -2446,8 +2547,9 @@ def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
             "_canon_pack_fn); XLA-fused, not Pallas", maps[commit],
             "the 2^23 ft255 Brakedown commit's conversion: 36 x 357,699 Montgomery limbs -> "
             "canonical hash words (from_mont and the pack, one launch)",
-            other_shapes={k: v for k, v in maps.items()
-                          if isinstance(v, dict) and k != commit and "add" not in k}),
+            other_shapes={k: v for k, v in maps.items() if isinstance(v, dict) and k != commit
+                          and "add" not in k and v.get("route", "strided") == "strided"}),
+        vector_row(maps, sdig, {k: v for k, v in ptx["mont_map"].items() if WHOLE_MODE in k}),
         row("mont_addsub_map",
             "lcpc_tpu/ops/limbs.py:121,131,149 (add, sub, neg); XLA-fused, not Pallas",
             maps["add at the brakedown 2^23 codeword: (16, 36, 357,699) limbs"],
@@ -2455,6 +2557,34 @@ def map_rows(maps, s29, big, sdig, lig, map_ptxas, shard):
             "its caller on the paths: the sharded collapse's modular sum of the ranks' "
             "partials (FieldOps.sum)"),
     ]
+
+
+def vector_row(maps, sdig, map_ptxas):
+    """The kernel table row of mont_mul_map's element-contiguous mode
+    (mont_mul_map_kernel<W, OP, true>): timed at the 2^23 Brakedown verify's rows
+    into the level buffer, its launches from that path, the columns route's
+    rows beside."""
+    rec = maps["brakedown 2^23 verify rows"]
+    return {"name": "mont_mul_map_vec", "route": "cuda",
+            "source": "lcpc_tpu_torch/csrc/mont_map.cu",
+            "replaces": ("lcpc_tpu/ops/limbs.py:224 (_mul_unrolled behind to_mont :275) as "
+                         "lcpc_tpu/core/protocol.py's verify converts its proof rows; XLA-fused, "
+                         "not Pallas"),
+            "launches": sdig[0]["mont_mul_map_vec"], "max_abs_err": maps["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None, "equal_to_plain": True,
+            "tolerance": 0,
+            "shape": (f"the 2^23 ft255 Brakedown verify's proof rows, {MAP_SDIG_VERIFY_ROWS[0]} x "
+                      f"{MAP_SDIG_VERIFY_ROWS[1]:,} canonical words -> the packed level buffer's "
+                      f"Montgomery words ({rec['route']})"),
+            "cold_ms": rec["cold_ms"], "strided_ms": rec["strided_ms"],
+            "strided_cold_ms": rec["strided_cold_ms"],
+            "launches_by_stage": {k: v["counters"].get("mont_mul_map_vec", 0)
+                                  for k, v in sdig[8].items()},
+            "columns_route_rows": maps["2^29 verify rows, columns route"],
+            "routes_by_field": maps["vector_route_cases"],
+            "ptxas": {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                      for k, v in sorted(map_ptxas.items()) if "ILi8E" in k}}
 
 
 def prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix):
@@ -3044,7 +3174,7 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
                     sha_launches_path(*shape))
     check_sha_stages(lig[8], "sha_ligero", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["ligero"])
-    check_map_launches(lig[8], "sha_ligero", {"commit": 0, "prove": 0,
+    check_map_launches(lig[8], "sha_ligero", {"commit": (0, 0), "prove": (0, 0),
                                               "verify": ligero_verify_maps(lenc.n_cols)})
     del lenc
     t0 = time.perf_counter()
@@ -3056,7 +3186,7 @@ def sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want, card, gen
                      sha_launches_path(*shape))
     check_sha_stages(sdig[8], "sha_sdig", sha_launches_stages(*shape), plain_per_compression,
                      b3_stages["sdig"])
-    check_map_launches(sdig[8], "sha_sdig", {"commit": 1, "prove": 0,
+    check_map_launches(sdig[8], "sha_sdig", {"commit": (1, 0), "prove": (0, 0),
                                              "verify": SDIG_VERIFY_MAPS})
     del enc
     torch.cuda.empty_cache()
@@ -3768,7 +3898,9 @@ def small_commit_phase(torch, kb, P, counters, gen, ptxas):
             "main": recs[f"ligero 2^{SMALL_MAIN_LOG} blake3"]}
 
 
-INTT_LOGS = (1, 2, 10, 11, 12)  # phase 19: n = 2, 4, one pass's widest, two passes, 2^12
+# phase 19: n = 2, 4, 8 and 32 (a one-stage and a two-stage round), one
+# pass's widest, two passes (the second of one stage), 2^12
+INTT_LOGS = (1, 2, 3, 5, 10, 11, 12)
 INTT_TIMED = (17, (2, 256))  # phase 19: n = 2^17 at verify's rows and the 2^23 codeword's
 INTT_IDENTITY = (13, 23)     # phase 19: the FFT identity's sizes (the kernel route, staged)
 
@@ -3776,12 +3908,15 @@ INTT_IDENTITY = (13, 23)     # phase 19: the FFT identity's sizes (the kernel ro
 def intt_cost(spec, r, n):
     """(bytes, wide products) of one intt_inverse of r rows of n: the (W, r,
     n) limbs read and written once, the (n-1, W32) table read once; every
-    butterfly with a twiddle other than 1 and every n^-1 scale one CIOS
-    product (2 W32^2 + W32 wide products)."""
+    butterfly with a twiddle other than 1 one CIOS product (2 W32^2 + W32
+    wide products), its v's n^-1 folded into that twiddle; the n^-1 scale
+    of the last stage's n/2 + 1 other operands (its u's, and the v of its
+    one butterfly whose twiddle is 1) one Montgomery step of log2 n bits
+    each (W32 + 1 wide products: csrc/ntt_mont.cu's div_pow2)."""
     w32 = spec.w16 // 2
     butterflies = r * ((n // 2) * (n.bit_length() - 1) - (n - 1))
     nbytes = 4 * (2 * spec.w16 * r * n + (n - 1) * w32)
-    return nbytes, (butterflies + r * n) * (2 * w32 * w32 + w32)
+    return nbytes, butterflies * (2 * w32 * w32 + w32) + r * (n // 2 + 1) * (w32 + 1)
 
 
 def intt_phase(torch, kb, P, nttm, counters, gen):
@@ -4134,7 +4269,8 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
             "seeded_gen": tf.seeded_digits, "mont_dot": md.mont_dot,
             **{f"mont_dot_{k}": v for k, v in md.KERNELS.items()},
             "power_table": md.power_table, "mont_mul_map": mm.mont_mul_map,
-            "mont_addsub_map": mm.mont_addsub_map, "sha256_cols": sha.sha256_cols,
+            "mont_mul_map_vec": mm.VECTOR, "mont_addsub_map": mm.mont_addsub_map,
+            "sha256_cols": sha.sha256_cols,
             **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
             "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk,
             "verify_check": vc.verify_check, "gather_open": vc.gather_open,
@@ -4613,13 +4749,27 @@ def main() -> int:
     for src_name, kname in (("seeded_gen", "seeded_gen_kernel"), ("mont_dot", "mont_dot_"),
                             ("power_table", "power_"), ("mont_map", "map_kernel")):
         found = kb.ptxas_entries(cuda_build.build_logs[src_name], kname)
-        n_want = {"seeded_gen": 12, "mont_dot": 20, "power_table": 4, "mont_map": 20}[src_name]
+        n_want = {"seeded_gen": 12, "mont_dot": 20, "power_table": 4, "mont_map": 28}[src_name]
         if len(found) != n_want:
             raise AssertionError(f"{src_name} kernels not reported by ptxas: {found}")
         for name, (regs, st, ld) in sorted(found.items()):
             log(f"  ptxas {name}: {regs} registers, {st} bytes spill stores, {ld} bytes spill "
                 f"loads")
         prove_ptxas[src_name] = found
+    vec_ptxas = {k: v for k, v in prove_ptxas["mont_map"].items() if WHOLE_MODE in k}
+    if len(vec_ptxas) != 8:  # W32 = 2, 4, 6, 8 x mul, from_mont
+        raise AssertionError(f"mont_mul_map_kernel's element-contiguous mode not reported by "
+                             f"ptxas: {vec_ptxas}")
+    for name, (regs, st, ld) in sorted(vec_ptxas.items()):
+        if "ILi8E" in name and (st or ld):
+            raise AssertionError(f"{name} spills: {st} / {ld} bytes")
+    inv_ptxas = kb.ptxas_report(cuda_build.build_logs["ntt_mont"], "ntt_inverse_pass_kernel")
+    if sorted(inv_ptxas) != [2, 4, 6, 8] or inv_ptxas[8][1:] != (0, 0):
+        raise AssertionError(f"ntt_inverse_pass_kernel not reported or W32=8 spills: "
+                             f"{inv_ptxas}")
+    for w32, (regs, st, ld) in sorted(inv_ptxas.items()):
+        log(f"  ptxas ntt_inverse_pass_kernel W32={w32}: {regs} registers, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
     for src_name, kname in (("seeded_gen", "seeded_gen_kernelILi8ELi37E"),
                             ("mont_dot", "mont_dot_tc_kernel"),  # every W
                             ("mont_dot", "mont_dot_thin_tc_kernel"),  # every W and y form
@@ -4687,12 +4837,12 @@ def main() -> int:
     # tensor-core kernel's crossover), the evaluation's dot too; Brakedown
     # has no power table
     # one conversion launch in the commit (the codeword's limbs -> its hash
-    # words), five in verify: the proof rows to Montgomery limbs, the
-    # encoded rows at the opened columns and the opened columns to canonical
-    # words, the evaluation's two operands to Montgomery form
+    # words, strided), one in verify (the proof rows into the level buffer,
+    # by the element-contiguous mode: SDIG_VERIFY_MAPS)
     sdig = main_path(torch, P, counters, enc, coeffs_mont, x_pt, want, card, "sdig",
                      SDIG_KERNELS | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(sdig[8], "sdig", {"commit": 1, "prove": 0, "verify": SDIG_VERIFY_MAPS})
+    check_map_launches(sdig[8], "sdig", {"commit": (1, 0), "prove": (0, 0),
+                                         "verify": SDIG_VERIFY_MAPS})
     if sdig[0]["spmv_mont"] != 2 * n_levels:
         raise AssertionError(f"spmv launches {sdig[0]['spmv_mont']} != 2 encodes x "
                              f"{n_levels} levels")
@@ -4770,7 +4920,7 @@ def main() -> int:
     cols_route = verify_at_columns(lenc.n_cols)
     lig = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero",
                     ligero_kernels(lenc.n_cols) | hashing, P.BLAKE3, TREE_LAUNCHES_PATH)
-    check_map_launches(lig[8], "ligero", {"commit": 0, "prove": 0,
+    check_map_launches(lig[8], "ligero", {"commit": (0, 0), "prove": (0, 0),
                                           "verify": ligero_verify_maps(lenc.n_cols)})
     per_encode = plan.launches_per_call
     encodes, tables = (1, 1) if cols_route else (2, 0)
@@ -4961,7 +5111,7 @@ def main() -> int:
     }, few_row(hashes, big, sdig, lig, s29, b3_ptxas, b3_mix),
         *tree_rows(hashes, big, sdig, lig, b3_ptxas, size, b3_mix),
         *prove_rows(prv, s29, big, sdig, lig, prove_ptxas, gen_mix),
-        *map_rows(maps, s29, big, sdig, lig, prove_ptxas["mont_map"], shard),
+        *map_rows(maps, s29, big, sdig, lig, prove_ptxas, shard),
         *sha_rows(shas, sha_paths, sha_ptxas, sha_mix),
         *vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas),
         *small_rows(small, inv)]

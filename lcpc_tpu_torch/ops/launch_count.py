@@ -19,7 +19,9 @@ def counted(obj):
 
 class LaunchCount:
     """One kernel behind a wrapper of several: its launches, counted where
-    the wrapper launches it (`launches`)."""
+    the wrapper launches it (`launches`); `__name__` names it where given."""
 
-    def __init__(self):
+    def __init__(self, name: "str | None" = None):
+        if name is not None:
+            self.__name__ = name
         counted(self)

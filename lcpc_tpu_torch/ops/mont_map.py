@@ -24,9 +24,16 @@ buffer).  mul, add and sub take operands below p (Montgomery residues, as
 lcpc_tpu's ops); to_mont and from_mont any value below R = 2^(16 W); every
 map returns the unique residue below p.
 
-On a CUDA tensor a wrapper launches its kernel (one launch, counted in
-`mont_mul_map.launches` / `mont_addsub_map.launches`) or raises; on a CPU
-tensor it runs its plain version; any other device raises.  The plain
+On a CUDA tensor a wrapper launches its kernel (one launch) or raises; on
+a CPU tensor it runs its plain version; any other device raises.
+mont_mul_map picks one of its kernel's two modes by `map_route`, from the
+views' strides and data pointers alone: where a and the output are words
+views whose words of an element lie side by side and aligned (the
+verifier's proof rows into Brakedown's level buffer), each element is read
+and written whole (the element-contiguous mode, counted in `VECTOR`); any
+other view takes a thread an element at any strides (counted in
+`mont_mul_map.launches`).  mont_addsub_map counts in its own `launches`.
+The plain
 versions (`mont_mul_map_plain`, `mont_addsub_map_plain`: FieldOps' int64
 limb graphs) run on any device; the tests use them on the CPU and
 chip_smoke.py holds the kernels to them on the card.
@@ -46,6 +53,9 @@ from .mont_dot import field_consts
 from .spmv import pack_words, unpack_words
 
 FORMS = ("limbs", "words", "hash")
+# the launches of mont_mul_map's element-contiguous mode (map_route "vector");
+# mont_mul_map.launches counts its strided mode's
+VECTOR = launch_count.LaunchCount("mont_mul_map_vec")
 MUL_OPS = ("mul", "to_mont", "from_mont")
 ADDSUB_OPS = ("add", "sub", "neg")
 _OP_CODE = {"mul": 0, "to_mont": 1, "from_mont": 2, "add": 0, "sub": 1, "neg": 2}
@@ -174,8 +184,9 @@ def mont_addsub_map_plain(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | N
 def _bind(lib) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     args = [i] + [p, ll, ll, ll, i] * 3 + [p, i, ll, ll, i, p]
+    lib.lcpc_mont_mul_map.argtypes = args + [i]  # and `whole`: the element-contiguous mode
+    lib.lcpc_mont_addsub_map.argtypes = args
     for fn in (lib.lcpc_mont_mul_map, lib.lcpc_mont_addsub_map):
-        fn.argtypes = args
         fn.restype = ctypes.c_int
 
 
@@ -198,21 +209,21 @@ def _merge_2d(ts, batch):
     return R, C, sr, sc
 
 
-def _launch(kernel, spec, op, av, bv, in_form, out_form, batch, into=None) -> torch.Tensor:
-    """One launch of `kernel` over the broadcast batch; returns the output
-    in out_form, written into `into` when given (_check_into)."""
+def _operands(spec, av, bv, out_form, batch, into):
+    """The output (a new tensor, or `into`), the (rows, ...batch) views the
+    kernel reads and writes (a, b if any, out) and their two merged dims (R,
+    C, sr, sc), or None for an empty output."""
     w, w32 = spec.w16, spec.w16 // 2
-    device = av.device
     if into is not None:
         out = ov = into
     elif out_form == "hash":
-        out = torch.empty((batch[0] * w32, batch[1]), dtype=torch.int32, device=device)
+        out = torch.empty((batch[0] * w32, batch[1]), dtype=torch.int32, device=av.device)
         ov = out.unflatten(0, (batch[0], w32)).transpose(0, 1)
     else:
         out = ov = torch.empty((w if out_form == "limbs" else w32, *batch), dtype=torch.int32,
-                               device=device)
+                               device=av.device)
     if ov.numel() == 0:
-        return out
+        return out, None, None
     ts = [av.expand(av.shape[0], *batch), ov]
     if bv is not None:
         ts.insert(1, bv.expand(bv.shape[0], *batch))
@@ -221,23 +232,88 @@ def _launch(kernel, spec, op, av, bv, in_form, out_form, batch, into=None) -> to
         ts = [t.contiguous() for t in ts[:-1]] + [ov]
         dims = _merge_2d(ts, batch)
     if dims is None:
-        raise ValueError(f"{kernel.__name__}: out's strides {ov.stride()} take more than two "
-                         f"dims of the batch {tuple(batch)}")
+        raise ValueError(f"out's strides {ov.stride()} take more than two dims of the batch "
+                         f"{tuple(batch)}")
+    return out, ts, dims
+
+
+def _whole(w32, t, form, sr, sc) -> bool:
+    """t's words of an element side by side (words, row stride 1), its
+    address and element strides aligned to 16 bytes (W/2 % 4 == 0) or 8:
+    what the element-contiguous mode loads or stores whole."""
+    align = 4 if w32 % 4 == 0 else 2  # words
+    return (form == "words" and t.stride(0) == 1 and t.data_ptr() % (4 * align) == 0
+            and sr % align == 0 and sc % align == 0)
+
+
+def _route(w32, ts, forms, dims):
+    """(route, dims): "vector" where a and out are both element-contiguous
+    (_whole), its dims in the order the mode walks them (R and C swapped
+    where out's element-contiguous rows are its R dim, so the walk follows
+    out's addresses); else "strided" and the dims as they are."""
     R, C, sr, sc = dims
+    if (R * C >= 1 << 31 or not _whole(w32, ts[0], forms[0], sr[0], sc[0])
+            or not _whole(w32, ts[-1], forms[-1], sr[-1], sc[-1])):
+        return "strided", dims
+    if sc[-1] != w32 and sr[-1] == w32 and R > 1:
+        R, C, sr, sc = C, R, sc, sr
+    return "vector", (R, C, sr, sc)
 
-    def view(k, form):
+
+def map_route(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | None" = None, *,
+              op: str = "mul", in_form: str = "limbs", out_form: str = "limbs",
+              out: "torch.Tensor | None" = None) -> str:
+    """The route that mont_mul_map takes for these operands on a card,
+    from their strides and data pointers alone (any device: the CPU
+    tests call it): "vector" where a and the output are element-contiguous,
+    aligned words views (each element read and written whole), else
+    "strided" (a thread an element at any strides)."""
+    av, bv, batch = _check(spec, op, MUL_OPS, a, b, in_form, out_form)
+    if out is not None:
+        _check_into(spec, out, av, out_form, batch)
+    _, ts, dims = _operands(spec, av, bv, out_form, batch, out)
+    if ts is None:
+        return "strided"
+    return _route(spec.w16 // 2, ts, [in_form] * (len(ts) - 1) + [out_form], dims)[0]
+
+
+def _entry_args(spec, op, ts, forms, dims) -> tuple:
+    """The arguments of csrc/mont_map.cu's entries (lcpc_mont_mul_map before
+    its `whole` flag, lcpc_mont_addsub_map) for the views ts (a, b if any,
+    out) in forms over dims (R, C, sr, sc)."""
+    R, C, sr, sc = dims
+    device = ts[0].device
+
+    def view(k):
         t = ts[k]
-        return (t.data_ptr(), t.stride(0), sr[k], sc[k], int(form == "limbs"))
+        return (t.data_ptr(), t.stride(0), sr[k], sc[k], int(forms[k] == "limbs"))
 
-    b_args = view(1, in_form) if bv is not None else (None, 0, 0, 0, 0)
+    b_args = view(1) if len(ts) == 3 else (None, 0, 0, 0, 0)
+    return (_OP_CODE[op], *view(0), *b_args, *view(len(ts) - 1),
+            field_consts(spec, device).data_ptr(), spec.w16 // 2, R, C, device.index or 0,
+            torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(kernel, spec, op, av, bv, in_form, out_form, batch, into=None) -> torch.Tensor:
+    """One launch of `kernel` over the broadcast batch (mont_mul_map: by
+    map_route's route); returns the output in out_form, written into `into`
+    when given (_check_into)."""
+    out, ts, dims = _operands(spec, av, bv, out_form, batch, into)
+    if ts is None:
+        return out
+    forms = [in_form] * (len(ts) - 1) + [out_form]
     lib = cuda_build.load("mont_map", _bind)
-    entry = lib.lcpc_mont_mul_map if kernel is mont_mul_map else lib.lcpc_mont_addsub_map
-    err = entry(_OP_CODE[op], *view(0, in_form), *b_args, *view(len(ts) - 1, out_form),
-                field_consts(spec, device).data_ptr(), w32, R, C, device.index or 0,
-                torch.cuda.current_stream(device).cuda_stream)
+    if kernel is mont_mul_map:
+        route, dims = _route(spec.w16 // 2, ts, forms, dims)
+        counter = VECTOR if route == "vector" else mont_mul_map
+        err = lib.lcpc_mont_mul_map(*_entry_args(spec, op, ts, forms, dims),
+                                    int(route == "vector"))
+    else:
+        route, counter = "strided", mont_addsub_map
+        err = lib.lcpc_mont_addsub_map(*_entry_args(spec, op, ts, forms, dims))
     if err != 0:
-        raise RuntimeError(f"{kernel.__name__} ({op}) launch failed: cudaError_t {err}")
-    kernel.launches += 1
+        raise RuntimeError(f"{kernel.__name__} ({op}, {route}) launch failed: cudaError_t {err}")
+    counter.launches += 1
     return out
 
 
@@ -274,7 +350,8 @@ def mont_mul_map(spec: FieldSpec, a: torch.Tensor, b: "torch.Tensor | None" = No
     limbs or words tensor over the batch, any strides two dims express) the
     result is written there and returned: Brakedown's verify writes its
     proof rows' Montgomery words straight into the encode's packed
-    (positions, R, W/2) level buffer, `out=buf[:npr].permute(2, 1, 0)`."""
+    (positions, R, W/2) level buffer, `out=buf[:npr].permute(2, 1, 0)`, by
+    the element-contiguous mode (map_route)."""
     return _dispatch(mont_mul_map, mont_mul_map_plain, MUL_OPS, spec, a, b, op, in_form,
                      out_form, out)
 

@@ -36,12 +36,13 @@ by w_n = ROOT_OF_UNITY^(2^(s - log2 n)),
   kernel's tile and butterfly index arithmetic (for the tests).
 - `InttPlan` / `intt_inverse` (fffft's ifft_oi, lcpc_tpu `_intt_inverse`):
   the wrapper launches csrc/ntt_mont.cu's inverse pass, one launch per
-  pass (the forward plan's passes reversed; the forward twiddle table read
-  at w_2m^(m-j) with the sign folded into the butterfly; n^-1 applied as
-  the last pass stores), on CUDA tensors, or raises; CPU tensors take
-  `intt_inverse_plain`, the DIT ladder over FieldOps' plain versions.
-  `intt_inverse_passes_plain` runs it pass by pass with the kernel's
-  index arithmetic (for the tests).
+  pass (the forward plan's passes reversed, each pass's stages in rounds
+  of two, `inverse_rounds`; an inverse twiddle table derived from the
+  forward one, its last stage carrying n^-1), on CUDA tensors, or raises;
+  CPU tensors take `intt_inverse_plain`, the DIT ladder over FieldOps'
+  plain versions.  `intt_inverse_passes_plain` runs it pass by pass and
+  round by round with the kernel's index arithmetic and table (for the
+  tests).
 - `ntt_host`, `intt_host`, `ntt_reference_host` are the Python-int twins.
 """
 
@@ -150,6 +151,18 @@ class NttPass:
 
     def smem_bytes(self, w32: int) -> int:
         return (4 * w32) << self.log_tile
+
+    def inverse_threads(self, tiles: int) -> int:
+        """Threads per block of the inverse pass over a grid of `tiles`: a
+        radix-4 unit (4 elements) each a round, or a butterfly each where
+        the pass has one stage; at most 256, or 128 from SMALL_GRID tiles on
+        (two units a thread, twice the blocks an SM, one block's barrier
+        beside another's products: on an H100, 6.43 against 7.15 ms at 256
+        rows of 2^17, 0.0728 against 0.0797 at 2 rows the other way).
+        csrc/ntt_mont.cu ntt_inverse_pass_kernel."""
+        per = 2 if self.hi == self.lo else 4
+        cap = MAX_THREADS // 2 if tiles >= SMALL_GRID else MAX_THREADS
+        return max(1, min(cap, (1 << self.log_tile) // per))
 
     def tile_indices(self, log_n: int) -> np.ndarray:
         """(tiles per row, tile) row indices of every tile's elements, element
@@ -468,16 +481,37 @@ class InttPlan:
         return self._tables[key]
 
     def kernel_table(self, device) -> tuple[torch.Tensor, torch.Tensor]:
-        """(tw, consts) for the kernel on `device`: tw is the forward plan's
-        packed table (get_ntt(spec, n).kernel_table), read at w_2m^(m-j)
-        with the sign folded into the butterfly (inverse_stage_twiddles
-        gives the table that reading amounts to), and consts the forward's
-        p words | -p^-1 mod 2^32, then n^-1's Montgomery words."""
+        """(tw, consts) for the kernel on `device`: tw (n-1, W32) packed
+        words, half-size m's w_2m^-j at rows m-1 .. 2m-2 in ascending j, the
+        last stage's (m = n/2) times n^-1 (inverse_stage_twiddles reads it
+        back); consts the forward's p words | -p^-1 mod 2^32 (the kernel
+        takes u n^-1 as u 2^-log_n by one Montgomery step).  Derived on the
+        device from the forward plan's table (get_ntt(spec, n).kernel_table):
+        w_2m^-j = -w_2m^(m-j) for j >= 1, its rows gathered and multiplied by
+        -1 (every stage but the last) or -n^-1 (the last) in two mont_mul_map
+        launches; rows j = 0 hold 1 and n^-1."""
         key = ("kernel", with_index(device))  # as the kernels' tensors report it
         if key not in self._tables:
-            tw, consts = get_ntt(self.spec, self.n).kernel_table(device)
-            n_inv = pack_words(torch.from_numpy(self.n_inv_limbs.astype(np.int32)), 0)
-            self._tables[key] = (tw, torch.cat([consts, n_inv.to(device)]))
+            from .mont_map import mont_mul_map
+
+            spec, n, p = self.spec, self.n, self.spec.p
+            fwd, consts = get_ntt(spec, n).kernel_table(device)
+            src = np.concatenate([np.concatenate(([m - 1], np.arange(2 * m - 2, m - 1, -1)))
+                                  for m in (1 << s for s in range(self.log_n))])
+            rows = fwd[torch.from_numpy(src).to(fwd.device)]
+
+            def words(v):  # (W32, 1) Montgomery words of the host int v
+                host = self.ops.encode_host([v]).astype(np.int32)
+                return pack_words(torch.from_numpy(host), 0).to(fwd.device)
+
+            n_inv, half = pow(n, p - 2, p), n // 2
+            tw = torch.empty_like(rows)
+            for lo, hi, c in ((0, half - 1, p - 1), (half - 1, n - 1, p - n_inv)):
+                mont_mul_map(spec, rows[lo:hi].T, words(c), in_form="words", out_form="words",
+                             out=tw[lo:hi].T)
+            tw[[m - 1 for m in (1 << s for s in range(self.log_n - 1))]] = words(1)[:, 0]
+            tw[half - 1] = words(n_inv)[:, 0]
+            self._tables[key] = (tw, consts)
         return self._tables[key]
 
 
@@ -488,19 +522,23 @@ def get_intt(spec: FieldSpec, n: int) -> InttPlan:
 
 
 def inverse_stage_twiddles(plan: InttPlan, tw: torch.Tensor) -> list[torch.Tensor]:
-    """The inverse stage twiddles as the kernel reads them from the forward
-    table tw ((n-1, W32) packed words): w_2m^-j = 1 at j = 0, else
-    -w_2m^(m-j) = p - tw[m-1 + m-j]; (W, m) int32 Montgomery limbs for m =
-    1 .. n/2, equal to plan.stage_twiddles (the tests hold them)."""
+    """The inverse stage twiddles the kernel's table tw ((n-1, W32) packed
+    words, InttPlan.kernel_table) holds: rows m-1 .. 2m-2 as (W, m) int32
+    Montgomery limbs for m = 1 .. n/2, the last stage's n^-1 taken back out
+    (times n); equal to plan.stage_twiddles (the tests hold them)."""
     ops = plan.ops
     limbs = unpack_words(tw.T.contiguous(), 0)  # (W, n-1)
-    one = torch.from_numpy(ops.encode_host([1]).astype(np.int32)).to(tw.device)
-    out = []
-    for s in range(plan.log_n):
-        m = 1 << s
-        rest = ops.neg_plain(limbs[:, m : 2 * m - 1].flip(1))  # j = 1 .. m-1 at m-1+m-j
-        out.append(torch.cat([one, rest], dim=1))
+    out = [limbs[:, m - 1 : 2 * m - 1] for m in (1 << s for s in range(plan.log_n))]
+    out[-1] = ops.mul_const_plain(out[-1], ops.encode_host([plan.n])[:, 0])
     return out
+
+
+def inverse_rounds(k_stages: int) -> list[tuple[int, int]]:
+    """The rounds of an inverse pass of k_stages stages, as (first local
+    stage, stages): two at a time (a radix-4 unit a thread), the first
+    round one stage where k_stages is odd (ntt_inverse_pass_kernel)."""
+    s0 = 1 if k_stages & 1 else 2
+    return [(0, s0)] + [(k, 2) for k in range(s0, k_stages, 2)]
 
 
 def intt_inverse_plain(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
@@ -521,36 +559,65 @@ def intt_inverse_plain(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
 
 
 def intt_inverse_passes_plain(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
-    """The plain ladder run pass by pass as the inverse kernel runs it: the
-    tiles of each pass (NttPass.tile_indices), its stages from lo up to hi
-    with the kernel's butterfly index arithmetic, the twiddle read from the
-    forward table at m - j and its sign folded into the butterfly, n^-1
-    applied as the last pass stores.  Equals intt_inverse_plain; the CPU
-    tests hold the kernel's index arithmetic to it."""
+    """The plain ladder run as the inverse kernel runs it: each pass's tiles
+    (NttPass.tile_indices), its stages in inverse_rounds, each round's
+    radix-4 units (residue t = unit mod T, groups g0 + m 2^k) with their
+    twiddle indices, the twiddles read at the kernel table's rows (its
+    values from plan.stage_twiddles, the last stage's times n^-1, with
+    FieldOps' plain versions: InttPlan.kernel_table equals them, the tests
+    hold it), the transform's last stage multiplying u by n^-1 (the kernel:
+    u 2^-log_n by one Montgomery step, the same residue) against the
+    table's n^-1-scaled entries; a one-stage pass a butterfly (t, T + t) at
+    a time.  (The kernel's first round of the first pass leaves out its
+    products by 1; a product by 1 is the same residue.)  Equals
+    intt_inverse_plain; the CPU tests hold the kernel's index arithmetic
+    and table to it."""
     ops = plan.ops
-    tw_fwd = get_ntt(plan.spec, plan.n).stage_tensors(x.device)  # half-size m at [log_n-1-s]
+    dev = x.device
+    stages = list(plan.stage_tensors(dev))
+    stages[-1] = ops.mul_const_plain(stages[-1], plan.n_inv_limbs)
+    tw = torch.cat(stages, dim=1)                            # (W, n-1): the kernel table's rows
+
+    def bfly(u, v, w, fold):  # (u + v w, u - v w); the last stage: u n^-1 first
+        t = ops.mul_plain(v, w[:, None])
+        if fold:
+            u = ops.mul_const_plain(u, plan.n_inv_limbs)
+        return ops.add_plain(u, t), ops.sub_plain(u, t)
+
+    def table(sg, j):  # stage 2^sg's twiddles at indices j (tiles, units): (W, tiles, units)
+        return tw[:, torch.from_numpy((1 << sg) - 1 + j).to(dev)]
+
     x = x.clone()
     for ps in plan.passes:
-        idx = torch.from_numpy(ps.tile_indices(plan.log_n)).to(x.device)
-        xt = x[:, :, idx]                                      # (W, R, tiles, tile)
-        bf = np.arange(1 << (ps.log_tile - 1))
-        rg = (np.arange(idx.shape[0]) & ((1 << (ps.lo - ps.log_t)) - 1))[:, None]
-        t, gp = bf & ((1 << ps.log_t) - 1), bf >> ps.log_t
-        for s in range(ps.lo, ps.hi + 1):
-            m, log_mg = 1 << s, s - ps.lo
-            jg = gp & ((1 << log_mg) - 1)
-            e0 = ((((gp >> log_mg) << (log_mg + 1)) + jg) << ps.log_t) + t
-            e1 = torch.from_numpy(e0 + (1 << (log_mg + ps.log_t))).to(x.device)
-            e0 = torch.from_numpy(e0).to(x.device)
-            j = torch.from_numpy((jg << ps.lo) + (rg << ps.log_t) + t).to(x.device)
-            u, v = xt[..., e0], xt[..., e1]
-            tw = tw_fwd[plan.log_n - 1 - s][:, (m - j) % m]   # j = 0 reads w^0 = 1
-            vt = ops.mul_plain(v, tw[:, None])
-            pos = (j == 0)[None, None]
-            xt[..., e0] = torch.where(pos, ops.add_plain(u, vt), ops.sub_plain(u, vt))
-            xt[..., e1] = torch.where(pos, ops.sub_plain(u, vt), ops.add_plain(u, vt))
-        if ps is plan.passes[-1]:
-            xt = ops.mul_const_plain(xt, plan.n_inv_limbs)
+        idx = torch.from_numpy(ps.tile_indices(plan.log_n)).to(dev)
+        xt = x[:, :, idx]                                    # (W, R, tiles, tile)
+        k_stages, t_n = ps.hi - ps.lo + 1, 1 << ps.log_t
+        rj = (np.arange(idx.shape[0]) & ((1 << (ps.lo - ps.log_t)) - 1))[:, None] << ps.log_t
+        fold_pass = ps.hi == plan.log_n - 1
+        if k_stages == 1:  # butterflies (t, T + t) at twiddle rj + t
+            t = np.arange(t_n)
+            e = torch.from_numpy(t).to(dev)
+            u, v = bfly(xt[..., e], xt[..., e + t_n], table(ps.lo, rj + t), fold_pass)
+            xt[..., e], xt[..., e + t_n] = u, v
+        for k, stages in inverse_rounds(k_stages) if k_stages > 1 else []:
+            fold = fold_pass and k + stages == k_stages
+            uu = np.arange((1 << ps.log_tile) >> 2)
+            t, q = uu & (t_n - 1), uu >> ps.log_t
+            jg = q & ((1 << k) - 1)
+            g0 = ((q >> k) << (k + 2)) | jg
+            e = [torch.from_numpy(((g0 + (m << k)) << ps.log_t) + t).to(dev) for m in range(4)]
+            j1 = (jg << ps.lo) + rj + t                      # (tiles, units)
+            sg = ps.lo + k
+            xs = [xt[..., em] for em in e]
+            w1 = table(sg, j1)
+            f1 = fold and stages == 1
+            xs[0], xs[1] = bfly(xs[0], xs[1], w1, f1)
+            xs[2], xs[3] = bfly(xs[2], xs[3], w1, f1)
+            if stages == 2:
+                xs[0], xs[2] = bfly(xs[0], xs[2], table(sg + 1, j1), fold)
+                xs[1], xs[3] = bfly(xs[1], xs[3], table(sg + 1, j1 + (1 << sg)), fold)
+            for em, xm in zip(e, xs):
+                xt[..., em] = xm
         x = torch.empty_like(x)
         x[:, :, idx] = xt
     return x
@@ -576,6 +643,8 @@ def intt_inverse(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"intt_inverse: unsupported device {x.device}")
     x = x.contiguous()
+    if x.data_ptr() % 16:  # the first pass's 16-byte limb loads
+        x = x.clone()
     r, n, w32 = x.shape[1], plan.n, w // 2
     out = torch.empty_like(x)
     if r:
@@ -593,7 +662,7 @@ def intt_inverse(plan: InttPlan, x: torch.Tensor) -> torch.Tensor:
                 None if i == last else buf.data_ptr(),
                 out.data_ptr() if i == last else None,
                 tw.data_ptr(), consts.data_ptr(), w32, r, plan.log_n, ps.hi, ps.lo,
-                ps.log_t, ps.threads(r << (plan.log_n - ps.log_tile)), dev, stream)
+                ps.log_t, ps.inverse_threads(r << (plan.log_n - ps.log_tile)), dev, stream)
             if err != 0:
                 raise RuntimeError(f"ntt_mont inverse pass {i} (half-sizes 2^{ps.lo} .. "
                                    f"2^{ps.hi}) launch failed: cudaError_t {err}")

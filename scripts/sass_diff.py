@@ -46,18 +46,25 @@ def build(src, so):
 # an anonymous namespace's mangled name carries a hash of its source's path:
 # the same source in two checkouts names its kernels apart
 _ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# a template's last argument `false` (a flag added with that default, as
+# mont_mul_map_kernel's WHOLE): the instantiation keeps its old name here
+_FLAG_OFF = re.compile(r"Lb0E(?=E)")
 
 
 def functions(so):
     """{function name: its SASS lines} of a library, cuobjdump's text, the
-    anonymous namespaces' path hashes taken out of names and lines."""
+    anonymous namespaces' path hashes taken out of names and lines, a last
+    template argument `false` out of names (_FLAG_OFF)."""
     sass = subprocess.run([kb.find_cuobjdump(), "-sass", so], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     out = {}
     for f in re.split(r"\n\s*Function : ", _ANON.sub("_GLOBAL__N__", sass))[1:]:
         head, body = f.split("\n", 1)
-        out[head.strip()] = [ln.strip() for ln in body.splitlines() if ln.strip()
-                             and not ln.strip().startswith(("Fatbin", "code for", "......"))]
+        # runs of blanks collapsed: cuobjdump pads every line to the widest
+        # instruction of the library, which other functions change
+        out[_FLAG_OFF.sub("", head.strip())] = [
+            " ".join(ln.split()) for ln in body.splitlines()
+            if ln.strip() and not ln.strip().startswith(("Fatbin", "code for", "......"))]
     return out
 
 

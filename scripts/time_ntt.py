@@ -1,7 +1,8 @@
 """Device time of one `ntt_forward` at the 2^23 Ligero shapes, for any
 checkout of the port.
 
-    python3 scripts/time_ntt.py [--repo DIR] [--label NAME] [--sweep] [--parts]
+    python3 scripts/time_ntt.py [--repo DIR] [--label NAME] [--sweep] [--parts] [--sdig]
+        [--inverse] [--maps]
 
 Imports lcpc_tpu_torch from DIR (default: this checkout) and times, with
 kernel_bench.time_kernel (10 calls queued behind a sleeping kernel, CUDA
@@ -23,7 +24,12 @@ events), on random ft255 rows:
   - the same for Brakedown's verify rows (2 x 235,173 words; PR 20: the
     conversion writes the level buffer, no pack) with --sdig;
   - the small commit's one launch (`protocol._commit_fused_fn`, BLAKE3) at
-    Ligero 2^13 and 2^16, whose kernel shares the NTT's pass body.
+    Ligero 2^13 and 2^16, whose kernel shares the NTT's pass body;
+  - with --inverse, `intt_inverse` at 2 and 256 rows of 2^17, warm and cold;
+  - with --maps, mont_mul_map's conversion of verify's canonical rows alone,
+    warm and cold: Brakedown 2^23's 2 x 235,173 words into its packed level
+    buffer (`out=`), and the 2^29 verify's 2 x 262,144 words as the columns
+    route reads them (core/protocol.py, to_mont to a new words tensor).
 With --sweep it also times the commit shape under other pass plans, and
 with --parts each pass alone at both shapes, built as is and built
 with LCPC_NTT_NO_PRODUCTS (every twiddle product left out: the passes'
@@ -104,6 +110,9 @@ def main() -> int:
     ap.add_argument("--parts", action="store_true",
                     help="also time each pass alone, with and without the products")
     ap.add_argument("--sdig", action="store_true", help="also Brakedown 2^23's verify rows")
+    ap.add_argument("--inverse", action="store_true", help="also intt_inverse at 2^17")
+    ap.add_argument("--maps", action="store_true",
+                    help="also mont_mul_map's verify-row conversions alone")
     args = ap.parse_args()
     sys.path[:0] = [os.path.abspath(args.repo)]
 
@@ -168,6 +177,12 @@ def main() -> int:
     for name, e in encs:
         result[f"rows_{name}"] = time_rows(torch, kb, P, protocol, e, gen)
         print(f"{args.label} {name} verify rows {result[f'rows_{name}']}", flush=True)
+    if args.inverse:
+        result["inverse"] = time_inverse(torch, kb, nttm, spec, enc.n_cols, gen)
+        print(f"{args.label} inverse {result['inverse']}", flush=True)
+    if args.maps:
+        result["maps"] = time_maps(torch, kb, spec, gen)
+        print(f"{args.label} maps {result['maps']}", flush=True)
     result["commit_small"] = {}
     for log_n in SMALL_LOGS:
         e = P.LigeroEncoding.new(spec, 1 << log_n, 1, 4, device="cuda")
@@ -192,6 +207,47 @@ def canon_rows(torch, spec, r, npr, gen):
                       dtype=torch.int32)
     x[:, 0] = -1
     return x
+
+
+INVERSE_ROWS = (2, 256)  # verify's row count and the 2^23 Ligero codeword's
+MAP_ROWS = {"sdig_buffer": (2, 235_173), "columns_rows": (2, 262_144)}
+
+
+def time_inverse(torch, kb, nttm, spec, n, gen):
+    """intt_inverse of INVERSE_ROWS rows of n random Montgomery elements,
+    warm and cold (kernel_bench), and its launches a call."""
+    plan = nttm.get_intt(spec, n)
+    rec = {"n": n, "launches_per_call": plan.launches_per_call}
+    for r in INVERSE_ROWS:
+        x = kb.random_mont(spec, (r, spec.w16, n), gen).permute(1, 0, 2).contiguous()
+        reps = 20 if r < 16 else 10
+        rec[f"{r} rows"] = {
+            "warm_ms": kb.time_kernel(lambda: nttm.intt_inverse(plan, x), reps=reps),
+            "cold_ms": kb.time_kernel_cold(lambda: nttm.intt_inverse(plan, x), reps=reps)}
+        del x
+    return rec
+
+
+def time_maps(torch, kb, spec, gen):
+    """mont_mul_map's to_mont of verify's canonical rows, warm and cold:
+    into Brakedown's packed (positions, R, W/2) level buffer, and to a new
+    words tensor (the columns route's)."""
+    from lcpc_tpu_torch.ops import mont_map as mm
+
+    rec, w32 = {}, spec.w16 // 2
+    for tag, (r, npr) in MAP_ROWS.items():
+        a = canon_rows(torch, spec, r, npr, gen).permute(2, 0, 1)
+        kw = {}
+        if tag == "sdig_buffer":
+            buf = torch.empty((npr + 5, r, w32), dtype=torch.int32, device="cuda")
+            kw["out"] = buf[:npr].permute(2, 1, 0)
+
+        def fn():
+            mm.mont_mul_map(spec, a, op="to_mont", in_form="words", out_form="words", **kw)
+
+        rec[tag] = {"warm_ms": kb.time_kernel(fn, reps=20),
+                    "cold_ms": kb.time_kernel_cold(fn, reps=20)}
+    return rec
 
 
 def time_rows(torch, kb, P, protocol, enc, gen):

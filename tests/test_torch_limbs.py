@@ -16,8 +16,9 @@ from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device, pack_row_words
-from lcpc_tpu_torch.ops.mont_map import mont_addsub_map_plain, mont_mul_map, mont_mul_map_plain
-from lcpc_tpu_torch.ops.spmv import pack_words
+from lcpc_tpu_torch.ops.mont_map import (map_route, mont_addsub_map_plain, mont_mul_map,
+                                          mont_mul_map_plain)
+from lcpc_tpu_torch.ops.spmv import pack_words, unpack_words
 
 torch.set_num_threads(1)  # the xdist workers share the cores
 
@@ -122,6 +123,30 @@ def test_elementwise_ops_match_field(field):
                       (view, "hash")):
         with pytest.raises(ValueError):
             mont_mul_map(spec, rows, op="to_mont", in_form="words", out_form=form, out=bad)
+    # the route on a card (map_route, strides and data pointers alone):
+    # verify's proof rows (R, k, W/2) read whole and written whole into the
+    # level buffer or into proof rows; a limb-major or new words output,
+    # limb-major, hash-word and 4-byte-offset inputs take the strided kernel
+    proof = bw.T.contiguous().reshape(4, 7, w32)               # (R, k, W/2) words
+    kw = dict(op="to_mont", in_form="words", out_form="words")
+    buf = torch.zeros((9, 4, w32), dtype=torch.int32)
+    assert map_route(spec, proof.permute(2, 0, 1), out=buf[:7].permute(2, 1, 0), **kw) == "vector"
+    assert map_route(spec, proof.permute(2, 0, 1), out=torch.empty_like(proof).permute(2, 0, 1),
+                     **kw) == "vector"
+    assert map_route(spec, proof.permute(2, 0, 1), **kw) == "strided"  # core/protocol.py's
+    assert map_route(spec, proof.permute(2, 0, 1), op="to_mont", in_form="words") == "strided"
+    assert map_route(spec, grid, op="to_mont", out_form="words") == "strided"
+    assert map_route(spec, hw, op="to_mont", in_form="hash", out_form="words") == "strided"
+    flat = torch.zeros(proof.numel() + 1, dtype=torch.int32)
+    off = flat[1:].view(proof.shape)
+    off.copy_(proof)
+    assert map_route(spec, off.permute(2, 0, 1), **kw) == "strided"
+    assert map_route(spec, rows, out=view, **kw) == "strided"  # words at a row stride of 28
+    # the plain result of the out= write into the level buffer is to_mont's
+    mont_mul_map(spec, proof.permute(2, 0, 1), out=buf[:7].permute(2, 1, 0), **kw)
+    assert torch.equal(unpack_words(buf[:7].permute(2, 1, 0), 0),
+                       ops.to_mont(unpack_words(proof.permute(2, 0, 1), 0)))
+    assert not buf[7:].any()
 
 
 def test_reductions_match_field(field):

@@ -173,11 +173,14 @@ def _edge_rows(spec, n, seed):
 @pytest.mark.parametrize("spec", [FT63, FT255], ids=lambda s: s.name)
 def test_intt_inverse_matches_reference(spec):
     # the plain ladder against lcpc_tpu's jitted BatchedIntt (ft63) or the
-    # host twin (ft255), the kernel's passes (plain model) against the plain
+    # host twin (ft255), the kernel's passes and rounds (plain model: radix-4
+    # rounds, a one-stage first round where a pass's stage count is odd, a
+    # one-stage pass, n^-1 in the last stage's table) against the plain
     # ladder for the default plan and a three-pass one, the wrapper on CPU
     # tensors, and its refusals
     three = dict(log_chunk=6, log_t=2, max_tile_bytes=64 * spec.w16)  # 6 + 3 + 2 stages
-    for n, kw in ((2, {}), (64, {}), (2048, three)):
+    one = dict(log_chunk=3, log_t=1, max_tile_bytes=8 * spec.w16)    # 3 + 1 + 1 stages
+    for n, kw in ((2, {}), (8, {}), (32, one), (64, {}), (2048, three)):
         plan = ntt.InttPlan(spec, n, **kw)
         rows = _edge_rows(spec, n, seed=n)
         x = _limbs(spec, rows)
@@ -193,6 +196,8 @@ def test_intt_inverse_matches_reference(spec):
         assert torch.equal(ntt.intt_inverse(plan, x), got)
         assert ntt.intt_inverse.launches == before
     assert len(plan.passes) == 3 and plan.launches_per_call == 3
+    one_stage = ntt.InttPlan(spec, 32, **one).passes
+    assert [ps.hi - ps.lo for ps in one_stage] == [2, 0, 0]  # odd, then one stage twice
     with pytest.raises(TypeError):
         ntt.intt_inverse(plan, x.long())
     with pytest.raises(ValueError):
@@ -229,14 +234,22 @@ def test_kernel_table_layout(spec):
     c = consts.numpy().astype(np.int64) & 0xFFFFFFFF
     assert int.from_bytes(c[:w32].astype("<u4").tobytes(), "little") == spec.p
     assert (int(c[w32]) * spec.p) % (1 << 32) == (1 << 32) - 1
-    # the inverse kernel reads the same table, w_2m^-j as -w_2m^(m-j), and
-    # n^-1 after the forward constants: lcpc_tpu's inverse twiddles
+    # the inverse kernel's table, derived from the forward one: w_2m^-j at
+    # rows m-1 .. 2m-2 in ascending j, the last stage's times n^-1, and the
+    # forward constants: lcpc_tpu's inverse twiddles
     iplan = ntt.InttPlan(spec, n)
     itw, iconsts = iplan.kernel_table("cpu")
-    assert torch.equal(itw, tw) and torch.equal(iconsts[: w32 + 1], consts)
-    ic = iconsts.numpy().astype(np.int64) & 0xFFFFFFFF
-    assert spec.from_mont(int.from_bytes(ic[w32 + 1:].astype("<u4").tobytes(), "little")) * n \
-        % spec.p == 1
+    assert itw.shape == (n - 1, w32) and torch.equal(iconsts, consts)
+    n_inv = pow(n, spec.p - 2, spec.p)
+    iwords = itw.numpy().astype(np.int64) & 0xFFFFFFFF
+    for s in range(plan.log_n):
+        m = 1 << s
+        got = [int.from_bytes(iwords[m - 1 + j].astype("<u4").tobytes(), "little")
+               for j in range(m)]
+        w_inv = pow(spec.root_for_log_len(s + 1), spec.p - 2, spec.p)
+        scale = n_inv if m == n // 2 else 1
+        assert got == [spec.to_mont(pow(w_inv, j, spec.p) * scale % spec.p)
+                       for j in range(m)], m
     jstages = jntt.InttPlan(J_FIELDS[spec.name], n).stage_twiddles
     for got, want, mine in zip(ntt.inverse_stage_twiddles(iplan, itw), jstages,
                                iplan.stage_twiddles):
@@ -325,11 +338,22 @@ def test_plan_passes_cover_the_ladder(spec):
         assert passes[-1].lo == 0 and passes[-1].log_t == 0
         assert passes[-1].log_tile == min(log_n, ntt.LOG_CHUNK)
         # the inverse: the same passes reversed, stages ascending, the first
-        # a contiguous chunk (it reads the limbs), the last the widest
+        # a contiguous chunk (it reads the limbs), the last the widest; each
+        # pass's rounds cover its stages once, a radix-4 unit a thread
         inv = ntt.InttPlan(spec, 1 << log_n).passes
         assert inv == passes[::-1]
         assert [s for ps in inv for s in range(ps.lo, ps.hi + 1)] == list(range(log_n))
         assert inv[0].lo == 0 and inv[0].log_t == 0 and inv[-1].hi == log_n - 1
+        for ps in inv:
+            rounds = ntt.inverse_rounds(ps.hi - ps.lo + 1)
+            assert [k + i for k, st in rounds for i in range(st)] == list(range(ps.hi - ps.lo + 1))
+            assert all(st == 2 for _, st in rounds[1:])
+        # the block sizes measured for the shipped plans: at n = 2^17 both
+        # passes' 1,024-element tiles take 256 threads at verify's 2 rows
+        # (256 tiles) and 128 at 256 rows (32,768 tiles); n = 2 one thread
+        if log_n in (1, 17):
+            want = [(1, 1)] if log_n == 1 else [(256, 128)] * 2
+            assert [(ps.inverse_threads(256), ps.inverse_threads(1 << 15)) for ps in inv] == want
         assert len(passes) <= 1 + -(-max(0, log_n - ntt.LOG_CHUNK) // 8)
         for ps in passes:
             assert ps.smem_bytes(w32) <= 232448
