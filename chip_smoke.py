@@ -5,11 +5,11 @@
 
 Phases, each fatal on failure (each prints the seconds it took):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the ten CUDA kernel sources from the checkout, one nvcc each,
+  2. build the eleven CUDA kernel sources from the checkout, one nvcc each,
      started together with the probes (csrc/spmv_mont.cu, csrc/ntt_mont.cu,
      csrc/blake3_cols.cu, csrc/seeded_gen.cu, csrc/mont_dot.cu,
      csrc/power_table.cu, csrc/mont_map.cu, csrc/sha256_cols.cu,
-     csrc/verify_core.cu, csrc/commit_small.cu); print
+     csrc/verify_core.cu, csrc/commit_small.cu, csrc/mxu_ntt.cu); print
      ptxas's registers and spills per template (fatal if the SpMV's, the
      NTT's, the generator's, the power table's, either field map's or
      either verify_core kernel's W32 =
@@ -17,7 +17,8 @@ Phases, each fatal on failure (each prints the seconds it took):
      spills, or ptxas serializes its wgmmas, or any SHA-256 kernel spills,
      the few-column column hash and the walk included, or the NTT's words-in
      first pass at W32 = 8 spills, or BLAKE3's walk (a quad of lanes a
-     column) has a stack frame or spills;
+     column) has a stack frame or spills, or the four-step NTT's kernel
+     (mxu_dft_kernel, W32 = 8) spills;
      every BLAKE3 kernel reported, the
      per-level blake3_parents gone), what the generator's function needs
      by pipe (its bound: 37 digits of one threefry2x32 and xor from the
@@ -302,7 +303,26 @@ Phases, each fatal on failure (each prints the seconds it took):
      coefficients, then zeros) at 2^13 (commit by the small commit's
      kernel) and 2^23 (staged); time it warm and cold at 2 x 2^17 and 256 x 2^17 beside its
      bound and plain version;
-  20. print the kernel table line, then the result line.
+  20. the four-step NTT on the tensor cores (ops/mxu_ntt.py's MxuNtt,
+     csrc/mxu_ntt.cu, two launches a transform) with encodings/ligero.
+     MXU_NTT forced true: (a) its kernel against mxu_ntt_plain, bit for
+     bit, in every field (n = 16 .. 4,096, R = 1 .. 3, full and zero-padded
+     plans, full and ragged rows of random values, all 0xFFFF limbs or
+     0xFFFFFFFF words and values near p; limbs in to limbs, words (the
+     canonical plan) and both, words in to limbs and both; contractions in
+     2 and 4 chunks through the C entry); (b) against the ladder at the
+     2^23 commit's transform (256 x 2^17 from 2^15, ft255; limbs and words,
+     words alone) and verify's (2 rows of words in), timed warm and cold in
+     turns ladder, mxu, mxu, ladder beside the NTT's bound (the lesser of
+     the ladder's count and the four-step's: u8 products at 989.4e12/s,
+     wide products at 8.4e12/s, bytes at 3.35 TB/s), and against its plain
+     version at 2 and 16 rows of it; (c) the Ligero 2^23 path through it
+     (main_path: root and proof bytes equal to phase 6's ladder route,
+     verify's value, the tamper kinds), the path again in turns ladder,
+     mxu, mxu, ladder (each stage's median, traced wall and device busy),
+     and the 2^26 streaming commit's root equal to the ladder route's; (d) their
+     launches: mxu_dft twice an encode, ntt_mont never;
+  21. print the kernel table line, then the result line.
 
 Imports nothing of JAX or of the JAX package; the measurement helpers
 (card line, device timing, ptxas and SASS reports) are scripts/kernel_bench.py.
@@ -849,8 +869,8 @@ def stage_launches(torch, P, counters, enc, commit, outer, inner, digest):
 # kernels of verify's rows (the encode, or the rows at the opened columns)
 # and of prove's collapse: the rest of a stage is verify's core and prove's
 # opening
-ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mont_mul_map", "mont_mul_map_vec", "power_table",
-                "mont_dot", *DOT_KERNELS}
+ROWS_KERNELS = {"spmv_mont", "ntt_mont", "mxu_dft", "mont_mul_map", "mont_mul_map_vec",
+                "power_table", "mont_dot", *DOT_KERNELS}
 
 
 def check_verify_core(verify, tag, digest):
@@ -4084,6 +4104,418 @@ def small_rows(small, inv):
     }]
 
 
+# phase 20: the four-step NTT on the tensor cores (ops/mxu_ntt.py) with
+# encodings/ligero.MXU_NTT forced true.  (a) the kernel's cases in every
+# field: (n, in_len or None for the full plan, rows); each also ragged, its
+# rows 3 short of in_len
+MXU_CASES = ((16, None, 1), (16, 4, 2), (64, 16, 3), (256, 64, 2), (512, 256, 1),
+             (1024, None, 3), (4096, 1024, 2), (4096, None, 1))
+MXU_TURNS = ("ladder", "mxu", "mxu", "ladder")  # (b): the routes' timing turns
+MXU_PLAIN_ROWS = (2, 16)  # (b): the plain version's rows at the main path's n (verify's, more)
+PATH_TURN_REPS = 3  # (c): warm commit -> prove -> verify runs a turn of MXU_TURNS
+
+
+def mxu_cost(spec, r, k, n, a_nz, b, output, words_in):
+    """(bytes, u8 multiply-adds, wide products) of one MxuNtt call: x read
+    once ((W, r, k) limbs or (r, k, W/2) words), the tables once (the
+    constants' bytes (A, CP1, 2W) and (B, CP2, 2W), tw's (B, A, W/2)
+    words), the outputs written once ((W, r, n) limbs, (r W/2, n) words).
+    Step 1 contracts a_nz and step 3 b elements an output, (2W)^2 byte
+    products each (the kernel's Toeplitz operand issues SR 2W of them,
+    SR = 4W - 1 rounded up to 16: its zeros are not counted); each of the
+    r n outputs of either step one wide
+    reduction (2 W32^2 wide products), step 1's a twiddle product (2 W32^2 +
+    W32), step 3's a from_mont for Montgomery words (W32^2 + W32) and a
+    product by R^2 for limbs from words (2 W32^2 + W32)."""
+    from lcpc_tpu_torch.ops.mxu_ntt import stage_c
+
+    w32 = spec.w16 // 2
+    a = n // b
+    cp = lambda c: -(-c // stage_c(spec)) * stage_c(spec)  # noqa: E731
+    limbs, words = output != "words", output != "limbs"
+    nbytes = (4 * w32 * r * k + a * 4 * w32 * cp(a_nz) + 4 * w32 * a * b + b * 4 * w32 * cp(b)
+              + (4 * spec.w16 * r * n if limbs else 0) + (4 * w32 * r * n if words else 0))
+    macs = r * n * (a_nz + b) * (4 * w32) ** 2
+    epi = 2 * (2 * w32 * w32) + (2 * w32 * w32 + w32)
+    if words and not words_in and output == "both":
+        epi += w32 * w32 + w32
+    if limbs and words_in:
+        epi += 2 * w32 * w32 + w32
+    return nbytes, macs, r * n * epi
+
+
+def mxu_bound(spec, r, k, n, a_nz, b, output, words_in):
+    """(ms, by, bytes ms, u8 ms, wide ms): the larger of the bytes over
+    3.35 TB/s and the operations, the u8 multiply-adds at 989.4e12/s and
+    the wide products at 8.4e12/s each on their own units."""
+    nbytes, macs, wide = mxu_cost(spec, r, k, n, a_nz, b, output, words_in)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_u8 = 2 * macs / INT8_OPS_PER_S * 1e3
+    t_wide = wide / WIDE_PRODUCTS_PER_S * 1e3
+    t = max(t_bytes, t_u8, t_wide)
+    return t, ("bytes" if t == t_bytes else "operations"), t_bytes, t_u8, t_wide
+
+
+def mxu_inputs(torch, kb, spec, r, k, gen):
+    """((W, r, k) Montgomery limbs, (r, k, W/2) canonical words), both
+    strided views: row 0 random below p, row 1 all 0xFFFF limbs / all
+    0xFFFFFFFF words (R - 1, top bit set), row 2 p - 1 - (i mod 7)."""
+    from lcpc_tpu_torch.ops.limbs import get_ops
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    ops = get_ops(spec)
+    x = kb.random_mont(spec, (r, spec.w16, k), gen, device=DEV).permute(1, 0, 2)
+    xw = pack_words(kb.random_mont(spec, (r, spec.w16, k), gen, device=DEV), 1)
+    xw = xw.permute(0, 2, 1)  # (r, k, W/2), the word axis strided
+    if r > 1:
+        x[:, 1] = 0xFFFF
+        xw[1] = -1
+    if r > 2:
+        near = ops.encode_host([spec.p - 1 - i % 7 for i in range(k)], to_mont=False)
+        x[:, 2] = torch.from_numpy(near.astype("int32")).to(DEV)
+        xw[2] = pack_words(x[:, 2], 0).T
+    return x, xw
+
+
+def mxu_steps(torch, ntt, x, chunk):
+    """MxuNtt's two launches on (W, R, k) limbs, both outputs, as two
+    calls of the C entry (step 1, step 3), with the contraction summed
+    `chunk` elements at a time (MxuNtt takes chunk_c, past every
+    contraction this phase can hold to its plain version): returns
+    (step1, step3, (limbs, words)), the outputs filled once both ran."""
+    from lcpc_tpu_torch.ops import mxu_ntt as mx
+
+    plan, spec = ntt.plan, ntt.spec
+    w32, (_, r, k), n, a, b = spec.w16 // 2, x.shape, ntt.n, plan.a, plan.b
+    k1, tw, k2 = plan.device_tables(x.device)
+    z = torch.empty((r, a, b, w32), dtype=torch.int32, device=x.device)
+    lout = torch.empty((spec.w16, r, n), dtype=torch.int32, device=x.device)
+    wout = torch.empty((r * w32, n), dtype=torch.int32, device=x.device)
+    step1 = lambda: mx.mxu_dft(  # noqa: E731
+        spec, 1, k1, x, NR=b, NCOL=a, C=plan.a_nz, R=r, chunk=chunk, strides=x.stride(),
+        limbs=True, k=k, sc=b, sq=1, tw=tw, zout=z)
+    step3 = lambda: mx.mxu_dft(  # noqa: E731
+        spec, 3, k2, z, NR=a, NCOL=b, C=b, R=r, chunk=chunk, lout=lout, wout=wout,
+        wconv=not plan.canonical_out)
+    return step1, step3, (lout, wout)
+
+
+def mxu_kernel_phase(torch, kb, P, nttm, card, gen):
+    """Phase 20 (a), (b): MxuNtt's kernel (csrc/mxu_ntt.cu, two launches a
+    transform) against mxu_ntt_plain, bit for bit, in every field
+    (MXU_CASES; Montgomery and canonical plans; limbs and words in; limbs,
+    words and both out); against the ladder (ntt_forward) at the 2^23
+    commit's transform (256 x 2^17 from 2^15, ft255: limbs and words) and
+    verify's (2 rows, words in), and against its plain version at
+    MXU_PLAIN_ROWS rows of it; timed warm and cold in turns MXU_TURNS beside
+    its bound and the ladder's.  Returns the records."""
+    from lcpc_tpu_torch.ops import mxu_ntt as mx
+    from lcpc_tpu_torch.ops.spmv import pack_words
+
+    out = {"cases": [], "shapes": {}}
+    err = 0
+
+    def held(ntt, x, output, input, tag):
+        before = mx.mxu_dft.launches
+        got = ntt(x, output=output, input=input)
+        if DEV != "cpu" and mx.mxu_dft.launches - before != 2:
+            raise AssertionError(f"mxu {tag}: {mx.mxu_dft.launches - before} launches, not 2")
+        ok, e = equal_outputs(torch, got, mx.mxu_ntt_plain(ntt, x, output=output, input=input))
+        if not ok:
+            raise AssertionError(f"mxu {tag} {input} -> {output}: kernel != plain (max err {e})")
+        return e
+
+    for spec in P.ALL_FIELDS:
+        for n, in_len, r in MXU_CASES:
+            ntt = mx.get_mxu_ntt(spec, n, in_len)
+            full = in_len or n
+            for k in (full, full - 3) if full > 4 else (full,):
+                x, xw = mxu_inputs(torch, kb, spec, r, k, gen)
+                tag = f"{spec.name} n={n} in_len={in_len} R={r} k={k}"
+                for output in ("limbs", "words", "both"):
+                    err = max(err, held(ntt, x, output, "limbs", tag))
+                for output in ("limbs", "both"):
+                    err = max(err, held(ntt, xw, output, "words", tag))
+                out["cases"].append({"field": spec.name, "n": n, "in_len": in_len, "r": r,
+                                     "k": k, "a": ntt.plan.a, "b": ntt.plan.b})
+        cs = mx.stage_c(spec)  # contractions of 2 and 4 chunks of one stage each
+        for n in ((2 * cs) ** 2, (4 * cs) ** 2):
+            ntt = mx.get_mxu_ntt(spec, n)
+            x, _ = mxu_inputs(torch, kb, spec, 2, n, gen)
+            if DEV != "cpu":
+                step1, step3, got = mxu_steps(torch, ntt, x, cs)
+                step1()
+                step3()
+                ok, e = equal_outputs(torch, got, mx.mxu_ntt_plain(ntt, x, output="both"))
+                err = max(err, e)
+                if not ok:
+                    raise AssertionError(f"mxu {spec.name} n={n} in chunks of {cs}: kernel != "
+                                         f"plain (max err {e})")
+            out["cases"].append({"field": spec.name, "n": n, "in_len": None, "r": 2, "k": n,
+                                 "a": ntt.plan.a, "b": ntt.plan.b, "chunk": cs})
+        log(f"  mxu {spec.name} (W32={spec.w16 // 2}): {len(MXU_CASES)} plans (n = 16 .. 4,096, "
+            f"full and zero-padded), R = 1 .. 3, full and ragged rows (random, all 0xFFFF "
+            f"limbs / 0xFFFFFFFF words, near p), limbs in (limbs, words by the canonical plan, "
+            f"both) and words in (limbs, both), and contractions in 2 and 4 chunks: equal "
+            f"to mxu_ntt_plain")
+
+    spec = P.FT255
+    lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    n, npr = lenc.n_cols, lenc.n_per_row
+    n_rows = -(-N_COEFFS // npr)
+    plan = nttm.get_ntt(spec, n)
+    mxu = mx.get_mxu_ntt(spec, n, npr)
+    a_nz, b = mxu.plan.a_nz, mxu.plan.b
+    x = kb.random_mont(spec, (n_rows, spec.w16, npr), gen, device=DEV).permute(1, 0, 2)
+    x = x.contiguous()
+    xv = pack_words(kb.random_mont(spec, (2, spec.w16, npr), gen, device=DEV), 1)
+    xv = xv.permute(0, 2, 1).contiguous()  # verify's proof rows: (2, npr, W/2) words
+    shapes = (("commit", x, "both", "limbs"), ("commit words", x, "words", "limbs"),
+              ("verify", xv, "limbs", "words"))
+    for tag, xi, output, input in shapes:
+        got = mxu(xi, output=output, input=input)
+        ok, e = equal_outputs(torch, got, nttm.ntt_forward(plan, xi, output=output, input=input))
+        err = max(err, e)
+        if not ok:
+            raise AssertionError(f"mxu {tag} at {xi.shape}: != ntt_forward (max err {e})")
+        del got
+    log(f"  mxu ft255 {n_rows} x {npr} -> {n} (A = {mxu.plan.a}, B = {b}, A_nz = {a_nz}): "
+        f"limbs and words equal to ntt_forward (the ladder); words only (the canonical plan) "
+        f"equal; verify's 2 rows of words in equal")
+    plain = {}
+    for r in MXU_PLAIN_ROWS:
+        xr = x[:, :r]
+        want_r, plain[r] = time_host(torch, lambda: mx.mxu_ntt_plain(mxu, xr, output="both"))
+        ok, e = equal_outputs(torch, mxu(xr, output="both"), want_r)
+        err = max(err, e)
+        if not ok:
+            raise AssertionError(f"mxu {r} x {npr} -> {n}: kernel != plain (max err {e})")
+        del want_r
+    log(f"  mxu ft255 {', '.join(map(str, MXU_PLAIN_ROWS))} rows: equal to mxu_ntt_plain; "
+        f"plain {', '.join(f'{v:.1f}' for v in plain.values())} ms")
+    routes = {"ladder": lambda xi, o, i: nttm.ntt_forward(plan, xi, output=o, input=i),
+              "mxu": lambda xi, o, i: mxu(xi, output=o, input=i)}
+    for tag, xi, output, input in shapes:
+        r = xi.shape[1] if input == "limbs" else xi.shape[0]
+        turns = []
+        for route in MXU_TURNS:
+            fn = lambda: routes[route](xi, output, input)  # noqa: E731
+            turns.append({"route": route, "ms": kb.time_kernel(fn),
+                          "cold_ms": kb.time_kernel_cold(fn)})
+        bnd = mxu_bound(spec, r, npr, n, a_nz, b, output, input == "words")
+        nbytes, products, _ = ntt_cost(spec, r, npr, n, output != "limbs")
+        ladder_b, ladder_bytes, ladder_ops = bound_ms(nbytes, products)
+        # the function's bound is the lesser count of the same NTT: the
+        # ladder's n log n butterflies, not the four-step's dense DFTs
+        if ladder_b <= bnd[0]:
+            by = "bytes" if ladder_bytes >= ladder_ops else "operations"
+            fn_bound = (ladder_b, by, "ladder (ntt_cost)")
+        else:
+            fn_bound = (bnd[0], bnd[1], "four-step (mxu_cost)")
+        rec = {"r": r, "k": npr, "n": n, "output": output, "input": input, "turns": turns,
+               "bound_ms": fn_bound[0], "bound_by": fn_bound[1], "bound_count": fn_bound[2],
+               "mxu_bound_ms": bnd[0], "mxu_bound_by": bnd[1], "bytes_ms": bnd[2],
+               "u8_ms": bnd[3], "wide_ms": bnd[4], "ladder_bound_ms": ladder_b}
+        out["shapes"][tag] = rec
+        warm, cold = (", ".join(f"{t[key]:.4f}" for t in turns) for key in ("ms", "cold_ms"))
+        log(f"  mxu vs ladder, {tag} ({r} x {npr} -> {n}, {input} -> {output}), warm / cold ms "
+            f"in turns {', '.join(MXU_TURNS)}: {warm} / {cold}; the NTT's bound "
+            f"{fn_bound[0]:.4f} ms ({fn_bound[1]}, by the {fn_bound[2]} count); the four-step "
+            f"count's {bnd[0]:.4f} ({bnd[1]}: bytes {bnd[2]:.4f}, u8 products {bnd[3]:.4f}, "
+            f"wide products {bnd[4]:.4f}), the ladder's {ladder_b:.4f} ({card})")
+    if DEV != "cpu":  # the two launches apart at the commit's transform, warm
+        step1, step3, _ = mxu_steps(torch, mxu, x, mx.chunk_c(spec))
+        out["steps_ms"] = [kb.time_kernel(step1), kb.time_kernel(step3)]
+        log(f"  mxu commit's launches apart: step 1 (contraction {a_nz}) "
+            f"{out['steps_ms'][0]:.4f} ms, step 3 (contraction {b}) {out['steps_ms'][1]:.4f} ms")
+    out["plain_ms"] = plain
+    out["max_abs_err"] = err
+    del x, xv
+    torch.cuda.empty_cache()
+    return out
+
+
+def path_turns(torch, P, ligero, enc, coeffs_mont, x_pt, want, card):
+    """Phase 20 (c): the Ligero 2^23 path with BLAKE3 in turns MXU_TURNS,
+    MXU_NTT set by each turn's route: the median ms by stage of
+    PATH_TURN_REPS warm runs, then one run with each stage traced
+    (torch.profiler) for its wall and device-busy ms, and the caching
+    allocator's reserved GiB before the turn.  Puts a route's gap in a stage
+    on the device or the host.  Returns the turns."""
+    spec = enc.spec
+    n_rows = -(-N_COEFFS // enc.n_per_row)
+    outer, inner = P.univariate_tensors(spec, x_pt, enc.n_per_row, n_rows)
+    transcript = transcript_for(P, enc)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    names = ("commit", "prove", "verify")
+    turns = []
+    for route in MXU_TURNS:
+        ligero.MXU_NTT = route == "mxu"
+        reserved = torch.cuda.memory_reserved() / 2**30
+        runs = []
+        for _ in range(PATH_TURN_REPS):
+            _, _, value, ms, _ = drive(torch, P, enc, coeffs_mont, outer, inner, P.BLAKE3)
+            if value != want:
+                raise AssertionError(f"path turn {route}: verify returned the wrong evaluation")
+            runs.append(ms)
+        st, traced = {}, {}
+        stages = (("commit", lambda: P.commit(coeffs_mont, enc, digest=P.BLAKE3)),
+                  ("prove", lambda: st["commit"].prove(outer, transcript(st["root"]))),
+                  ("verify", lambda: st["prove"].verify(st["root"], outer, inner, enc,
+                                                        transcript(st["root"]),
+                                                        digest=P.BLAKE3)))
+        for name, fn in stages:
+            with torch.profiler.profile(activities=acts) as prof:
+                st[name], wall = time_host(torch, fn)
+            if name == "commit":
+                st["root"] = st[name].get_root()
+            busy = sum(e.device_time_total for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            traced[name] = {"wall_ms": wall, "device_busy_ms": busy}
+        if st["verify"] != want:
+            raise AssertionError(f"path turn {route}: traced verify returned the wrong value")
+        del st
+        med = [statistics.median(t[i] for t in runs) for i in range(3)]
+        turns.append({"route": route, "median_ms": med, "runs_ms": runs,
+                      "reserved_gib_before": reserved, "traced": traced})
+        log(f"  path turn {route}: median " + ", ".join(
+            f"{k} {v:.2f}" for k, v in zip(names, med)) + " ms; traced wall / device busy "
+            + ", ".join(f"{k} {traced[k]['wall_ms']:.2f} / {traced[k]['device_busy_ms']:.2f}"
+                        for k in names) + f" ms; reserved before {reserved:.2f} GiB ({card})")
+    for i, name in enumerate(names):
+        mean = {r: statistics.mean(t["median_ms"][i] for t in turns if t["route"] == r)
+                for r in ("ladder", "mxu")}
+        busy = {r: statistics.mean(t["traced"][name]["device_busy_ms"] for t in turns
+                                   if t["route"] == r) for r in ("ladder", "mxu")}
+        log(f"  path turns, {name}: mxu - ladder {mean['mxu'] - mean['ladder']:+.2f} ms wall "
+            f"(medians' mean), {busy['mxu'] - busy['ladder']:+.2f} ms device busy (traced)")
+    return turns
+
+
+def mxu_path_phase(torch, P, counters, coeffs_mont, x_pt, want, card, lig, gen, hashing):
+    """Phase 20 (c), (d): with MXU_NTT forced true, the Ligero 2^23 path
+    (main_path: its root and proof bytes equal to phase 6's ladder route,
+    verify's value, the tamper kinds; mxu_dft twice an encode, ntt_mont
+    never), the path in turns by route (path_turns) and the 2^26 streaming
+    commit (its root equal to the ladder route's; mxu_dft twice a row
+    block).  Returns the records."""
+    from lcpc_tpu_torch.encodings import ligero
+
+    spec = P.FT255
+    lenc = P.LigeroEncoding.new(spec, N_COEFFS, *LIGERO_RHO, device=DEV)
+    n, npr = lenc.n_cols, lenc.n_per_row
+    out = {}
+    ligero.MXU_NTT = True
+    try:
+        if ligero.ntt_route(spec, n, npr) != "mxu":
+            raise AssertionError("ntt_route: MXU_NTT = True did not pick mxu at 2^23")
+        kernels = (ligero_kernels(n) - {"ntt_mont"}) | {"mxu_dft"} | hashing
+        path = main_path(torch, P, counters, lenc, coeffs_mont, x_pt, want, card, "ligero mxu",
+                         kernels, P.BLAKE3, TREE_LAUNCHES_PATH)
+        check_map_launches(path[8], "ligero mxu", {"commit": (0, 0), "prove": (0, 0),
+                                                   "verify": ligero_verify_maps(n)})
+        encodes = 1 if verify_at_columns(n) else 2
+        for stage in ("commit", "verify"):
+            got = path[8][stage]["counters"]
+            if stage == "verify" and encodes == 1:
+                continue
+            if got.get("mxu_dft") != 2 or got.get("ntt_mont"):
+                raise AssertionError(f"ligero mxu {stage}: launches {got}, not mxu_dft 2 and "
+                                     f"no ntt_mont")
+        if path[0]["mxu_dft"] != 2 * encodes or path[0]["ntt_mont"]:
+            raise AssertionError(f"ligero mxu: mxu_dft {path[0]['mxu_dft']} != 2 x {encodes} "
+                                 f"encodes, or ntt_mont {path[0]['ntt_mont']}")
+        if path[6] != lig[6] or path[7] != lig[7]:
+            raise AssertionError("ligero mxu: root or proof bytes differ from the ladder route's")
+        log(f"  ligero mxu 2^{N_COEFFS.bit_length() - 1}: root and {len(path[7])} proof bytes "
+            f"equal to phase 6's ladder "
+            f"route; mxu_dft {path[0]['mxu_dft']} launches ({encodes} encodes x 2), ntt_mont 0; "
+            f"commit {path[3][0]:.1f} ms median (ladder {lig[3][0]:.1f}), verify "
+            f"{path[3][2]:.1f} (ladder {lig[3][2]:.1f})")
+        out["path"] = {"launches": path[0]["mxu_dft"], "cold": path[1], "warm": path[2],
+                       "median": path[3], "ladder_median": lig[3], "peak_gib": path[4],
+                       "stages": path[8]}
+        del path
+        torch.cuda.empty_cache()
+        out["turns"] = path_turns(torch, P, ligero, lenc, coeffs_mont, x_pt, want, card)
+        torch.cuda.empty_cache()
+        senc = P.LigeroEncoding.new(spec, N_STREAM, *LIGERO_RHO, device=DEV)
+        packed = random_packed_coeffs(torch, spec, N_STREAM, gen)
+        roots, stream = {}, {}
+        for route in ("ladder", "mxu"):  # the ladder's plan is phase 8's; mxu's made here
+            ligero.MXU_NTT = route == "mxu"
+            cs, ms, launches = counted(torch, counters,
+                                       lambda: P.commit_streaming(packed, senc, spill="none"))
+            roots[route] = cs.get_root()
+            stream[route] = {"ms": ms, "launches": launches, "row_block": cs.row_block,
+                             "n_rows": cs.n_rows}
+            del cs
+            stream[route]["warm_ms"] = median_ms(
+                torch, lambda: P.commit_streaming(packed, senc, spill="none"))
+        blocks = -(-stream["mxu"]["n_rows"] // stream["mxu"]["row_block"])
+        ml = stream["mxu"]["launches"]
+        if ml.get("mxu_dft") != 2 * blocks or ml.get("ntt_mont"):
+            raise AssertionError(f"stream 2^26 mxu: launches {ml}, not mxu_dft 2 x {blocks}")
+        if roots["mxu"] != roots["ladder"]:
+            raise AssertionError("stream 2^26: the mxu route's root != the ladder route's")
+        log(f"  stream 2^{N_STREAM.bit_length() - 1} (packed, no words kept): the mxu route's "
+            f"root equal to the ladder's; {blocks} blocks, mxu_dft {ml['mxu_dft']}, ntt_mont 0; "
+            f"commit_streaming {stream['mxu']['ms']:.1f} ms first (its plan built), "
+            f"{stream['mxu']['warm_ms']:.1f} warm (ladder {stream['ladder']['ms']:.1f}, "
+            f"{stream['ladder']['warm_ms']:.1f})")
+        out["stream_2_26"] = stream
+        del packed
+    finally:
+        ligero.MXU_NTT = False
+    torch.cuda.empty_cache()
+    return out
+
+
+def mxu_row(mxo, mxp, mxu_ptxas):
+    """The kernel table row of the four-step NTT (two launches a transform)."""
+    rec = mxo["shapes"]["commit"]
+    turns = rec["turns"]
+    ms = [t["ms"] for t in turns if t["route"] == "mxu"]
+    cold = [t["cold_ms"] for t in turns if t["route"] == "mxu"]
+    r = min(MXU_PLAIN_ROWS)
+    return {
+        "name": "mxu_dft",
+        "route": "cuda",
+        "source": "lcpc_tpu_torch/csrc/mxu_ntt.cu",
+        "replaces": ("lcpc_tpu/ops/mxu_ntt.py:401 (MxuNtt: _conv_digits :371, ReducePlan :91, "
+                     "_matmul_toep :385, MxuNttPlan :180; XLA-fused, not Pallas)"),
+        "launches": mxp["path"]["launches"],
+        "max_abs_err": mxo["max_abs_err"],
+        "ms": statistics.mean(ms),
+        "plain_ms": mxo["plain_ms"][r],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": None,
+        "equal_to_plain": True,
+        "tolerance": 0,
+        "shape": (f"one MxuNtt of the 2^23 ft255 rho=1/4 commit: {rec['r']} x {rec['k']} -> "
+                  f"{rec['n']}, limbs and words, two launches; plain_ms at {r} rows "
+                  f"(verify's), the 256-row plain not run"),
+        "cold_ms": statistics.mean(cold),
+        "turns": turns,
+        "ladder_ms": statistics.mean(t["ms"] for t in turns if t["route"] == "ladder"),
+        "bound_count": rec["bound_count"],
+        "bound_parts_ms": {"ladder_count_ms": rec["ladder_bound_ms"],
+                           "four_step_count_ms": rec["mxu_bound_ms"],
+                           "four_step_bytes_ms": rec["bytes_ms"],
+                           "four_step_u8_ms": rec["u8_ms"],
+                           "four_step_wide_ms": rec["wide_ms"]},
+        "steps_ms": mxo.get("steps_ms"),
+        "verify_shape": mxo["shapes"]["verify"],
+        "words_only": mxo["shapes"]["commit words"],
+        "path_median_ms": mxp["path"]["median"],
+        "ladder_path_median_ms": mxp["path"]["ladder_median"],
+        "path_turns": mxp["turns"],
+        "stream_2_26": mxp["stream_2_26"],
+        "ptxas": mxu_ptxas,
+    }
+
+
 def vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas):
     """The kernel table rows of verify_core.cu's two kernels, each timed at
     the Ligero 2^23 shapes, the other paths' shapes and launches beside;
@@ -4261,6 +4693,7 @@ def main_coeffs(torch, spec, ops, gen):
 def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
     """Every kernel wrapper of the port by its counter's name."""
     from lcpc_tpu_torch.ops import commit_small as cs
+    from lcpc_tpu_torch.ops import mxu_ntt as mx
 
     return {"spmv_mont": spmv.spmv_mont, "ntt_mont": nttm.ntt_forward,
             "blake3_chunks": b3.blake3_chunks, "chunk_tree": b3.merge_chunk_cvs,
@@ -4274,7 +4707,8 @@ def kernel_counters(b3, md, mm, nttm, sha, spmv, tf, vc):
             **{f"sha256_cols_{k}": v for k, v in sha.COLS_KERNELS.items()},
             "sha256_merkle_tree": sha.merkle_tree, "sha256_merkle_walk": sha.merkle_walk,
             "verify_check": vc.verify_check, "gather_open": vc.gather_open,
-            "intt_inverse": nttm.intt_inverse, "commit_small": cs.commit_small}
+            "intt_inverse": nttm.intt_inverse, "commit_small": cs.commit_small,
+            "mxu_dft": mx.mxu_dft}
 
 
 def counted(torch, counters, fn):
@@ -4653,7 +5087,7 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
-    # 2. build the ten kernel sources, one nvcc each, at once
+    # 2. build the eleven kernel sources, one nvcc each, at once
     phase = Phase("2 build")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:  # the probes beside the kernels
@@ -4666,7 +5100,7 @@ def main() -> int:
                             kb.SHA_CHAIN_SRC)
         secs = cuda_build.build_all(["spmv_mont", "ntt_mont", "blake3_cols", "seeded_gen",
                                      "mont_dot", "power_table", "mont_map", "sha256_cols",
-                                     "verify_core", "commit_small"], force=True)
+                                     "verify_core", "commit_small", "mxu_ntt"], force=True)
         chain_so, chain_log = chain_f.result()
         tf_so, _ = tf_f.result()
         sha_so, sha_chain_log = sha_f.result()
@@ -4779,6 +5213,15 @@ def main() -> int:
         for k, (regs, st, ld) in prove_ptxas[src_name].items():
             if kname in k and (st or ld):
                 raise AssertionError(f"{k} spills: {st} / {ld} bytes")
+    mxu_ptxas = {k: {"registers": v[0], "spill_bytes": v[1] + v[2]}
+                 for k, v in kb.ptxas_entries(cuda_build.build_logs["mxu_ntt"],
+                                              "mxu_dft_kernel").items()}
+    if len(mxu_ptxas) != 8:  # W32 = 2, 4, 6, 8 x the two steps
+        raise AssertionError(f"mxu_dft_kernel not reported by ptxas: {mxu_ptxas}")
+    for name, v in sorted(mxu_ptxas.items()):
+        log(f"  ptxas {name}: {v['registers']} registers, {v['spill_bytes']} bytes spilled")
+        if "ILi8E" in name and v["spill_bytes"]:
+            raise AssertionError(f"{name} spills: {v['spill_bytes']} bytes")
     serial = [ln for ln in cuda_build.build_logs["mont_dot"].splitlines() if "serialized" in ln]
     if serial:  # ptxas could not keep the wgmmas in flight
         raise AssertionError(f"mont_dot: {serial}")
@@ -4989,7 +5432,6 @@ def main() -> int:
     # 14. the slice's paths with SHA-256: Ligero and Brakedown 2^23, Ligero
     # 2^28 streaming
     coeffs_mont = coeffs_host.cuda()
-    del coeffs_host
     with Phase("14 sha256 paths"):
         sha_paths = sha256_paths(torch, kb, P, counters, sha, coeffs_mont, x_pt, want,
                                  card, gen, {"ligero": lig[8], "sdig": sdig[8]},
@@ -5023,7 +5465,16 @@ def main() -> int:
         inv = intt_phase(torch, kb, P, nttm, counters, gen)
         torch.cuda.empty_cache()
 
-    # 20. kernel table
+    # 20. the four-step NTT on the tensor cores, and the Ligero paths through it
+    with Phase("20 mxu ntt"):
+        coeffs_mont = coeffs_host.cuda()
+        del coeffs_host
+        mxo = mxu_kernel_phase(torch, kb, P, nttm, card, gen)
+        mxp = mxu_path_phase(torch, P, counters, coeffs_mont, x_pt, want, card, lig, gen, hashing)
+        del coeffs_mont
+        torch.cuda.empty_cache()
+
+    # 21. kernel table
     c23, c28 = hashes["2^23 commit"], hashes["2^28 column length"]  # blake3_chunks
     kernels = [{
         "name": "spmv_mont",
@@ -5114,7 +5565,7 @@ def main() -> int:
         *map_rows(maps, s29, big, sdig, lig, prove_ptxas, shard),
         *sha_rows(shas, sha_paths, sha_ptxas, sha_mix),
         *vc_rows(vcore, lig, sdig, big, s29, shas, hashes, vc_ptxas),
-        *small_rows(small, inv)]
+        *small_rows(small, inv), mxu_row(mxo, mxp, mxu_ptxas)]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_levels.json"), "w") as f:
@@ -5131,6 +5582,7 @@ def main() -> int:
                    "verify_routes_2_23": lig_routes,
                    "sharded": shard, "verify_core": vcore, "every_field": fields,
                    "small_commits": small, "intt": inv,
+                   "mxu_ntt": {**mxo, **mxp},
                    "run_s": time.perf_counter() - T_START}, f, indent=1)
     log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s")
     log(json.dumps({"kernels": kernels}))

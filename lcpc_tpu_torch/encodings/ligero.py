@@ -12,7 +12,10 @@ Port of lcpc_tpu/encodings/ligero.py, which reimplements
   which launches the CUDA ladder on the GPU and runs its plain twin on the
   CPU; the commit's encode (`encode_rows_words`) also takes the column-hash
   words from the NTT's last pass, and the streaming commit's
-  (`encode_rows_words_only`) takes only those.
+  (`encode_rows_words_only`) takes only those;
+- `ntt_route` (lcpc_tpu's `_pick_ntt`) sends every encode, and its plain
+  version, through the four-step tensor-core transform instead
+  (ops/mxu_ntt.py: MxuNtt, the same bytes) where `MXU_NTT` asks for it.
 
 The dimension formulas use f64 arithmetic in Rust; Python floats are the same
 IEEE doubles, and the operation order is kept identical.
@@ -30,10 +33,39 @@ from ..core.soundness import n_degree_tests
 from ..fields.spec import FieldSpec
 from ..ops.commit_small import NttTables
 from ..ops.limbs import get_ops, pack_row_words
+from ..ops.mxu_ntt import MxuNtt, get_mxu_ntt, mxu_ntt_plain, mxu_supported
 from ..ops.ntt import get_ntt, ntt_forward, ntt_forward_plain, ntt_host
 from ..utils.device import resolve_device
 
 LAMBDA = 128
+
+# lcpc_tpu's LCPC_MXU_NTT=1/0: True takes MxuNtt wherever mxu_supported
+# admits the transform, False (the default) the ladder everywhere.  Set the
+# attribute; no environment variable is read.  False because the ladder won at
+# every shape measured: on an NVIDIA H100 80GB HBM3 at 700 W the four-step
+# kernel took 80.1-80.2 ms against the ladder's 6.7-6.9 at the 2^23 commit's
+# transform (ft255, 256 x 2^17 from 2^15 inputs) and 0.655 against 0.075 at
+# verify's 2 rows (chip_smoke.py phase 20, PERF.md section 6).
+MXU_NTT: bool = False
+
+
+def ntt_route(spec: FieldSpec, n: int, in_len: "int | None" = None) -> str:
+    """"mxu" or "ladder": the transform of an n-point encode whose first
+    in_len inputs may be nonzero (lcpc_tpu's `_pick_ntt`).  With MXU_NTT set,
+    "mxu" where mxu_supported admits the zero-padded or the full plan, the
+    ladder beyond them, as lcpc_tpu falls back; the ladder otherwise."""
+    if MXU_NTT and (mxu_supported(spec, n, in_len) or mxu_supported(spec, n)):
+        return "mxu"
+    return "ladder"
+
+
+def _mxu_ntt(spec: FieldSpec, n: int, in_len: int) -> "MxuNtt | None":
+    """The MxuNtt an encode takes where ntt_route says "mxu" (lcpc_tpu's
+    choice of plan: the zero-padded one where admitted, else the full one),
+    else None."""
+    if ntt_route(spec, n, in_len) != "mxu":
+        return None
+    return get_mxu_ntt(spec, n, in_len if mxu_supported(spec, n, in_len) else None)
 
 
 def _next_pow2(x: int) -> int:
@@ -174,11 +206,24 @@ class LigeroEncoding(LcEncoding):
             self._tables = NttTables(*get_ntt(self.spec, self.n_cols).kernel_table(self.device))
         return self._tables
 
+    def _mxu(self) -> "MxuNtt | None":
+        """The four-step transform where ntt_route picks it, else None."""
+        return _mxu_ntt(self.spec, self.n_cols, _next_pow2(self.n_per_row))
+
+    def _ntt(self, x: torch.Tensor, **modes):
+        """The encode's transform of x with ntt_forward's `output=` /
+        `input=` modes: the four-step one where ntt_route picks it, else
+        the ladder."""
+        mxu = self._mxu()
+        if mxu is not None:
+            return mxu(x, **modes)
+        return ntt_forward(get_ntt(self.spec, self.n_cols), x, **modes)
+
     def encode_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """(W, R, n_per_row) -> (W, R, n_cols) int32 Montgomery limbs: each
         row zero-padded to n_cols and transformed (the NTT's first pass reads
         only the n_per_row columns)."""
-        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows))
+        return self._ntt(self._check_rows(rows))
 
     def encode_canon_rows(self, rows_w: torch.Tensor) -> torch.Tensor:
         """encode_rows of (R, n_per_row, W/2) canonical words (the verifier's
@@ -190,24 +235,26 @@ class LigeroEncoding(LcEncoding):
         if npr != self.n_per_row or w32 != self.ops.w // 2:
             raise ValueError(f"rows must be (R, {self.n_per_row}, {self.ops.w // 2}) words, "
                              f"got {tuple(rows_w.shape)}")
-        return ntt_forward(get_ntt(self.spec, self.n_cols), rows_w, input="words")
+        return self._ntt(rows_w, input="words")
 
     def encode_rows_words(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows with the hash words written by the NTT's last pass."""
-        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
-                           output="both")
+        return self._ntt(self._check_rows(rows), output="both")
 
     def encode_rows_words_plain(self, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """encode_rows_words through the plain versions (ntt_forward_plain,
-        from_mont_plain and the pack) on rows' device."""
+        from_mont_plain and the pack) on rows' device; mxu_ntt_plain where
+        ntt_route picks the four-step transform."""
+        mxu = self._mxu()
+        if mxu is not None:
+            return mxu_ntt_plain(mxu, self._check_rows(rows), output="both")
         plan = get_ntt(self.spec, self.n_cols)
         limbs = ntt_forward_plain(plan, self._check_rows(rows))
         return limbs, pack_row_words(self.ops.from_mont_plain(limbs))
 
     def encode_rows_words_only(self, rows: torch.Tensor) -> torch.Tensor:
         """The hash words alone: the NTT's last pass writes no limbs."""
-        return ntt_forward(get_ntt(self.spec, self.n_cols), self._check_rows(rows),
-                           output="words")
+        return self._ntt(self._check_rows(rows), output="words")
 
     def stream_bytes_per_row(self) -> int:
         """The row's limbs in, the NTT's packed scratch and the words out:

@@ -17,7 +17,7 @@ from lcpc_tpu_torch import convert
 from lcpc_tpu_torch.encodings import brakedown as bd
 from lcpc_tpu_torch.fields import FT63, FT255
 from lcpc_tpu_torch.fs.chacha import ChaCha20Rng
-from lcpc_tpu_torch.ops import blake3, mont_dot, mont_map, ntt, sha256, spmv
+from lcpc_tpu_torch.ops import blake3, mont_dot, mont_map, mxu_ntt, ntt, sha256, spmv
 from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
 from lcpc_tpu_torch.utils import native
 
@@ -191,13 +191,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
                       (sha256, "hash_word_columns"), (sha256, "merkle_tree"),
                       (sha256, "merkle_walk"), (blake3, "blake3_chunks"),
                       (blake3, "merge_chunk_cvs"), (blake3, "_cols_few"),
-                      (blake3, "merkle_tree"), (blake3, "merkle_walk")):
+                      (blake3, "merkle_tree"), (blake3, "merkle_walk"),
+                      (mxu_ntt, "mxu_dft")):
         monkeypatch.setattr(mod, name, kernel)
     ops, rng = get_ops(FT63), np.random.default_rng(3)
     x = limbs_to_device(ops.encode_host([int(v) for v in rng.integers(0, 1 << 62, 2 * 8)]),
                         "cpu").reshape(FT63.w16, 2, 8)
     y = ntt.ntt_forward_plain(ntt.get_ntt(FT63, 8), x)
     ops.from_mont_plain(y)
+    four = mxu_ntt.get_mxu_ntt(FT63, 8)
+    assert torch.equal(mxu_ntt.mxu_ntt_plain(four, x), y)
+    words = spmv.pack_words(x, 0).permute(1, 2, 0)  # (2, 8, 2) words in
+    mxu_ntt.mxu_ntt_plain(four, words, output="both", input="words")
     for back in (ntt.intt_inverse_plain(ntt.get_intt(FT63, 8), y),
                  ntt.intt_inverse_passes_plain(ntt.get_intt(FT63, 8), y)):
         assert torch.equal(back, x)

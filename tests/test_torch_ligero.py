@@ -28,8 +28,11 @@ from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
 from lcpc_tpu.ops.digest import DIGESTS_BY_NAME as J_DIGESTS
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 import lcpc_tpu_torch as P
+from lcpc_tpu.ops import mxu_ntt as jmxu
+from lcpc_tpu_torch.encodings import ligero
 from lcpc_tpu_torch.encodings.ligero import LigeroEncoding
-from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device
+from lcpc_tpu_torch.ops import mxu_ntt
+from lcpc_tpu_torch.ops.limbs import get_ops, limbs_to_device, pack_row_words
 from lcpc_tpu_torch.utils.tensors import seeded_values
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -68,7 +71,7 @@ def test_dims_match_reference(spec, rho):
     assert LigeroEncoding.n_col_opens_static(*rho) == J.LigeroEncoding.n_col_opens_static(*rho)
 
 
-def test_constructors_match_reference():
+def test_constructors_match_reference(monkeypatch):
     for spec in (P.FT63, P.FT255):
         js = _jspec(spec)
         pairs = [(LigeroEncoding.new(spec, 1000, 1, 4, device="cpu"),
@@ -86,6 +89,26 @@ def test_constructors_match_reference():
             assert not ours.dims_ok(ours.n_per_row, 2 * ours.n_cols)
     with pytest.raises(ValueError):
         LigeroEncoding(P.FT63, 64, 96, device="cpu")  # n_cols not a power of two
+    # the four-step transform's gate: lcpc_tpu's at its own test's points, and
+    # ntt_route (lcpc_tpu's _pick_ntt) by MXU_NTT
+    for spec in P.ALL_FIELDS:
+        assert mxu_ntt.conv_cap(spec) == jmxu.conv_cap(_jspec(spec))
+    for spec, n, in_len in ((P.FT255, 1 << 20, None), (P.FT255, 1 << 22, None),
+                            (P.FT255, 1 << 23, None), (P.FT63, 1 << 26, None),
+                            (P.FT63, 1 << 27, None), (P.FT255, 1 << 23, 1 << 21),
+                            (P.FT255, 1 << 24, 1 << 22), (P.FT255, 1 << 17, 1 << 15),
+                            (P.FT63, 2, None), (P.FT63, 64, 2)):
+        assert mxu_ntt.mxu_supported(spec, n, in_len) == \
+            jmxu.mxu_supported(_jspec(spec), n, in_len), (spec.name, n, in_len)
+    assert ligero.MXU_NTT is False
+    assert ligero.ntt_route(P.FT255, 1 << 17, 1 << 15) == "ladder"
+    for flag, want in ((True, ("mxu", "mxu", "ladder", "mxu")),
+                       (False, ("ladder",) * 4)):
+        monkeypatch.setattr(ligero, "MXU_NTT", flag)
+        assert (ligero.ntt_route(P.FT255, 1 << 17, 1 << 15),
+                ligero.ntt_route(P.FT255, 1 << 22, 1 << 22),
+                ligero.ntt_route(P.FT255, 1 << 23, None),
+                ligero.ntt_route(P.FT255, 1 << 23, 1 << 21)) == want
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +132,21 @@ def test_encode_rows_matches_reference_ft63():
     enc = LigeroEncoding.new_from_dims(spec, 64, 256, 1, 4, device="cpu")
     got = enc.encode_rows(limbs_to_device(x, "cpu"))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    # the four-step transform's plain version against lcpc_tpu's MxuNtt and
+    # its canonical variant, at the shapes tests/test_mxu_ntt.py compiles
+    # (two rows; n = 16 and 256, (256, 64) and (128, full) both ways)
+    js = _jspec(spec)
+    for n, in_len in ((16, None), (256, None), (256, 64), (128, None)):
+        xj = _rows(spec, 2, in_len or n, seed=n)[1]
+        xt = torch.from_numpy(xj.astype(np.int32))
+        ours = mxu_ntt.get_mxu_ntt(spec, n, in_len)
+        assert np.array_equal(ours(xt).numpy(), np.asarray(jmxu.get_mxu_ntt(js, n, in_len)(xj)))
+        if n != 16 and (n, in_len) != (256, None):
+            canon = np.asarray(jmxu.get_mxu_ntt_canonical(js, n, in_len)(xj))
+            mine = mxu_ntt.get_mxu_ntt_canonical(spec, n, in_len)
+            assert np.array_equal(mxu_ntt.mxu_ntt_plain(mine, xt).numpy(), canon)
+            assert torch.equal(ours(xt, output="words"),
+                               pack_row_words(torch.from_numpy(canon.astype(np.int32))))
 
 
 def test_encode_rows_matches_host_twin_ft255():
@@ -257,10 +295,19 @@ def ft255(request, golden):
     return _ft255(request.param, golden)
 
 
-def test_root_and_proof_bytes_identical_ft63(ft63):
+def test_root_and_proof_bytes_identical_ft63(ft63, monkeypatch):
     assert (ft63.comm.n_rows, ft63.comm.n_per_row, ft63.comm.n_cols) == (4, 256, 1024)
     assert ft63.root == ft63.jroot
     assert ft63.proof_bytes == ft63.jproof_bytes
+    # through the four-step transform (lcpc_tpu's LCPC_MXU_NTT=1): commit,
+    # prove and verify's encode give the ladder's bytes, lcpc_tpu verifies
+    monkeypatch.setattr(ligero, "MXU_NTT", True)
+    assert ligero.ntt_route(P.FT63, 1024, 256) == "mxu"
+    comm = P.commit(ft63.coeffs, ft63.enc, digest=ft63.digest)
+    assert comm.get_root() == ft63.root
+    data = P.wire.serialize_proof(ft63.spec, comm.prove(ft63.outer, ft63.tr(P, ft63.root)))
+    assert data == ft63.proof_bytes
+    assert ft63.port_verify(data) == ft63.want() == ft63.jax_verify(data, root=ft63.root)
 
 
 def test_port_verifies_reference_proof_ft63(ft63):

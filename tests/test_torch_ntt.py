@@ -5,8 +5,11 @@ graph compiles for minutes on XLA:CPU) and against the host twin at ft255,
 the inverse, the kernel's twiddle table, its pass plan and the pass-grouped
 plain ladder (the kernel's tile and butterfly index arithmetic), the hash
 words of its last pass, and the wrapper's contract on CPU tensors.  The
-CUDA kernel itself runs only on the GPU: chip_smoke.py holds it against
-ntt_forward_plain there, limb for limb and word for word.
+four-step transform (ops/mxu_ntt.py): its plan tables against lcpc_tpu's
+MxuNttPlan, its plain version against the host twin at ft255, its wrapper's
+contract.  The CUDA kernels themselves run only on the GPU: chip_smoke.py
+holds them against ntt_forward_plain and mxu_ntt_plain there, limb for limb
+and word for word.
 Tolerance is 0 throughout: exact field arithmetic."""
 
 import random
@@ -16,12 +19,13 @@ import pytest
 import torch
 
 from lcpc_tpu.fields import FIELDS_BY_NAME as J_FIELDS
+from lcpc_tpu.ops import mxu_ntt as jmxu
 from lcpc_tpu.ops import ntt as jntt
 from lcpc_tpu.core import protocol as jproto
 from lcpc_tpu.ops.limbs import get_ops as j_get_ops
 from lcpc_tpu_torch.encodings.ligero import LigeroEncoding
 from lcpc_tpu_torch.fields import ALL_FIELDS, FT63, FT255
-from lcpc_tpu_torch.ops import ntt
+from lcpc_tpu_torch.ops import mxu_ntt, ntt
 from lcpc_tpu_torch.ops.limbs import get_ops, pack_row_words
 
 torch.set_num_threads(1)  # the xdist workers share the cores
@@ -135,7 +139,19 @@ def test_plain_matches_host_ft255(n):
     delta[n // 2] = 1
     rows = [[spec.p - 1] * n, delta, near, _vals(spec, n, seed=n)]
     got = _decode(spec, ntt.ntt_forward_plain(ntt.get_ntt(spec, n), _limbs(spec, rows)))
-    assert got == [ntt.ntt_host(spec, row) for row in rows]
+    want = [ntt.ntt_host(spec, row) for row in rows]
+    assert got == want
+    # the four-step transform's plain version (n >= 4), full and from n/4
+    # inputs (the rest zero-padded), its words by the canonical plan
+    for in_len in (n, n // 4) if n >= 4 else ():
+        part = [row[:in_len] for row in rows]
+        mx = mxu_ntt.get_mxu_ntt(spec, n, in_len)
+        limbs = mxu_ntt.mxu_ntt_plain(mx, _limbs(spec, part))
+        assert _decode(spec, limbs) == [ntt.ntt_host(spec, row + [0] * (n - in_len))
+                                        for row in part]
+        words = mxu_ntt.mxu_ntt_plain(mx.for_mode("words", "limbs"), _limbs(spec, part),
+                                      output="words")
+        assert torch.equal(words, pack_row_words(get_ops(spec).from_mont(limbs)))
 
 
 def test_plain_matches_host_2_18_ft63():
@@ -255,6 +271,31 @@ def test_kernel_table_layout(spec):
                                iplan.stage_twiddles):
         assert np.array_equal(got.numpy(), want.astype(np.int32))
         assert np.array_equal(mine, want)
+    # the four-step transform's tables against lcpc_tpu's MxuNttPlan (numpy,
+    # no jit): tw limb for limb; each k1 / k2 entry over its package's scale
+    # (the port's R^2, or R for the canonical k2; lcpc_tpu's R7 mod p, times
+    # R^-1 for the canonical k2) equal to lcpc_tpu's 7-bit digits decoded
+    p, r_inv = spec.p, pow(spec.R, -1, spec.p)
+    for n4, in_len in ((16, None), (256, None), (4096, None), (16, 4), (256, 64), (4096, 1024)):
+        ours = mxu_ntt.MxuNttPlan(spec, n4, in_len=in_len)
+        canon = mxu_ntt.MxuNttPlan(spec, n4, in_len=in_len, canonical_out=True,
+                                   share_from=ours)
+        theirs = jmxu.MxuNttPlan(J_FIELDS[spec.name], n4, in_len=in_len)
+        jcanon = jmxu.MxuNttPlan(J_FIELDS[spec.name], n4, in_len=in_len, canonical_out=True,
+                                 share_from=theirs)
+        assert (ours.a, ours.b, ours.a_nz) == (theirs.a, theirs.b, theirs.a_nz)
+        assert np.array_equal(ours.tw, theirs.tw) and canon.tw is ours.tw
+        for mine, jplan, k, scale, jscale in (
+                (ours, theirs, "k1", ours.k1_scale, theirs.kscale),
+                (ours, theirs, "k2", ours.k2_scale, theirs.kscale),
+                (canon, jcanon, "k2", canon.k2_scale, jcanon.kscale * r_inv)):
+            words = getattr(mine, k).astype(np.int64)  # (W/2, P, C)
+            got = sum(words[w].astype(object) << (32 * w) for w in range(words.shape[0]))
+            digits = getattr(jplan, k)[::-1].astype(np.int64)  # (W7, C, P), unflipped
+            jval = sum(digits[d].astype(object) << (7 * d) for d in range(digits.shape[0]))
+            s_inv, js_inv = pow(scale, -1, p), pow(jscale % p, -1, p)
+            assert [[v * s_inv % p for v in row] for row in got.tolist()] == \
+                [[v * js_inv % p for v in row] for row in jval.T.tolist()], (n4, in_len, k)
 
 
 def test_pack_rows_round_trip():
@@ -290,6 +331,24 @@ def test_wrapper_on_cpu_takes_plain_without_counting():
     with pytest.raises(ValueError, match="device"):
         ntt.ntt_forward(plan, x.to("meta"))
     assert ntt.ntt_forward.launches == before
+    # the four-step transform likewise: plain on the CPU, no launch counted;
+    # its kernel's wrapper refuses CPU and mixed devices
+    mx, dft = mxu_ntt.get_mxu_ntt(spec, 64), mxu_ntt.mxu_dft.launches
+    got3, words3 = mx(x, output="both")
+    assert torch.equal(got3, want) and torch.equal(words3, words)
+    assert torch.equal(mx(x, output="words"), words)
+    assert mxu_ntt.mxu_dft.launches == dft
+    with pytest.raises(ValueError, match="device"):
+        mx(x.to("meta"))
+    k1, tw, k2 = mx.plan.device_tables("cpu")
+    z = torch.empty((1, mx.plan.a, mx.plan.b, 2), dtype=torch.int32)
+    kw = dict(NR=mx.plan.b, NCOL=mx.plan.a, C=mx.plan.a_nz, R=1, chunk=mxu_ntt.chunk_c(spec),
+              strides=x.stride(), limbs=True, k=50, sc=mx.plan.b, sq=1, tw=tw, zout=z)
+    with pytest.raises(ValueError, match="CUDA"):
+        mxu_ntt.mxu_dft(spec, 1, k1, x, **kw)
+    with pytest.raises(ValueError, match="operands on"):
+        mxu_ntt.mxu_dft(spec, 1, k1, x.to("meta"), **kw)
+    assert mxu_ntt.mxu_dft.launches == dft
 
 
 def test_wrapper_rejects_bad_operands():
@@ -303,6 +362,20 @@ def test_wrapper_rejects_bad_operands():
         ntt.ntt_forward(plan, torch.zeros((8, 1, 64), dtype=torch.int32))  # W
     with pytest.raises(ValueError):
         ntt.NttPlan(FT63, 48)
+    mx = mxu_ntt.get_mxu_ntt(FT63, 64)
+    for bad in (torch.zeros((4, 1, 65), dtype=torch.int32),   # k > in_len
+                torch.zeros((8, 1, 64), dtype=torch.int32),   # W
+                torch.zeros((1, 64, 4), dtype=torch.int32)):  # words of 4 limbs
+        with pytest.raises(ValueError):
+            mx(bad, input="words" if bad.shape[0] == 1 else "limbs")
+    with pytest.raises(TypeError):
+        mx(x.long())
+    with pytest.raises(ValueError):
+        mx(x, output="none")
+    with pytest.raises(ValueError):  # in_len no power of two, contraction past conv_cap
+        mxu_ntt.MxuNttPlan(FT63, 64, in_len=3)
+    with pytest.raises(ValueError):
+        mxu_ntt.MxuNttPlan(FT255, 1 << 24)
     with pytest.raises(ValueError):
         ntt.NttPlan(FT255, 1 << (FT255.s + 1))
     with pytest.raises(ValueError):  # T wider than the head passes' stride
